@@ -1,0 +1,1 @@
+"""optimization of the PyTorch port (see the package docstring)."""

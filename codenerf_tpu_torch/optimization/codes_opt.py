@@ -1,0 +1,223 @@
+"""Test-time latent-code optimization + evaluation (the ``optimize.py``
+path), counterpart of ``codenerf_tpu/optimization/codes_opt.py``.
+
+Reference protocol (``src/optimizer.py:18-240``): for each unseen object,
+start the shape/texture codes at the mean of the trained embeddings, run
+``num_opts`` AdamW steps on the codes only against the target view(s) —
+model frozen — with the lr halved every ``lr_half_interval`` steps, then
+score PSNR/SSIM on the remaining views.
+
+Each optimization step runs the single-pass route of the JAX package: per
+ray chunk, the per-ray prologue (``ops/fused_mlp.prep_ray_operands``), then
+the fused loss kernel (``ops/fused_train.FusedCodesLoss``), whose
+cotangents flow back through the prologue into the codes; the code-norm
+regularizer adds its gradient; ``torch.optim.AdamW`` steps. Eval renders
+through the plain ``CodeNeRF`` module, as the JAX package renders eval
+through plain XLA.
+
+This slice ports the sequential per-object path with full-view steps. The
+JAX package's other routes — autodiff through the plain model
+(``use_fused_train`` off), the plane-op kernels (``fused_composite`` off,
+or chunks that need padding), stochastic ``opt_rays``, batched groups —
+raise ``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from codenerf_tpu_torch import resolve_device
+from codenerf_tpu_torch.config import Hparams, resolve_dtype
+from codenerf_tpu_torch.core.rays import camera_rays
+from codenerf_tpu_torch.evaluation.metrics import (psnr, reference_psnr_mse,
+                                                   ssim)
+from codenerf_tpu_torch.ops import fused_mlp, fused_train
+from codenerf_tpu_torch.renderer import (check_render_config, chunk_plan,
+                                         coarse_zvals, render_image)
+from codenerf_tpu_torch.training.schedules import step_halving
+
+
+class OptimizationResult(NamedTuple):
+    shape_code: torch.Tensor     # (D,)
+    texture_code: torch.Tensor   # (D,)
+    psnr_history: np.ndarray     # (num_opts,) target-view PSNR before each step
+    progress: Optional[torch.Tensor] = None  # (num_opts, rays, 3) renders
+
+
+def safe_code_norm(x: torch.Tensor) -> torch.Tensor:
+    """``||x||`` with a finite gradient at 0 (reference reg,
+    ``src/optimizer.py:213``)."""
+    return torch.sqrt(torch.clamp(torch.sum(x * x), min=1e-24))
+
+
+def _as_unit_float(images: np.ndarray) -> np.ndarray:
+    if images.dtype == np.uint8:
+        return images.astype(np.float32) / 255.0
+    return np.asarray(images, dtype=np.float32)
+
+
+def _flat_target_rays(images, poses, focal, view_idxs: Sequence[int],
+                      H: int, W: int, device):
+    """Origins, directions and gt pixels of the target views, stacked."""
+    ros, vds, gts = [], [], []
+    for v in view_idxs:
+        ro, vd = camera_rays(H, W, focal, poses[v], device=device)
+        ros.append(ro)
+        vds.append(vd)
+        gts.append(torch.from_numpy(
+            _as_unit_float(images[v]).reshape(-1, 3)).to(device))
+    return torch.cat(ros), torch.cat(vds), torch.cat(gts)
+
+
+def _check_single_pass(hp: Hparams, n_rays: int, chunk: int,
+                       n_chunks: int) -> None:
+    check_render_config(hp.render)
+    if not hp.use_fused_train:
+        raise NotImplementedError(
+            "code optimization without use_fused_train (autodiff through "
+            "the plain model) is not ported yet (ROADMAP.md Queue 1, item 7); "
+            "use a jsonfile with use_fused_train, e.g. srncar_fused.json")
+    if not hp.fused_composite:
+        raise NotImplementedError(
+            "fused_composite=false (plane-op kernels) is not ported yet "
+            "(ROADMAP.md Queue 2)")
+    if n_chunks * chunk != n_rays:
+        raise NotImplementedError(
+            f"{n_rays} target rays do not split into equal chunks of "
+            f"{chunk}; padded chunks take the plane-op kernels, which are "
+            "not ported yet (ROADMAP.md Queue 2)")
+    if not fused_train.single_pass_available(hp.net, chunk):
+        raise NotImplementedError(
+            f"the fused kernel cannot tile W={hp.net.W}, chunk={chunk} "
+            "(needs W % 256 == 0, chunk % 16 == 0)")
+
+
+def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
+                   viewdir: torch.Tensor, gt_rgb: torch.Tensor,
+                   init_shape: torch.Tensor, init_texture: torch.Tensor,
+                   generator: Optional[torch.Generator],
+                   num_opts: int = 200, lr: float = 1e-2,
+                   lr_half_interval: int = 50, chunk: int = 4096,
+                   progress_rays: int = 0) -> OptimizationResult:
+    """Optimize one object's codes against flat target rays (all on the
+    model's device) through the fused kernel, full view every step."""
+    net_cfg, rcfg = hp.net, hp.render
+    n_rays = ray_o.shape[0]
+    chunk, n_chunks, _ = chunk_plan(n_rays, chunk)
+    _check_single_pass(hp, n_rays, chunk, n_chunks)
+    scale = 1.0 / (n_rays * 3.0)
+    progress_rays = min(int(progress_rays), n_rays)
+    want_rgb = progress_rays > 0
+    wops = fused_train.kernel_operands(
+        fused_train.flatten_params(model, net_cfg))
+
+    sc = init_shape.detach().float().clone().requires_grad_(True)
+    tc = init_texture.detach().float().clone().requires_grad_(True)
+    opt = torch.optim.AdamW([sc, tc], lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=hp.weight_decay)
+    lr_at = step_halving(lr, lr_half_interval)
+    history, progress = [], []
+    for step in range(num_opts):
+        for group in opt.param_groups:
+            group["lr"] = lr_at(step)
+        opt.zero_grad(set_to_none=True)
+        loss, rows = 0.0, []
+        for c in range(n_chunks):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            ro, vd = ray_o[sl], viewdir[sl]
+            z = coarse_zvals(rcfg, ro, generator)
+            ro8, vd8, z, sproj, tproj, vcontrib = \
+                fused_mlp.prep_ray_operands(model, net_cfg, ro, vd, z, sc, tc)
+            gt8 = fused_mlp.pad_lanes(gt_rgb[sl].float(), 8)
+            loss_c, rgb8 = fused_train.FusedCodesLoss.apply(
+                sproj, tproj, vcontrib, net_cfg, rcfg.white_bg, scale, ro8,
+                vd8, z, gt8, wops, want_rgb)
+            loss = loss + loss_c
+            if want_rgb:
+                rows.append(rgb8[:, :3])
+        mse = loss.detach()
+        reg = safe_code_norm(sc) + safe_code_norm(tc)
+        (loss + hp.loss_reg_coef * reg).backward()
+        opt.step()
+        history.append(psnr(mse))
+        if want_rgb:
+            progress.append(torch.cat(rows)[:progress_rays])
+    return OptimizationResult(
+        sc.detach(), tc.detach(),
+        torch.stack(history).cpu().numpy(),
+        torch.stack(progress) if want_rgb else None)
+
+
+class CodeOptimizer:
+    """The reference ``Optimizer``'s protocol: per-object code
+    optimization, then held-out-view evaluation. The model is frozen (its
+    parameters stop requiring gradients) and moved to ``device``."""
+
+    def __init__(self, model, hp: Hparams, mean_shape: torch.Tensor,
+                 mean_texture: torch.Tensor, chunk: int = 4096,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).requires_grad_(False)
+        self.hp = hp
+        self.mean_shape = mean_shape.float().to(self.device)
+        self.mean_texture = mean_texture.float().to(self.device)
+        self.chunk = chunk
+
+    def optimize_object(self, images: np.ndarray, poses: np.ndarray,
+                        focal: float, tgt_views: Sequence[int],
+                        generator: Optional[torch.Generator],
+                        num_opts: int = 200, lr: float = 1e-2,
+                        lr_half_interval: int = 50,
+                        progress_images: bool = False) -> OptimizationResult:
+        """``progress_images=True`` also returns each step's render of the
+        first target view as (num_opts, H, W, 3) in ``progress``."""
+        H, W = images.shape[1:3]
+        ro, vd, gt = _flat_target_rays(images, poses, focal, tgt_views, H, W,
+                                       self.device)
+        res = optimize_codes(
+            self.model, self.hp, ro, vd, gt, self.mean_shape,
+            self.mean_texture, generator, num_opts=num_opts, lr=lr,
+            lr_half_interval=lr_half_interval, chunk=self.chunk,
+            progress_rays=H * W if progress_images else 0)
+        if progress_images:
+            res = res._replace(progress=res.progress.reshape(num_opts, H, W,
+                                                             3))
+        return res
+
+    @torch.no_grad()
+    def evaluate_object(self, images: np.ndarray, poses: np.ndarray,
+                        focal: float, exclude_views: Sequence[int],
+                        shape_code: torch.Tensor, texture_code: torch.Tensor,
+                        generator: Optional[torch.Generator],
+                        return_images: bool = False,
+                        deterministic: bool = False) -> Dict[str, np.ndarray]:
+        """PSNR/SSIM on every view not in ``exclude_views``, rendered with
+        jittered z (the reference protocol) or, with ``deterministic``,
+        linspace z."""
+        H, W = images.shape[1:3]
+        hp = self.hp
+        cd = resolve_dtype(hp.compute_dtype)
+        excl = {int(i) for i in exclude_views}
+        idxs = [v for v in range(images.shape[0]) if v not in excl]
+        ps, ss, imgs = [], [], []
+        for v in idxs:
+            gt = torch.from_numpy(np.asarray(images[v])).to(self.device)
+            gt = gt.float() / 255.0 if gt.dtype == torch.uint8 else gt.float()
+            rgb = render_image(
+                self.model, hp.render, H, W, focal, poses[v],
+                shape_code, texture_code,
+                None if deterministic else generator, chunk=self.chunk,
+                compute_dtype=cd)
+            ps.append(psnr(reference_psnr_mse(rgb, gt)))
+            ss.append(ssim(rgb, gt))
+            if return_images:
+                imgs.append(rgb)
+        out = {"views": np.asarray(idxs),
+               "psnr": torch.stack(ps).cpu().numpy(),
+               "ssim": torch.stack(ss).cpu().numpy()}
+        if return_images:
+            out["images"] = torch.stack(imgs).cpu().numpy()
+        return out
