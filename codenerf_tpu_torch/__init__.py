@@ -5,10 +5,17 @@ package so each counterpart is easy to find; the JAX package stays the
 reference that every module here is tested against. Nothing here imports
 ``jax`` or ``codenerf_tpu``.
 
-This slice covers the test-time code optimization + eval path
-(``python -m codenerf_tpu_torch.optimize``): the frozen-model single-pass
-kernel (``ops/fused_train.py``, CUDA source in ``ops/csrc/``) drives each
-optimization step, and eval renders through the plain ``CodeNeRF`` module.
+Two paths are ported, both coarse-only at the flagship widths:
+
+- category training (``python -m codenerf_tpu_torch.train``, ``Trainer``):
+  each step runs the single-pass kernel (``ops/fused_train.py``, CUDA
+  source ``ops/csrc/train_fused.cu``) in its weight-gradient mode, which
+  returns the loss, the code cotangents and every weight's gradient;
+  configs without ``use_fused_train`` take the autodiff route;
+- test-time code optimization + eval (``python -m
+  codenerf_tpu_torch.optimize``, reading the training run's ``ckpt/``):
+  the same kernel frozen drives each optimization step, and eval renders
+  through the plain ``CodeNeRF`` module.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; requesting CUDA where there is none raises.

@@ -121,6 +121,38 @@ class Hparams:
     quirks: ReferenceQuirks = dataclasses.field(default_factory=ReferenceQuirks)
     raw: Optional[Dict[str, Any]] = None
 
+    def to_json_dict(self) -> Dict[str, Any]:
+        """The reference JSON schema plus extensions, for the run dir's
+        ``hpam.json`` (``src/trainer.py:163-166``); reads back through
+        :func:`hparams_from_dict` unchanged."""
+        return {
+            "net_hyperparams": dataclasses.asdict(self.net),
+            "data": dataclasses.asdict(self.data),
+            "N_samples": self.render.n_samples,
+            "near": self.render.near,
+            "far": self.render.far,
+            "loss_reg_coef": self.loss_reg_coef,
+            "lr_schedule": [
+                {"type": s.type, "lr": s.lr, "interval": s.interval}
+                for s in (self.lr_model, self.lr_codes)],
+            "check_points": self.check_points,
+            "N_importance": self.render.n_importance,
+            "white_bg": self.render.white_bg,
+            "shared_jitter": self.render.shared_jitter,
+            "hierarchical_share_weights": self.render.share_fine_weights,
+            "bound_sphere_radius": self.render.bound_sphere_radius,
+            "occ_probes": self.render.occ_probes,
+            "compute_dtype": self.compute_dtype,
+            "weight_decay": self.weight_decay,
+            "seed": self.seed,
+            "use_fused_train": self.use_fused_train,
+            "fused_composite": self.fused_composite,
+            "train_occupancy": (dataclasses.asdict(self.train_occupancy)
+                                if self.train_occupancy is not None
+                                else None),
+            "reference_quirks": dataclasses.asdict(self.quirks),
+        }
+
 
 def hparams_from_dict(cfg: Dict[str, Any]) -> Hparams:
     unknown = set(cfg) - _REFERENCE_KEYS - _EXTENSION_KEYS

@@ -1,18 +1,21 @@
-// Frozen-model single-pass CodeNeRF loss kernel for Hopper (sm_90a).
+// Single-pass CodeNeRF loss kernel for Hopper (sm_90a), in its two modes.
 //
-// Replaces the TPU kernel codenerf_tpu/ops/fused_train.py::_train_kernel in
-// mode weight_grads=False (test-time code optimization): per ray, the
-// in-kernel xyz expansion and 64-lane positional encoding, the trunk (bf16
-// matmuls, f32 accumulation, per-ray latent injection), the softplus sigma
-// head and the rgb head, the volume-rendering composite, the squared error
-// and its cotangent 2*scale*(rgb - gt), the composite backward, and the dx
-// chain down to shape block 0, which yields the per-ray code cotangents
-// d_sproj, d_tproj, d_vcontrib. No weight gradients.
+// Replaces the TPU kernel codenerf_tpu/ops/fused_train.py::_train_kernel:
+// per ray, the in-kernel xyz expansion and 64-lane positional encoding, the
+// trunk (bf16 matmuls, f32 accumulation, per-ray latent injection), the
+// softplus sigma head and the rgb head, the volume-rendering composite, the
+// squared error and its cotangent 2*scale*(rgb - gt), the composite
+// backward, and the dx chain down to shape block 0, which yields the
+// per-ray code cotangents d_sproj, d_tproj, d_vcontrib. That is mode
+// weight_grads=False (test-time code optimization). Mode weight_grads=True
+// (category training) also sums every weight's and bias's f32 gradient over
+// all points, in the operand order of ops/fused_train.py::weight_shapes.
 //
 // Design (see ops/fused_train.py for the bound). The TPU kernel keeps all
 // weights and every activation of a 16-ray tile (~6 MB) in VMEM for the
-// whole grid; an H100 block has 227 KB of shared memory. This design
-// therefore runs as three kinds of kernel on one stream:
+// whole grid, and its dW/db blocks stay resident as accumulators across the
+// sequential grid; an H100 block has 227 KB of shared memory and blocks run
+// in no order. This design therefore runs as kernels on one stream:
 //   (i)   gemm_kernel<PE, false>: tiled bf16 WMMA GEMM (128 x 128 blocks,
 //         f32 accumulation) fed by a 3-stage cp.async pipeline; for
 //         enc_xyz the A tile is the PE, built from ro/vd/z as it loads.
@@ -30,9 +33,29 @@
 //         then f32_to_bf16 writes the three cotangent outputs.
 // Every epilogue walks its warp's 32 x 64 tile row by row from shared
 // memory: coalesced 128-byte rows, ray sums in registers.
+// Weight-gradient mode adds:
+//   (iv)  pe_kernel: the bf16 PE written once to the workspace, so that
+//         enc_xyz's forward reads it as a plain A operand and its dW can
+//         read it again (the frozen mode builds it in the A-tile load);
+//         the enc_xyz output y0 is stored for the last ReLU mask;
+//   (v)   dw_kernel: dW = X^T @ GH, a GEMM whose reduction axis is the
+//         points, launched right after the dx step that produces GH while
+//         X (the layer's stored bf16 input) is still in the workspace. The
+//         points are split over blockIdx.z; each block reduces its slice
+//         into an f32 register tile and writes it to a partial buffer, and
+//         column sums of the GH tiles it loads give the bias partials.
+//         colsum_kernel then adds the partials in a fixed order, so dW and
+//         db are the same bits on every run (no atomics);
+//   (vi)  head_kernel's phase 4: per ray, sum_s t*dsig (sigma dW),
+//         sum_s dsig, sum_s r*gh8 and sum_s gh8 (rgb_out dW, db) into a
+//         (R, HEAD_PART) buffer, then colsum_kernel in two fixed-order
+//         stages.
 // Rounding points follow the TPU kernel: bf16 activations after each ReLU,
 // the latent injection as a bf16 add, sig_pre in f32 from bf16 t, masks on
-// the stored bf16 activations, the composite entirely in f32.
+// the stored bf16 activations, the composite entirely in f32; gh rounded to
+// bf16 before both its dx and its dW product, the sigma dW from bf16 t
+// times f32 dsig. The per-ray code cotangents are summed with f32 atomics,
+// so their last bits may differ from run to run; dW and db do not.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,6 +86,13 @@ constexpr int HEAD_THREADS = 128;
 constexpr int MAX_PER_LANE = 8;    // samples per lane in the head scan
 constexpr int MAX_S = 32 * MAX_PER_LANE;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int LDA_T = BM + 8;      // dW GEMM: A stage held (BK, BM), k-major
+static_assert(BK * LDA_T <= A_STAGE, "dW A stage must fit the A buffer");
+// dW GEMM blocks per launch: 2 blocks of GEMM_THREADS on each of the
+// H100's 132 SMs. A constant, so the split of the points (and with it the
+// order of the sums) does not depend on the card.
+constexpr int DW_BLOCKS = 264;
+constexpr int COLSUM_GROUPS = 64;  // first-stage row groups of a column sum
 
 struct GemmArgs {
   int M, N, K, S;          // C (M x N) = A (M x K) @ B (K x N); ray = m / S
@@ -335,6 +365,152 @@ __global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
   epilogue_rows(g, st, m0 + wm * 32, n0 + wn * 64 + 2 * lane, lane);
 }
 
+// The PE of every point, (M, 64) bf16: the values the A-tile load of
+// gemm_kernel<true, false> builds, bit for bit.
+__global__ void pe_kernel(GemmArgs g, bf16* out) {
+  const size_t n = (size_t)g.M * 64;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int m = (int)(i / 64), k = (int)(i % 64);
+    out[i] = __float2bfloat16_rn(pe_value(g, pe_lane(k, g.n_freq), m));
+  }
+}
+
+struct DwArgs {
+  int P, M, N;             // dW (M x N) = X^T @ GH over P points
+  const bf16* X;           // (P, M) row-major: the layer's input
+  const bf16* G;           // (P, N) row-major: its bf16 output cotangent
+  int per_split;           // points per blockIdx.z, a multiple of BK
+  float* part_w;           // [splits][M][N] partial dW
+  float* part_b;           // [splits][N] partial db (column sums of GH)
+};
+
+// One stage of the dW GEMM: A is the (BK points, BM) slice of X, kept
+// k-major (the col-major A operand of WMMA); B the (BK, BN) slice of GH.
+// Points past the split's end and columns past M load as zeros.
+__device__ __forceinline__ void load_stage_dw(const DwArgs& d, bf16* As,
+                                              bf16* Bs, int m0, int n0,
+                                              int p0, int p_end, int tid) {
+#pragma unroll
+  for (int q = 0; q < (BK * BM) / (8 * GEMM_THREADS); ++q) {
+    const int idx = tid + q * GEMM_THREADS;
+    const int r = idx / (BM / 8), c8 = (idx % (BM / 8)) * 8;
+    const int p = p0 + r, m = m0 + c8;
+    const bool ok = p < p_end && m < d.M;
+    cp_async16(&As[r * LDA_T + c8], ok ? d.X + (size_t)p * d.M + m : d.X,
+               ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int q = 0; q < (BK * BN) / (8 * GEMM_THREADS); ++q) {
+    const int idx = tid + q * GEMM_THREADS;
+    const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
+    const int p = p0 + r;
+    const bool ok = p < p_end;
+    cp_async16(&Bs[r * LDB_ROW + c8],
+               ok ? d.G + (size_t)p * d.N + n0 + c8 : d.G, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(GEMM_THREADS) dw_kernel(DwArgs d) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + STAGES * A_STAGE;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int split = blockIdx.z;
+  const int p_begin = split * d.per_split;
+  const int p_end = min(d.P, p_begin + d.per_split);
+  const int nk = p_end > p_begin ? (p_end - p_begin + BK - 1) / BK : 0;
+  // The blocks of the first row of M tiles also sum GH's columns: thread
+  // tid sums column tid % BN over half tid / BN of each stage's rows.
+  const bool do_b = blockIdx.y == 0;
+  const int bc = tid % BN, bh = tid / BN;
+  float bsum = 0.f;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage_dw(d, As + s * A_STAGE, Bs + s * B_STAGE, m0, n0,
+                    p_begin + s * BK, p_end, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int pf = kt + STAGES - 1;
+    if (pf < nk)
+      load_stage_dw(d, As + (pf % STAGES) * A_STAGE,
+                    Bs + (pf % STAGES) * B_STAGE, m0, n0, p_begin + pf * BK,
+                    p_end, tid);
+    cp_async_commit();
+    const bf16* a = As + (kt % STAGES) * A_STAGE;
+    const bf16* b = Bs + (kt % STAGES) * B_STAGE;
+    if (do_b) {
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r)
+        bsum += bf(b[(bh * (BK / 2) + r) * LDB_ROW + bc]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], a + kk * LDA_T + wm * 32 + i * 16, LDA_T);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(bfr[j], b + kk * LDB_ROW + wn * 64 + j * 16,
+                               LDB_ROW);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the pipeline buffers become the bias-sum stage
+
+  float* pw = d.part_w + (size_t)split * d.M * d.N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = m0 + wm * 32 + i * 16;   // M % 16 == 0: whole fragments
+    if (row >= d.M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wmma::store_matrix_sync(pw + (size_t)row * d.N + n0 + wn * 64 + j * 16,
+                              acc[i][j], d.N, wmma::mem_row_major);
+  }
+  if (do_b) {
+    float* sb = reinterpret_cast<float*>(smem);
+    sb[tid] = bsum;
+    __syncthreads();
+    if (tid < BN)
+      d.part_b[(size_t)split * d.N + n0 + tid] = sb[tid] + sb[tid + BN];
+  }
+}
+
+// out[g][c] = sum over rows [g * rows_per_group, (g + 1) * rows_per_group)
+// of x[row * ld + c], in row order: a deterministic column sum.
+__global__ void colsum_kernel(const float* x, int ld, int rows, int cols,
+                              int rows_per_group, float* out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  const int r0 = blockIdx.y * rows_per_group;
+  const int r1 = min(rows, r0 + rows_per_group);
+  float a = 0.f;
+  for (int r = r0; r < r1; ++r) a += x[(size_t)r * ld + c];
+  out[(size_t)blockIdx.y * cols + c] = a;
+}
+
 struct HeadArgs {
   int R, S, W;             // W: trunk width; the rgb hidden layer is W / 2
   const bf16* t;           // (P, W) enc_shape output
@@ -351,7 +527,14 @@ struct HeadArgs {
   float* rgb8;             // (R, 8) or null
   float* dsig;             // (P,)
   bf16* g_r;               // (P, W/2)
-};
+  float* part;             // (R, head_part_cols(W)) or null: per-ray sums
+};                         // for the sigma and rgb_out dW/db
+
+// A ray's row of head-kernel partial sums: [sigma dW (W) | rgb_out dW
+// (W/2 x 8) | rgb_out db (8) | sigma db (1) | padding (7)].
+__host__ __device__ constexpr int head_part_cols(int W) {
+  return W + (W / 2) * 8 + 16;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -363,6 +546,7 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
   __shared__ float s_pre[MAX_S];
   __shared__ float s_c[3][MAX_S];
   __shared__ float s_gc[3][MAX_S];
+  __shared__ float s_dsig[MAX_S];
   const int ray = blockIdx.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int S = h.S, W = h.W, Wh = W / 2;
@@ -475,7 +659,9 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
         const float dx = e_[q] * (T_[q] * dw[q] - dL / u_[q]);
         const float gsig = dx * dl_[q];
         const float x = s_pre[s];
-        h.dsig[p0 + s] = gsig * (1.f / (1.f + expf(-x)));
+        const float ds = gsig * (1.f / (1.f + expf(-x)));
+        h.dsig[p0 + s] = ds;
+        s_dsig[s] = ds;
 #pragma unroll
         for (int k = 0; k < 3; ++k) s_gc[k][s] = round_bf(w_[q] * g[k]);
       }
@@ -501,6 +687,36 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
                   + s_gc[2][s] * bf(h.w_rgb[c * 8 + 2]);
     const size_t o = (p0 + s) * Wh + c;
     h.g_r[o] = __float2bfloat16_rn(bf(h.r[o]) > 0.f ? v : 0.f);
+  }
+  if (!h.part) return;
+
+  // Phase 4 (weight gradients): this ray's sums over its samples.
+  float* row = h.part + (size_t)ray * head_part_cols(W);
+  for (int c = tid; c < W; c += HEAD_THREADS) {
+    float a = 0.f;
+    for (int s = 0; s < S; ++s) a += bf(h.t[(p0 + s) * W + c]) * s_dsig[s];
+    row[c] = a;
+  }
+  for (int c = tid; c < Wh; c += HEAD_THREADS) {
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float rv = bf(h.r[(p0 + s) * Wh + c]);
+      a0 += rv * s_gc[0][s];
+      a1 += rv * s_gc[1][s];
+      a2 += rv * s_gc[2][s];
+    }
+    float* o = row + W + c * 8;
+    o[0] = a0; o[1] = a1; o[2] = a2;
+#pragma unroll
+    for (int k = 3; k < 8; ++k) o[k] = 0.f;
+  }
+  if (tid < 16) {
+    float a = 0.f;
+    if (tid < 3)
+      for (int s = 0; s < S; ++s) a += s_gc[tid][s];
+    else if (tid == 8)
+      for (int s = 0; s < S; ++s) a += s_dsig[s];
+    row[W + Wh * 8 + tid] = a;
   }
 }
 
@@ -534,40 +750,102 @@ int launch_convert(const float* x, bf16* y, size_t n, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
 #define CHECK(call)            \
   do {                         \
     const int rc_ = (call);    \
     if (rc_ != 0) return rc_;  \
   } while (0)
 
+int launch_colsum(const float* x, int ld, int rows, int cols,
+                  int rows_per_group, float* out, cudaStream_t stream) {
+  const dim3 grid((cols + 255) / 256,
+                  (rows + rows_per_group - 1) / rows_per_group);
+  colsum_kernel<<<grid, 256, 0, stream>>>(x, ld, rows, cols, rows_per_group,
+                                          out);
+  return (int)cudaGetLastError();
+}
+
+// How the dW GEMM splits the points: about DW_BLOCKS blocks in all, each
+// split a whole number of BK-point stages.
+struct DwPlan {
+  int splits, per_split;
+};
+
+DwPlan dw_plan(int M, int N, int P) {
+  const int tiles = (N / BN) * ((M + BM - 1) / BM);
+  const int ktiles = (P + BK - 1) / BK;
+  int splits = (DW_BLOCKS + tiles - 1) / tiles;
+  if (splits > ktiles) splits = ktiles;
+  if (splits < 1) splits = 1;
+  const int per = ((ktiles + splits - 1) / splits) * BK;
+  return {(P + per - 1) / per, per};
+}
+
+size_t dw_part_elems(int M, int N, int P) {
+  return (size_t)dw_plan(M, N, P).splits * ((size_t)M * N + N);
+}
+
+// dw (M, N) = X^T @ G and db (N,) = column sums of G, f32, over P points:
+// the split GEMM into ``part``, then the fixed-order sum of the splits.
+int launch_dw(const bf16* X, const bf16* G, int P, int M, int N, float* part,
+              float* dw, float* db, cudaStream_t stream) {
+  if (N % BN != 0 || M % 16 != 0) return (int)cudaErrorInvalidValue;
+  CHECK((int)cudaFuncSetAttribute(
+      dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GEMM_SMEM));
+  const DwPlan pl = dw_plan(M, N, P);
+  DwArgs d = {P, M, N, X, G, pl.per_split, part,
+              part + (size_t)pl.splits * M * N};
+  const dim3 grid(N / BN, (M + BM - 1) / BM, pl.splits);
+  dw_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(d);
+  CHECK((int)cudaGetLastError());
+  CHECK(launch_colsum(d.part_w, M * N, pl.splits, M * N, pl.splits, dw,
+                      stream));
+  return launch_colsum(d.part_b, N, pl.splits, N, pl.splits, db, stream);
+}
+
+}  // namespace
+
 // Workspace sizes (elements) for one call: bf16 activations and gradients,
-// f32 dsig and per-ray cotangent sums.
-extern "C" void codes_workspace(int R, int S, int W, int nb, int nt,
-                                size_t* n_bf16, size_t* n_f32) {
+// f32 dsig and per-ray cotangent sums; in weight-gradient mode also the PE,
+// y0, the dW partials and the head kernel's per-ray partials.
+extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
+                                int weight_grads, size_t* n_bf16,
+                                size_t* n_f32) {
   const size_t P = (size_t)R * S;
   *n_bf16 = (size_t)(2 * nb + 2 * nt + 5) * P * W;
   *n_f32 = P + (size_t)R * (nb + nt + 1) * W;
+  if (!weight_grads) return;
+  *n_bf16 += P * W + P * 64;
+  size_t part = dw_part_elems(64, W, (int)P);
+  const size_t sq = dw_part_elems(W, W, (int)P);
+  const size_t half = dw_part_elems(W, W / 2, (int)P);
+  part = part > sq ? part : sq;
+  part = part > half ? part : half;
+  *n_f32 += part + (size_t)(R + COLSUM_GROUPS) * head_part_cols(W);
 }
 
-// One chunk of R rays x S samples. ``wts`` is a host array of the 2*k
+// One call on R rays x S samples. ``wts`` is a host array of the 2*k
 // device pointers of ops/fused_train.py::flatten_params, in its order:
-// 2-D weights bf16 (in, out), 1-D weights and biases f32. Returns the first
-// nonzero cudaGetLastError() after a launch, else 0.
-extern "C" int codes_step(
+// 2-D weights bf16 (in, out), 1-D weights and biases f32. With
+// ``weight_grads``, ``dwb`` is a host array of 2*k f32 device pointers in
+// the same order, each the shape of its weight or bias, which receive the
+// gradients; else it is null. Returns the first nonzero
+// cudaGetLastError() after a launch, else 0.
+extern "C" int fused_step(
     const float* ro8, const float* vd8, const float* z, const bf16* sproj,
     const bf16* tproj, const bf16* vcontrib, const float* gt8,
     const void* const* wts, bf16* ws, float* ws32, float* se8, float* rgb8,
-    bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib, int R, int S, int W,
-    int nb, int nt, int n_freq, float two_scale, int white_bg,
-    cudaStream_t stream) {
+    bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib, void* const* dwb,
+    int weight_grads, int R, int S, int W, int nb, int nt, int n_freq,
+    float two_scale, int white_bg, cudaStream_t stream) {
   if (S > MAX_S || W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1)
     return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S, PW = P * W;
   auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
   auto wf = [&](int i) { return static_cast<const float*>(wts[2 * i]); };
   auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
+  auto dw = [&](int i) { return static_cast<float*>(dwb[2 * i]); };
+  auto db = [&](int i) { return static_cast<float*>(dwb[2 * i + 1]); };
   const int i_encs = nb + 1, i_sig = nb + 2, i_encv = nb + 3;
   const int i_tex = nb + 4, i_rgbh = nb + nt + 4, i_rgbo = nb + nt + 5;
 
@@ -581,10 +859,15 @@ extern "C" int codes_step(
   bf16* g_r = r + PW / 2;             // P x W/2
   bf16* gA = g_r + PW / 2;
   bf16* gB = gA + PW;
+  bf16* y0 = gB + PW;                 // weight_grads: enc_xyz output
+  bf16* pe = y0 + PW;                 // weight_grads: P x 64
   float* dsig = ws32;
   float* rs_s = dsig + P;             // (R, nb, W)
   float* rs_t = rs_s + (size_t)R * nb * W;
   float* rs_v = rs_t + (size_t)R * nt * W;
+  float* head_part = rs_v + (size_t)R * W;   // weight_grads: (R, HP)
+  float* head_tmp = head_part + (size_t)R * head_part_cols(W);
+  float* dw_part = head_tmp + (size_t)COLSUM_GROUPS * head_part_cols(W);
   CHECK((int)cudaMemsetAsync(rs_s, 0, sizeof(float) * (size_t)R * (nb + nt + 1) * W,
                              stream));
 
@@ -598,7 +881,16 @@ extern "C" int codes_step(
   g.K = 64; g.N = W; g.ro8 = ro8; g.vd8 = vd8; g.z = z; g.n_freq = n_freq;
   g.B = wb(0); g.bias = bias(0); g.relu = 1;
   g.out_inj = xs; g.inj = sproj; g.inj_ld = nb * W;
-  CHECK(launch_gemm(g, true, false, stream));
+  if (weight_grads) {
+    // The PE goes to the workspace once: enc_xyz reads it as a plain A
+    // operand here and again for its dW. y0 is kept for the last mask.
+    pe_kernel<<<4096, 256, 0, stream>>>(g, pe);
+    CHECK((int)cudaGetLastError());
+    g.A = pe; g.out = y0;
+    CHECK(launch_gemm(g, false, false, stream));
+  } else {
+    CHECK(launch_gemm(g, true, false, stream));
+  }
   for (int j = 0; j < nb; ++j) {
     g = base; g.K = W; g.N = W; g.A = xs + (size_t)j * PW; g.B = wb(1 + j);
     g.bias = bias(1 + j); g.relu = 1; g.out = ys + (size_t)j * PW;
@@ -633,16 +925,41 @@ extern "C" int codes_step(
   h.w_sig = wf(i_sig); h.b_sig = bias(i_sig); h.w_rgb = wb(i_rgbo);
   h.b_rgb = bias(i_rgbo); h.two_scale = two_scale; h.white_bg = white_bg;
   h.se8 = se8; h.rgb8 = rgb8; h.dsig = dsig; h.g_r = g_r;
+  if (weight_grads) h.part = head_part;
   head_kernel<<<R, HEAD_THREADS, 0, stream>>>(h);
   CHECK((int)cudaGetLastError());
 
-  // ---- dx chain
+  // ---- the sigma and rgb_out gradients: the head's per-ray partials
+  // summed over the rays in two fixed-order stages.
+  if (weight_grads) {
+    const int HP = head_part_cols(W), Wh = W / 2;
+    const int rpg = (R + COLSUM_GROUPS - 1) / COLSUM_GROUPS;
+    const int groups = (R + rpg - 1) / rpg;
+    CHECK(launch_colsum(head_part, HP, R, HP, rpg, head_tmp, stream));
+    CHECK(launch_colsum(head_tmp, HP, groups, W, groups, dw(i_sig), stream));
+    CHECK(launch_colsum(head_tmp + W, HP, groups, Wh * 8, groups, dw(i_rgbo),
+                        stream));
+    CHECK(launch_colsum(head_tmp + W + Wh * 8, HP, groups, 8, groups,
+                        db(i_rgbo), stream));
+    CHECK(launch_colsum(head_tmp + W + Wh * 8 + 8, HP, groups, 1, groups,
+                        db(i_sig), stream));
+  }
+
+  // ---- dx chain; in weight-gradient mode each layer's dW GEMM runs as
+  // soon as its output cotangent (the bf16 ``cur``) exists.
+  const int Pi = (int)P;
   bf16* cur = gA;
   bf16* nxt = gB;
+  if (weight_grads)
+    CHECK(launch_dw(yts + (size_t)(nt - 1) * PW, g_r, Pi, W, W / 2, dw_part,
+                    dw(i_rgbh), db(i_rgbh), stream));
   g = base; g.K = W / 2; g.N = W; g.A = g_r; g.B = wb(i_rgbh);
   g.mask = yts + (size_t)(nt - 1) * PW; g.out = cur;
   CHECK(launch_gemm(g, false, true, stream));
   for (int j = nt - 1; j >= 0; --j) {
+    if (weight_grads)
+      CHECK(launch_dw(xt + (size_t)j * PW, cur, Pi, W, W, dw_part,
+                      dw(i_tex + j), db(i_tex + j), stream));
     g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(i_tex + j);
     g.rs_pre = rs_t + (size_t)j * W; g.rs_pre_ld = nt * W;
     g.mask = j > 0 ? yts + (size_t)(j - 1) * PW : yv;
@@ -651,21 +968,36 @@ extern "C" int codes_step(
     CHECK(launch_gemm(g, false, true, stream));
     bf16* tmp = cur; cur = nxt; nxt = tmp;
   }
+  if (weight_grads)
+    CHECK(launch_dw(t, cur, Pi, W, W, dw_part, dw(i_encv), db(i_encv),
+                    stream));
   g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(i_encv);
   g.dsig = dsig; g.wsig = wf(i_sig); g.out = nxt;
   CHECK(launch_gemm(g, false, true, stream));
   { bf16* tmp = cur; cur = nxt; nxt = tmp; }
+  if (weight_grads)
+    CHECK(launch_dw(ys + (size_t)(nb - 1) * PW, cur, Pi, W, W, dw_part,
+                    dw(i_encs), db(i_encs), stream));
   g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(i_encs);
   g.mask = ys + (size_t)(nb - 1) * PW; g.out = nxt;
   CHECK(launch_gemm(g, false, true, stream));
   { bf16* tmp = cur; cur = nxt; nxt = tmp; }
   for (int j = nb - 1; j >= 0; --j) {
+    if (weight_grads)
+      CHECK(launch_dw(xs + (size_t)j * PW, cur, Pi, W, W, dw_part,
+                      dw(1 + j), db(1 + j), stream));
     g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(1 + j);
     g.rs_pre = rs_s + (size_t)j * W; g.rs_pre_ld = nb * W;
-    if (j > 0) { g.mask = ys + (size_t)(j - 1) * PW; g.out = nxt; }
+    if (j > 0) {
+      g.mask = ys + (size_t)(j - 1) * PW; g.out = nxt;
+    } else if (weight_grads) {
+      g.mask = y0; g.out = nxt;       // enc_xyz's output cotangent
+    }
     CHECK(launch_gemm(g, false, true, stream));
     bf16* tmp = cur; cur = nxt; nxt = tmp;
   }
+  if (weight_grads)
+    CHECK(launch_dw(pe, cur, Pi, 64, W, dw_part, dw(0), db(0), stream));
 
   CHECK(launch_convert(rs_s, d_sproj, (size_t)R * nb * W, stream));
   CHECK(launch_convert(rs_t, d_tproj, (size_t)R * nt * W, stream));

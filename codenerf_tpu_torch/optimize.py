@@ -8,8 +8,12 @@ the codes at the mean of the trained embeddings, run ``--num_opts`` AdamW
 steps on the codes only against the ``--tgt_instances`` views (lr halved
 every ``--lr_half_interval``), then report PSNR/SSIM over all other views.
 
-Reads ``<exps_root>/<saved_dir>/models.pth`` in the reference layout
-(``model_params``, ``shape_code_params``, ``texture_code_params``). Writes
+Reads the run's training checkpoint, the latest
+``<exps_root>/<saved_dir>/ckpt/step_*.pt`` that ``python -m
+codenerf_tpu_torch.train`` writes (as the JAX CLI reads ``<run>/ckpt``);
+a run without ``ckpt/`` is read from ``models.pth`` in the reference
+layout (``model_params``, ``shape_code_params``, ``texture_code_params``).
+Writes
 under ``<exps_root>/<saved_dir>/test[_N]/``, like the JAX CLI:
 ``opt_hpams.json``, ``codes.npz``, ``codes.pth`` (reference payload),
 ``results.json``, per-step progress PNGs (``--save_progress``) and
@@ -104,8 +108,9 @@ def main(argv=None) -> dict:
     from codenerf_tpu_torch.models.codes import mean_code
     from codenerf_tpu_torch.optimization.codes_opt import CodeOptimizer
     from codenerf_tpu_torch.renderer import check_render_config
-    from codenerf_tpu_torch.utils.checkpoint import (load_reference_checkpoint,
-                                                     save_reference_codes)
+    from codenerf_tpu_torch.utils.checkpoint import (
+        latest_step, load_reference_checkpoint, load_training_checkpoint,
+        save_reference_codes)
     from codenerf_tpu_torch.utils.images import save_png, side_by_side
 
     device = resolve_device(
@@ -113,8 +118,12 @@ def main(argv=None) -> dict:
     hp = load_hparams(args.jsonfile)
     check_render_config(hp.render)
     run_dir = os.path.join(args.exps_root, args.saved_dir)
-    state, shape_codes, texture_codes = load_reference_checkpoint(
-        os.path.join(run_dir, "models.pth"))
+    if latest_step(os.path.join(run_dir, "ckpt")) is not None:
+        state, shape_codes, texture_codes = load_training_checkpoint(
+            os.path.join(run_dir, "ckpt"))
+    else:
+        state, shape_codes, texture_codes = load_reference_checkpoint(
+            os.path.join(run_dir, "models.pth"))
     model = CodeNeRF(hp.net)
     model.load_state_dict(state)
     save_dir = _unique_test_dir(os.path.join(run_dir, "test"))

@@ -115,13 +115,12 @@ def test_plain_kernel_matches_jax_train_kernel():
         _close(g.float().numpy(), w, name)
 
 
-@pytest.mark.parametrize("mode", ["weight_grads", "want_weights",
-                                  "input_grads"])
+@pytest.mark.parametrize("mode", ["dual", "want_weights", "input_grads"])
 def test_unported_modes_raise(mode):
     cfg = NetConfig(**KW)
-    kw = {"weight_grads": mode == "weight_grads",
-          "want_weights": mode == "want_weights",
-          "input_grads": mode == "input_grads"}
+    kw = {"want_weights": mode == "want_weights",
+          "input_grads": mode == "input_grads",
+          "coarse_mask": torch.ones(R, S) if mode == "dual" else None}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 8), **kw)
 
