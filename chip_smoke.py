@@ -5,21 +5,25 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --check    # build + kernel-vs-plain checks only
 
-Phases, each printed on its own line:
+Phases, each printed on its own line with its seconds:
 
 1. the card (``nvidia-smi`` name and power limit); build every CUDA kernel
    from ``codenerf_tpu_torch/ops/csrc`` (one ``nvcc`` per source, started
    together);
-2. each kernel mode against its plain PyTorch version at the main path's
-   full width (W=256, 3 shape + 1 texture blocks, S=96 samples, seeded
-   inputs), with the tolerance stated in ``_close``: the frozen-model mode
-   at the optimization chunk (R=4096) and the weight-gradient mode at the
-   training batch (R=16,384), whose per-ray cotangents must also equal
-   the frozen mode's on the same inputs; timings of each kernel, its
-   plain version and its bound, and a ``torch.profiler`` breakdown by
-   kernel name (for the weight-gradient mode also each launch of one
-   call in order, and the frozen mode's profile on the same inputs);
-3. training: ``codenerf_tpu_torch.train.main`` at
+2. each kernel mode against its plain PyTorch version at the main paths'
+   full width (W=256, 3 shape + 1 texture blocks, seeded inputs), with the
+   tolerance stated in ``_close``: the frozen-model mode at the
+   optimization chunk (R=4096) and the weight-gradient mode at the
+   training batch (R=16,384), S=96, whose per-ray cotangents must also
+   equal the frozen mode's on the same inputs; the sigma-only forward at
+   R=16,384 and R=4096, S=32; the dual-composite mode at a real union of
+   32 coarse and 32 fine depths (``hier_fine_zvals_meta`` on seeded coarse
+   depths), training at R=16,384 (its per-ray cotangents equal to the
+   dual frozen mode's on the same inputs, its fine SE to the non-dual
+   frozen kernel's on the same union) and frozen at R=4096. Timings of
+   each kernel, its plain version and its bound, and a ``torch.profiler``
+   breakdown by kernel name;
+3. coarse training: ``codenerf_tpu_torch.train.main`` at
    ``jsonfiles/srncar_fused.json`` widths and the CLI's batch of 16,384
    rays on a seeded SRN-layout ``cars_train`` set (4 objects x 4 views,
    128x128): 10 steps crossing the crop->full switch at step 5, with a
@@ -31,12 +35,23 @@ Phases, each printed on its own line:
    profile (wall ms untraced and under the profiler, device-busy ms split
    into the port's kernels and PyTorch's, idle share, the largest kernels
    by name);
-4. test-time optimization: ``codenerf_tpu_torch.optimize.main`` reads the
-   training run's ``ckpt/`` and fits codes for a seeded ``cars_test`` set
-   (2 objects x 4 views); the frozen-model kernel's launch count must
-   equal steps x chunks x objects and ``results.json`` must be finite;
-   then that step's profile;
-5. the ``kernels`` JSON line, the card line, and the last line
+4. coarse test-time optimization: ``codenerf_tpu_torch.optimize.main``
+   reads the training run's ``ckpt/`` and fits codes for a seeded
+   ``cars_test`` set (2 objects x 4 views); the frozen-model kernel's
+   launch count must equal steps x chunks x objects and ``results.json``
+   must be finite; then that step's profile;
+5. hierarchical training at ``jsonfiles/srncar_hier_occ.json`` widths
+   (32 coarse + 32 fine samples, sphere bounds, the training occupancy
+   grid with its warm-up cut to 4 steps and its refresh to every 2):
+   8 steps, then a run resumed from the step-4 checkpoint, which must
+   rebuild the grid. Each step launches the sigma-only forward once and
+   the dual training kernel once; then the step profile;
+6. hierarchical test-time optimization with ``--opt_occ true`` on that
+   run: the sigma-only and the dual frozen kernel each once per chunk,
+   step and object; then the step profile. Phases 3-6 each start with
+   every launch count at 0, fail if a plain version ran on a CUDA tensor,
+   and print the peak device memory;
+7. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
@@ -58,8 +73,10 @@ import time
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 R_CODES, R_TRAIN, S_FULL = 4096, 16384, 96
+S_COARSE, S_UNION = 32, 64   # srncar_hier_occ.json: 32 coarse + 32 fine
 SOURCE = "codenerf_tpu_torch/ops/csrc/train_fused.cu"
 REPLACES = "codenerf_tpu/ops/fused_train.py:447"
+REPLACES_SIGMA = "codenerf_tpu/ops/fused_mlp.py:518"
 
 
 def log(msg: str) -> None:
@@ -168,10 +185,18 @@ def kernel_inputs(dev, R: int, S: int):
                  vcontrib, fused_mlp.pad_lanes(gt, 8), wops)
 
 
-def bound(cfg, R: int, S: int, wops, weight_grads: bool):
+def _bound(flops: int, nbytes: int):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def bound(cfg, R: int, S: int, wops, weight_grads: bool, dual: bool = False):
     """(bound ms, bound_by, FLOP, bytes): matmul operations at the dense
     bf16 peak against the bytes the function must move (inputs read once,
-    outputs written once) at the HBM rate."""
+    outputs written once) at the HBM rate. The dual mode reads the coarse
+    mask and deltas besides."""
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
     P = R * S
     fwd = 2 * P * (64 * W + W * W * (nb + nt + 2) + W * W // 2)
@@ -179,15 +204,25 @@ def bound(cfg, R: int, S: int, wops, weight_grads: bool):
     flops = fwd + dx + (fwd if weight_grads else 0)
     w_bytes = sum(w.numel() * w.element_size() for w in wops)
     in_bytes = R * 8 * 4 * 3 + R * S * 4 + R * (nb + nt + 1) * W * 2 + w_bytes
+    if dual:
+        in_bytes += 2 * R * S * 4
     out_bytes = R * 8 * 4 + R * (nb + nt + 1) * W * 2
     if weight_grads:
         out_bytes += 4 * sum(w.numel() for w in wops)
     else:
         out_bytes += R * 8 * 4                     # rgb8
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = (in_bytes + out_bytes) / PEAK_HBM_BYTES * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, in_bytes + out_bytes)
+    return _bound(flops, in_bytes + out_bytes)
+
+
+def sigma_bound(cfg, R: int, S: int, wops):
+    """The sigma-only forward's bound: 2W(64 + W(nb+1)) FLOP per point;
+    it reads the rays, depths, shape latents and the trunk's weights and
+    writes sigma."""
+    W, nb = cfg.W, cfg.shape_blocks
+    flops = 2 * R * S * W * (64 + W * (nb + 1))
+    w_bytes = sum(w.numel() * w.element_size() for w in wops[:2 * (nb + 3)])
+    nbytes = R * 8 * 4 * 2 + R * S * 4 + R * nb * W * 2 + w_bytes + R * S * 4
+    return _bound(flops, nbytes)
 
 
 def kernel_check(dev, weight_grads: bool):
@@ -265,6 +300,130 @@ def kernel_check(dev, weight_grads: bool):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def sigma_check(dev, R: int):
+    """Phase 2: sigma_fwd (CUDA) vs sigma_fwd_plain at R rays x 32
+    coarse samples."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_mlp
+
+    cfg, args = kernel_inputs(dev, R, S_COARSE)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
+    sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops)
+    got = fused_mlp.sigma_fwd(*sargs)
+    torch.cuda.synchronize()
+    want = fused_mlp.sigma_fwd_plain(*sargs)
+    err, ok = _close(f"sigma (R={R})", got, want, per_ray=True)
+    if not ok:
+        raise AssertionError(f"sigma_fwd disagrees with its plain version "
+                             f"at R={R}")
+    ms = time_cuda(lambda: fused_mlp.sigma_fwd(*sargs), reps=10)
+    plain_ms = time_cuda(lambda: fused_mlp.sigma_fwd_plain(*sargs), reps=3)
+    bound_ms, bound_by, flops, nbytes = sigma_bound(cfg, R, S, wops)
+    log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+        f"{bound_ms:.4f} ms ({flops:.4e} FLOP; {nbytes} B) at R={R}, S={S}")
+    profile_breakdown(lambda: fused_mlp.sigma_fwd(*sargs), sequence=True)
+    return {"name": "sigma_fwd (sigma_only)", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES_SIGMA, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def union_inputs(dev, R: int):
+    """Full-width operands at a real union: seeded coarse depths, their
+    coarse weights from the plain sigma-only forward, then
+    hier_fine_zvals_meta's fine draw, union and dual planes."""
+    import torch
+
+    from codenerf_tpu_torch.core.render import composite_weights
+    from codenerf_tpu_torch.ops import fused_mlp, fused_train
+
+    cfg, args = kernel_inputs(dev, R, S_COARSE)
+    _, S, R, wbg, scale, ro8, vd8, zc, sproj, tproj, vcontrib, gt8, wops = \
+        args
+    sig = fused_mlp.sigma_fwd_plain(cfg, S, R, ro8, vd8, zc, sproj, tproj,
+                                    vcontrib, wops)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    z_all, cmask, cdelta = fused_train.hier_fine_zvals_meta(
+        zc, composite_weights(sig, zc), gen, S_UNION - S_COARSE)
+    return cfg, (cfg, S_UNION, R, wbg, scale, ro8, vd8, z_all, sproj, tproj,
+                 vcontrib, gt8, wops), dict(coarse_mask=cmask,
+                                            coarse_delta=cdelta)
+
+
+def dual_check(dev, weight_grads: bool):
+    """Phase 2: the dual-composite mode (CUDA) vs train_fused_plain at a
+    real union of 32 coarse and 32 fine depths: training at R=16,384 (and
+    its cross-checks), frozen with want_rgb at R=4096."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_train
+
+    R = R_TRAIN if weight_grads else R_CODES
+    cfg, args, planes = union_inputs(dev, R)
+    kw = (dict(weight_grads=True) if weight_grads
+          else dict(want_rgb=True, weight_grads=False))
+    kw.update(planes)
+    got = fused_train.train_fused(*args, **kw)
+    torch.cuda.synchronize()
+    terms = []
+    want = fused_train.train_fused_plain(*args, sigma_terms=terms, **kw)
+    torch.cuda.synchronize()
+    ray_outs = ["d_sproj", "d_tproj", "d_vcontrib", "rgb8"]
+    names = ["se_fine", "se_coarse"] + ray_outs[:3]
+    names += ([f"{n}.{k}" for n, _, _ in fused_train.weight_shapes(cfg)
+               for k in ("w", "b")] if weight_grads else ["rgb8"])
+    scale = dict(zip(["sigma.w", "sigma.b"], terms))
+    checks = []
+    for name, g, w in zip(names, got, want):
+        if name.startswith("se_"):
+            g, w = g.reshape(1), w.reshape(1)
+        checks.append((name, *_close(name, g, w, scale.get(name),
+                                     per_ray=name in ray_outs)))
+    if weight_grads:
+        # The dual frozen mode on the same inputs gives the per-ray
+        # cotangents to within the f32 atomic ray sums' order; the non-dual
+        # frozen kernel on the same union gives the fine SE to within the
+        # f32 summation order of the per-ray rows.
+        frozen = fused_train.train_fused(*args, weight_grads=False, **planes)
+        for name, a, b in zip(["se_fine", "se_coarse", "d_sproj", "d_tproj",
+                               "d_vcontrib"], got[:5], frozen):
+            d = float((a.float() - b.float()).abs().max())
+            ok = d <= 1e-2 * float(b.float().abs().max())
+            log(f"  {name}: dual weight-gradient vs dual frozen mode, max "
+                f"abs difference {d:.3e}{'' if ok else '  <-- FAILS'}")
+            checks.append((f"{name} (vs dual frozen mode)", d, ok))
+        single = fused_train.train_fused(*args, weight_grads=False)
+        d = abs(float(got[0]) - float(single[0]))
+        ok = d <= 1e-5 * abs(float(single[0]))
+        log(f"  se_fine {float(got[0]):.6e} vs the non-dual frozen kernel's "
+            f"SE {float(single[0]):.6e} on the same union: difference "
+            f"{d:.3e}{'' if ok else '  <-- FAILS'}")
+        checks.append(("se_fine (vs non-dual)", d, ok))
+        del frozen, single
+    del got, want
+    failed = [name for name, _, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"dual mode disagrees with its plain version "
+                             f"on {failed}")
+    errs = [e for name, e, _ in checks if "(vs" not in name]
+    ms = time_cuda(lambda: fused_train.train_fused(*args, **kw), reps=10)
+    plain_ms = time_cuda(lambda: fused_train.train_fused_plain(*args, **kw),
+                         reps=3)
+    bound_ms, bound_by, flops, nbytes = bound(cfg, R, S_UNION, args[-1],
+                                              weight_grads, dual=True)
+    log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+        f"{bound_ms:.4f} ms ({flops:.4e} FLOP; {nbytes} B) at R={R}, "
+        f"S={S_UNION}")
+    profile_breakdown(lambda: fused_train.train_fused(*args, **kw))
+    mode = ("dual, weight_grads=True" if weight_grads
+            else "dual, weight_grads=False, want_rgb")
+    return {"name": f"train_fused ({mode})", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def profile_breakdown(fn, sequence: bool = False) -> None:
     """Device time per CUDA kernel name over three calls (torch.profiler);
     prints 'not measured' when the trace carries no device time. With
@@ -313,7 +472,7 @@ def _short(name: str) -> str:
 # own kernels in anonymous namespaces too, so the port's are told apart
 # by name.
 PORT_KERNELS = ("gemm_kernel", "dw_kernel", "head_kernel", "pe_kernel",
-                "colsum_kernel", "f32_to_bf16_kernel")
+                "colsum_kernel", "f32_to_bf16_kernel", "sigma_head_kernel")
 
 
 def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
@@ -391,80 +550,171 @@ def write_dataset(root: str, split: str, n_objs: int, n_views: int,
                 os.path.join(obj, "rgb", f"{vi:06d}.png"))
 
 
-def _losses(run_dir: str):
+def _metrics(run_dir: str):
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        return [(r["step"], r["loss/train"]) for r in map(json.loads, f)
-                if "loss/train" in r]
+        return [json.loads(line) for line in f]
 
 
-def train_path(work: str, jsonfile: str, device: str = "cuda",
-               batch: int = R_TRAIN, H: int = 128, iters_crop: int = 5,
-               iters_all: int = 10) -> dict:
-    """Phase 3: the port's train CLI, then a resumed run from the mid-run
-    checkpoint. Returns the weight-gradient kernel's launch count."""
+def _losses(run_dir: str):
+    return [(r["step"], r["loss/train"]) for r in _metrics(run_dir)
+            if "loss/train" in r]
+
+
+def _occ_events(run_dir: str):
+    """(step, rebuild?, occupied share) of each occupancy grid refresh."""
+    return [(r["step"], bool(r["occ/rebuild"]), r["occ/occupied"])
+            for r in _metrics(run_dir) if "occ/rebuild" in r]
+
+
+class LaunchCounts:
+    """The launch counters of every kernel wrapper, zeroed on entry; and
+    the plain versions wrapped so that a call on a CUDA tensor is counted
+    (the main path must make none)."""
+
+    def __enter__(self):
+        import torch
+
+        from codenerf_tpu_torch.ops import fused_mlp, fused_train
+
+        self._mods = (fused_mlp, fused_train)
+        self._counters = (fused_train.train_fused.launches,
+                          fused_mlp.sigma_fwd.launches)
+        for c in self._counters:
+            for k in c:
+                c[k] = 0
+        self.plain_on_cuda = 0
+        self._orig = (fused_mlp.sigma_fwd_plain,
+                      fused_train.train_fused_plain)
+
+        def watch(fn):
+            def wrapped(*args, **kw):
+                if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                    self.plain_on_cuda += 1
+                return fn(*args, **kw)
+            return wrapped
+
+        fused_mlp.sigma_fwd_plain = watch(self._orig[0])
+        fused_train.train_fused_plain = watch(self._orig[1])
+        return self
+
+    def get(self) -> dict:
+        return {k: v for c in self._counters for k, v in c.items()}
+
+    def __exit__(self, *exc):
+        fused_mlp, fused_train = self._mods
+        fused_mlp.sigma_fwd_plain, fused_train.train_fused_plain = self._orig
+        return False
+
+
+def _config(work: str, name: str, **extra) -> str:
+    """``jsonfiles/<name>`` pointed at the seeded data, with ``extra``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "jsonfiles", name)) as f:
+        cfg = json.load(f)
+    cfg["data"]["data_dir"] = os.path.join(work, "data")
+    cfg.update(extra)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _expect(counts: dict, want: dict, what: str) -> None:
+    got = {k: v for k, v in counts.items() if v or k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def train_path(work: str, jsonfile: str, device: str, batch: int, H: int,
+               iters_crop: int, iters_all: int, mid: int, per_step: dict,
+               run: str, hier: bool) -> dict:
+    """The port's train CLI, then a second run resumed from a copy of the
+    mid-run checkpoint. ``per_step``: the launches of each kernel mode one
+    step makes. The coarse run must resume exactly; the hierarchical run
+    must rebuild its occupancy grid on the resume (the density is not
+    checkpointed). Returns the launch counts of both runs."""
     import numpy as np
-    import torch
 
     from codenerf_tpu_torch import train
-    from codenerf_tpu_torch.ops import fused_train
 
-    write_dataset(os.path.join(work, "data"), "cars_train", 4, 4, H, seed=1)
+    if not os.path.isdir(os.path.join(work, "data", "srn_cars",
+                                      "cars_train")):
+        write_dataset(os.path.join(work, "data"), "cars_train", 4, 4, H,
+                      seed=1)
     exps = os.path.join(work, "exps")
     base = ["--jsonfile", jsonfile, "--exps_root", exps, "--batchsize",
             str(batch), "--iters_crop", str(iters_crop), "--check_iter", "0",
             "--log_every", "1", "--device", device]
     on_card = device != "cpu"       # the counters count CUDA launches only
-    counts = fused_train.train_fused.launches
-    for mode in counts:
-        counts[mode] = 0
-    t0 = time.perf_counter()
-    train.main(base + ["--save_dir", "smoke", "--iters_all",
-                       str(iters_all), "--resume", "false"])
-    wall = time.perf_counter() - t0
-    launches = counts["train"]
-    run_dir = os.path.join(exps, "smoke")
-    losses = _losses(run_dir)
-    log(f"  train: {launches} launches of the weight-gradient kernel "
-        f"(expected {iters_all} steps), {wall:.2f} s host clock incl. "
-        f"set-up; loss by step {[(s, round(v, 6)) for s, v in losses]}")
-    if launches != (iters_all if on_card else 0):
-        raise AssertionError("kernel launch count off on the training path")
-    if len(losses) != iters_all or not np.isfinite([v for _, v in
-                                                    losses]).all():
-        raise AssertionError("training losses missing or not finite")
-    ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
-    mid = f"step_{iters_crop:08d}.pt"
-    if mid not in ckpts or f"step_{iters_all:08d}.pt" not in ckpts:
-        raise AssertionError(f"checkpoints missing: {ckpts}")
+    with LaunchCounts() as lc:
+        t0 = time.perf_counter()
+        train.main(base + ["--save_dir", run, "--iters_all", str(iters_all),
+                           "--resume", "false"])
+        wall = time.perf_counter() - t0
+        first = lc.get()
+        run_dir = os.path.join(exps, run)
+        losses = _losses(run_dir)
+        log(f"  train: launches {first} in {iters_all} steps, {wall:.2f} s "
+            f"host clock incl. set-up; loss by step "
+            f"{[(s_, round(v, 6)) for s_, v in losses]}")
+        _expect(first, {k: v * iters_all * on_card
+                        for k, v in per_step.items()}, "training run")
+        if len(losses) != iters_all or not np.isfinite(
+                [v for _, v in losses]).all():
+            raise AssertionError("training losses missing or not finite")
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+        mid_ck = f"step_{mid:08d}.pt"
+        if mid_ck not in ckpts or f"step_{iters_all:08d}.pt" not in ckpts:
+            raise AssertionError(f"checkpoints missing: {ckpts}")
+        if hier:
+            ev = _occ_events(run_dir)
+            log(f"  occupancy grid (step, full rebuild, occupied share): "
+                f"{ev}")
 
-    # Resume from a copy of the mid-run checkpoint.
-    os.makedirs(os.path.join(exps, "resumed", "ckpt"))
-    shutil.copy(os.path.join(run_dir, "ckpt", mid),
-                os.path.join(exps, "resumed", "ckpt", mid))
-    train.main(base + ["--save_dir", "resumed", "--iters_all",
-                       str(iters_all), "--resume", "true"])
-    total, other = counts["train"], counts["codes"]
-    resumed = total - launches
-    losses_r = _losses(os.path.join(exps, "resumed"))
-    log(f"  resume: {resumed} launches (expected {iters_all - iters_crop}); "
-        f"loss by step {[(s, round(v, 6)) for s, v in losses_r]}")
-    if resumed != (iters_all - iters_crop if on_card else 0) or other:
-        raise AssertionError("kernel launch count off on the resumed run")
+        resumed_run = f"{run}_resumed"
+        os.makedirs(os.path.join(exps, resumed_run, "ckpt"))
+        shutil.copy(os.path.join(run_dir, "ckpt", mid_ck),
+                    os.path.join(exps, resumed_run, "ckpt", mid_ck))
+        train.main(base + ["--save_dir", resumed_run, "--iters_all",
+                           str(iters_all), "--resume", "true"])
+        total = lc.get()
+        if lc.plain_on_cuda:
+            raise AssertionError(f"{lc.plain_on_cuda} plain-version calls "
+                                 f"on CUDA tensors on the training path")
+    resumed = {k: total[k] - first[k] for k in total}
+    losses_r = _losses(os.path.join(exps, resumed_run))
+    log(f"  resume: launches {resumed} in {iters_all - mid} steps; loss by "
+        f"step {[(s_, round(v, 6)) for s_, v in losses_r]}")
+    _expect(resumed, {k: v * (iters_all - mid) * on_card
+                      for k, v in per_step.items()}, "resumed run")
+    if not np.isfinite([v for _, v in losses_r]).all():
+        raise AssertionError("resumed losses not finite")
+    last, last_r = losses[-1], losses_r[-1]
+    if hier:
+        # A resume past the warm-up rebuilds the grid from the restored
+        # model (JAX trainer.py:300-311), so the runs need not agree.
+        ev = _occ_events(os.path.join(exps, resumed_run))
+        log(f"  resumed occupancy grid (step, full rebuild, occupied "
+            f"share): {ev}; final loss {last_r[1]:.6f} (uninterrupted "
+            f"{last[1]:.6f})")
+        if not ev or ev[0][:2] != (mid, True):
+            raise AssertionError("the resumed run did not rebuild its "
+                                 "occupancy grid")
     # The uninterrupted and the resumed run see the same batches and
     # depths; on the card the f32 atomic ray sums may change last bits.
-    last, last_r = losses[-1], losses_r[-1]
-    if last_r[0] != last[0] or not abs(last_r[1] - last[1]) <= \
+    elif last_r[0] != last[0] or not abs(last_r[1] - last[1]) <= \
             1e-3 * abs(last[1]):
         raise AssertionError(f"resumed run ends at {last_r}, the "
                              f"uninterrupted one at {last}")
     if on_card:
-        profile_training(jsonfile, run_dir, device, batch)
-    return {"launches": total, "run": "smoke"}
+        profile_training(jsonfile, run_dir, device, batch, run)
+    return total
 
 
 def profile_training(jsonfile: str, run_dir: str, device: str,
-                     batch: int, steps: int = 10) -> None:
-    """The training step's profile, resumed from the run's checkpoint."""
+                     batch: int, what: str, steps: int = 10) -> None:
+    """The training step's profile, resumed from the run's checkpoint
+    (with its occupancy grid rebuilt, as a resumed run does)."""
     from codenerf_tpu_torch.config import load_hparams
     from codenerf_tpu_torch.training.trainer import Trainer
 
@@ -474,45 +724,50 @@ def profile_training(jsonfile: str, run_dir: str, device: str,
                  device=device)
     tr.ckpt_dir = os.path.join(run_dir, "ckpt")
     tr.resume()
+    if hp.train_occupancy is not None:
+        tr._rebuild_occupancy()
     out = tr.profile_steps(steps, trace_dir=os.path.join(
-        os.path.dirname(run_dir), "profile"))
-    log_step_profile("train", out["untraced_ms"], out["wall_ms"],
+        os.path.dirname(run_dir), f"profile_{what}"))
+    log_step_profile(f"{what} train", out["untraced_ms"], out["wall_ms"],
                      out["profile"], steps)
 
 
-def optimize_path(work: str, jsonfile: str, run: str, device: str = "cuda",
-                  H: int = 128, n_objs: int = 2, n_views: int = 4,
-                  num_opts: int = 5) -> dict:
-    """Phase 4: the port's optimize CLI on the training run's ``ckpt/``."""
+def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
+                  num_opts: int, per_chunk: dict, extra=(),
+                  n_objs: int = 2, n_views: int = 4) -> dict:
+    """The port's optimize CLI on the training run's ``ckpt/``.
+    ``per_chunk``: the launches of each kernel mode one chunk of one step
+    makes."""
     import numpy as np
     import torch
 
     from codenerf_tpu_torch import optimize
     from codenerf_tpu_torch.config import load_hparams
-    from codenerf_tpu_torch.ops import fused_train
     from codenerf_tpu_torch.renderer import chunk_plan
 
     hp = load_hparams(jsonfile)
     data_dir = os.path.join(work, "data")
-    write_dataset(data_dir, "cars_test", n_objs, n_views, H)
+    if not os.path.isdir(os.path.join(data_dir, "srn_cars", "cars_test")):
+        write_dataset(data_dir, "cars_test", n_objs, n_views, H)
     exps = os.path.join(work, "exps")
     if os.path.exists(os.path.join(exps, run, "models.pth")):
         raise AssertionError("the run must be read from its ckpt/")
-    counts = fused_train.train_fused.launches
-    for mode in counts:
-        counts[mode] = 0
-    out = optimize.main([
-        "--jsonfile", jsonfile, "--exps_root", exps, "--saved_dir", run,
-        "--num_opts", str(num_opts), "--tgt_instances", "0", "--device",
-        device])
-    launches, other = counts["codes"], counts["train"]
+    with LaunchCounts() as lc:
+        out = optimize.main([
+            "--jsonfile", jsonfile, "--exps_root", exps, "--saved_dir", run,
+            "--num_opts", str(num_opts), "--tgt_instances", "0", "--device",
+            device, *extra])
+        counts = lc.get()
+        if lc.plain_on_cuda:
+            raise AssertionError(f"{lc.plain_on_cuda} plain-version calls "
+                                 f"on CUDA tensors on the optimize path")
     _, chunks, _ = chunk_plan(H * H, 4096)
-    expect = num_opts * chunks * n_objs
-    log(f"  optimize: {launches} launches of the frozen-model kernel "
-        f"(expected {num_opts} steps x {chunks} chunks x {n_objs} objects "
-        f"= {expect})")
-    if launches != (expect if device != "cpu" else 0) or other:
-        raise AssertionError("kernel launch count off on the optimize path")
+    n = num_opts * chunks * n_objs
+    log(f"  optimize: launches {counts} (expected {num_opts} steps x "
+        f"{chunks} chunks x {n_objs} objects = {n} of each of "
+        f"{sorted(per_chunk)})")
+    _expect(counts, {k: v * n * (device != "cpu")
+                     for k, v in per_chunk.items()}, "optimize path")
     with open(os.path.join(out["save_dir"], "results.json")) as f:
         res = json.load(f)
     vals = [res["mean_psnr"], res["mean_ssim"]]
@@ -539,17 +794,20 @@ def optimize_path(work: str, jsonfile: str, run: str, device: str = "cuda",
         f"({H}x{H})")
     if device != "cpu":
         profile_optimize(hp, os.path.join(exps, run), data_dir, device)
-    return {"launches": launches}
+    return counts
 
 
 def profile_optimize(hp, run_dir: str, data_dir: str, device: str,
                      steps: int = 10) -> None:
     """Where an optimization step's time goes: ``steps`` steps of the first
     object untraced, then ``steps`` more under torch.profiler, after one
-    warm-up step."""
+    warm-up step. With ``train_occupancy`` the category grid bounds the
+    depths, as with ``--opt_occ true``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from codenerf_tpu_torch.config import resolve_dtype
+    from codenerf_tpu_torch.core.occupancy import rebuild_category_grid
     from codenerf_tpu_torch.data.srn import SRNDataset
     from codenerf_tpu_torch.models.codenerf import CodeNeRF
     from codenerf_tpu_torch.models.codes import mean_code
@@ -559,8 +817,16 @@ def profile_optimize(hp, run_dir: str, data_dir: str, device: str,
     state, sc, tc = load_training_checkpoint(os.path.join(run_dir, "ckpt"))
     model = CodeNeRF(hp.net)
     model.load_state_dict(state)
+    occ, what = None, "optimize"
+    if hp.train_occupancy is not None:
+        oc = hp.train_occupancy
+        occ = rebuild_category_grid(
+            model.to(device), sc.to(device), tc.to(device), oc,
+            oc.radius or hp.render.bound_sphere_radius,
+            compute_dtype=resolve_dtype(hp.compute_dtype))
+        what = "hier optimize"
     opt = CodeOptimizer(model, hp, mean_code(sc), mean_code(tc),
-                        device=device)
+                        device=device, occ_grid=occ)
     ds = SRNDataset(splits="cars_test", data_dir=data_dir, max_objects=1)
     gen = torch.Generator(device=device).manual_seed(0)
     args = (ds.images[0], ds.poses[0], float(ds.focals[0]), [0], gen)
@@ -576,7 +842,22 @@ def profile_optimize(hp, run_dir: str, data_dir: str, device: str,
         opt.optimize_object(*args, num_opts=steps, progress_images=True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    log_step_profile("optimize", untraced_ms, wall_ms, prof, steps)
+    log_step_profile(what, untraced_ms, wall_ms, prof, steps)
+
+
+def _peak(device: str) -> str:
+    import torch
+
+    if device == "cpu":
+        return "not measured (CPU)"
+    return f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
+
+
+def _reset_peak(device: str) -> None:
+    import torch
+
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
 
 
 def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
@@ -585,18 +866,55 @@ def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     the mid-run step). ``device="cpu"`` with a small ``batch`` and ``H``
     rehearses them through the plain versions (the launch counts stay 0
     there: they count CUDA launches only)."""
+    jsonfile = _config(work, "srncar_fused.json", check_points=5)
+    t0 = time.perf_counter()
+    _reset_peak(device)
+    train = train_path(work, jsonfile, device, batch, H, iters_crop=5,
+                       iters_all=10, mid=5, per_step={"train": 1},
+                       run="smoke", hier=False)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{_peak(device)}")
+    t0 = time.perf_counter()
+    _reset_peak(device)
+    codes = optimize_path(work, jsonfile, "smoke", device, H, num_opts,
+                          per_chunk={"codes": 1})
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{_peak(device)}")
+    return {"train": train["train"], "codes": codes["codes"]}
+
+
+def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
+              H: int = 128, num_opts: int = 5, grid_size=None) -> dict:
+    """Phases 5 and 6 at ``srncar_hier_occ.json`` widths, with its cuts:
+    the occupancy warm-up at 4 steps and a refresh every 2 (so that the
+    rebuild and two refreshes run), ``check_points`` at mid-run, 8 steps.
+    ``grid_size`` replaces the grid's G (the CPU rehearsal's cut)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, "jsonfiles", "srncar_fused.json")) as f:
-        cfg_json = json.load(f)
-    cfg_json["data"]["data_dir"] = os.path.join(work, "data")
-    cfg_json["check_points"] = 5
-    jsonfile = os.path.join(work, "srncar_fused.json")
-    with open(jsonfile, "w") as f:
-        json.dump(cfg_json, f)
-    tp = train_path(work, jsonfile, device, batch, H)
-    op = optimize_path(work, jsonfile, tp["run"], device, H,
-                       num_opts=num_opts)
-    return {"train": tp["launches"], "codes": op["launches"]}
+    with open(os.path.join(here, "jsonfiles", "srncar_hier_occ.json")) as f:
+        occ_cfg = json.load(f)["train_occupancy"]
+    occ_cfg.update(warmup=4, update_every=2)
+    if grid_size:
+        occ_cfg["grid_size"] = grid_size
+    jsonfile = _config(work, "srncar_hier_occ.json", check_points=4,
+                       train_occupancy=occ_cfg)
+    t0 = time.perf_counter()
+    _reset_peak(device)
+    train = train_path(work, jsonfile, device, batch, H, iters_crop=4,
+                       iters_all=8, mid=4,
+                       per_step={"sigma": 1, "dual_train": 1}, run="hier",
+                       hier=True)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{_peak(device)}")
+    t0 = time.perf_counter()
+    _reset_peak(device)
+    codes = optimize_path(work, jsonfile, "hier", device, H, num_opts,
+                          per_chunk={"sigma": 1, "dual_codes": 1},
+                          extra=("--opt_occ", "true"))
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{_peak(device)}")
+    return {"sigma": train["sigma"] + codes["sigma"],
+            "dual_train": train["dual_train"],
+            "dual_codes": codes["dual_codes"]}
 
 
 def main() -> int:
@@ -627,30 +945,52 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Function" in line:
                 log(f"  ptxas: {line.strip()}")
 
+    t0 = time.perf_counter()
     log(f"phase 2: kernel vs plain version at full width (W=256, 3+1 "
         f"blocks, S={S_FULL}); frozen-model mode at R={R_CODES}")
     entries = {"codes": kernel_check(dev, weight_grads=False)}
     log(f"phase 2: weight-gradient mode at R={R_TRAIN}")
     entries["train"] = kernel_check(dev, weight_grads=True)
     torch.cuda.empty_cache()
+    log(f"phase 2: sigma-only forward at R={R_TRAIN} and R={R_CODES}, "
+        f"S={S_COARSE}")
+    entries["sigma"] = sigma_check(dev, R_TRAIN)
+    small = sigma_check(dev, R_CODES)
+    entries["sigma"]["max_abs_err"] = max(entries["sigma"]["max_abs_err"],
+                                          small["max_abs_err"])
+    log(f"phase 2: dual mode, weight gradients at R={R_TRAIN}, S={S_UNION} "
+        f"({S_COARSE} coarse + {S_UNION - S_COARSE} fine)")
+    entries["dual_train"] = dual_check(dev, weight_grads=True)
+    torch.cuda.empty_cache()
+    log(f"phase 2: dual mode, frozen at R={R_CODES}, S={S_UNION}")
+    entries["dual_codes"] = dual_check(dev, weight_grads=False)
+    torch.cuda.empty_cache()
+    log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     if args.check:
         log("phase 2: done (--check)")
         return 0
 
-    log("phases 3-4: main path, python -m codenerf_tpu_torch.train then "
-        "python -m codenerf_tpu_torch.optimize at srncar_fused.json widths")
+    log("phases 3-4: coarse main path, python -m codenerf_tpu_torch.train "
+        "then python -m codenerf_tpu_torch.optimize at srncar_fused.json "
+        "widths")
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_", dir=scratch)
     try:
         launches = main_path(work)
+        torch.cuda.empty_cache()
+        log("phases 5-6: hierarchical main path, python -m "
+            "codenerf_tpu_torch.train then python -m "
+            "codenerf_tpu_torch.optimize --opt_occ true at "
+            "srncar_hier_occ.json widths")
+        launches.update(hier_path(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     rows = []
-    for mode in ("codes", "train"):
+    for mode in ("codes", "train", "sigma", "dual_train", "dual_codes"):
         entries[mode]["launches"] = launches[mode]
         rows.append({k: entries[mode][k] for k in keys})
     print(json.dumps({"kernels": rows}))

@@ -5,7 +5,7 @@ package so each counterpart is easy to find; the JAX package stays the
 reference that every module here is tested against. Nothing here imports
 ``jax`` or ``codenerf_tpu``.
 
-Two paths are ported, both coarse-only at the flagship widths:
+Two paths are ported at the flagship widths, coarse and hierarchical:
 
 - category training (``python -m codenerf_tpu_torch.train``, ``Trainer``):
   each step runs the single-pass kernel (``ops/fused_train.py``, CUDA
@@ -16,6 +16,13 @@ Two paths are ported, both coarse-only at the flagship widths:
   codenerf_tpu_torch.optimize``, reading the training run's ``ckpt/``):
   the same kernel frozen drives each optimization step, and eval renders
   through the plain ``CodeNeRF`` module.
+
+With hierarchical sampling (``N_importance > 0``, shared fine weights;
+``jsonfiles/srncar_hier_occ.json``) both paths run a sigma-only coarse
+forward (``ops/fused_mlp.sigma_fwd``) and then the single-pass kernel in
+its dual-composite mode at the union of the coarse and fine depths; sphere
+bounds and the occupancy grid (``core/occupancy.py``) tighten each ray's
+sampled span.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; requesting CUDA where there is none raises.

@@ -66,8 +66,8 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainOccupancyConfig:
-    """Training-time occupancy grid settings (parsed so configs load; the
-    occupancy path is not ported yet — see ROADMAP.md)."""
+    """Training-time occupancy grid settings (``core/occupancy.py``,
+    ``training/trainer.py``)."""
 
     grid_size: int = 64
     update_every: int = 500

@@ -31,6 +31,26 @@ def camera_rays(H: int, W: int, focal, c2w, device=None
     return rays_o.reshape(-1, 3), viewdirs.reshape(-1, 3)
 
 
+def ray_sphere_bounds(ray_o: torch.Tensor, viewdir: torch.Tensor,
+                      near: float, far: float, radius: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-ray ``[t0, t1]`` where the ray crosses the origin-centred
+    sphere of ``radius``, clipped to ``[near, far]`` with ``t1 >= t0``.
+    A ray that misses keeps the degenerate ``[near, near + eps]``, so the
+    batch shape never changes (``codenerf_tpu/core/rays.py``)."""
+    b = torch.sum(ray_o * viewdir, dim=-1)
+    disc = b * b - (torch.sum(ray_o * ray_o, dim=-1) - radius * radius)
+    hit = disc > 0.0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = torch.clamp(-b - sq, near, far)
+    t1 = torch.clamp(-b + sq, near, far)
+    eps = 1e-3 * (far - near)
+    t0 = torch.where(hit, t0, torch.full_like(t0, near))
+    t1 = torch.where(hit, torch.maximum(t1, t0 + eps),
+                     torch.full_like(t1, near + eps))
+    return t0, t1
+
+
 def pixel_rays(uv: torch.Tensor, focal: torch.Tensor, c2w: torch.Tensor,
                H: float, W: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rays for a batch of (pixel, pose, focal) triples — the training

@@ -47,3 +47,18 @@ def composite(sigmas: torch.Tensor, rgbs, z_vals: torch.Tensor,
     if white_bg:
         rgb = rgb + (1.0 - acc)[..., None]
     return RenderOutput(rgb=rgb, depth=depth, acc=acc, weights=weights)
+
+
+def composite_weights(sigmas: torch.Tensor,
+                      z_vals: torch.Tensor) -> torch.Tensor:
+    """The compositing weights alone, the math of :func:`composite`.
+    The hierarchical coarse pass takes them from the sigma-only kernel's
+    output to drive ``sample_pdf`` (``ops/fused_train.py``)."""
+    sigmas = sigmas.float()
+    z_vals = z_vals.float().expand(sigmas.shape)
+    deltas = z_vals[..., 1:] - z_vals[..., :-1]
+    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)], -1)
+    alphas = 1.0 - torch.exp(-sigmas * deltas)
+    trans = torch.cat([torch.ones_like(alphas[..., :1]),
+                       1.0 - alphas + 1e-10], dim=-1)
+    return alphas * torch.cumprod(trans, dim=-1)[..., :-1]

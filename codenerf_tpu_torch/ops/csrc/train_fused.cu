@@ -1,4 +1,6 @@
-// Single-pass CodeNeRF loss kernel for Hopper (sm_90a), in its two modes.
+// Single-pass CodeNeRF loss kernel for Hopper (sm_90a), in its modes, and
+// the sigma-only forward of the hierarchical coarse pass (sigma_step, at
+// the end of this file).
 //
 // Replaces the TPU kernel codenerf_tpu/ops/fused_train.py::_train_kernel:
 // per ray, the in-kernel xyz expansion and 64-lane positional encoding, the
@@ -10,6 +12,10 @@
 // weight_grads=False (test-time code optimization). Mode weight_grads=True
 // (category training) also sums every weight's and bias's f32 gradient over
 // all points, in the operand order of ops/fused_train.py::weight_shapes.
+// Either mode takes the dual composite of hierarchical sampling (the TPU
+// kernel's dual=True): z is the union of coarse and fine depths, and the
+// head kernel also composites the coarse subset from the same evaluation,
+// adding its loss's cotangents before the one backward chain.
 //
 // Design (see ops/fused_train.py for the bound). The TPU kernel keeps all
 // weights and every activation of a 16-ray tile (~6 MB) in VMEM for the
@@ -517,6 +523,8 @@ struct HeadArgs {
   const bf16* r;           // (P, W/2) rgb_hidden output
   const float* z;          // (R, S)
   const float* gt8;        // (R, 8)
+  const float* cmask;      // (R, S) or null: the dual mode's coarse mask
+  const float* cdelta;     // (R, S) or null: its consecutive-coarse deltas
   const float* w_sig;      // (W,)
   const float* b_sig;      // (1,)
   const bf16* w_rgb;       // (W/2, 8)
@@ -540,6 +548,122 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
   return v;
+}
+
+struct CompositeOut {
+  float rgb[3], dep, acc, se[3];
+};
+
+// One composite of a ray and its backward, run by one warp; lane l owns
+// the contiguous samples [l*per, l*per + per). Sample s has the delta
+// ``cdelta[s]`` and the cumprod factor e_s + 1e-10 * cmask[s] when the dual
+// mode's coarse planes are given; else the union delta z[s+1] - z[s]
+// (1e10 at the last sample) and e_s + 1e-10. The composite's sigma
+// cotangent (before the softplus derivative) goes to s_gs and its rgb
+// cotangents w_s * g_k to s_gc, in f32: stored, or with ``accumulate``
+// added to what a previous pass stored there.
+__device__ __forceinline__ CompositeOut composite_pass(
+    const HeadArgs& h, int ray, int lane, const float* s_pre,
+    float (*s_c)[MAX_S], float (*s_gc)[MAX_S], float* s_gs,
+    const float* cmask, const float* cdelta, bool accumulate) {
+  const int S = h.S;
+  const int per = (S + 31) / 32;
+  const float* zr = h.z + (size_t)ray * S;
+  float e_[MAX_PER_LANE], u_[MAX_PER_LANE], T_[MAX_PER_LANE],
+      w_[MAX_PER_LANE], dl_[MAX_PER_LANE];
+  float loc = 1.f;
+#pragma unroll
+  for (int q = 0; q < MAX_PER_LANE; ++q) {
+    const int s = lane * per + q;
+    e_[q] = 1.f; u_[q] = 1.f; dl_[q] = 0.f; T_[q] = loc;
+    if (q < per && s < S) {
+      const float x = s_pre[s];
+      const float sig = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+      if (cdelta) {
+        dl_[q] = cdelta[s];
+        e_[q] = expf(-sig * dl_[q]);
+        u_[q] = e_[q] + 1e-10f * cmask[s];
+      } else {
+        dl_[q] = (s < S - 1) ? zr[s + 1] - zr[s] : 1e10f;
+        e_[q] = expf(-sig * dl_[q]);
+        u_[q] = e_[q] + 1e-10f;
+      }
+      loc *= u_[q];
+    }
+  }
+  float incl = loc;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl *= o;
+  }
+  float excl = __shfl_up_sync(FULL, incl, 1);
+  if (lane == 0) excl = 1.f;
+  float rs0 = 0.f, rs1 = 0.f, rs2 = 0.f, dep = 0.f, acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX_PER_LANE; ++q) {
+    const int s = lane * per + q;
+    w_[q] = 0.f;
+    if (q < per && s < S) {
+      T_[q] *= excl;
+      w_[q] = (1.f - e_[q]) * T_[q];
+      rs0 += w_[q] * s_c[0][s];
+      rs1 += w_[q] * s_c[1][s];
+      rs2 += w_[q] * s_c[2][s];
+      dep += w_[q] * zr[s];
+      acc += w_[q];
+    }
+  }
+  rs0 = warp_sum(rs0); rs1 = warp_sum(rs1); rs2 = warp_sum(rs2);
+  dep = warp_sum(dep); acc = warp_sum(acc);
+  CompositeOut out;
+  out.rgb[0] = rs0; out.rgb[1] = rs1; out.rgb[2] = rs2;
+  out.dep = dep; out.acc = acc;
+  float g[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (h.white_bg) out.rgb[k] = (out.rgb[k] + 1.f) - acc;
+    const float diff = out.rgb[k] - h.gt8[(size_t)ray * 8 + k];
+    out.se[k] = diff * diff;
+    g[k] = h.two_scale * diff;
+  }
+  const float resid = h.white_bg ? -((g[0] + g[1]) + g[2]) : 0.f;
+
+  // dL_s = sum_{i > s} w_i dw_i: a reverse exclusive scan.
+  float wdw[MAX_PER_LANE], dw[MAX_PER_LANE], lsum = 0.f;
+#pragma unroll
+  for (int q = 0; q < MAX_PER_LANE; ++q) {
+    const int s = lane * per + q;
+    dw[q] = 0.f; wdw[q] = 0.f;
+    if (q < per && s < S) {
+      dw[q] = g[0] * s_c[0][s] + g[1] * s_c[1][s] + g[2] * s_c[2][s] + resid;
+      wdw[q] = w_[q] * dw[q];
+      lsum += wdw[q];
+    }
+  }
+  float suf = lsum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_down_sync(FULL, suf, off);
+    if (lane + off < 32) suf += o;
+  }
+  float run = __shfl_down_sync(FULL, suf, 1);
+  if (lane == 31) run = 0.f;
+#pragma unroll
+  for (int q = MAX_PER_LANE - 1; q >= 0; --q) {
+    const int s = lane * per + q;
+    if (q < per && s < S) {
+      const float dL = run;
+      run += wdw[q];
+      const float dx = e_[q] * (T_[q] * dw[q] - dL / u_[q]);
+      const float gsig = dx * dl_[q];
+      s_gs[s] = accumulate ? s_gs[s] + gsig : gsig;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        s_gc[k][s] = accumulate ? s_gc[k][s] + w_[q] * g[k] : w_[q] * g[k];
+    }
+  }
+  return out;
 }
 
 __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
@@ -574,106 +698,46 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
   }
   __syncthreads();
 
-  // Phase 2: composite forward, loss and composite backward (warp 0).
-  // Lane l owns the contiguous samples [l*per, l*per + per).
+  // Phase 2 (warp 0): the composite forward, the loss and the composite
+  // backward; in the dual mode a second pass over the coarse planes, whose
+  // cotangents add to the first's. Then dsig = g_sigma * sigmoid(sig_pre)
+  // and the bf16 rgb cotangents, with the same sample ownership.
   if (warp == 0) {
+    const CompositeOut f = composite_pass(h, ray, lane, s_pre, s_c, s_gc,
+                                          s_dsig, nullptr, nullptr, false);
+    float se_c[3] = {0.f, 0.f, 0.f};
+    if (h.cmask) {
+      const CompositeOut c = composite_pass(
+          h, ray, lane, s_pre, s_c, s_gc, s_dsig, h.cmask + p0,
+          h.cdelta + p0, true);
+      se_c[0] = c.se[0]; se_c[1] = c.se[1]; se_c[2] = c.se[2];
+    }
     const int per = (S + 31) / 32;
-    const float* zr = h.z + (size_t)ray * S;
-    float e_[MAX_PER_LANE], u_[MAX_PER_LANE], T_[MAX_PER_LANE],
-        w_[MAX_PER_LANE], dl_[MAX_PER_LANE];
-    float loc = 1.f;
-#pragma unroll
-    for (int q = 0; q < MAX_PER_LANE; ++q) {
+    for (int q = 0; q < per; ++q) {
       const int s = lane * per + q;
-      e_[q] = 1.f; u_[q] = 1.f; dl_[q] = 0.f; T_[q] = loc;
-      if (q < per && s < S) {
+      if (s < S) {
         const float x = s_pre[s];
-        const float sig = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-        dl_[q] = (s < S - 1) ? zr[s + 1] - zr[s] : 1e10f;
-        e_[q] = expf(-sig * dl_[q]);
-        u_[q] = e_[q] + 1e-10f;
-        loc *= u_[q];
-      }
-    }
-    float incl = loc;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl *= o;
-    }
-    float excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = 1.f;
-    float rs0 = 0.f, rs1 = 0.f, rs2 = 0.f, dep = 0.f, acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < MAX_PER_LANE; ++q) {
-      const int s = lane * per + q;
-      w_[q] = 0.f;
-      if (q < per && s < S) {
-        T_[q] *= excl;
-        w_[q] = (1.f - e_[q]) * T_[q];
-        rs0 += w_[q] * s_c[0][s];
-        rs1 += w_[q] * s_c[1][s];
-        rs2 += w_[q] * s_c[2][s];
-        dep += w_[q] * zr[s];
-        acc += w_[q];
-      }
-    }
-    rs0 = warp_sum(rs0); rs1 = warp_sum(rs1); rs2 = warp_sum(rs2);
-    dep = warp_sum(dep); acc = warp_sum(acc);
-    float rgb[3] = {rs0, rs1, rs2}, g[3], se[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (h.white_bg) rgb[k] = (rgb[k] + 1.f) - acc;
-      const float diff = rgb[k] - h.gt8[(size_t)ray * 8 + k];
-      se[k] = diff * diff;
-      g[k] = h.two_scale * diff;
-    }
-    const float resid = h.white_bg ? -((g[0] + g[1]) + g[2]) : 0.f;
-
-    // dL_s = sum_{i > s} w_i dw_i: a reverse exclusive scan.
-    float wdw[MAX_PER_LANE], dw[MAX_PER_LANE], lsum = 0.f;
-#pragma unroll
-    for (int q = 0; q < MAX_PER_LANE; ++q) {
-      const int s = lane * per + q;
-      dw[q] = 0.f; wdw[q] = 0.f;
-      if (q < per && s < S) {
-        dw[q] = g[0] * s_c[0][s] + g[1] * s_c[1][s] + g[2] * s_c[2][s] + resid;
-        wdw[q] = w_[q] * dw[q];
-        lsum += wdw[q];
-      }
-    }
-    float suf = lsum;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_down_sync(FULL, suf, off);
-      if (lane + off < 32) suf += o;
-    }
-    float run = __shfl_down_sync(FULL, suf, 1);
-    if (lane == 31) run = 0.f;
-#pragma unroll
-    for (int q = MAX_PER_LANE - 1; q >= 0; --q) {
-      const int s = lane * per + q;
-      if (q < per && s < S) {
-        const float dL = run;
-        run += wdw[q];
-        const float dx = e_[q] * (T_[q] * dw[q] - dL / u_[q]);
-        const float gsig = dx * dl_[q];
-        const float x = s_pre[s];
-        const float ds = gsig * (1.f / (1.f + expf(-x)));
+        const float ds = s_dsig[s] * (1.f / (1.f + expf(-x)));
         h.dsig[p0 + s] = ds;
         s_dsig[s] = ds;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) s_gc[k][s] = round_bf(w_[q] * g[k]);
+        for (int k = 0; k < 3; ++k) s_gc[k][s] = round_bf(s_gc[k][s]);
       }
     }
     if (lane == 0) {
+      // The fine SE in lanes 0..2, the dual mode's coarse SE in 4..6.
       float* se_row = h.se8 + (size_t)ray * 8;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) se_row[k] = k < 3 ? se[k] : 0.f;
+      for (int k = 0; k < 3; ++k) {
+        se_row[k] = f.se[k];
+        se_row[4 + k] = se_c[k];
+      }
+      se_row[3] = 0.f;
+      se_row[7] = 0.f;
       if (h.rgb8) {
         float* o = h.rgb8 + (size_t)ray * 8;
-        o[0] = rgb[0]; o[1] = rgb[1]; o[2] = rgb[2]; o[3] = dep; o[4] = acc;
-        o[5] = 0.f; o[6] = 0.f; o[7] = 0.f;
+        o[0] = f.rgb[0]; o[1] = f.rgb[1]; o[2] = f.rgb[2]; o[3] = f.dep;
+        o[4] = f.acc; o[5] = 0.f; o[6] = 0.f; o[7] = 0.f;
       }
     }
   }
@@ -824,7 +888,11 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
   *n_f32 += part + (size_t)(R + COLSUM_GROUPS) * head_part_cols(W);
 }
 
-// One call on R rays x S samples. ``wts`` is a host array of the 2*k
+// One call on R rays x S samples. ``cmask`` and ``cdelta`` ((R, S) f32,
+// both or neither) select the dual-composite mode: z is the union of the
+// coarse and fine depths, and the coarse composite over the cmask subset
+// (deltas cdelta) adds its squared error in se8 lanes 4..6 and its
+// cotangents to the fine composite's. ``wts`` is a host array of the 2*k
 // device pointers of ops/fused_train.py::flatten_params, in its order:
 // 2-D weights bf16 (in, out), 1-D weights and biases f32. With
 // ``weight_grads``, ``dwb`` is a host array of 2*k f32 device pointers in
@@ -834,11 +902,13 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
 extern "C" int fused_step(
     const float* ro8, const float* vd8, const float* z, const bf16* sproj,
     const bf16* tproj, const bf16* vcontrib, const float* gt8,
+    const float* cmask, const float* cdelta,
     const void* const* wts, bf16* ws, float* ws32, float* se8, float* rgb8,
     bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib, void* const* dwb,
     int weight_grads, int R, int S, int W, int nb, int nt, int n_freq,
     float two_scale, int white_bg, cudaStream_t stream) {
-  if (S > MAX_S || W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1)
+  if (S > MAX_S || W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1
+      || (cmask == nullptr) != (cdelta == nullptr))
     return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S, PW = P * W;
   auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
@@ -922,6 +992,7 @@ extern "C" int fused_step(
   // ---- heads, composite, loss, composite backward
   HeadArgs h = {};
   h.R = R; h.S = S; h.W = W; h.t = t; h.r = r; h.z = z; h.gt8 = gt8;
+  h.cmask = cmask; h.cdelta = cdelta;
   h.w_sig = wf(i_sig); h.b_sig = bias(i_sig); h.w_rgb = wb(i_rgbo);
   h.b_rgb = bias(i_rgbo); h.two_scale = two_scale; h.white_bg = white_bg;
   h.se8 = se8; h.rgb8 = rgb8; h.dsig = dsig; h.g_r = g_r;
@@ -1003,4 +1074,90 @@ extern "C" int fused_step(
   CHECK(launch_convert(rs_t, d_tproj, (size_t)R * nt * W, stream));
   CHECK(launch_convert(rs_v, d_vcontrib, (size_t)R * W, stream));
   return 0;
+}
+
+namespace {
+
+// Sigma head of the sigma-only forward: one warp per point, each lane 8
+// contiguous lanes of t per 256, softplus(sum_k bf16 t_k * w_sig[k] +
+// b_sig) in f32.
+__global__ void sigma_head_kernel(const bf16* t, const float* w_sig,
+                                  const float* b_sig, float* sigma, size_t P,
+                                  int W) {
+  const int lane = threadIdx.x & 31;
+  const size_t warps = (size_t)gridDim.x * (blockDim.x / 32);
+  for (size_t p = blockIdx.x * (size_t)(blockDim.x / 32) + threadIdx.x / 32;
+       p < P; p += warps) {
+    float a = 0.f;
+    for (int k0 = 8 * lane; k0 < W; k0 += 256) {
+      const uint4 v = *reinterpret_cast<const uint4*>(t + p * W + k0);
+      const __nv_bfloat162* t2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a += __low2float(t2[i]) * w_sig[k0 + 2 * i];
+        a += __high2float(t2[i]) * w_sig[k0 + 2 * i + 1];
+      }
+    }
+    a = warp_sum(a);
+    if (lane == 0) {
+      const float x = a + b_sig[0];
+      sigma[p] = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+    }
+  }
+}
+
+}  // namespace
+
+// Sigma-only forward on R rays x S samples: replaces
+// codenerf_tpu/ops/fused_mlp.py::_kernel(sigma_only=True), the coarse pass
+// of hierarchical sampling, whose compositing weights need sigma alone.
+// The shape trunk of fused_step's forward (the enc_xyz GEMM with the PE
+// built in its A-tile loads, each shape block's injecting epilogue,
+// enc_shape without activation) between two ping-pong (P, W) bf16 buffers
+// in ``ws`` (2 * R * S * W elements: nothing is kept for a backward), then
+// sigma_head_kernel writes ``sigma`` (R, S) f32. ``wts`` as for
+// fused_step; only the enc_xyz, shape, enc_shape and sigma entries are
+// read. Bound by operations: 2 * W * (64 + W * (nb + 1)) FLOP per point.
+extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
+                          const bf16* sproj, const void* const* wts, bf16* ws,
+                          float* sigma, int R, int S, int W, int nb,
+                          int n_freq, cudaStream_t stream) {
+  if (W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t P = (size_t)R * S, PW = P * W;
+  auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
+  auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
+  bf16* buf[2] = {ws, ws + PW};
+  GemmArgs base = {};
+  base.M = (int)P;
+  base.S = S;
+
+  GemmArgs g = base;
+  g.K = 64; g.N = W; g.ro8 = ro8; g.vd8 = vd8; g.z = z; g.n_freq = n_freq;
+  g.B = wb(0); g.bias = bias(0); g.relu = 1;
+  g.out_inj = buf[0]; g.inj = sproj; g.inj_ld = nb * W;
+  CHECK(launch_gemm(g, true, false, stream));
+  int cur = 0;
+  for (int j = 0; j < nb; ++j) {
+    g = base; g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(1 + j);
+    g.bias = bias(1 + j); g.relu = 1;
+    if (j + 1 < nb) {
+      g.out_inj = buf[1 - cur];
+      g.inj = sproj + (size_t)(j + 1) * W; g.inj_ld = nb * W;
+    } else {
+      g.out = buf[1 - cur];
+    }
+    CHECK(launch_gemm(g, false, false, stream));
+    cur = 1 - cur;
+  }
+  g = base; g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(nb + 1);
+  g.bias = bias(nb + 1); g.out = buf[1 - cur];
+  CHECK(launch_gemm(g, false, false, stream));
+  cur = 1 - cur;
+  const size_t blocks = (P + 7) / 8;        // 8 warps a block
+  sigma_head_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0,
+                      stream>>>(buf[cur],
+                                static_cast<const float*>(wts[2 * (nb + 2)]),
+                                bias(nb + 2), sigma, P, W);
+  return (int)cudaGetLastError();
 }

@@ -16,9 +16,28 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   log-space triangular (S, S) matmul for its matrix unit; the natural
   spelling here (and in the CUDA kernel, a per-ray warp scan) is an
   exclusive cumulative product. Same math to f32 rounding.
+  :func:`composite_fwd_dual_in_kernel` / :func:`composite_bwd_dual_in_kernel`
+  add the dual mode's coarse composite over the same union samples.
+- :func:`sigma_fwd` — the sigma-only forward, replacing
+  ``codenerf_tpu/ops/fused_mlp.py::_kernel(sigma_only=True)`` (launched by
+  ``invoke_fwd``): the density of every sample, the only output the
+  hierarchical coarse pass needs (its compositing weights drive
+  ``sample_pdf``). On CUDA tensors it launches ``sigma_step`` of
+  ``csrc/train_fused.cu``: the single-pass kernel's own forward GEMMs
+  through the shape trunk (the PE built in the enc_xyz GEMM's loads, each
+  shape block's injecting epilogue), between two ping-pong (R·S, W) bf16
+  buffers, and a warp-per-point sigma head. Bound by operations:
+  2W(64 + W(nb+1)) = 557,056 FLOP per point at W=256, nb=3 — 2.92e11 FLOP
+  for a 16,384 × 32 training launch (0.30 ms at 989 TFLOP/s dense bf16),
+  7.3e10 for a 4096 × 32 optimization chunk (0.074 ms); its inputs and
+  output are ~35 MB. :func:`sigma_fwd_plain` is its plain version, and
+  ``sigma_fwd.launches["sigma"]`` counts its launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -101,18 +120,127 @@ def prep_ray_operands(model, cfg: NetConfig, ray_o, viewdir, z_vals,
     return ro8, vd8, z_vals.float(), sproj, tproj, vcontrib
 
 
+def kernel_operands(wflat) -> List[torch.Tensor]:
+    """2-D weights bf16, 1-D weights and biases f32, all contiguous — the
+    dtypes the TPU kernels received (``wops`` in ``invoke_train_fused``,
+    ``wb`` in ``invoke_fwd``)."""
+    return [(w.to(torch.bfloat16) if w.dim() == 2 else w.float()).contiguous()
+            for w in wflat]
+
+
+def shape_trunk_plain(cfg: NetConfig, R: int, S: int, ro8, vd8, z, sproj,
+                      wops) -> Dict[str, torch.Tensor]:
+    """The kernels' forward up to the sigma pre-activation, rounding where
+    the TPU kernels round: PE(xyz) to bf16, bf16 activations after each
+    ReLU, the latent injection as a bf16 add, enc_shape's output ``t``
+    rounded to bf16 before the f32 sigma dot. ``wops`` in
+    ``fused_train.flatten_params`` order and :func:`kernel_operands`
+    dtypes. Returns the bf16 ``pe``, ``y0`` (enc_xyz), ``xs`` (each shape
+    block's injected input), ``ys`` (its output), ``t``, and ``sig_pre``
+    (R, S) f32."""
+    bf16 = torch.bfloat16
+    P, nb = R * S, cfg.shape_blocks
+
+    def dense(x, i):     # bf16 (P, A) @ bf16 (A, B), f32 sums, + f32 bias
+        return x.float() @ wops[2 * i].float() + wops[2 * i + 1]
+
+    xyz8 = (ro8[:, None, :] + vd8[:, None, :] * z[:, :, None]).reshape(P, 8)
+    pe = pe_in_kernel(xyz8, cfg.num_xyz_freq).to(bf16)
+    y0 = torch.relu(dense(pe, 0)).to(bf16)
+    xs, ys, cur = [], [], y0
+    for j in range(nb):
+        xs.append((cur.view(R, S, -1).float() + sproj[:, j][:, None, :].float()
+                   ).to(bf16).view(P, -1))
+        cur = torch.relu(dense(xs[j], 1 + j)).to(bf16)
+        ys.append(cur)
+    t = dense(cur, nb + 1).to(bf16)
+    w_sig, b_sig = wops[2 * (nb + 2)], wops[2 * (nb + 2) + 1]
+    sig_pre = (t.float() * w_sig[None, :]).sum(-1).view(R, S) + b_sig[0]
+    return {"pe": pe, "y0": y0, "xs": xs, "ys": ys, "t": t,
+            "sig_pre": sig_pre}
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` = logaddexp(x, 0)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def sigma_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
+              vcontrib, wflat) -> torch.Tensor:
+    """Counterpart of ``invoke_fwd(..., sigma_only=True)``: the density
+    ``softplus(t · w_sig + b_sig)`` of every sample, (R, S) f32. The
+    operands are those of ``fused_train.train_fused`` (``tproj``,
+    ``vcontrib`` and the texture-branch weights are not read).
+
+    On CPU tensors this is :func:`sigma_fwd_plain`; on CUDA tensors it
+    launches the CUDA kernel and counts the launch in
+    ``sigma_fwd.launches["sigma"]``."""
+    if z.shape != (R, S):
+        raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
+    if z.device.type == "cpu":
+        return sigma_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                               vcontrib, wflat)
+    if z.device.type != "cuda":
+        raise ValueError(f"sigma_fwd: unsupported device {z.device}")
+    out = _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat)
+    sigma_fwd.launches["sigma"] += 1
+    return out
+
+
+sigma_fwd.launches = {"sigma": 0}
+
+
+def sigma_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
+                    tproj, vcontrib, wflat) -> torch.Tensor:
+    """:func:`sigma_fwd` in plain PyTorch (the CPU tests and
+    ``chip_smoke.py``'s comparison use it)."""
+    trunk = shape_trunk_plain(cfg, R, S, ro8, vd8, z.float(), sproj,
+                              kernel_operands(wflat))
+    return softplus(trunk["sig_pre"])
+
+
+def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
+    from codenerf_tpu_torch.ops import fused_train as ft
+
+    lib = ft.library()
+    dev = z.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    W, nb = cfg.W, cfg.shape_blocks
+    if not ft.single_pass_available(cfg, R):
+        raise ValueError(f"sigma_fwd: the CUDA kernel takes W % 256 == 0, "
+                         f"d_xyz <= 64 and R % 16 == 0; got W={W}, R={R}")
+    ins = dict(ro8=ft._aligned(ro8, f32), vd8=ft._aligned(vd8, f32),
+               z=ft._aligned(z, f32), sproj=ft._aligned(sproj, bf16))
+    expect = dict(ro8=(R, 8), vd8=(R, 8), z=(R, S), sproj=(R, nb, W))
+    for name, x in ins.items():
+        if tuple(x.shape) != expect[name] or x.device != dev:
+            raise ValueError(f"sigma_fwd: {name} is {tuple(x.shape)} on "
+                             f"{x.device}, expected {expect[name]} on {dev}")
+    wops = ft.checked_weights(cfg, wflat, dev)
+    ws = torch.empty(2 * R * S * W, dtype=bf16, device=dev)
+    sigma = torch.empty(R, S, dtype=f32, device=dev)
+    wptrs, _keep = ft._ptr_array(wops)
+    rc = lib.sigma_step(
+        ft._ptr(ins["ro8"]), ft._ptr(ins["vd8"]), ft._ptr(ins["z"]),
+        ft._ptr(ins["sproj"]), wptrs, ft._ptr(ws), ft._ptr(sigma), R, S, W,
+        nb, cfg.num_xyz_freq,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"sigma_fwd CUDA kernel failed: cudaError {rc}")
+    return sigma
+
+
 def _deltas(z: torch.Tensor) -> torch.Tensor:
     return torch.cat([z[:, 1:] - z[:, :-1],
                       torch.full_like(z[:, :1], 1e10)], dim=-1)
 
 
-def composite_fwd_in_kernel(sig, c0, c1, c2, z, white_bg: bool):
-    """All inputs (T, S) f32. Returns ``(out8 (T, 8), aux)`` with out8 =
-    ``[r | g | b | depth | acc | 0 0 0]``."""
-    delta = _deltas(z)
+def _composite_fwd(sig, c0, c1, c2, z, delta, floor, white_bg: bool):
+    """One composite over the samples' ``delta`` with the cumprod floor
+    ``1e-10 · floor``; see :func:`composite_fwd_in_kernel`."""
     e = torch.exp(-sig * delta)          # 1 - alpha
     a = 1.0 - e
-    u = e + 1e-10                        # reference 1e-10 floor
+    u = e + 1e-10 * floor                # reference 1e-10 floor
     Tacc = torch.cat([torch.ones_like(u[:, :1]),
                       torch.cumprod(u[:, :-1], dim=-1)], dim=-1)
     w = a * Tacc
@@ -126,12 +254,16 @@ def composite_fwd_in_kernel(sig, c0, c1, c2, z, white_bg: bool):
     return out8, (delta, e, u, Tacc, w)
 
 
-def composite_bwd_in_kernel(sig, c0, c1, c2, z, g8, aux, white_bg: bool):
-    """Backward of :func:`composite_fwd_in_kernel` for the per-ray
-    cotangent ``g8 (T, 8)``: ``(gsig, gc0, gc1, gc2, dz)``, (T, S) f32,
-    with ``dx = e·(T·dw − dL/u)`` for ``x = sig·delta``."""
+def composite_fwd_in_kernel(sig, c0, c1, c2, z, white_bg: bool):
+    """All inputs (T, S) f32. Returns ``(out8 (T, 8), aux)`` with out8 =
+    ``[r | g | b | depth | acc | 0 0 0]``."""
+    return _composite_fwd(sig, c0, c1, c2, z, _deltas(z), 1.0, white_bg)
+
+
+def _composite_grads(c0, c1, c2, z, g8, aux, white_bg: bool):
+    """``(gsig, gc0, gc1, gc2, dx)`` of one composite for the per-ray
+    cotangent ``g8``, with ``dx = e·(T·dw − dL/u)`` for ``x = sig·delta``."""
     delta, e, u, Tacc, w = aux
-    S = z.shape[1]
     gr, gg, gb = g8[:, 0:1], g8[:, 1:2], g8[:, 2:3]
     gd, ga = g8[:, 3:4], g8[:, 4:5]
     resid = ga - (gr + gg + gb) if white_bg else ga
@@ -139,9 +271,45 @@ def composite_bwd_in_kernel(sig, c0, c1, c2, z, g8, aux, white_bg: bool):
     suffix = torch.flip(torch.cumsum(torch.flip(w * dw, [1]), 1), [1])
     dL = torch.cat([suffix[:, 1:], torch.zeros_like(suffix[:, :1])], 1)
     dx = e * (Tacc * dw - dL / u)
-    gsig = dx * delta
+    return dx * delta, w * gr, w * gg, w * gb, dx
+
+
+def composite_bwd_in_kernel(sig, c0, c1, c2, z, g8, aux, white_bg: bool):
+    """Backward of :func:`composite_fwd_in_kernel` for the per-ray
+    cotangent ``g8 (T, 8)``: ``(gsig, gc0, gc1, gc2, dz)``, (T, S) f32."""
+    S = z.shape[1]
+    gsig, gc0, gc1, gc2, dx = _composite_grads(c0, c1, c2, z, g8, aux,
+                                               white_bg)
+    gd, w = g8[:, 3:4], aux[4]
     lane = torch.arange(S, device=z.device)[None, :]
     ddelta = torch.where(lane < S - 1, dx * sig, torch.zeros_like(dx))
     dz = (gd * w + torch.cat([torch.zeros_like(ddelta[:, :1]),
                               ddelta[:, :-1]], 1) - ddelta)
-    return gsig, w * gr, w * gg, w * gb, dz
+    return gsig, gc0, gc1, gc2, dz
+
+
+def composite_fwd_dual_in_kernel(sig, c0, c1, c2, z, cdelta, cmask,
+                                 white_bg: bool):
+    """The fine composite over the union samples ``z`` (union deltas,
+    terminal 1e10, the unconditional 1e-10 floor) and the coarse one over
+    the coarse subset: deltas ``cdelta`` (consecutive-coarse deltas at
+    coarse positions, 0 at fine ones) and the floor ``1e-10 · cmask``. At
+    a fine position the coarse composite has alpha 0 and a transmittance
+    factor of exactly 1.0, so it equals compositing the coarse samples
+    alone. Returns ``(out8_fine, out8_coarse, aux)``."""
+    out_f, aux_f = _composite_fwd(sig, c0, c1, c2, z, _deltas(z), 1.0,
+                                  white_bg)
+    out_c, aux_c = _composite_fwd(sig, c0, c1, c2, z, cdelta, cmask,
+                                  white_bg)
+    return out_f, out_c, (aux_f, aux_c)
+
+
+def composite_bwd_dual_in_kernel(c0, c1, c2, z, g8f, g8c, aux,
+                                 white_bg: bool):
+    """Backward of :func:`composite_fwd_dual_in_kernel` for the fine and
+    coarse per-ray cotangents: ``(gsig, gc0, gc1, gc2)``, the sums of both
+    composites' cotangents on the union planes (no dz: the dual mode is
+    for training and code optimization, which never differentiate z)."""
+    gf = _composite_grads(c0, c1, c2, z, g8f, aux[0], white_bg)
+    gc = _composite_grads(c0, c1, c2, z, g8c, aux[1], white_bg)
+    return tuple(a + b for a, b in zip(gf[:4], gc[:4]))

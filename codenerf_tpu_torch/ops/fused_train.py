@@ -1,4 +1,4 @@
-"""Single-pass CodeNeRF loss kernel for Hopper, in its two modes.
+"""Single-pass CodeNeRF loss kernel for Hopper, in its modes.
 
 Replaces ``codenerf_tpu/ops/fused_train.py::_train_kernel`` (launched by
 ``invoke_train_fused``). Per ray: xyz = ro + vd·z and its 64-lane
@@ -15,9 +15,16 @@ per-ray bf16 ray sums ``d_sproj``, ``d_tproj``, ``d_vcontrib``.
   order: ``dW = x^T @ gh`` and ``db = Σ gh`` per layer (x the layer's bf16
   input, gh its bf16 output cotangent), ``Σ t·dsig`` and ``Σ dsig`` for
   the sigma head.
+- the dual composite (``coarse_mask``, ``coarse_delta``), in either mode:
+  hierarchical sampling's one evaluation at the union of the coarse and
+  fine depths, which composites both and returns the fine and the coarse
+  squared errors, every cotangent that of their sum (the TPU kernel's
+  ``dual=True``). At W=256, nb=3, nt=1 and 16,384 rays × 64 union samples
+  a training call is 2.75e12 FLOP, 2.78 ms at 989 TFLOP/s; a frozen call
+  at 4096 × 64 is 4.55e11 FLOP, 0.46 ms.
 
-The other modes of the TPU kernel (``want_weights``, ``input_grads``, the
-dual composite) raise ``NotImplementedError`` naming their ROADMAP.md item.
+The TPU kernel's other modes (``want_weights``, ``input_grads``) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 What bounds it on an H100. Matmul operations per point: forward
 2W(64 + W(nb+nt+2) + W/2), the dx chain 2W(W(nb+nt+2) + W/2) and, with
@@ -53,8 +60,10 @@ bits. The activations' round trips through HBM put a floor of ~2 ms per
 
 Beside the kernel: :func:`train_fused_plain`, the same function in plain
 PyTorch (the CPU tests and ``chip_smoke.py`` use it; the main path never
-does on CUDA), the launch counters ``train_fused.launches["codes"]`` and
-``["train"]`` (one per mode), and the ``autograd.Function`` s
+does on CUDA), the launch counters ``train_fused.launches["codes"]``,
+``["train"]``, ``["dual_codes"]`` and ``["dual_train"]`` (one per mode),
+:func:`hier_fine_zvals_meta`, which draws the fine depths and the dual
+mode's planes, and the ``autograd.Function`` s
 :class:`FusedCodesLoss` (codes only) and :class:`FusedTrainLoss` (codes and
 weights), which hand the kernel's cotangents to the prologue's backward.
 """
@@ -62,11 +71,13 @@ weights), which hand the kernel's cotangents to the prologue's backward.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from codenerf_tpu_torch.config import NetConfig
+from codenerf_tpu_torch.core.sampling import (merge_sorted_samples,
+                                              sample_pdf, union_sorted_zvals)
 from codenerf_tpu_torch.ops import fused_mlp
 
 # The TPU kernel's ray tile. The CUDA kernel does not tile rays this way,
@@ -133,14 +144,49 @@ def flatten_params(model, cfg: NetConfig) -> List[torch.Tensor]:
     return [x.contiguous() for x in out]
 
 
-def kernel_operands(wflat) -> List[torch.Tensor]:
-    """2-D weights bf16, 1-D weights and biases f32, all contiguous — the
-    dtypes the TPU kernel received (``wops`` in ``invoke_train_fused``)."""
-    return [(w.to(torch.bfloat16) if w.dim() == 2 else w.float()).contiguous()
-            for w in wflat]
+kernel_operands = fused_mlp.kernel_operands
+
+
+def hier_fine_zvals(z2d: torch.Tensor, w_coarse: torch.Tensor,
+                    generator: Optional[torch.Generator], n_importance: int,
+                    u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The union of the coarse depths and ``n_importance`` importance
+    samples drawn from the interior coarse weights over the z midpoints,
+    sorted per ray: what the fine pass evaluates. ``u`` replaces the
+    generator's uniforms (the tests feed both packages the same draws)."""
+    z_mid = 0.5 * (z2d[:, 1:] + z2d[:, :-1])
+    z_fine = sample_pdf(z_mid, w_coarse[:, 1:-1], n_importance, generator,
+                        u=u)
+    return union_sorted_zvals(z2d, z_fine)
+
+
+def hier_fine_zvals_meta(z2d: torch.Tensor, w_coarse: torch.Tensor,
+                         generator: Optional[torch.Generator],
+                         n_importance: int, u: Optional[torch.Tensor] = None):
+    """:func:`hier_fine_zvals` plus the planes of the dual-composite mode:
+    ``(z_all, cmask, cdelta)``, each (R, Sc+Sf) f32. ``cmask`` is 1.0 where
+    the sample came from the coarse pass; ``cdelta`` holds the
+    consecutive-coarse deltas there (1e10 at the last coarse sample) and 0
+    at fine samples. One stable sort gives the union and both planes with
+    the permutation ``union_sorted_zvals`` uses."""
+    z_mid = 0.5 * (z2d[:, 1:] + z2d[:, :-1])
+    z_fine = sample_pdf(z_mid, w_coarse[:, 1:-1], n_importance, generator,
+                        u=u)
+    cdelta = torch.cat([z2d[:, 1:] - z2d[:, :-1],
+                        torch.full_like(z2d[:, :1], 1e10)], dim=-1)
+    zeros_f = torch.zeros_like(z_fine)
+    z_all, (cmask, cdelta_u) = merge_sorted_samples(
+        z2d, z_fine, [torch.ones_like(z2d), cdelta], [zeros_f, zeros_f])
+    return z_all, cmask, cdelta_u
 
 
 def _check_mode(want_weights, input_grads, coarse_mask, coarse_delta):
+    if (coarse_mask is None) != (coarse_delta is None):
+        raise ValueError("coarse_mask and coarse_delta come together")
+    if coarse_mask is not None and (want_weights or input_grads):
+        raise ValueError("the dual-composite mode excludes want_weights and "
+                         "input_grads (its coarse weights come from the "
+                         "sigma-only forward; it never differentiates z)")
     if want_weights:
         raise NotImplementedError(
             "train_fused(want_weights=True) — the weights plane for "
@@ -150,10 +196,10 @@ def _check_mode(want_weights, input_grads, coarse_mask, coarse_delta):
         raise NotImplementedError(
             "train_fused(input_grads=True) — pose optimization — is not "
             "ported yet (ROADMAP.md Queue 2, item 8)")
-    if coarse_mask is not None or coarse_delta is not None:
-        raise NotImplementedError(
-            "train_fused dual-composite mode — hierarchical sampling — is "
-            "not ported yet (ROADMAP.md Queue 2, item 5)")
+
+
+def _mode(weight_grads: bool, dual: bool) -> str:
+    return ("dual_" if dual else "") + ("train" if weight_grads else "codes")
 
 
 def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
@@ -167,42 +213,51 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
     bias gradients f32 in :func:`weight_shapes` order. Every cotangent is
     that of ``scale · se_sum`` (the kernel's cotangent is 2·scale·diff).
 
+    ``coarse_mask`` and ``coarse_delta`` ((R, S) f32, from
+    :func:`hier_fine_zvals_meta`) select the dual-composite mode: ``z`` is
+    the union of coarse and fine depths, the coarse composite is computed
+    from the same evaluation, the return gains ``se_coarse`` after
+    ``se_sum`` (then the fine SE), and every cotangent is that of
+    ``scale · (se_fine + se_coarse)``.
+
     On CPU tensors this is :func:`train_fused_plain`; on CUDA tensors it
     launches the CUDA kernel (and counts the launch in its mode's
-    counter)."""
+    counter: ``codes``, ``train``, ``dual_codes``, ``dual_train``)."""
     _check_mode(want_weights, input_grads, coarse_mask, coarse_delta)
     if z.shape != (R, S):
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
         return train_fused_plain(cfg, S, R, white_bg, scale, ro8, vd8, z,
                                  sproj, tproj, vcontrib, gt8, wflat,
-                                 want_rgb=want_rgb, weight_grads=weight_grads)
+                                 want_rgb=want_rgb, weight_grads=weight_grads,
+                                 coarse_mask=coarse_mask,
+                                 coarse_delta=coarse_delta)
     if z.device.type != "cuda":
         raise ValueError(f"train_fused: unsupported device {z.device}")
     outs = _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
-                        tproj, vcontrib, gt8, wflat, want_rgb, weight_grads)
-    train_fused.launches["train" if weight_grads else "codes"] += 1
+                        tproj, vcontrib, gt8, wflat, want_rgb, weight_grads,
+                        coarse_mask, coarse_delta)
+    train_fused.launches[_mode(weight_grads, coarse_mask is not None)] += 1
     return outs
 
 
-train_fused.launches = {"codes": 0, "train": 0}
-
-
-def _softplus(x):
-    # jax.nn.softplus = logaddexp(x, 0)
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+train_fused.launches = {"codes": 0, "train": 0, "dual_codes": 0,
+                        "dual_train": 0}
 
 
 def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
                       scale: float, ro8, vd8, z, sproj, tproj, vcontrib,
                       gt8, wflat, want_rgb: bool = False,
-                      weight_grads: bool = False, sigma_terms=None):
+                      weight_grads: bool = False, sigma_terms=None,
+                      coarse_mask=None, coarse_delta=None):
     """The kernel's function in plain PyTorch, rounding where the TPU
     kernel rounds: bf16 activations after each ReLU, the latent injection
     as a bf16 add, sig_pre in f32 from bf16 t, ReLU masks on the stored
     bf16 activations, the composite in f32; each output cotangent gh
     rounded to bf16 before both its dx and its dW product (exact bf16
-    products, f32 sums), the sigma dW from bf16 t times f32 dsig.
+    products, f32 sums), the sigma dW from bf16 t times f32 dsig. In the
+    dual mode the two composites' sigma and rgb cotangents are added
+    before the one backward chain.
 
     ``sigma_terms``, a list, receives ``(Σ|t·dsig| (W,), Σ|dsig| (1,))``:
     the size of the terms of the sigma head's gradient sums, which cancel
@@ -239,18 +294,10 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
             dwb[name] = (x.float().T @ gh.float(), gh.float().sum(0))
 
     # ---- forward
-    xyz8 = (ro8[:, None, :] + vd8[:, None, :] * z[:, :, None]).reshape(P, 8)
-    pe = fused_mlp.pe_in_kernel(xyz8, cfg.num_xyz_freq).to(bf16)
-    y0 = torch.relu(dot(pe, w("enc_xyz")) + b("enc_xyz")).to(bf16)
-    xs, ys, cur = [], [], y0
-    for j in range(nb):
-        xs.append(inject(cur, sproj[:, j]))
-        cur = torch.relu(dot(xs[j], w(f"shape_{j}"))
-                         + b(f"shape_{j}")).to(bf16)
-        ys.append(cur)
-    t = (dot(cur, w("enc_shape")) + b("enc_shape")).to(bf16)
+    trunk = fused_mlp.shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj, wops)
+    pe, y0, xs, ys, t = (trunk[k] for k in ("pe", "y0", "xs", "ys", "t"))
+    sig_pre = trunk["sig_pre"]
     w_sig = w("sigma")
-    sig_pre = (t.float() * w_sig[None, :]).sum(-1).view(R, S) + b("sigma")[0]
     u = dot(t, w("enc_viewdir_pt"))
     yv = torch.relu(u.view(R, S, W) + vcontrib[:, None, :].float()
                     ).view(P, W).to(bf16)
@@ -262,18 +309,32 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
         yts.append(cur)
     r = torch.relu(dot(cur, w("rgb_hidden")) + b("rgb_hidden")).to(bf16)
     rgb = (dot(r, w("rgb_out")) + b("rgb_out")).view(R, S, 8)
-    sigma = _softplus(sig_pre)
+    sigma = fused_mlp.softplus(sig_pre)
     c0, c1, c2 = rgb[..., 0], rgb[..., 1], rgb[..., 2]
 
     # ---- composite, loss, composite backward
-    out8, aux = fused_mlp.composite_fwd_in_kernel(sigma, c0, c1, c2, z,
-                                                  white_bg)
     lane8 = torch.arange(8, device=z.device)[None, :]
-    diff = torch.where(lane8 < 3, out8 - gt8, torch.zeros_like(out8))
-    se8 = diff * diff
-    g8 = (2.0 * scale) * diff
-    g_sigma, gc0, gc1, gc2, _ = fused_mlp.composite_bwd_in_kernel(
-        sigma, c0, c1, c2, z, g8, aux, white_bg)
+
+    def loss_terms(out8):
+        diff = torch.where(lane8 < 3, out8 - gt8, torch.zeros_like(out8))
+        return (diff * diff).sum(), (2.0 * scale) * diff
+
+    if coarse_mask is None:
+        out8, aux = fused_mlp.composite_fwd_in_kernel(sigma, c0, c1, c2, z,
+                                                      white_bg)
+        se, g8 = loss_terms(out8)
+        ses = (se,)
+        g_sigma, gc0, gc1, gc2, _ = fused_mlp.composite_bwd_in_kernel(
+            sigma, c0, c1, c2, z, g8, aux, white_bg)
+    else:
+        out8, out8_c, aux = fused_mlp.composite_fwd_dual_in_kernel(
+            sigma, c0, c1, c2, z, coarse_delta.float(), coarse_mask.float(),
+            white_bg)
+        se, g8 = loss_terms(out8)
+        se_c, g8_c = loss_terms(out8_c)
+        ses = (se, se_c)
+        g_sigma, gc0, gc1, gc2 = fused_mlp.composite_bwd_dual_in_kernel(
+            c0, c1, c2, z, g8, g8_c, aux, white_bg)
 
     # ---- dx chain (and dW/db)
     gh8 = torch.zeros(R, S, 8, dtype=f32, device=z.device)
@@ -316,7 +377,7 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
     if weight_grads:
         acc("enc_xyz", pe, (g_cur * (y0.float() > 0)).to(bf16))
 
-    outs = (se8.sum(), d_sproj, d_tproj, d_vcontrib)
+    outs = ses + (d_sproj, d_tproj, d_vcontrib)
     if want_rgb:
         outs += (out8,)
     for name, _, _ in (weight_shapes(cfg) if weight_grads else ()):
@@ -341,24 +402,46 @@ def _aligned(x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_step.argtypes = ([vp] * 16 + [ci] * 7
+    lib.fused_step.argtypes = ([vp] * 18 + [ci] * 7
                                + [ctypes.c_float, ci, vp])
     lib.fused_step.restype = ci
     lib.fused_workspace.argtypes = [ci] * 6 + [vp, vp]
     lib.fused_workspace.restype = None
+    lib.sigma_step.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.sigma_step.restype = ci
 
 
-def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
-                 vcontrib, gt8, wflat, want_rgb, weight_grads):
+def library() -> ctypes.CDLL:
+    """``csrc/train_fused.cu`` built (at first use), loaded and bound: the
+    single-pass kernel's ``fused_step`` and the sigma-only ``sigma_step``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)
     if not getattr(lib, "_bound", False):
         _bind(lib)
         lib._bound = True
+    return lib
+
+
+def checked_weights(cfg: NetConfig, wflat, dev) -> List[torch.Tensor]:
+    """The kernel operands of ``wflat``, 16-byte aligned, each checked
+    against :func:`weight_shapes` and the device."""
+    wops = [_aligned(w, w.dtype) for w in kernel_operands(wflat)]
+    for w_, (name, ws, _) in zip(wops[0::2], weight_shapes(cfg)):
+        if tuple(w_.shape) != ws or w_.device != dev:
+            raise ValueError(f"weight {name} is {tuple(w_.shape)} on "
+                             f"{w_.device}, expected {ws} on {dev}")
+    return wops
+
+
+def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
+                 vcontrib, gt8, wflat, want_rgb, weight_grads, coarse_mask,
+                 coarse_delta):
+    lib = library()
     dev = z.device
     f32, bf16 = torch.float32, torch.bfloat16
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
+    dual = coarse_mask is not None
     if S > _MAX_SAMPLES or not single_pass_available(cfg, R):
         raise ValueError(f"train_fused: the CUDA kernel takes S <= "
                          f"{_MAX_SAMPLES}, W % 256 == 0, d_xyz <= 64 and "
@@ -369,15 +452,15 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
                gt8=_aligned(gt8, f32))
     expect = dict(ro8=(R, 8), vd8=(R, 8), z=(R, S), sproj=(R, nb, W),
                   tproj=(R, nt, W), vcontrib=(R, W), gt8=(R, 8))
+    if dual:
+        ins.update(cmask=_aligned(coarse_mask, f32),
+                   cdelta=_aligned(coarse_delta, f32))
+        expect.update(cmask=(R, S), cdelta=(R, S))
     for name, x in ins.items():
         if tuple(x.shape) != expect[name] or x.device != dev:
             raise ValueError(f"train_fused: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
-    wops = [_aligned(w, w.dtype) for w in kernel_operands(wflat)]
-    for w_, (name, ws, bs) in zip(wops[0::2], weight_shapes(cfg)):
-        if tuple(w_.shape) != ws or w_.device != dev:
-            raise ValueError(f"train_fused: weight {name} is "
-                             f"{tuple(w_.shape)}, expected {ws}")
+    wops = checked_weights(cfg, wflat, dev)
     n_bf16, n_f32 = ctypes.c_size_t(), ctypes.c_size_t()
     lib.fused_workspace(R, S, W, nb, nt, int(weight_grads),
                         ctypes.addressof(n_bf16), ctypes.addressof(n_f32))
@@ -396,11 +479,16 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
     wptrs, _keep_w = _ptr_array(wops)
     dptrs, _keep_d = (_ptr_array(dwb) if weight_grads
                       else (ctypes.c_void_p(0), None))
+
+    def opt_ptr(name):
+        return _ptr(ins[name]) if name in ins else ctypes.c_void_p(0)
+
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_step(
         _ptr(ins["ro8"]), _ptr(ins["vd8"]), _ptr(ins["z"]),
         _ptr(ins["sproj"]), _ptr(ins["tproj"]), _ptr(ins["vcontrib"]),
-        _ptr(ins["gt8"]), wptrs, _ptr(ws), _ptr(ws32), _ptr(se8),
+        _ptr(ins["gt8"]), opt_ptr("cmask"), opt_ptr("cdelta"), wptrs,
+        _ptr(ws), _ptr(ws32), _ptr(se8),
         ctypes.c_void_p(rgb8.data_ptr() if want_rgb else 0),
         _ptr(d_sproj), _ptr(d_tproj), _ptr(d_vcontrib), dptrs,
         int(bool(weight_grads)), R, S, W, nb, nt, cfg.num_xyz_freq,
@@ -408,7 +496,9 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"train_fused CUDA kernel failed: cudaError {rc}")
-    outs = (se8.sum(), d_sproj, d_tproj, d_vcontrib)
+    # the fine SE in lanes 0..2, the dual mode's coarse SE in lanes 4..6
+    ses = ((se8[:, :4].sum(), se8[:, 4:].sum()) if dual else (se8.sum(),))
+    outs = ses + (d_sproj, d_tproj, d_vcontrib)
     if want_rgb:
         outs += (rgb8,)
     return outs + tuple(dwb)
@@ -419,49 +509,66 @@ class FusedCodesLoss(torch.autograd.Function):
     differentiable with respect to the per-ray operands ``(sproj, tproj,
     vcontrib)``: the kernel (``weight_grads=False``) computes the loss and
     its cotangents in one pass, and the backward hands those cotangents on
-    (times the incoming gradient). Also returns the composited ``rgb8``
-    rows (empty unless ``want_rgb``), which carry no gradient."""
+    (times the incoming gradient). Returns ``(loss, fine, rgb8)``:
+    ``fine`` and the composited ``rgb8`` rows (empty unless ``want_rgb``)
+    carry no gradient. With ``coarse_mask`` and ``coarse_delta`` (the dual
+    mode) the loss is ``scale · (se_fine + se_coarse)``, ``fine`` is
+    ``scale · se_fine`` (the reported MSE) and ``rgb8`` holds the fine
+    composite's rows; otherwise ``fine`` equals the loss."""
 
     @staticmethod
     def forward(ctx, sproj, tproj, vcontrib, cfg, white_bg, scale, ro8,
-                vd8, z, gt8, wops, want_rgb):
+                vd8, z, gt8, wops, want_rgb, coarse_mask=None,
+                coarse_delta=None):
         R, S = z.shape
         outs = train_fused(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
                            tproj, vcontrib, gt8, wops, want_rgb=want_rgb,
-                           weight_grads=False)
-        se, d_sproj, d_tproj, d_vcontrib = outs[:4]
-        rgb8 = outs[4] if want_rgb else z.new_empty(0, 8)
+                           weight_grads=False, coarse_mask=coarse_mask,
+                           coarse_delta=coarse_delta)
+        n_se = 1 if coarse_mask is None else 2
+        d_sproj, d_tproj, d_vcontrib = outs[n_se:n_se + 3]
+        rgb8 = outs[n_se + 3] if want_rgb else z.new_empty(0, 8)
         ctx.save_for_backward(d_sproj, d_tproj, d_vcontrib)
-        ctx.mark_non_differentiable(rgb8)
-        return se * scale, rgb8
+        fine = (outs[0] * scale).detach()
+        ctx.mark_non_differentiable(fine, rgb8)
+        return sum(outs[:n_se]) * scale, fine, rgb8
 
     @staticmethod
-    def backward(ctx, g_loss, g_rgb8):
+    def backward(ctx, g_loss, g_fine, g_rgb8):
         d_sproj, d_tproj, d_vcontrib = ctx.saved_tensors
         return ((d_sproj * g_loss, d_tproj * g_loss, d_vcontrib * g_loss)
-                + (None,) * 9)
+                + (None,) * 11)
 
 
 class FusedTrainLoss(torch.autograd.Function):
     """``scale · Σ squared error`` of one batch, differentiable with
     respect to the per-ray operands and every weight operand:
     ``apply(static, sproj, tproj, vcontrib, *wflat)`` with ``static =
-    (cfg, white_bg, scale, ro8, vd8, z, gt8)`` and ``wflat`` the f32
-    operands of :func:`flatten_params`. The kernel (``weight_grads=True``)
-    computes the loss, the per-ray cotangents and every dW/db in one pass;
-    the backward hands them on times the incoming gradient, and autograd
-    chains them through the prologue into the model and the codes."""
+    (cfg, white_bg, scale, ro8, vd8, z, gt8[, coarse_mask, coarse_delta])``
+    and ``wflat`` the f32 operands of :func:`flatten_params`. The kernel
+    (``weight_grads=True``) computes the loss, the per-ray cotangents and
+    every dW/db in one pass; the backward hands them on times the incoming
+    gradient, and autograd chains them through the prologue into the model
+    and the codes. Returns ``(loss, fine)``: with the dual mode's
+    ``coarse_mask`` and ``coarse_delta`` the loss is ``scale · (se_fine +
+    se_coarse)`` and ``fine`` (no gradient) is ``scale · se_fine``, the
+    logged MSE; otherwise both are ``scale · se``."""
 
     @staticmethod
     def forward(ctx, static, sproj, tproj, vcontrib, *wflat):
-        cfg, white_bg, scale, ro8, vd8, z, gt8 = static
+        cfg, white_bg, scale, ro8, vd8, z, gt8 = static[:7]
+        cmask, cdelta = static[7:9] if len(static) > 7 else (None, None)
         R, S = z.shape
         outs = train_fused(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
                            tproj, vcontrib, gt8, list(wflat),
-                           weight_grads=True)
-        ctx.save_for_backward(*outs[1:])
-        return outs[0] * scale
+                           weight_grads=True, coarse_mask=cmask,
+                           coarse_delta=cdelta)
+        n_se = 1 if cmask is None else 2
+        ctx.save_for_backward(*outs[n_se:])
+        fine = (outs[0] * scale).detach()
+        ctx.mark_non_differentiable(fine)
+        return sum(outs[:n_se]) * scale, fine
 
     @staticmethod
-    def backward(ctx, g_loss):
+    def backward(ctx, g_loss, g_fine):
         return (None,) + tuple(x * g_loss for x in ctx.saved_tensors)

@@ -11,9 +11,16 @@ Each optimization step runs the single-pass route of the JAX package: per
 ray chunk, the per-ray prologue (``ops/fused_mlp.prep_ray_operands``), then
 the fused loss kernel (``ops/fused_train.FusedCodesLoss``), whose
 cotangents flow back through the prologue into the codes; the code-norm
-regularizer adds its gradient; ``torch.optim.AdamW`` steps. Eval renders
-through the plain ``CodeNeRF`` module, as the JAX package renders eval
-through plain XLA.
+regularizer adds its gradient; ``torch.optim.AdamW`` steps. With
+hierarchical sampling the chunk runs as a training step does: the
+sigma-only coarse forward (``ops/fused_mlp.sigma_fwd``), the importance
+samples, and one dual-mode kernel call that optimizes ``se_fine +
+se_coarse``; the reported MSE is the fine pass's alone. An occupancy grid
+(``occ_grid``, e.g. the category grid ``--opt_occ`` rebuilds) bounds the
+coarse depths of the optimization loop. Eval renders through the plain
+``CodeNeRF`` module, as the JAX package renders eval through plain XLA,
+with ``eval_hp`` (the full sample budget) and without the grid unless
+``eval_occ``.
 
 This slice ports the sequential per-object path with full-view steps. The
 JAX package's other routes — autodiff through the plain model
@@ -32,6 +39,7 @@ import torch
 from codenerf_tpu_torch import resolve_device
 from codenerf_tpu_torch.config import Hparams, resolve_dtype
 from codenerf_tpu_torch.core.rays import camera_rays
+from codenerf_tpu_torch.core.render import composite_weights
 from codenerf_tpu_torch.evaluation.metrics import (psnr, reference_psnr_mse,
                                                    ssim)
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
@@ -95,24 +103,56 @@ def _check_single_pass(hp: Hparams, n_rays: int, chunk: int,
             "(needs W % 256 == 0, chunk % 16 == 0)")
 
 
+def _chunk_loss(model, hp: Hparams, wops, ro, vd, gt, sc, tc, scale,
+                generator, want_rgb: bool, occ_grid=None, z=None, u=None):
+    """``(loss, fine, rgb8)`` of one ray chunk through the frozen-model
+    kernel (:class:`ops.fused_train.FusedCodesLoss`); with hierarchical
+    sampling the sigma-only coarse pass first and the dual mode. ``z``
+    and ``u`` replace the generator's draws (the tests feed both packages
+    the same numbers)."""
+    net_cfg, rcfg = hp.net, hp.render
+    if z is None:
+        z = coarse_zvals(rcfg, ro, vd, generator, occ_grid)
+    ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
+        model, net_cfg, ro, vd, z, sc, tc)
+    gt8 = fused_mlp.pad_lanes(gt.float(), 8)
+    cmask = cdelta = None
+    if rcfg.n_importance > 0:
+        R, S = z.shape
+        with torch.no_grad():
+            sigma_c = fused_mlp.sigma_fwd(net_cfg, S, R, ro8, vd8, z,
+                                          sproj.detach(), tproj, vcontrib,
+                                          wops)
+        z, cmask, cdelta = fused_train.hier_fine_zvals_meta(
+            z, composite_weights(sigma_c, z), generator, rcfg.n_importance,
+            u=u)
+    return fused_train.FusedCodesLoss.apply(
+        sproj, tproj, vcontrib, net_cfg, rcfg.white_bg, scale, ro8, vd8, z,
+        gt8, wops, want_rgb, cmask, cdelta)
+
+
 def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
                    viewdir: torch.Tensor, gt_rgb: torch.Tensor,
                    init_shape: torch.Tensor, init_texture: torch.Tensor,
                    generator: Optional[torch.Generator],
                    num_opts: int = 200, lr: float = 1e-2,
                    lr_half_interval: int = 50, chunk: int = 4096,
-                   progress_rays: int = 0) -> OptimizationResult:
+                   progress_rays: int = 0,
+                   occ_grid=None) -> OptimizationResult:
     """Optimize one object's codes against flat target rays (all on the
     model's device) through the fused kernel, full view every step."""
-    net_cfg, rcfg = hp.net, hp.render
+    rcfg = hp.render
     n_rays = ray_o.shape[0]
     chunk, n_chunks, _ = chunk_plan(n_rays, chunk)
     _check_single_pass(hp, n_rays, chunk, n_chunks)
+    if occ_grid is not None and rcfg.shared_jitter:
+        raise ValueError("occ_grid requires per-ray sampling: shared_jitter "
+                         "is one global [near, far] slab")
     scale = 1.0 / (n_rays * 3.0)
     progress_rays = min(int(progress_rays), n_rays)
     want_rgb = progress_rays > 0
     wops = fused_train.kernel_operands(
-        fused_train.flatten_params(model, net_cfg))
+        fused_train.flatten_params(model, hp.net))
 
     sc = init_shape.detach().float().clone().requires_grad_(True)
     tc = init_texture.detach().float().clone().requires_grad_(True)
@@ -124,21 +164,16 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
         for group in opt.param_groups:
             group["lr"] = lr_at(step)
         opt.zero_grad(set_to_none=True)
-        loss, rows = 0.0, []
+        loss, mse, rows = 0.0, 0.0, []
         for c in range(n_chunks):
             sl = slice(c * chunk, (c + 1) * chunk)
-            ro, vd = ray_o[sl], viewdir[sl]
-            z = coarse_zvals(rcfg, ro, generator)
-            ro8, vd8, z, sproj, tproj, vcontrib = \
-                fused_mlp.prep_ray_operands(model, net_cfg, ro, vd, z, sc, tc)
-            gt8 = fused_mlp.pad_lanes(gt_rgb[sl].float(), 8)
-            loss_c, rgb8 = fused_train.FusedCodesLoss.apply(
-                sproj, tproj, vcontrib, net_cfg, rcfg.white_bg, scale, ro8,
-                vd8, z, gt8, wops, want_rgb)
+            loss_c, fine_c, rgb8 = _chunk_loss(
+                model, hp, wops, ray_o[sl], viewdir[sl], gt_rgb[sl], sc, tc,
+                scale, generator, want_rgb, occ_grid)
             loss = loss + loss_c
+            mse = mse + fine_c
             if want_rgb:
                 rows.append(rgb8[:, :3])
-        mse = loss.detach()
         reg = safe_code_norm(sc) + safe_code_norm(tc)
         (loss + hp.loss_reg_coef * reg).backward()
         opt.step()
@@ -154,17 +189,28 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
 class CodeOptimizer:
     """The reference ``Optimizer``'s protocol: per-object code
     optimization, then held-out-view evaluation. The model is frozen (its
-    parameters stop requiring gradients) and moved to ``device``."""
+    parameters stop requiring gradients) and moved to ``device``.
+
+    ``occ_grid`` (an ``OccupancyGrid``) bounds the optimization loop's
+    coarse depths. Eval renders with ``eval_hp`` (default ``hp``) and uses
+    the grid only with ``eval_occ``: the optimize CLI optimizes with a
+    reduced budget (``--opt_samples``) and the category grid
+    (``--opt_occ``) but scores held-out views with the jsonfile's full
+    budget and no grid, so metrics stay comparable."""
 
     def __init__(self, model, hp: Hparams, mean_shape: torch.Tensor,
                  mean_texture: torch.Tensor, chunk: int = 4096,
-                 device="cuda"):
+                 device="cuda", occ_grid=None,
+                 eval_hp: Optional[Hparams] = None, eval_occ: bool = True):
         self.device = resolve_device(device)
         self.model = model.to(self.device).requires_grad_(False)
         self.hp = hp
         self.mean_shape = mean_shape.float().to(self.device)
         self.mean_texture = mean_texture.float().to(self.device)
         self.chunk = chunk
+        self.occ_grid = occ_grid
+        self.eval_hp = eval_hp or hp
+        self.eval_occ = eval_occ
 
     def optimize_object(self, images: np.ndarray, poses: np.ndarray,
                         focal: float, tgt_views: Sequence[int],
@@ -181,7 +227,8 @@ class CodeOptimizer:
             self.model, self.hp, ro, vd, gt, self.mean_shape,
             self.mean_texture, generator, num_opts=num_opts, lr=lr,
             lr_half_interval=lr_half_interval, chunk=self.chunk,
-            progress_rays=H * W if progress_images else 0)
+            progress_rays=H * W if progress_images else 0,
+            occ_grid=self.occ_grid)
         if progress_images:
             res = res._replace(progress=res.progress.reshape(num_opts, H, W,
                                                              3))
@@ -198,7 +245,7 @@ class CodeOptimizer:
         jittered z (the reference protocol) or, with ``deterministic``,
         linspace z."""
         H, W = images.shape[1:3]
-        hp = self.hp
+        hp = self.eval_hp
         cd = resolve_dtype(hp.compute_dtype)
         excl = {int(i) for i in exclude_views}
         idxs = [v for v in range(images.shape[0]) if v not in excl]
@@ -210,7 +257,8 @@ class CodeOptimizer:
                 self.model, hp.render, H, W, focal, poses[v],
                 shape_code, texture_code,
                 None if deterministic else generator, chunk=self.chunk,
-                compute_dtype=cd)
+                compute_dtype=cd,
+                occ_grid=self.occ_grid if self.eval_occ else None)
             ps.append(psnr(reference_psnr_mse(rgb, gt)))
             ss.append(ssim(rgb, gt))
             if return_images:

@@ -19,14 +19,22 @@ under ``<exps_root>/<saved_dir>/test[_N]/``, like the JAX CLI:
 ``results.json``, per-step progress PNGs (``--save_progress``) and
 side-by-side eval PNGs (``--save_img``).
 
-Flags of the JAX CLI that this slice does not port (``--opt_group`` > 1,
-``--opt_rays``, ``--opt_occ``, ``--opt_samples``, ``--pose_opt``,
-multi-device axes) raise with the ROADMAP.md item that covers them.
+``--opt_occ true`` rebuilds the trained category's occupancy grid from the
+checkpoint (``core/occupancy.rebuild_category_grid``; the jsonfile needs
+``train_occupancy``) and bounds the optimization loop's depths with it;
+``--opt_samples`` replaces ``N_samples`` for the optimization loop only.
+Eval renders with the jsonfile's full budget and no grid either way, as
+the JAX CLI does.
+
+Flags of the JAX CLI that the port does not have yet (``--opt_group`` > 1,
+``--opt_rays``, ``--pose_opt``, multi-device axes) raise with the
+ROADMAP.md item that covers them.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -66,13 +74,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--exps_root", type=str, default="exps")
     p.add_argument("--max_objects", type=int, default=None)
     p.add_argument("--deterministic_eval", type=str2bool, default=False)
-    # Flags of the JAX CLI outside this slice: accepted so the surface
-    # matches, refused unless left at their defaults.
+    p.add_argument("--opt_occ", type=str2bool, default=False,
+                   help="rebuild the trained category occupancy grid from "
+                        "the checkpoint and use it in the optimization "
+                        "loop (needs a jsonfile with train_occupancy); "
+                        "eval renders without it")
+    p.add_argument("--opt_samples", type=int, default=None,
+                   help="sample budget of the optimization loop only (eval "
+                        "keeps the jsonfile's N_samples)")
+    # Flags of the JAX CLI the port does not have yet: accepted so the
+    # surface matches, refused unless left at their defaults.
     p.add_argument("--pose_opt", action="store_true")
     p.add_argument("--opt_group", type=int, default=1)
     p.add_argument("--opt_rays", type=int, default=None)
-    p.add_argument("--opt_occ", type=str2bool, default=False)
-    p.add_argument("--opt_samples", type=int, default=None)
     p.add_argument("--data_axis", type=int, default=-1)
     p.add_argument("--replica_axis", type=int, default=1)
     return p
@@ -86,8 +100,6 @@ def _refuse_unported(args) -> None:
          "Queue 1, item 7"),
         (args.opt_rays is not None, "--opt_rays (stochastic ray minibatches)",
          "Queue 1, item 7"),
-        (args.opt_occ, "--opt_occ (occupancy grid)", "Queue 1, item 8"),
-        (args.opt_samples is not None, "--opt_samples", "Queue 1, item 8"),
         (args.replica_axis != 1 or args.data_axis not in (-1, 1),
          "--data_axis/--replica_axis (multi-device)", "Queue 1, item 12"),
     ]
@@ -103,6 +115,8 @@ def main(argv=None) -> dict:
     _refuse_unported(args)
 
     from codenerf_tpu_torch import resolve_device
+    from codenerf_tpu_torch.config import resolve_dtype
+    from codenerf_tpu_torch.core.occupancy import rebuild_category_grid
     from codenerf_tpu_torch.data.srn import SRNDataset
     from codenerf_tpu_torch.models.codenerf import CodeNeRF
     from codenerf_tpu_torch.models.codes import mean_code
@@ -117,6 +131,10 @@ def main(argv=None) -> dict:
         f"cuda:{args.gpu}" if args.device == "cuda" else args.device)
     hp = load_hparams(args.jsonfile)
     check_render_config(hp.render)
+    if args.opt_occ and hp.train_occupancy is None:
+        raise SystemExit(f"--opt_occ needs a jsonfile with train_occupancy "
+                         f"(e.g. srncar_hier_occ.json); {args.jsonfile} has "
+                         "none")
     run_dir = os.path.join(args.exps_root, args.saved_dir)
     if latest_step(os.path.join(run_dir, "ckpt")) is not None:
         state, shape_codes, texture_codes = load_training_checkpoint(
@@ -132,9 +150,25 @@ def main(argv=None) -> dict:
     obj = hp.data.cat.split("_")[1]
     ds = SRNDataset(cat=hp.data.cat, splits=f"{obj}_{args.splits}",
                     data_dir=hp.data.data_dir, max_objects=args.max_objects)
-    optimizer = CodeOptimizer(model, hp, mean_code(shape_codes),
+    occ = None
+    if args.opt_occ:
+        # The density is a function of the trainables and is not
+        # checkpointed: rebuild the category grid from the checkpoint, as
+        # the trainer does on a resume past its warm-up.
+        oc = hp.train_occupancy
+        occ = rebuild_category_grid(
+            model.to(device), shape_codes.to(device), texture_codes.to(device),
+            oc, oc.radius if oc.radius is not None
+            else hp.render.bound_sphere_radius,
+            compute_dtype=resolve_dtype(hp.compute_dtype))
+    opt_hp = hp
+    if args.opt_samples:
+        opt_hp = dataclasses.replace(hp, render=dataclasses.replace(
+            hp.render, n_samples=args.opt_samples))
+    optimizer = CodeOptimizer(model, opt_hp, mean_code(shape_codes),
                               mean_code(texture_codes), chunk=args.batchsize,
-                              device=device)
+                              device=device, occ_grid=occ, eval_hp=hp,
+                              eval_occ=False)
 
     with open(os.path.join(save_dir, "opt_hpams.json"), "w") as f:
         json.dump({"instance_ids": args.tgt_instances, "lr": args.lr,

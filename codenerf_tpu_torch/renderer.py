@@ -1,22 +1,41 @@
 """Ray and image rendering through the plain ``CodeNeRF`` module — the
-eval path (counterpart of ``codenerf_tpu/renderer.py``, coarse only).
+eval path (counterpart of ``codenerf_tpu/renderer.py``).
 
 The JAX package renders eval views through plain XLA (``apply_codenerf``
 + ``composite``), no Pallas kernel; here the same is plain PyTorch.
-Hierarchical sampling, sphere bounds and occupancy grids are not ported
-yet (ROADMAP.md) and raise.
+
+Coarse pass: stratified z-values between per-ray bounds — the global
+``[near, far]`` slab, tightened to the bounding sphere
+(``bound_sphere_radius``) and to an occupancy grid's occupied span — then
+the MLP and the composite. Fine pass (``n_importance > 0``, shared
+weights): inverse-CDF samples from the coarse weights; only the new
+samples go through the MLP, and their sigma and rgb planes are merged
+with the coarse pass's by ``merge_sorted_samples`` and composited again
+(the JAX package's ``reuse_coarse`` recipe). Separate fine weights raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from codenerf_tpu_torch.config import RenderConfig
-from codenerf_tpu_torch.core.rays import camera_rays
+from codenerf_tpu_torch.core.rays import camera_rays, ray_sphere_bounds
 from codenerf_tpu_torch.core.render import RenderOutput, composite
-from codenerf_tpu_torch.core.sampling import fixed_zvals, stratified_zvals
+from codenerf_tpu_torch.core.sampling import (fixed_zvals, lerp_linspace,
+                                              merge_sorted_samples,
+                                              sample_pdf, stratified_zvals)
+
+
+class RenderResult(NamedTuple):
+    coarse: RenderOutput
+    fine: Optional[RenderOutput]
+
+    @property
+    def final(self) -> RenderOutput:
+        """The output to train against and display: fine if present."""
+        return self.fine if self.fine is not None else self.coarse
 
 
 def chunk_plan(n_rays: int, target: int = 4096) -> tuple:
@@ -43,45 +62,97 @@ def pad_rays(x: torch.Tensor, n_padded: int) -> torch.Tensor:
 
 
 def check_render_config(rcfg: RenderConfig) -> None:
-    """Raise for the render options this slice does not port."""
-    if rcfg.n_importance > 0:
+    """Raise for the render options the port does not have yet."""
+    if rcfg.n_importance > 0 and not rcfg.share_fine_weights:
         raise NotImplementedError(
-            "N_importance > 0 (hierarchical sampling) is not ported yet "
-            "(ROADMAP.md Queue 1, item 9)")
-    if rcfg.bound_sphere_radius is not None:
-        raise NotImplementedError(
-            "bound_sphere_radius (sphere-bounded sampling) is not ported yet "
-            "(ROADMAP.md Queue 1, item 8)")
+            "hierarchical_share_weights=false (separate fine weights) is not "
+            "ported yet; the JAX package runs it through the plane-op "
+            "kernels (ROADMAP.md Queue 2, item 6)")
 
 
 def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Coarse depth samples (R, n_samples) over the global [near, far]
-    slab: linspace when ``generator`` is None (deterministic), else
-    stratified with per-ray (or the reference's shared) jitter."""
+                 viewdir: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 occ_grid=None) -> torch.Tensor:
+    """Coarse depth samples (R, n_samples). Per-ray bounds tighten
+    ``[near, far]`` to the bounding sphere and/or the occupancy grid
+    (never under the reference's shared jitter, one global slab by
+    definition). Linspace between the bounds when ``generator`` is None
+    (deterministic), else stratified with per-ray (or the reference's
+    shared) jitter drawn from ``generator``."""
     check_render_config(rcfg)
     R, dev = ray_o.shape[0], ray_o.device
+    use_bounds = (rcfg.bound_sphere_radius is not None
+                  or occ_grid is not None) and not rcfg.shared_jitter
+    if use_bounds:
+        if rcfg.bound_sphere_radius is not None:
+            t0, t1 = ray_sphere_bounds(ray_o, viewdir, rcfg.near, rcfg.far,
+                                       rcfg.bound_sphere_radius)
+        else:
+            t0 = torch.full((R,), rcfg.near, dtype=torch.float32, device=dev)
+            t1 = torch.full((R,), rcfg.far, dtype=torch.float32, device=dev)
+        if occ_grid is not None:
+            from codenerf_tpu_torch.core.occupancy import ray_grid_bounds
+
+            t0, t1 = ray_grid_bounds(occ_grid, ray_o, viewdir, t0, t1,
+                                     n_probes=rcfg.occ_probes)
     if generator is None:
+        if use_bounds:
+            t = lerp_linspace(0.0, 1.0, rcfg.n_samples, device=dev)
+            return t0[:, None] + t[None, :] * (t1 - t0)[:, None]
         z = fixed_zvals(rcfg.near, rcfg.far, rcfg.n_samples, device=dev)
-    else:
-        z = stratified_zvals(generator, rcfg.near, rcfg.far, rcfg.n_samples,
-                             num_rays=R, shared=rcfg.shared_jitter,
-                             device=dev)
+        return z.expand(R, rcfg.n_samples)
+    if use_bounds:
+        return stratified_zvals(generator, t0, t1, rcfg.n_samples,
+                                num_rays=R, device=dev)
+    z = stratified_zvals(generator, rcfg.near, rcfg.far, rcfg.n_samples,
+                         num_rays=R, shared=rcfg.shared_jitter, device=dev)
     return z.expand(R, rcfg.n_samples)
+
+
+def _eval_raw(model, ray_o, viewdir, z, shape_code, texture_code,
+              compute_dtype) -> Tuple[torch.Tensor, tuple]:
+    """Per-sample sigmas (R, S) and the three rgb planes at ``z``."""
+    xyz = ray_o[:, None, :] + viewdir[:, None, :] * z[..., None]
+    sigmas, rgbs = model(xyz, viewdir, shape_code, texture_code,
+                         compute_dtype=compute_dtype)
+    return sigmas, (rgbs[..., 0], rgbs[..., 1], rgbs[..., 2])
 
 
 def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
                 viewdir: torch.Tensor, shape_code: torch.Tensor,
                 texture_code: torch.Tensor,
                 generator: Optional[torch.Generator],
-                compute_dtype: torch.dtype = torch.bfloat16) -> RenderOutput:
-    """Render a batch of rays (coarse pass): plain ``CodeNeRF`` forward and
-    ``composite``."""
-    z = coarse_zvals(rcfg, ray_o, generator)
-    xyz = ray_o[:, None, :] + viewdir[:, None, :] * z[..., None]
-    sigmas, rgbs = model(xyz, viewdir, shape_code, texture_code,
-                         compute_dtype=compute_dtype)
-    return composite(sigmas, rgbs, z, white_bg=rcfg.white_bg)
+                compute_dtype: torch.dtype = torch.bfloat16,
+                occ_grid=None, z: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None) -> RenderResult:
+    """Render a batch of rays: the coarse pass and, with ``n_importance >
+    0``, the fine pass. ``generator`` None renders deterministically
+    (linspace z, evenly spaced CDF probes). ``z`` (R, n_samples) and ``u``
+    (R, n_importance) replace the generator's draws — the tests feed both
+    packages the same numbers."""
+    if z is None:
+        z = coarse_zvals(rcfg, ray_o, viewdir, generator, occ_grid)
+    else:
+        check_render_config(rcfg)
+    sig_c, rgb_c = _eval_raw(model, ray_o, viewdir, z, shape_code,
+                             texture_code, compute_dtype)
+    coarse = composite(sig_c, rgb_c, z, white_bg=rcfg.white_bg)
+    if rcfg.n_importance <= 0:
+        return RenderResult(coarse=coarse, fine=None)
+    # Interior coarse weights drive a piecewise-constant pdf over the
+    # z midpoints; the fine samples' planes merge with the cached coarse
+    # ones (the same network at the same z gives the same values).
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    z_fine = sample_pdf(z_mid, coarse.weights[:, 1:-1], rcfg.n_importance,
+                        generator,
+                        deterministic=generator is None and u is None, u=u)
+    sig_f, rgb_f = _eval_raw(model, ray_o, viewdir, z_fine, shape_code,
+                             texture_code, compute_dtype)
+    z_all, merged = merge_sorted_samples(z, z_fine, (sig_c,) + rgb_c,
+                                         (sig_f,) + rgb_f)
+    fine = composite(merged[0], merged[1:], z_all, white_bg=rcfg.white_bg)
+    return RenderResult(coarse=coarse, fine=fine)
 
 
 @torch.no_grad()
@@ -90,7 +161,8 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                  texture_code: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  chunk: int = 4096,
-                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 occ_grid=None) -> torch.Tensor:
     """Render a full H×W image in fixed-size ray chunks; (H, W, 3) f32."""
     dev = shape_code.device
     n_rays = H * W
@@ -101,6 +173,7 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
     rgb = torch.cat([
         render_rays(model, rcfg, ro[i * chunk:(i + 1) * chunk],
                     vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
-                    generator, compute_dtype=compute_dtype).rgb
+                    generator, compute_dtype=compute_dtype,
+                    occ_grid=occ_grid).final.rgb
         for i in range(n_chunks)])
     return rgb[:n_rays].reshape(H, W, 3)

@@ -10,6 +10,11 @@ The flags and defaults are those of the root ``train.py`` (the reference
 as the port's optimize CLI has them. One step is one globally-sampled
 batch of ``--batchsize`` rays (16,384 = one 128×128 image's rays).
 
+Any configuration of the JAX package's fused or autodiff route runs,
+hierarchical ones with the training occupancy grid included
+(``srncar_hier_occ.json``); separate fine weights and the plane-op
+kernels (``fused_composite: false``) raise with their ROADMAP.md item.
+
 Writes ``<exps_root>/<save_dir>/{hpam.json, metrics.jsonl, ckpt/}``;
 ``python -m codenerf_tpu_torch.optimize --saved_dir <save_dir>`` reads the
 latest ``ckpt/step_*.pt``. The mesh flags (``--data_axis``,

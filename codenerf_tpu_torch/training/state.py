@@ -46,10 +46,10 @@ def make_trainables(hp: Hparams, n_objects: int,
     (torch ``nn.Linear`` defaults, codes N(0, 2/latent_dim)), drawn on the
     CPU from ``generator`` so that a seed gives the same start on every
     device."""
-    if hp.render.n_importance > 0:
+    if hp.render.n_importance > 0 and not hp.render.share_fine_weights:
         raise NotImplementedError(
-            "N_importance > 0 (hierarchical sampling) is not ported yet "
-            "(ROADMAP.md Queue 1, item 9)")
+            "hierarchical_share_weights=false (a separate fine network) is "
+            "not ported yet (ROADMAP.md Queue 2, item 6)")
     model = CodeNeRF(hp.net, generator=generator)
     sc = init_codes(n_objects, hp.net.latent_dim, generator)
     tc = init_codes(n_objects, hp.net.latent_dim, generator)

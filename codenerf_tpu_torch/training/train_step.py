@@ -24,15 +24,28 @@ code tables on ``[1]``, each step-halved; with
 ``quirks.optimizer_reset_every`` the window-frozen schedule and a reset of
 the Adam moments at each window start.
 
+Hierarchical sampling (``N_importance > 0``, shared fine weights) adds the
+coarse MSE to the loss, as standard NeRF does; ``mse`` (and PSNR) stay the
+fine pass's. On the fused route the coarse pass is forward-only — the
+sigma-only kernel (``ops/fused_mlp.sigma_fwd``), ``composite_weights``,
+``hier_fine_zvals_meta`` — and one dual-mode kernel call at the union of
+the coarse and fine depths computes both losses, its cotangents already
+summed, so one ``backward()`` through the prologue gives the gradient of
+``fine_mse + coarse_mse + reg``. On the autodiff route ``render_rays``
+runs both passes. Coarse depths lie between per-ray bounds from the
+bounding sphere (``bound_sphere_radius``) and the training occupancy grid
+(``occ_grid``, the trainer's).
+
 ``microbatch_rays`` splits the batch into equal microbatches, each a
 separate forward/backward whose gradients accumulate (averaged): memory is
-bounded by the microbatch. The z jitter is drawn for the whole batch first,
-so the result does not depend on the split. The metrics are the mean over
-microbatches, with PSNR recomputed from the mean MSE.
+bounded by the microbatch. The z jitter and the importance probes are
+drawn for the whole batch first, so the result does not depend on the
+split. The metrics are the mean over microbatches, with PSNR recomputed
+from the mean MSE.
 
-Hierarchical sampling, the training occupancy grid, the plane-op kernels
-(``fused_composite=false``) and a device mesh raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Separate fine weights, the plane-op kernels (``fused_composite=false``)
+and a device mesh raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -43,10 +56,12 @@ import torch
 
 from codenerf_tpu_torch.config import Hparams, resolve_dtype
 from codenerf_tpu_torch.core.rays import pixel_rays
-from codenerf_tpu_torch.core.render import composite
+from codenerf_tpu_torch.core.render import composite, composite_weights
+from codenerf_tpu_torch.core.sampling import fine_uniforms
 from codenerf_tpu_torch.evaluation.metrics import psnr
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
-from codenerf_tpu_torch.renderer import check_render_config, coarse_zvals
+from codenerf_tpu_torch.renderer import (check_render_config, coarse_zvals,
+                                         render_rays)
 from codenerf_tpu_torch.training.schedules import (step_halving,
                                                    window_frozen_step_halving)
 from codenerf_tpu_torch.training.state import TrainState
@@ -92,9 +107,15 @@ def build_optimizer(hp: Hparams, model, shape_codes,
 def _check_supported(hp: Hparams, mesh) -> None:
     check_render_config(hp.render)
     if hp.train_occupancy is not None:
-        raise NotImplementedError(
-            "train_occupancy (training-time occupancy grid) is not ported "
-            "yet (ROADMAP.md Queue 1, item 8)")
+        if hp.render.shared_jitter:
+            raise ValueError(
+                "train_occupancy requires per-ray sampling: shared_jitter is "
+                "one global jitter vector and cannot carry per-ray bounds")
+        if hp.train_occupancy.radius is None \
+                and hp.render.bound_sphere_radius is None:
+            raise ValueError(
+                "train_occupancy needs a grid extent: set "
+                "train_occupancy.radius or bound_sphere_radius")
     if hp.use_fused_train and not hp.fused_composite:
         raise NotImplementedError(
             "fused_composite=false (the plane-op kernels) is not ported yet "
@@ -107,16 +128,19 @@ def _check_supported(hp: Hparams, mesh) -> None:
 
 def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
                   batch_size: int = 0, mesh=None):
-    """Returns ``grad_fn(state, batch[, z]) -> metrics``: the gradients of
-    the batch loss (expanded layout), averaged over the microbatches,
-    accumulated into the state's ``.grad`` s, and the step's ``loss``,
-    ``mse``, ``psnr`` and ``reg`` as 0-dim tensors on the state's device
-    (reading them synchronizes). ``z`` (R, S) replaces the generator's
-    draw — the tests feed both packages the same depths."""
+    """Returns ``grad_fn(state, batch, z=None, u=None, occ_grid=None) ->
+    metrics``: the gradients of the batch loss (expanded layout), averaged
+    over the microbatches, accumulated into the state's ``.grad`` s, and
+    the step's ``loss``, ``mse``, ``psnr`` and ``reg`` as 0-dim tensors on
+    the state's device (reading them synchronizes). ``z`` (R, S) and, with
+    hierarchical sampling, ``u`` (R, N_importance) replace the generator's
+    draws — the tests feed both packages the same numbers. ``occ_grid``
+    bounds the coarse depths (an ``OccupancyGrid``)."""
     _check_supported(hp, mesh)
     net_cfg, rcfg = hp.net, hp.render
     compute_dtype = resolve_dtype(hp.compute_dtype)
     reg_coef = hp.loss_reg_coef / hp.quirks.reg_chunk_divisor
+    hier = rcfg.n_importance > 0
     step_rays = microbatch_rays or batch_size
     if hp.use_fused_train and step_rays and not \
             fused_train.single_pass_available(net_cfg, step_rays):
@@ -127,8 +151,32 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
             f"d_xyz={net_cfg.d_xyz}, blocks={net_cfg.shape_blocks}/"
             f"{net_cfg.texture_blocks}, rays/step={step_rays})")
 
-    def loss_fn(state: TrainState, obj, ray_o, viewdir, z, rgb):
-        """(loss, mse, reg) of one (micro)batch, differentiable."""
+    def fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc):
+        """(loss, mse) from the single-pass kernel; with hierarchical
+        sampling the sigma-only coarse pass first, then the dual mode."""
+        ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
+            model, net_cfg, ray_o, viewdir, z, sc, tc)
+        wflat = fused_train.flatten_params(model, net_cfg)
+        static = (net_cfg, rcfg.white_bg, 1.0 / (rgb.shape[0] * 3.0),
+                  ro8, vd8, z, fused_mlp.pad_lanes(rgb.float(), 8))
+        if hier:
+            # Forward-only coarse pass: the importance weights need sigma
+            # and z alone, and the coarse loss rides the union call.
+            R, S = z.shape
+            with torch.no_grad():
+                sigma_c = fused_mlp.sigma_fwd(
+                    net_cfg, S, R, ro8, vd8, z, sproj.detach(), tproj,
+                    vcontrib, [w.detach() for w in wflat])
+            z_all, cmask, cdelta = fused_train.hier_fine_zvals_meta(
+                z, composite_weights(sigma_c, z), None, rcfg.n_importance,
+                u=u)
+            static = static[:5] + (z_all, static[6], cmask, cdelta)
+        return fused_train.FusedTrainLoss.apply(static, sproj, tproj,
+                                                vcontrib, *wflat)
+
+    def loss_fn(state: TrainState, obj, ray_o, viewdir, z, u, rgb):
+        """(loss, mse, reg) of one (micro)batch, differentiable; ``mse``
+        is the fine pass's under hierarchical sampling."""
         model = state.model
         # index_select's backward is index_add_; indexing's sort-based
         # backward serialises over the repeated rows (every ray of an
@@ -136,31 +184,34 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         sc = state.shape_codes.index_select(0, obj)
         tc = state.texture_codes.index_select(0, obj)
         if hp.use_fused_train:
-            ro8, vd8, z, sproj, tproj, vcontrib = \
-                fused_mlp.prep_ray_operands(model, net_cfg, ray_o, viewdir,
-                                            z, sc, tc)
-            wflat = fused_train.flatten_params(model, net_cfg)
-            static = (net_cfg, rcfg.white_bg, 1.0 / (rgb.shape[0] * 3.0),
-                      ro8, vd8, z, fused_mlp.pad_lanes(rgb.float(), 8))
-            mse = fused_train.FusedTrainLoss.apply(static, sproj, tproj,
-                                                   vcontrib, *wflat)
+            loss, mse = fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc)
+        elif hier:
+            res = render_rays(model, rcfg, ray_o, viewdir, sc, tc, None,
+                              compute_dtype=compute_dtype, z=z, u=u)
+            mse = torch.mean((res.fine.rgb - rgb) ** 2)
+            loss = mse + torch.mean((res.coarse.rgb - rgb) ** 2)
         else:
             xyz = ray_o[:, None, :] + viewdir[:, None, :] * z[..., None]
             sig, rgbs = model(xyz, viewdir, sc, tc,
                               compute_dtype=compute_dtype)
             res = composite(sig, rgbs, z, white_bg=rcfg.white_bg)
-            mse = torch.mean((res.rgb - rgb) ** 2)
+            loss = mse = torch.mean((res.rgb - rgb) ** 2)
         reg = torch.mean(torch.linalg.norm(sc, dim=-1)
                          + torch.linalg.norm(tc, dim=-1))
-        return mse + reg_coef * reg, mse, reg
+        return loss + reg_coef * reg, mse.detach(), reg
 
     def grad_fn(state: TrainState, batch: Batch,
-                z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                z: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
+                occ_grid=None) -> Dict[str, torch.Tensor]:
         ray_o, viewdir = pixel_rays(batch["uv"], batch["focal"],
                                     batch["c2w"], H, W)
-        if z is None:
-            z = coarse_zvals(rcfg, ray_o, state.generator)
         B = batch["rgb"].shape[0]
+        if z is None:
+            z = coarse_zvals(rcfg, ray_o, viewdir, state.generator, occ_grid)
+        if hier and u is None:
+            u = fine_uniforms(state.generator, B, rcfg.n_importance,
+                              z.device)
         mb = microbatch_rays or B
         if B % mb:
             raise ValueError(f"batch {B} not divisible by microbatch {mb}")
@@ -169,7 +220,9 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         for i in range(k):
             sl = slice(i * mb, (i + 1) * mb)
             loss, mse, reg = loss_fn(state, batch["obj"][sl], ray_o[sl],
-                                     viewdir[sl], z[sl], batch["rgb"][sl])
+                                     viewdir[sl], z[sl],
+                                     u[sl] if hier else None,
+                                     batch["rgb"][sl])
             (loss / k).backward()
             sums += torch.stack([loss, mse, reg]).detach()
         loss, mse, reg = sums / k
@@ -198,17 +251,19 @@ def apply_update(state: TrainState, hp: Hparams) -> None:
 def build_train_step(hp: Hparams, H: int, W: int,
                      microbatch_rays: int = 0, batch_size: int = 0,
                      mesh=None) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Returns ``train_step(state, batch, tables) -> metrics``: one
-    :func:`build_grad_fn` pass on the compact ``batch`` expanded with the
-    pipeline's device-resident ``tables``, and one :func:`apply_update`,
+    """Returns ``train_step(state, batch, tables, occ_grid=None) ->
+    metrics``: one :func:`build_grad_fn` pass on the compact ``batch``
+    expanded with the pipeline's device-resident ``tables`` (coarse depths
+    bounded by ``occ_grid`` when given), and one :func:`apply_update`,
     updating ``state`` in place (model, codes, moments, generator,
     step)."""
     grad_fn = build_grad_fn(hp, H, W, microbatch_rays, batch_size, mesh)
 
-    def train_step(state: TrainState, batch: Batch,
-                   tables: Batch) -> Dict[str, torch.Tensor]:
+    def train_step(state: TrainState, batch: Batch, tables: Batch,
+                   occ_grid=None) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = grad_fn(state, expand_compact_batch(batch, tables))
+        metrics = grad_fn(state, expand_compact_batch(batch, tables),
+                          occ_grid=occ_grid)
         apply_update(state, hp)
         return metrics
 

@@ -1,6 +1,5 @@
 """Category-level training loop (counterpart of
-``codenerf_tpu/training/trainer.py``, without its mesh and its training
-occupancy grid).
+``codenerf_tpu/training/trainer.py``, without its mesh).
 
 The reference ``Trainer``'s capabilities (``src/trainer.py:17-180``): the
 two-stage cropped-then-full schedule, per-object latent code tables, MSE +
@@ -17,6 +16,14 @@ Batches are compact (15 B/ray: object, view, pixel, uint8 rgb), staged to
 the card from pinned memory on the prefetch thread; the pose and focal
 tables stay on the card. ``device="cuda"`` is the default; a CUDA request
 without a card raises.
+
+With ``train_occupancy`` the trainer keeps a category-level occupancy
+grid (``core/occupancy.py``) that bounds every step's coarse depths: the
+full grid during warm-up; at the warm-up boundary a rebuild from every
+object's codes (``category_density_scan``); then every ``update_every``
+steps an EMA refresh from ``codes_per_update`` objects taken round-robin.
+The density is a function of the model and codes and is not
+checkpointed: a run resumed past warm-up rebuilds it.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -31,6 +39,7 @@ import torch
 
 from codenerf_tpu_torch import resolve_device
 from codenerf_tpu_torch.config import Hparams, resolve_dtype
+from codenerf_tpu_torch.core import occupancy as occ_mod
 from codenerf_tpu_torch.data.pipeline import RayBatchPipeline
 from codenerf_tpu_torch.data.srn import SRNDataset
 from codenerf_tpu_torch.evaluation.metrics import reference_psnr_mse
@@ -88,6 +97,94 @@ class Trainer:
         self.state = create_train_state(self.hp, self.n_objects, self.device)
         self._tables = {k: torch.from_numpy(v).to(self.device)
                         for k, v in self.pipeline.tables().items()}
+        self._init_occupancy()
+
+    # ------------------------------------------------------ train occupancy
+    def _init_occupancy(self) -> None:
+        """The training occupancy grid's state (``TrainOccupancyConfig``):
+        the full grid until the warm-up ends, the density field, the
+        round-robin cursor and the refresh width."""
+        self._occ = None
+        oc = self.hp.train_occupancy
+        if oc is None:
+            return
+        radius = (oc.radius if oc.radius is not None
+                  else self.hp.render.bound_sphere_radius)
+        self._occ_radius = float(radius)
+        self._density = torch.zeros((oc.grid_size,) * 3, dtype=torch.float32,
+                                    device=self.device)
+        self._occ = occ_mod.full_grid(oc.grid_size, self._occ_radius,
+                                      self.device)
+        self._occ_cursor = 0
+        self._occ_seeded = False
+        self._occ_k = k = occ_mod.resolve_codes_per_update(oc,
+                                                           self.n_objects)
+        rounds = -(-self.n_objects // k)
+        if rounds > 1 and oc.decay ** rounds < 0.5:
+            warnings.warn(
+                f"train_occupancy: codes_per_update={k} covers "
+                f"{self.n_objects} objects in {rounds} rounds, and "
+                f"decay^rounds = {oc.decay ** rounds:.3f} < 0.5: cells kept "
+                "alive only by rarely refreshed objects decay below the "
+                "threshold between their refreshes. Raise codes_per_update "
+                "or decay, or leave codes_per_update unset.", stacklevel=3)
+
+    def _update_occupancy(self) -> None:
+        """EMA refresh from the next ``codes_per_update`` objects."""
+        oc, st = self.hp.train_occupancy, self.state
+        idx = (torch.arange(self._occ_k) + self._occ_cursor) % self.n_objects
+        self._occ_cursor = int((self._occ_cursor + self._occ_k)
+                               % self.n_objects)
+        idx = idx.to(self.device)
+        self._density = occ_mod.update_density_grid(
+            self._density, st.model, st.shape_codes.detach()[idx],
+            st.texture_codes.detach()[idx], self._occ_radius,
+            decay=oc.decay, compute_dtype=resolve_dtype(self.hp.compute_dtype))
+        self._occ = occ_mod.grid_from_density(
+            self._density, self._occ_radius,
+            sigma_threshold=oc.sigma_threshold, dilate=oc.dilate,
+            mask_radius=self._occ_radius)
+        self._log_occupancy(rebuild=False)
+
+    def _rebuild_occupancy(self) -> None:
+        """The grid from every object's codes (``decay = 1``): at the
+        warm-up boundary and on a resume past it, where one round-robin
+        refresh would see only ``codes_per_update`` objects and empty the
+        others' cells."""
+        oc, st = self.hp.train_occupancy, self.state
+        self._density, self._occ = occ_mod.category_density_scan(
+            st.model, st.shape_codes.detach(), st.texture_codes.detach(),
+            oc.grid_size, self._occ_radius, self._occ_k,
+            sigma_threshold=oc.sigma_threshold, dilate=oc.dilate,
+            compute_dtype=resolve_dtype(self.hp.compute_dtype))
+        self._occ_cursor = 0
+        self._occ_seeded = True
+        self._log_occupancy(rebuild=True)
+
+    def _log_occupancy(self, rebuild: bool) -> None:
+        """The grid's occupied share and whether it was a full rebuild, at
+        the state's step, in ``metrics.jsonl``."""
+        self.logger.scalars(self.state.step, {
+            "occ/occupied": float(self._occ.occ.float().mean()),
+            "occ/rebuild": float(rebuild)})
+
+    def _maybe_update_occupancy(self, next_step: int) -> None:
+        oc = self.hp.train_occupancy
+        if oc is None:
+            return
+        if next_step >= oc.warmup and next_step % oc.update_every == 0:
+            if self._occ_seeded:
+                self._update_occupancy()
+            else:
+                self._rebuild_occupancy()
+
+    @property
+    def occupancy_grid(self):
+        """The live category occupancy grid (None without
+        ``train_occupancy``). A max-union over the trained codes, it also
+        bounds unseen objects of the category (``CodeOptimizer``'s
+        ``occ_grid``)."""
+        return self._occ
 
     # ------------------------------------------------------------------ ckpt
     def save_checkpoint(self) -> str:
@@ -123,6 +220,12 @@ class Trainer:
         rays_since_log = 0
         start = self.state.step
         crop_phase = start < iters_crop
+        oc = self.hp.train_occupancy
+        if oc is not None and start >= oc.warmup and not self._occ_seeded:
+            # Resumed past the warm-up: the density is not checkpointed, so
+            # it is rebuilt from the restored model over every object. A
+            # grid already live in this process is current and kept.
+            self._rebuild_occupancy()
         batches = self._batches(crop_phase, start, iters_crop)
         try:
             for step in range(start, iters_all):
@@ -131,9 +234,10 @@ class Trainer:
                     batches.close()          # stop the crop-phase worker
                     batches = self._batches(False, step, iters_crop)
                 metrics = self._train_step(self.state, next(batches),
-                                           self._tables)
+                                           *self._step_extras())
                 rays_since_log += self.B
                 next_step = step + 1
+                self._maybe_update_occupancy(next_step)
                 if next_step % log_every == 0 or next_step == iters_all:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     dt = time.time() - t_phase
@@ -182,11 +286,11 @@ class Trainer:
         trace_dir = trace_dir or os.path.join(self.save_dir, "profile")
         os.makedirs(trace_dir, exist_ok=True)
         batch = self._stage(self.pipeline.sample(self.B, compact=True))
-        self._train_step(self.state, batch, self._tables)
+        self._train_step(self.state, batch, *self._step_extras())
         self._sync()
         t0 = time.perf_counter()
         for _ in range(n_steps):
-            self._train_step(self.state, batch, self._tables)
+            self._train_step(self.state, batch, *self._step_extras())
         self._sync()
         untraced_ms = (time.perf_counter() - t0) * 1e3 / n_steps
         acts = [ProfilerActivity.CPU]
@@ -195,7 +299,7 @@ class Trainer:
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(n_steps):
-                self._train_step(self.state, batch, self._tables)
+                self._train_step(self.state, batch, *self._step_extras())
             self._sync()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
         path = os.path.join(trace_dir, "trace.json")
@@ -204,6 +308,11 @@ class Trainer:
                 "untraced_ms": untraced_ms, "profile": prof}
 
     # ------------------------------------------------------------- utilities
+    def _step_extras(self) -> tuple:
+        """The train step's arguments after (state, batch): the pose and
+        focal tables, then the occupancy grid when there is one."""
+        return (self._tables,) + (() if self._occ is None else (self._occ,))
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -117,10 +117,23 @@ def test_plain_kernel_matches_jax_train_kernel():
 
 @pytest.mark.parametrize("mode", ["dual", "want_weights", "input_grads"])
 def test_unported_modes_raise(mode):
+    """``want_weights`` and ``input_grads`` are not ported and raise naming
+    their ROADMAP.md item; the dual mode is ported, and excludes both (as
+    ``invoke_train_fused`` does)."""
     cfg = NetConfig(**KW)
+    if mode == "dual":
+        plane = torch.ones(R, S)
+        for kw in ({"want_weights": True}, {"input_grads": True}):
+            with pytest.raises(ValueError, match="excludes"):
+                fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 8),
+                                        coarse_mask=plane, coarse_delta=plane,
+                                        **kw)
+        with pytest.raises(ValueError, match="together"):
+            fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 8),
+                                    coarse_mask=plane)
+        return
     kw = {"want_weights": mode == "want_weights",
-          "input_grads": mode == "input_grads",
-          "coarse_mask": torch.ones(R, S) if mode == "dual" else None}
+          "input_grads": mode == "input_grads"}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 8), **kw)
 
@@ -159,7 +172,7 @@ def test_codes_gradient_through_prologue_matches_jax_grad():
     ro8, vd8, zt, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
         model, cfg, _t(ro), _t(vd), _t(z), scode, tcode)
     wops = fused_train.kernel_operands(fused_train.flatten_params(model, cfg))
-    loss, _ = fused_train.FusedCodesLoss.apply(
+    loss, _, _ = fused_train.FusedCodesLoss.apply(
         sproj, tproj, vcontrib, cfg, True, scale, ro8, vd8, zt,
         fused_mlp.pad_lanes(_t(gt), 8), wops, False)
     loss.backward()

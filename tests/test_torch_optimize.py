@@ -176,10 +176,12 @@ def test_outputs_have_the_jax_cli_schema(runs, setup):
 
 
 @pytest.mark.parametrize("flag", [["--opt_group", "2"], ["--opt_rays", "64"],
-                                  ["--opt_occ", "true"],
-                                  ["--opt_samples", "4"], ["--pose_opt"],
-                                  ["--replica_axis", "2"]])
+                                  ["--data_axis", "2"],
+                                  ["--opt_group", "4", "--opt_samples", "4"],
+                                  ["--pose_opt"], ["--replica_axis", "2"]])
 def test_unported_flags_raise(flag, setup):
+    """The flags of the JAX CLI the port does not have yet (``--opt_occ``
+    and ``--opt_samples`` are ported: tests/test_torch_hier.py)."""
     _, _, _, _, jsonfile = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_optimize.main(["--device", "cpu", "--jsonfile", jsonfile] + flag)
@@ -188,8 +190,8 @@ def test_unported_flags_raise(flag, setup):
 def test_unported_configs_raise(setup, tmp_path):
     root, _, _, _, jsonfile = setup
     base = json.loads(open(jsonfile).read())
-    for extra in ({"N_importance": 8}, {"bound_sphere_radius": 1.5},
-                  {"use_fused_train": False}):
+    for extra in ({"N_importance": 8, "hierarchical_share_weights": False},
+                  {"fused_composite": False}, {"use_fused_train": False}):
         path = tmp_path / "cfg.json"
         path.write_text(json.dumps({**base, **extra}))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -422,9 +422,15 @@ def test_schedules_match_jax():
 
 
 @pytest.mark.parametrize("extra", [
-    {"N_importance": 8}, {"bound_sphere_radius": 1.5},
-    {"train_occupancy": {}}, {"fused_composite": False}])
+    {"N_importance": 8, "hierarchical_share_weights": False},
+    {"N_importance": 8, "hierarchical_share_weights": False,
+     "use_fused_train": False},
+    {"N_importance": 8, "fused_composite": False},
+    {"fused_composite": False}])
 def test_unported_training_configs_raise(scene, extra):
+    """Separate fine weights (either route) and the plane-op kernels are
+    not ported yet; hierarchical sampling with shared weights, sphere
+    bounds and the occupancy grid are (tests/test_torch_hier.py)."""
     _, hp = _hparams(scene, **extra)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_step.build_train_step(hp, 16, 16, batch_size=R)
