@@ -20,7 +20,11 @@ Phases, each printed on its own line with its seconds:
    32 coarse and 32 fine depths (``hier_fine_zvals_meta`` on seeded coarse
    depths), training at R=16,384 (its per-ray cotangents equal to the
    dual frozen mode's on the same inputs, its fine SE to the non-dual
-   frozen kernel's on the same union) and frozen at R=4096. Timings of
+   frozen kernel's on the same union) and frozen at R=4096; the pose
+   modes at pose optimization's 2048 rays: ``pose`` at S=96 and on a real
+   32+32 union, ``pose_weights`` at S=32 (their SE and code cotangents
+   equal to the frozen mode's on the same inputs, their ``d_ro8``,
+   ``d_vd8`` and ``d_z`` the same bits over two launches). Timings of
    each kernel, its plain version and its bound, and a ``torch.profiler``
    breakdown by kernel name;
 3. coarse training: ``codenerf_tpu_torch.train.main`` at
@@ -48,10 +52,16 @@ Phases, each printed on its own line with its seconds:
    the dual training kernel once; then the step profile;
 6. hierarchical test-time optimization with ``--opt_occ true`` on that
    run: the sigma-only and the dual frozen kernel each once per chunk,
-   step and object; then the step profile. Phases 3-6 each start with
-   every launch count at 0, fail if a plain version ran on a CUDA tensor,
-   and print the peak device memory;
-7. the ``kernels`` JSON line, the card line, and the last line
+   step and object; then the step profile;
+7. coarse pose optimization: ``codenerf_tpu_torch.pose_opt.main`` on the
+   coarse run (2 objects of ``cars_test``, 20 steps of 2048 rays, the
+   protocol runs 400): one ``pose`` launch per step; finite
+   ``results.json``; then the pose step's profile;
+8. hierarchical pose optimization on the hierarchical run: one
+   ``pose_weights`` and one ``pose`` launch per step. Phases 3-8 each
+   start with every launch count at 0, fail if a plain version ran on a
+   CUDA tensor, and print the peak device memory;
+9. the ``kernels`` JSON line, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
@@ -74,6 +84,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 R_CODES, R_TRAIN, S_FULL = 4096, 16384, 96
 S_COARSE, S_UNION = 32, 64   # srncar_hier_occ.json: 32 coarse + 32 fine
+R_POSE = 2048                # tools/pose_opt.py --rays_per_step
+INPUT_CHAIN = ("d_ro8", "d_vd8", "d_z")   # the pose modes' input chain
 SOURCE = "codenerf_tpu_torch/ops/csrc/train_fused.cu"
 REPLACES = "codenerf_tpu/ops/fused_train.py:447"
 REPLACES_SIGMA = "codenerf_tpu/ops/fused_mlp.py:518"
@@ -91,7 +103,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _close(name, got, want, terms=None, per_ray=False):
+def _close(name, got, want, terms=None, per_ray=False, slack=1.0):
     """Kernel vs plain version. Both round to bf16 at the same points, so
     they differ by f32 summation order, which flips an occasional bf16
     rounding. The bar: relative L2 error below 5e-3 (the bar of
@@ -112,7 +124,15 @@ def _close(name, got, want, terms=None, per_ray=False):
     ``terms``: for the sigma head's sums Σ t·dsig and Σ dsig, whose terms
     cancel heavily (tests/test_torch_train_step.py), the largest sum of
     the terms' magnitudes takes the place of the largest magnitude and
-    the relative L2 test is dropped. Returns (max abs error, passed)."""
+    the relative L2 test is dropped. ``slack`` multiplies the relative L2
+    bar and the guard: 2 for the pose modes' ``d_ro8``, ``d_vd8`` and
+    ``d_z`` (``INPUT_CHAIN``), the code cotangents' chain continued
+    through enc_xyz and the PE Jacobian, whose lanes carry factors up to
+    2^9 and whose sums over lanes and samples cancel, so that each flipped
+    bf16 rounding of the chain weighs up to about twice as much: on the
+    card they measure 1.4-2.1 times the relative L2 error of d_sproj, the
+    same chain's sum one layer earlier, on the same call (PERF.md, PR 4).
+    Returns (max abs error, passed)."""
     import torch
 
     got, want = got.float(), want.float()
@@ -129,11 +149,11 @@ def _close(name, got, want, terms=None, per_ray=False):
         ray_err = float((torch.linalg.vector_norm(g2 - w2, dim=1)
                          / norms.clamp_min(1e-2 * float(norms.max()))).max())
         guard += f", worst ray's relative L2 {ray_err:.2e}"
-        guard_ok = ray_err < 0.25
+        guard_ok = ray_err < 0.25 * slack
     else:
-        guard_ok = elem <= 5e-2
+        guard_ok = elem <= 5e-2 * slack
     ok = (bool(torch.isfinite(got).all())
-          and (terms is not None or rel_l2 < 5e-3)
+          and (terms is not None or rel_l2 < 5e-3 * slack)
           and guard_ok and outside < 1e-3)
     log(f"  {name}: max_abs_err {float(err.max()):.3e} (scale {top:.3e}) "
         f"rel_l2 {rel_l2:.3e}, share outside the elementwise bar "
@@ -192,11 +212,14 @@ def _bound(flops: int, nbytes: int):
             else "bytes", flops, nbytes)
 
 
-def bound(cfg, R: int, S: int, wops, weight_grads: bool, dual: bool = False):
+def bound(cfg, R: int, S: int, wops, weight_grads: bool, dual: bool = False,
+          input_grads: bool = False, want_weights: bool = False):
     """(bound ms, bound_by, FLOP, bytes): matmul operations at the dense
     bf16 peak against the bytes the function must move (inputs read once,
     outputs written once) at the HBM rate. The dual mode reads the coarse
-    mask and deltas besides."""
+    mask and deltas besides; the pose modes (``input_grads``) add the
+    input chain's 2·64·W FLOP per point and write d_ro8, d_vd8, d_z (and
+    the weights plane) instead of the rgb rows."""
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
     P = R * S
     fwd = 2 * P * (64 * W + W * W * (nb + nt + 2) + W * W // 2)
@@ -209,6 +232,9 @@ def bound(cfg, R: int, S: int, wops, weight_grads: bool, dual: bool = False):
     out_bytes = R * 8 * 4 + R * (nb + nt + 1) * W * 2
     if weight_grads:
         out_bytes += 4 * sum(w.numel() for w in wops)
+    elif input_grads:
+        flops += 2 * P * 64 * W
+        out_bytes += R * 8 * 4 * 2 + R * S * 4 * (1 + want_weights)
     else:
         out_bytes += R * 8 * 4                     # rgb8
     return _bound(flops, in_bytes + out_bytes)
@@ -424,6 +450,75 @@ def dual_check(dev, weight_grads: bool):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def pose_check(dev, S: int, want_weights: bool, union: bool = False):
+    """Phase 2: a pose mode (CUDA) vs train_fused_plain at R=2048 rays:
+    every output, the SE and code cotangents against the frozen mode on
+    the same inputs, and d_ro8, d_vd8, d_z over two launches. ``union``
+    takes a real union of 32 coarse and 32 fine depths."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_train
+
+    if union:
+        cfg, args, _ = union_inputs(dev, R_POSE)
+    else:
+        cfg, args = kernel_inputs(dev, R_POSE, S)
+    S = args[1]
+    kw = dict(weight_grads=False, input_grads=True, want_weights=want_weights)
+    got = fused_train.train_fused(*args, **kw)
+    torch.cuda.synchronize()
+    want = fused_train.train_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    names = (["se_sum", "d_sproj", "d_tproj", "d_vcontrib"]
+             + ["weights"] * want_weights + list(INPUT_CHAIN))
+    checks = []
+    for name, g, w in zip(names, got, want):
+        if name == "se_sum":
+            g, w = g.reshape(1), w.reshape(1)
+        checks.append((name, *_close(
+            name, g, w, per_ray=name != "se_sum",
+            slack=2.0 if name in INPUT_CHAIN else 1.0)))
+    # The pose modes only append to the frozen mode's chain: the SE and
+    # the code cotangents within the order of the f32 atomic ray sums
+    # (1e-2 of the largest magnitude, as kernel_check); the input chain's
+    # outputs come from a deterministic GEMM output and fixed-order sums.
+    frozen = fused_train.train_fused(*args, weight_grads=False)
+    for name, a, b in zip(names[:4], got[:4], frozen):
+        d = float((a.float() - b.float()).abs().max())
+        ok = d <= 1e-2 * float(b.float().abs().max())
+        log(f"  {name}: pose vs frozen mode, max abs difference "
+            f"{d:.3e}{'' if ok else '  <-- FAILS'}")
+        checks.append((f"{name} (vs frozen mode)", d, ok))
+    again = fused_train.train_fused(*args, **kw)
+    for name, a, b in zip(names[-3:], got[-3:], again[-3:]):
+        ok = torch.equal(a, b)
+        log(f"  {name}: two launches {'bit-equal' if ok else 'DIFFER'}"
+            f"{'' if ok else '  <-- FAILS'}")
+        checks.append((f"{name} (two launches)", 0.0, ok))
+    del got, want, frozen, again
+    failed = [name for name, _, ok in checks if not ok]
+    if failed:
+        raise AssertionError(f"pose mode disagrees on {failed}")
+    errs = [e for name, e, _ in checks if "(" not in name]
+    ms = time_cuda(lambda: fused_train.train_fused(*args, **kw), reps=10)
+    plain_ms = time_cuda(lambda: fused_train.train_fused_plain(*args, **kw),
+                         reps=3)
+    bound_ms, bound_by, flops, nbytes = bound(
+        cfg, R_POSE, S, args[-1], False, input_grads=True,
+        want_weights=want_weights)
+    log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
+        f"{bound_ms:.4f} ms ({flops:.4e} FLOP; {nbytes} B) at R={R_POSE}, "
+        f"S={S}")
+    profile_breakdown(lambda: fused_train.train_fused(*args, **kw),
+                      sequence=True)
+    mode = ("weight_grads=False, input_grads, want_weights" if want_weights
+            else "weight_grads=False, input_grads")
+    return {"name": f"train_fused ({mode})", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
 def profile_breakdown(fn, sequence: bool = False) -> None:
     """Device time per CUDA kernel name over three calls (torch.profiler);
     prints 'not measured' when the trace carries no device time. With
@@ -472,7 +567,8 @@ def _short(name: str) -> str:
 # own kernels in anonymous namespaces too, so the port's are told apart
 # by name.
 PORT_KERNELS = ("gemm_kernel", "dw_kernel", "head_kernel", "pe_kernel",
-                "colsum_kernel", "f32_to_bf16_kernel", "sigma_head_kernel")
+                "colsum_kernel", "f32_to_bf16_kernel", "sigma_head_kernel",
+                "input_chain_kernel")
 
 
 def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
@@ -845,6 +941,105 @@ def profile_optimize(hp, run_dir: str, data_dir: str, device: str,
     log_step_profile(what, untraced_ms, wall_ms, prof, steps)
 
 
+def pose_path(work: str, jsonfile: str, run: str, device: str,
+              num_opts: int, rays: int, per_step: dict,
+              n_objs: int = 2) -> dict:
+    """The port's pose CLI on the training run's ``ckpt/`` and the seeded
+    ``cars_test`` set that ``optimize_path`` wrote. ``per_step``: the
+    launches of each kernel mode one pose step makes."""
+    import numpy as np
+
+    from codenerf_tpu_torch import pose_opt
+    from codenerf_tpu_torch.config import load_hparams
+
+    exps = os.path.join(work, "exps")
+    with LaunchCounts() as lc:
+        out = pose_opt.main([
+            "--jsonfile", jsonfile, "--exps_root", exps, "--saved_dir", run,
+            "--num_opts", str(num_opts), "--rays_per_step", str(rays),
+            "--device", device])
+        counts = lc.get()
+        if lc.plain_on_cuda:
+            raise AssertionError(f"{lc.plain_on_cuda} plain-version calls "
+                                 f"on CUDA tensors on the pose path")
+    n = num_opts * n_objs
+    log(f"  pose_opt: launches {counts} (expected {num_opts} steps x "
+        f"{n_objs} objects = {n} of each of {sorted(per_step)})")
+    _expect(counts, {k: v * n * (device != "cpu")
+                     for k, v in per_step.items()}, "pose path")
+    with open(os.path.join(out["save_dir"], "results.json")) as f:
+        res = json.load(f)
+    rows = res["per_object"]
+    vals = [v for r in rows for k, v in r.items() if k != "id"]
+    if len(rows) != n_objs or not np.isfinite(vals).all():
+        raise AssertionError(f"results.json not finite or short: {res}")
+    t = out["timing"]
+    log(f"  pose_opt: per object (rot deg, trans before -> after; psnr "
+        f"first -> last): " + "; ".join(
+            f"{r['rot_err_deg_before']:.3f} -> {r['rot_err_deg_after']:.3f}, "
+            f"{r['trans_err_before']:.4f} -> {r['trans_err_after']:.4f}; "
+            f"{r['psnr_first']:.3f} -> {r['psnr_last']:.3f}" for r in rows))
+    log(f"  pose_opt: {1e3 * t['opt_s'] / t['opt_steps']:.3f} ms per pose "
+        f"step ({rays} rays, host clock incl. first-object warm-up)")
+    if device != "cpu":
+        profile_pose(load_hparams(jsonfile), os.path.join(exps, run),
+                     os.path.join(work, "data"), device, rays)
+    return counts
+
+
+def profile_pose(hp, run_dir: str, data_dir: str, device: str, rays: int,
+                 steps: int = 10) -> None:
+    """Where a pose step's time goes: ``steps`` steps of the first object
+    untraced, then ``steps`` more under torch.profiler, after one warm-up
+    step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from codenerf_tpu_torch.data.srn import SRNDataset
+    from codenerf_tpu_torch.models.codenerf import CodeNeRF
+    from codenerf_tpu_torch.models.codes import mean_code
+    from codenerf_tpu_torch.optimization.pose_opt import \
+        optimize_pose_and_codes
+    from codenerf_tpu_torch.utils.checkpoint import load_training_checkpoint
+
+    state, sc, tc = load_training_checkpoint(os.path.join(run_dir, "ckpt"))
+    model = CodeNeRF(hp.net)
+    model.load_state_dict(state)
+    model = model.to(device)
+    ds = SRNDataset(splits="cars_test", data_dir=data_dir, max_objects=1)
+    image = torch.from_numpy(ds.images[0, 1].astype(np.float32) / 255.0).to(
+        device)
+    pose = torch.from_numpy(np.asarray(ds.poses[0, 1], np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def run(n):
+        optimize_pose_and_codes(model, hp, image, pose, float(ds.focals[0]),
+                                mean_code(sc).to(device),
+                                mean_code(tc).to(device), gen, num_opts=n,
+                                rays_per_step=rays, pose_only_steps=n // 2)
+        torch.cuda.synchronize()
+
+    run(1)
+    t0 = time.perf_counter()
+    run(steps)
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    what = "hier pose" if hp.render.n_importance > 0 else "pose"
+    log_step_profile(what, untraced_ms, wall_ms, prof, steps)
+    # The step is short enough for the host to bound it: its largest
+    # operators by host time (self CPU time, traced).
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    log(f"  {what} step, host ms per step by operator (traced; calls per "
+        f"step): " + ", ".join(
+            f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / steps:.3f} "
+            f"({e.count // steps})" for e in ops[:12]))
+
+
 def _peak(device: str) -> str:
     import torch
 
@@ -917,6 +1112,27 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
             "dual_codes": codes["dual_codes"]}
 
 
+def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
+               rays: int = R_POSE) -> dict:
+    """Phases 7 and 8: the pose CLI on the coarse run of phase 3 and the
+    hierarchical run of phase 5, with the configs and the ``cars_test``
+    set that phases 3-6 wrote to ``work``."""
+    out = {}
+    for phase, name, run, per_step in (
+            (7, "srncar_fused.json", "smoke", {"pose": 1}),
+            (8, "srncar_hier_occ.json", "hier",
+             {"pose_weights": 1, "pose": 1})):
+        t0 = time.perf_counter()
+        _reset_peak(device)
+        counts = pose_path(work, os.path.join(work, name), run, device,
+                           num_opts, rays, per_step)
+        for k in per_step:
+            out[k] = out.get(k, 0) + counts[k]
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s; peak device "
+            f"memory {_peak(device)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--check", action="store_true",
@@ -965,6 +1181,16 @@ def main() -> int:
     log(f"phase 2: dual mode, frozen at R={R_CODES}, S={S_UNION}")
     entries["dual_codes"] = dual_check(dev, weight_grads=False)
     torch.cuda.empty_cache()
+    log(f"phase 2: pose mode at R={R_POSE}, S={S_FULL}")
+    entries["pose"] = pose_check(dev, S_FULL, want_weights=False)
+    log(f"phase 2: pose mode with the weights plane at R={R_POSE}, "
+        f"S={S_COARSE}")
+    entries["pose_weights"] = pose_check(dev, S_COARSE, want_weights=True)
+    log(f"phase 2: pose mode at R={R_POSE} on a {S_COARSE}+"
+        f"{S_UNION - S_COARSE} union")
+    union = pose_check(dev, S_UNION, want_weights=False, union=True)
+    entries["pose"]["max_abs_err"] = max(entries["pose"]["max_abs_err"],
+                                         union["max_abs_err"])
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     if args.check:
         log("phase 2: done (--check)")
@@ -985,12 +1211,18 @@ def main() -> int:
             "codenerf_tpu_torch.optimize --opt_occ true at "
             "srncar_hier_occ.json widths")
         launches.update(hier_path(work))
+        torch.cuda.empty_cache()
+        log("phases 7-8: pose optimization, python -m "
+            "codenerf_tpu_torch.pose_opt on the coarse and the hierarchical "
+            "run")
+        launches.update(pose_paths(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     rows = []
-    for mode in ("codes", "train", "sigma", "dual_train", "dual_codes"):
+    for mode in ("codes", "train", "sigma", "dual_train", "dual_codes",
+                 "pose", "pose_weights"):
         entries[mode]["launches"] = launches[mode]
         rows.append({k: entries[mode][k] for k in keys})
     print(json.dumps({"kernels": rows}))

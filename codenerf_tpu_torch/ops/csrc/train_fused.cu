@@ -15,7 +15,10 @@
 // Either mode takes the dual composite of hierarchical sampling (the TPU
 // kernel's dual=True): z is the union of coarse and fine depths, and the
 // head kernel also composites the coarse subset from the same evaluation,
-// adding its loss's cotangents before the one backward chain.
+// adding its loss's cotangents before the one backward chain. The pose
+// modes (the TPU kernel's input_grads with weight_grads=False, optionally
+// want_weights) also return the compositing weights and the exact ray and
+// depth cotangents d_ro8, d_vd8, d_z.
 //
 // Design (see ops/fused_train.py for the bound). The TPU kernel keeps all
 // weights and every activation of a 16-ray tile (~6 MB) in VMEM for the
@@ -56,6 +59,14 @@
 //         sum_s dsig, sum_s r*gh8 and sum_s gh8 (rgb_out dW, db) into a
 //         (R, HEAD_PART) buffer, then colsum_kernel in two fixed-order
 //         stages.
+// The pose modes add:
+//   (vii) head_kernel writes the weights w_s and the composite's z
+//         cotangent; the frozen forward keeps y0 and the dx chain runs on
+//         through enc_xyz's ReLU mask to gh0;
+//   (viii) input_chain_kernel: per point d_pe = gh0 . W_enc^T (CUDA-core
+//         f32 dots against W_enc^T in shared memory, 2 * 64 * W FLOP, ~2%
+//         of the call), the PE Jacobian, d_z += d_xyz . vd; per ray
+//         d_ro8, d_vd8 in a fixed order.
 // Rounding points follow the TPU kernel: bf16 activations after each ReLU,
 // the latent injection as a bf16 add, sig_pre in f32 from bf16 t, masks on
 // the stored bf16 activations, the composite entirely in f32; gh rounded to
@@ -533,6 +544,8 @@ struct HeadArgs {
   int white_bg;
   float* se8;              // (R, 8)
   float* rgb8;             // (R, 8) or null
+  float* weights;          // (R, S) or null: the compositing weights
+  float* dz;               // (R, S) or null: the composite's own dL/dz
   float* dsig;             // (P,)
   bf16* g_r;               // (P, W/2)
   float* part;             // (R, head_part_cols(W)) or null: per-ray sums
@@ -561,24 +574,29 @@ struct CompositeOut {
 // (1e10 at the last sample) and e_s + 1e-10. The composite's sigma
 // cotangent (before the softplus derivative) goes to s_gs and its rgb
 // cotangents w_s * g_k to s_gc, in f32: stored, or with ``accumulate``
-// added to what a previous pass stored there.
+// added to what a previous pass stored there. ``w_out`` (global, or null)
+// receives the weights w_s; ``s_dd`` (shared, or null) the delta
+// cotangents dx_s * sig_s (0 at the last sample), from which the caller
+// forms the composite's z cotangent.
 __device__ __forceinline__ CompositeOut composite_pass(
     const HeadArgs& h, int ray, int lane, const float* s_pre,
     float (*s_c)[MAX_S], float (*s_gc)[MAX_S], float* s_gs,
-    const float* cmask, const float* cdelta, bool accumulate) {
+    const float* cmask, const float* cdelta, bool accumulate,
+    float* w_out, float* s_dd) {
   const int S = h.S;
   const int per = (S + 31) / 32;
   const float* zr = h.z + (size_t)ray * S;
   float e_[MAX_PER_LANE], u_[MAX_PER_LANE], T_[MAX_PER_LANE],
-      w_[MAX_PER_LANE], dl_[MAX_PER_LANE];
+      w_[MAX_PER_LANE], dl_[MAX_PER_LANE], sg_[MAX_PER_LANE];
   float loc = 1.f;
 #pragma unroll
   for (int q = 0; q < MAX_PER_LANE; ++q) {
     const int s = lane * per + q;
-    e_[q] = 1.f; u_[q] = 1.f; dl_[q] = 0.f; T_[q] = loc;
+    e_[q] = 1.f; u_[q] = 1.f; dl_[q] = 0.f; T_[q] = loc; sg_[q] = 0.f;
     if (q < per && s < S) {
       const float x = s_pre[s];
       const float sig = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+      sg_[q] = sig;
       if (cdelta) {
         dl_[q] = cdelta[s];
         e_[q] = expf(-sig * dl_[q]);
@@ -607,6 +625,7 @@ __device__ __forceinline__ CompositeOut composite_pass(
     if (q < per && s < S) {
       T_[q] *= excl;
       w_[q] = (1.f - e_[q]) * T_[q];
+      if (w_out) w_out[s] = w_[q];
       rs0 += w_[q] * s_c[0][s];
       rs1 += w_[q] * s_c[1][s];
       rs2 += w_[q] * s_c[2][s];
@@ -658,6 +677,7 @@ __device__ __forceinline__ CompositeOut composite_pass(
       const float dx = e_[q] * (T_[q] * dw[q] - dL / u_[q]);
       const float gsig = dx * dl_[q];
       s_gs[s] = accumulate ? s_gs[s] + gsig : gsig;
+      if (s_dd) s_dd[s] = (s < S - 1) ? dx * sg_[q] : 0.f;
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         s_gc[k][s] = accumulate ? s_gc[k][s] + w_[q] * g[k] : w_[q] * g[k];
@@ -671,6 +691,7 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
   __shared__ float s_c[3][MAX_S];
   __shared__ float s_gc[3][MAX_S];
   __shared__ float s_dsig[MAX_S];
+  __shared__ float s_dd[MAX_S];
   const int ray = blockIdx.x, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int S = h.S, W = h.W, Wh = W / 2;
@@ -701,21 +722,27 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
   // Phase 2 (warp 0): the composite forward, the loss and the composite
   // backward; in the dual mode a second pass over the coarse planes, whose
   // cotangents add to the first's. Then dsig = g_sigma * sigmoid(sig_pre)
-  // and the bf16 rgb cotangents, with the same sample ownership.
+  // and the bf16 rgb cotangents, with the same sample ownership. With
+  // ``weights`` the pass writes w_s; with ``dz`` the composite's z
+  // cotangent dz_s = ddelta_{s-1} - ddelta_s (the loss's depth lane is
+  // masked, so the TPU kernel's gd * w_s term is 0).
   if (warp == 0) {
-    const CompositeOut f = composite_pass(h, ray, lane, s_pre, s_c, s_gc,
-                                          s_dsig, nullptr, nullptr, false);
+    const CompositeOut f = composite_pass(
+        h, ray, lane, s_pre, s_c, s_gc, s_dsig, nullptr, nullptr, false,
+        h.weights ? h.weights + p0 : nullptr, h.dz ? s_dd : nullptr);
     float se_c[3] = {0.f, 0.f, 0.f};
     if (h.cmask) {
       const CompositeOut c = composite_pass(
           h, ray, lane, s_pre, s_c, s_gc, s_dsig, h.cmask + p0,
-          h.cdelta + p0, true);
+          h.cdelta + p0, true, nullptr, nullptr);
       se_c[0] = c.se[0]; se_c[1] = c.se[1]; se_c[2] = c.se[2];
     }
     const int per = (S + 31) / 32;
+    __syncwarp();
     for (int q = 0; q < per; ++q) {
       const int s = lane * per + q;
       if (s < S) {
+        if (h.dz) h.dz[p0 + s] = (s > 0 ? s_dd[s - 1] : 0.f) - s_dd[s];
         const float x = s_pre[s];
         const float ds = s_dsig[s] * (1.f / (1.f + expf(-x)));
         h.dsig[p0 + s] = ds;
@@ -867,19 +894,131 @@ int launch_dw(const bf16* X, const bf16* G, int P, int M, int N, float* part,
   return launch_colsum(d.part_b, N, pl.splits, N, pl.splits, db, stream);
 }
 
+
+struct InputArgs {
+  int S, W, n_freq;
+  const bf16* gh0;         // (P, W): enc_xyz's output cotangent, masked
+  const bf16* w_enc;       // (64, W): enc_xyz's weight (in, out)
+  const float* ro8;        // (R, 8)
+  const float* vd8;        // (R, 8)
+  const float* z;          // (R, S)
+  float* d_z;              // (R, S): holds the composite's dz; += xyz term
+  float* d_ro8;            // (R, 8)
+  float* d_vd8;            // (R, 8)
+};
+
+constexpr int INPUT_THREADS = 256;
+
+__host__ __device__ constexpr size_t input_smem_bytes(int W) {
+  return sizeof(bf16) * (size_t)W * 64                      // W_enc^T
+         + sizeof(float) * (size_t)(INPUT_THREADS / 32) * W  // gh0 rows
+         + sizeof(float) * (size_t)MAX_S * 3;                // d_xyz
+}
+
+// The input chain of the pose modes (the TPU kernel's input_grads tail,
+// fused_train.py:615-626): per point d_pe = gh0 . W_enc^T (64 lanes, f32
+// sums of bf16 products), the PE Jacobian dpe/dt (1, cos t, -sin t) with
+// t = xyz * 2^i, and d_xyz = (d_pe * dpe/dt) . A^T; then d_z += d_xyz . vd
+// per point, and per ray d_ro = sum_s d_xyz and d_vd = sum_s d_xyz * z_s.
+// One block per ray; each warp takes one sample at a time, lane l the PE
+// lanes 2l and 2l + 1 against W_enc^T staged in shared memory. Every sum
+// runs in a fixed order (the dot over W, a butterfly over the lanes, the
+// ray sums over the samples), so d_ro8, d_vd8 and d_z are the same bits
+// on every launch.
+__global__ void __launch_bounds__(INPUT_THREADS) input_chain_kernel(
+    InputArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int W = a.W, S = a.S;
+  __nv_bfloat162* s_wt = reinterpret_cast<__nv_bfloat162*>(smem);  // [W][32]
+  float* s_gh = reinterpret_cast<float*>(smem + sizeof(bf16) * W * 64);
+  float* s_dxyz = s_gh + (INPUT_THREADS / 32) * W;                  // [S][3]
+  const int ray = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  bf16* wt = reinterpret_cast<bf16*>(s_wt);
+  for (int i = tid; i < 64 * W; i += INPUT_THREADS) {
+    const int k = i % 64, c = i / 64;
+    wt[i] = a.w_enc[(size_t)k * W + c];
+  }
+  __syncthreads();
+
+  const float* ro = a.ro8 + (size_t)ray * 8;
+  const float* vd = a.vd8 + (size_t)ray * 8;
+  const PeLane l0 = pe_lane(2 * lane, a.n_freq);
+  const PeLane l1 = pe_lane(2 * lane + 1, a.n_freq);
+  float* gh = s_gh + warp * W;
+  for (int s = warp; s < S; s += INPUT_THREADS / 32) {
+    const size_t p = (size_t)ray * S + s;
+    for (int k0 = 8 * lane; k0 < W; k0 += 256) {
+      const uint4 v = *reinterpret_cast<const uint4*>(a.gh0 + p * W + k0);
+      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        gh[k0 + 2 * i] = __low2float(v2[i]);
+        gh[k0 + 2 * i + 1] = __high2float(v2[i]);
+      }
+    }
+    __syncwarp();
+    float d0 = 0.f, d1 = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < W; ++c) {
+      const float g = gh[c];
+      const __nv_bfloat162 w2 = s_wt[c * 32 + lane];
+      d0 += g * __low2float(w2);
+      d1 += g * __high2float(w2);
+    }
+    __syncwarp();     // gh is rewritten by the warp's next sample
+    const float zs = a.z[p];
+    float dxyz[3] = {0.f, 0.f, 0.f};
+    const PeLane ls[2] = {l0, l1};
+    const float dpe[2] = {d0, d1};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const PeLane& l = ls[j];
+      if (l.kind == 3) continue;
+      const float x = __fadd_rn(ro[l.d], __fmul_rn(vd[l.d], zs));
+      const float t = x * l.scale;
+      const float dt = l.kind == 0 ? 1.f : (l.kind == 1 ? cosf(t) : -sinf(t));
+      const float v = (dpe[j] * dt) * l.scale;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dxyz[d] += l.d == d ? v : 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) dxyz[d] = warp_sum(dxyz[d]);
+    if (lane == 0) {
+      a.d_z[p] += (dxyz[0] * vd[0] + dxyz[1] * vd[1]) + dxyz[2] * vd[2];
+      s_dxyz[s * 3 + 0] = dxyz[0];
+      s_dxyz[s * 3 + 1] = dxyz[1];
+      s_dxyz[s * 3 + 2] = dxyz[2];
+    }
+  }
+  __syncthreads();
+  if (tid < 16) {
+    const int d = tid % 8;
+    float acc = 0.f;
+    if (d < 3) {
+      const float* zr = a.z + (size_t)ray * S;
+      for (int s = 0; s < S; ++s)
+        acc += tid < 8 ? s_dxyz[s * 3 + d] : s_dxyz[s * 3 + d] * zr[s];
+    }
+    (tid < 8 ? a.d_ro8 : a.d_vd8)[(size_t)ray * 8 + d] = acc;
+  }
+}
+
 }  // namespace
 
 // Workspace sizes (elements) for one call: bf16 activations and gradients,
-// f32 dsig and per-ray cotangent sums; in weight-gradient mode also the PE,
-// y0, the dW partials and the head kernel's per-ray partials.
+// f32 dsig and per-ray cotangent sums; with weight gradients or input
+// gradients also y0; in weight-gradient mode also the PE, the dW partials
+// and the head kernel's per-ray partials.
 extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
-                                int weight_grads, size_t* n_bf16,
-                                size_t* n_f32) {
+                                int weight_grads, int input_grads,
+                                size_t* n_bf16, size_t* n_f32) {
   const size_t P = (size_t)R * S;
   *n_bf16 = (size_t)(2 * nb + 2 * nt + 5) * P * W;
   *n_f32 = P + (size_t)R * (nb + nt + 1) * W;
+  if (weight_grads || input_grads) *n_bf16 += P * W;
   if (!weight_grads) return;
-  *n_bf16 += P * W + P * 64;
+  *n_bf16 += P * 64;
   size_t part = dw_part_elems(64, W, (int)P);
   const size_t sq = dw_part_elems(W, W, (int)P);
   const size_t half = dw_part_elems(W, W / 2, (int)P);
@@ -892,8 +1031,15 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
 // both or neither) select the dual-composite mode: z is the union of the
 // coarse and fine depths, and the coarse composite over the cmask subset
 // (deltas cdelta) adds its squared error in se8 lanes 4..6 and its
-// cotangents to the fine composite's. ``wts`` is a host array of the 2*k
-// device pointers of ops/fused_train.py::flatten_params, in its order:
+// cotangents to the fine composite's. ``weights`` ((R, S) f32, or null)
+// receives the compositing weights (the TPU kernel's want_weights).
+// ``input_grads`` (the pose modes; not with the dual mode) writes the
+// exact ray and depth cotangents d_ro8, d_vd8 (R, 8) and d_z (R, S): the
+// frozen forward also keeps y0, the dx chain runs on through enc_xyz's
+// ReLU mask, and input_chain_kernel finishes the PE Jacobian on top of the
+// composite's own dz, which the head kernel writes. ``wts`` is a host
+// array of the 2*k device pointers of ops/fused_train.py::flatten_params,
+// in its order:
 // 2-D weights bf16 (in, out), 1-D weights and biases f32. With
 // ``weight_grads``, ``dwb`` is a host array of 2*k f32 device pointers in
 // the same order, each the shape of its weight or bias, which receive the
@@ -904,11 +1050,13 @@ extern "C" int fused_step(
     const bf16* tproj, const bf16* vcontrib, const float* gt8,
     const float* cmask, const float* cdelta,
     const void* const* wts, bf16* ws, float* ws32, float* se8, float* rgb8,
-    bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib, void* const* dwb,
-    int weight_grads, int R, int S, int W, int nb, int nt, int n_freq,
-    float two_scale, int white_bg, cudaStream_t stream) {
+    float* weights, bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib,
+    float* d_ro8, float* d_vd8, float* d_z, void* const* dwb,
+    int weight_grads, int input_grads, int R, int S, int W, int nb, int nt,
+    int n_freq, float two_scale, int white_bg, cudaStream_t stream) {
   if (S > MAX_S || W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1
-      || (cmask == nullptr) != (cdelta == nullptr))
+      || (cmask == nullptr) != (cdelta == nullptr)
+      || (cmask != nullptr && (weights != nullptr || input_grads)))
     return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S, PW = P * W;
   auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
@@ -929,7 +1077,7 @@ extern "C" int fused_step(
   bf16* g_r = r + PW / 2;             // P x W/2
   bf16* gA = g_r + PW / 2;
   bf16* gB = gA + PW;
-  bf16* y0 = gB + PW;                 // weight_grads: enc_xyz output
+  bf16* y0 = gB + PW;                 // weight or input grads: enc_xyz out
   bf16* pe = y0 + PW;                 // weight_grads: P x 64
   float* dsig = ws32;
   float* rs_s = dsig + P;             // (R, nb, W)
@@ -959,6 +1107,7 @@ extern "C" int fused_step(
     g.A = pe; g.out = y0;
     CHECK(launch_gemm(g, false, false, stream));
   } else {
+    if (input_grads) g.out = y0;      // for enc_xyz's ReLU mask
     CHECK(launch_gemm(g, true, false, stream));
   }
   for (int j = 0; j < nb; ++j) {
@@ -996,6 +1145,8 @@ extern "C" int fused_step(
   h.w_sig = wf(i_sig); h.b_sig = bias(i_sig); h.w_rgb = wb(i_rgbo);
   h.b_rgb = bias(i_rgbo); h.two_scale = two_scale; h.white_bg = white_bg;
   h.se8 = se8; h.rgb8 = rgb8; h.dsig = dsig; h.g_r = g_r;
+  h.weights = weights;
+  if (input_grads) h.dz = d_z;
   if (weight_grads) h.part = head_part;
   head_kernel<<<R, HEAD_THREADS, 0, stream>>>(h);
   CHECK((int)cudaGetLastError());
@@ -1061,7 +1212,7 @@ extern "C" int fused_step(
     g.rs_pre = rs_s + (size_t)j * W; g.rs_pre_ld = nb * W;
     if (j > 0) {
       g.mask = ys + (size_t)(j - 1) * PW; g.out = nxt;
-    } else if (weight_grads) {
+    } else if (weight_grads || input_grads) {
       g.mask = y0; g.out = nxt;       // enc_xyz's output cotangent
     }
     CHECK(launch_gemm(g, false, true, stream));
@@ -1069,6 +1220,16 @@ extern "C" int fused_step(
   }
   if (weight_grads)
     CHECK(launch_dw(pe, cur, Pi, 64, W, dw_part, dw(0), db(0), stream));
+  if (input_grads) {
+    const size_t smem = input_smem_bytes(W);
+    CHECK((int)cudaFuncSetAttribute(
+        input_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem));
+    const InputArgs ia = {S, W, n_freq, cur, wb(0), ro8, vd8, z, d_z, d_ro8,
+                          d_vd8};
+    input_chain_kernel<<<R, INPUT_THREADS, smem, stream>>>(ia);
+    CHECK((int)cudaGetLastError());
+  }
 
   CHECK(launch_convert(rs_s, d_sproj, (size_t)R * nb * W, stream));
   CHECK(launch_convert(rs_t, d_tproj, (size_t)R * nt * W, stream));

@@ -76,12 +76,33 @@ def pe_consts(num_freqs: int):
     return A, m_id, m_sin, m_cos
 
 
+def _pe_tensors(num_freqs: int, device):
+    return tuple(torch.from_numpy(c).to(device) for c in pe_consts(num_freqs))
+
+
 def pe_in_kernel(xyz8: torch.Tensor, num_freqs: int) -> torch.Tensor:
     """(P, 8) f32 points -> (P, 64) f32 positional encoding."""
-    A, m_id, m_sin, m_cos = (torch.from_numpy(c).to(xyz8.device)
-                             for c in pe_consts(num_freqs))
+    A, m_id, m_sin, m_cos = _pe_tensors(num_freqs, xyz8.device)
     t = xyz8 @ A
     return m_id * t + m_sin * torch.sin(t) + m_cos * torch.cos(t)
+
+
+def input_chain_plain(R: int, S: int, ro8, vd8, z, gh0, w_enc, dz_comp,
+                      num_freqs: int):
+    """The pose modes' input chain (the TPU kernel's ``input_grads`` tail):
+    ``d_pe = gh0 @ W_enc^T`` (bf16 operands, f32 sums), the PE Jacobian
+    ``dpe/dt = m_id + m_sin·cos t - m_cos·sin t`` at ``t = xyz8 @ A``,
+    ``d_xyz = (d_pe·dpe/dt) @ A^T``; then ``d_z = dz_comp + d_xyz·vd``,
+    ``d_ro8 = Σ_s d_xyz`` and ``d_vd8 = Σ_s d_xyz·z``. Returns ``(d_ro8
+    (R, 8), d_vd8 (R, 8), d_z (R, S))`` f32."""
+    A, m_id, m_sin, m_cos = _pe_tensors(num_freqs, z.device)
+    xyz8 = (ro8[:, None, :] + vd8[:, None, :] * z[:, :, None]).reshape(-1, 8)
+    t = xyz8 @ A
+    d_pe = gh0.float() @ w_enc.float().T
+    dpe_dt = m_id + m_sin * torch.cos(t) - m_cos * torch.sin(t)
+    d_xyz = ((d_pe * dpe_dt) @ A.T).view(R, S, 8)
+    d_z = dz_comp + torch.sum(d_xyz * vd8[:, None, :], dim=-1)
+    return d_xyz.sum(dim=1), torch.sum(d_xyz * z[:, :, None], dim=1), d_z
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,18 @@ per-ray bf16 ray sums ``d_sproj``, ``d_tproj``, ``d_vcontrib``.
   ``dual=True``). At W=256, nb=3, nt=1 and 16,384 rays × 64 union samples
   a training call is 2.75e12 FLOP, 2.78 ms at 989 TFLOP/s; a frozen call
   at 4096 × 64 is 4.55e11 FLOP, 0.46 ms.
+- ``input_grads=True`` with ``weight_grads=False`` (pose optimization):
+  the dx chain runs on through enc_xyz's ReLU mask, and the exact
+  cotangents of the rays and depths ``(d_ro8, d_vd8, d_z)`` follow — the
+  PE Jacobian chain plus the composite's own z term; with
+  ``want_weights`` also the (R, S) compositing weights (the hierarchical
+  coarse call). The input chain adds 2·64·W FLOP per point to the frozen
+  mode's, 1,769,472 per point at W=256, nb=3, nt=1: 0.35 ms for 2048 rays
+  × 96 samples, 0.12 ms for 2048 × 32, 0.23 ms for 2048 × 64.
 
-The TPU kernel's other modes (``want_weights``, ``input_grads``) raise
+The dual mode excludes ``want_weights`` and ``input_grads``, as on the
+TPU. The combinations no path calls (``input_grads`` with weight
+gradients, ``want_weights`` without ``input_grads``) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
 What bounds it on an H100. Matmul operations per point: forward
@@ -54,18 +64,23 @@ dW GEMM per layer whose reduction axis is the points, split across
 blocks into f32 partial tiles that a column-sum kernel then adds in a
 fixed order — so dW and db are the same bits on every run, while the
 per-ray code cotangents, summed with f32 atomics, may differ in their last
-bits. The activations' round trips through HBM put a floor of ~2 ms per
-4096 rays under this design; keeping activations on chip (and
-``wgmma``/TMA) is later work.
+bits; (v) in the pose modes, the head kernel also writes the weights and
+the composite's dz, and an input-chain kernel (one block per ray, W_enc^T
+in shared memory, fixed-order sums) finishes d_ro8, d_vd8 and d_z, the
+same bits on every run. The activations' round trips through HBM put a
+floor of ~2 ms per 4096 rays under this design; keeping activations on
+chip (and ``wgmma``/TMA) is later work.
 
 Beside the kernel: :func:`train_fused_plain`, the same function in plain
 PyTorch (the CPU tests and ``chip_smoke.py`` use it; the main path never
 does on CUDA), the launch counters ``train_fused.launches["codes"]``,
-``["train"]``, ``["dual_codes"]`` and ``["dual_train"]`` (one per mode),
-:func:`hier_fine_zvals_meta`, which draws the fine depths and the dual
-mode's planes, and the ``autograd.Function`` s
-:class:`FusedCodesLoss` (codes only) and :class:`FusedTrainLoss` (codes and
-weights), which hand the kernel's cotangents to the prologue's backward.
+``["train"]``, ``["dual_codes"]``, ``["dual_train"]``, ``["pose"]`` and
+``["pose_weights"]`` (one per mode), :func:`hier_fine_zvals_meta`, which
+draws the fine depths and the dual mode's planes, and the
+``autograd.Function`` s :class:`FusedCodesLoss` (codes only),
+:class:`FusedPoseLoss` (rays, depths and codes) and :class:`FusedTrainLoss`
+(codes and weights), which hand the kernel's cotangents to the prologue's
+backward.
 """
 
 from __future__ import annotations
@@ -180,25 +195,31 @@ def hier_fine_zvals_meta(z2d: torch.Tensor, w_coarse: torch.Tensor,
     return z_all, cmask, cdelta_u
 
 
-def _check_mode(want_weights, input_grads, coarse_mask, coarse_delta):
+def _check_mode(weight_grads, want_weights, input_grads, coarse_mask,
+                coarse_delta):
     if (coarse_mask is None) != (coarse_delta is None):
         raise ValueError("coarse_mask and coarse_delta come together")
     if coarse_mask is not None and (want_weights or input_grads):
         raise ValueError("the dual-composite mode excludes want_weights and "
                          "input_grads (its coarse weights come from the "
                          "sigma-only forward; it never differentiates z)")
-    if want_weights:
+    if input_grads and weight_grads:
         raise NotImplementedError(
-            "train_fused(want_weights=True) — the weights plane for "
-            "hierarchical sampling — is not ported yet (ROADMAP.md Queue 2, "
-            "item 7)")
+            "train_fused(input_grads=True, weight_grads=True) has no caller "
+            "in the JAX package and is not ported (ROADMAP.md Queue 2, item "
+            "11); pose optimization runs input_grads with weight_grads=False")
+    if want_weights and not input_grads:
+        raise NotImplementedError(
+            "train_fused(want_weights=True) without input_grads — the JAX "
+            "package's former two-call hierarchical training route, which "
+            "no path calls — is not ported (ROADMAP.md Queue 2, item 11); "
+            "the weights plane comes with the pose modes")
+
+
+def _mode(weight_grads: bool, dual: bool, want_weights: bool = False,
+          input_grads: bool = False) -> str:
     if input_grads:
-        raise NotImplementedError(
-            "train_fused(input_grads=True) — pose optimization — is not "
-            "ported yet (ROADMAP.md Queue 2, item 8)")
-
-
-def _mode(weight_grads: bool, dual: bool) -> str:
+        return "pose_weights" if want_weights else "pose"
     return ("dual_" if dual else "") + ("train" if weight_grads else "codes")
 
 
@@ -209,9 +230,16 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
                 coarse_mask=None, coarse_delta=None):
     """Counterpart of ``invoke_train_fused``: returns ``(se_sum () f32,
     d_sproj (R, nb, W) bf16, d_tproj (R, nt, W) bf16, d_vcontrib (R, W)
-    bf16[, rgb8 (R, 8) f32][, dW_0, db_0, dW_1, ...])``, the weight and
+    bf16[, weights (R, S) f32][, rgb8 (R, 8) f32][, d_ro8 (R, 8), d_vd8
+    (R, 8), d_z (R, S) f32][, dW_0, db_0, dW_1, ...])``, the weight and
     bias gradients f32 in :func:`weight_shapes` order. Every cotangent is
     that of ``scale · se_sum`` (the kernel's cotangent is 2·scale·diff).
+
+    ``input_grads`` (with ``weight_grads=False``) selects the pose modes:
+    the exact cotangents of the rays and depths, the PE Jacobian chain
+    through enc_xyz plus the composite's own z term; ``want_weights``
+    comes with it and adds the compositing weights (the hierarchical
+    coarse call of pose optimization).
 
     ``coarse_mask`` and ``coarse_delta`` ((R, S) f32, from
     :func:`hier_fine_zvals_meta`) select the dual-composite mode: ``z`` is
@@ -222,8 +250,10 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
 
     On CPU tensors this is :func:`train_fused_plain`; on CUDA tensors it
     launches the CUDA kernel (and counts the launch in its mode's
-    counter: ``codes``, ``train``, ``dual_codes``, ``dual_train``)."""
-    _check_mode(want_weights, input_grads, coarse_mask, coarse_delta)
+    counter: ``codes``, ``train``, ``dual_codes``, ``dual_train``,
+    ``pose``, ``pose_weights``)."""
+    _check_mode(weight_grads, want_weights, input_grads, coarse_mask,
+                coarse_delta)
     if z.shape != (R, S):
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
@@ -231,25 +261,29 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
                                  sproj, tproj, vcontrib, gt8, wflat,
                                  want_rgb=want_rgb, weight_grads=weight_grads,
                                  coarse_mask=coarse_mask,
-                                 coarse_delta=coarse_delta)
+                                 coarse_delta=coarse_delta,
+                                 want_weights=want_weights,
+                                 input_grads=input_grads)
     if z.device.type != "cuda":
         raise ValueError(f"train_fused: unsupported device {z.device}")
     outs = _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
-                        tproj, vcontrib, gt8, wflat, want_rgb, weight_grads,
-                        coarse_mask, coarse_delta)
-    train_fused.launches[_mode(weight_grads, coarse_mask is not None)] += 1
+                        tproj, vcontrib, gt8, wflat, want_weights, want_rgb,
+                        weight_grads, input_grads, coarse_mask, coarse_delta)
+    train_fused.launches[_mode(weight_grads, coarse_mask is not None,
+                               want_weights, input_grads)] += 1
     return outs
 
 
 train_fused.launches = {"codes": 0, "train": 0, "dual_codes": 0,
-                        "dual_train": 0}
+                        "dual_train": 0, "pose": 0, "pose_weights": 0}
 
 
 def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
                       scale: float, ro8, vd8, z, sproj, tproj, vcontrib,
                       gt8, wflat, want_rgb: bool = False,
                       weight_grads: bool = False, sigma_terms=None,
-                      coarse_mask=None, coarse_delta=None):
+                      coarse_mask=None, coarse_delta=None,
+                      want_weights: bool = False, input_grads: bool = False):
     """The kernel's function in plain PyTorch, rounding where the TPU
     kernel rounds: bf16 activations after each ReLU, the latent injection
     as a bf16 add, sig_pre in f32 from bf16 t, ReLU masks on the stored
@@ -257,7 +291,8 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
     rounded to bf16 before both its dx and its dW product (exact bf16
     products, f32 sums), the sigma dW from bf16 t times f32 dsig. In the
     dual mode the two composites' sigma and rgb cotangents are added
-    before the one backward chain.
+    before the one backward chain. ``input_grads`` continues the chain
+    through enc_xyz's ReLU mask into :func:`fused_mlp.input_chain_plain`.
 
     ``sigma_terms``, a list, receives ``(Σ|t·dsig| (W,), Σ|dsig| (1,))``:
     the size of the terms of the sigma head's gradient sums, which cancel
@@ -324,7 +359,7 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
                                                       white_bg)
         se, g8 = loss_terms(out8)
         ses = (se,)
-        g_sigma, gc0, gc1, gc2, _ = fused_mlp.composite_bwd_in_kernel(
+        g_sigma, gc0, gc1, gc2, dz_comp = fused_mlp.composite_bwd_in_kernel(
             sigma, c0, c1, c2, z, g8, aux, white_bg)
     else:
         out8, out8_c, aux = fused_mlp.composite_fwd_dual_in_kernel(
@@ -374,12 +409,19 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
         acc(f"shape_{j}", xs[j], gh)
         g_cur = dot_t(gh, w(f"shape_{j}"))
         d_sproj[:, j] = ray_sum(g_cur).to(bf16)
-    if weight_grads:
-        acc("enc_xyz", pe, (g_cur * (y0.float() > 0)).to(bf16))
+    if weight_grads or input_grads:
+        gh0 = (g_cur * (y0.float() > 0)).to(bf16)
+        acc("enc_xyz", pe, gh0)
 
     outs = ses + (d_sproj, d_tproj, d_vcontrib)
+    if want_weights:
+        outs += (aux[4],)
     if want_rgb:
         outs += (out8,)
+    if input_grads:
+        outs += fused_mlp.input_chain_plain(R, S, ro8, vd8, z, gh0,
+                                            w("enc_xyz"), dz_comp,
+                                            cfg.num_xyz_freq)
     for name, _, _ in (weight_shapes(cfg) if weight_grads else ()):
         outs += dwb[name]
     return outs
@@ -402,10 +444,10 @@ def _aligned(x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_step.argtypes = ([vp] * 18 + [ci] * 7
+    lib.fused_step.argtypes = ([vp] * 22 + [ci] * 8
                                + [ctypes.c_float, ci, vp])
     lib.fused_step.restype = ci
-    lib.fused_workspace.argtypes = [ci] * 6 + [vp, vp]
+    lib.fused_workspace.argtypes = [ci] * 7 + [vp, vp]
     lib.fused_workspace.restype = None
     lib.sigma_step.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.sigma_step.restype = ci
@@ -435,8 +477,8 @@ def checked_weights(cfg: NetConfig, wflat, dev) -> List[torch.Tensor]:
 
 
 def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
-                 vcontrib, gt8, wflat, want_rgb, weight_grads, coarse_mask,
-                 coarse_delta):
+                 vcontrib, gt8, wflat, want_weights, want_rgb, weight_grads,
+                 input_grads, coarse_mask, coarse_delta):
     lib = library()
     dev = z.device
     f32, bf16 = torch.float32, torch.bfloat16
@@ -462,12 +504,19 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
                              f"{x.device}, expected {expect[name]} on {dev}")
     wops = checked_weights(cfg, wflat, dev)
     n_bf16, n_f32 = ctypes.c_size_t(), ctypes.c_size_t()
-    lib.fused_workspace(R, S, W, nb, nt, int(weight_grads),
+    lib.fused_workspace(R, S, W, nb, nt, int(weight_grads), int(input_grads),
                         ctypes.addressof(n_bf16), ctypes.addressof(n_f32))
     ws = torch.empty(n_bf16.value, dtype=bf16, device=dev)
     ws32 = torch.empty(n_f32.value, dtype=f32, device=dev)
     se8 = torch.empty(R, 8, dtype=f32, device=dev)
-    rgb8 = torch.empty(R, 8, dtype=f32, device=dev) if want_rgb else None
+
+    def opt_out(on, *shape):
+        return torch.empty(*shape, dtype=f32, device=dev) if on else None
+
+    weights = opt_out(want_weights, R, S)
+    rgb8 = opt_out(want_rgb, R, 8)
+    d_ro8, d_vd8 = opt_out(input_grads, R, 8), opt_out(input_grads, R, 8)
+    d_z = opt_out(input_grads, R, S)
     d_sproj = torch.empty(R, nb, W, dtype=bf16, device=dev)
     d_tproj = torch.empty(R, nt, W, dtype=bf16, device=dev)
     d_vcontrib = torch.empty(R, W, dtype=bf16, device=dev)
@@ -480,27 +529,28 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
     dptrs, _keep_d = (_ptr_array(dwb) if weight_grads
                       else (ctypes.c_void_p(0), None))
 
-    def opt_ptr(name):
-        return _ptr(ins[name]) if name in ins else ctypes.c_void_p(0)
+    def opt_ptr(x):
+        return ctypes.c_void_p(0) if x is None else _ptr(x)
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_step(
         _ptr(ins["ro8"]), _ptr(ins["vd8"]), _ptr(ins["z"]),
         _ptr(ins["sproj"]), _ptr(ins["tproj"]), _ptr(ins["vcontrib"]),
-        _ptr(ins["gt8"]), opt_ptr("cmask"), opt_ptr("cdelta"), wptrs,
-        _ptr(ws), _ptr(ws32), _ptr(se8),
-        ctypes.c_void_p(rgb8.data_ptr() if want_rgb else 0),
-        _ptr(d_sproj), _ptr(d_tproj), _ptr(d_vcontrib), dptrs,
-        int(bool(weight_grads)), R, S, W, nb, nt, cfg.num_xyz_freq,
-        ctypes.c_float(2.0 * scale), int(bool(white_bg)),
-        ctypes.c_void_p(stream))
+        _ptr(ins["gt8"]), opt_ptr(ins.get("cmask")),
+        opt_ptr(ins.get("cdelta")), wptrs, _ptr(ws), _ptr(ws32), _ptr(se8),
+        opt_ptr(rgb8), opt_ptr(weights), _ptr(d_sproj), _ptr(d_tproj),
+        _ptr(d_vcontrib), opt_ptr(d_ro8), opt_ptr(d_vd8), opt_ptr(d_z),
+        dptrs, int(bool(weight_grads)), int(bool(input_grads)), R, S, W, nb,
+        nt, cfg.num_xyz_freq, ctypes.c_float(2.0 * scale),
+        int(bool(white_bg)), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"train_fused CUDA kernel failed: cudaError {rc}")
     # the fine SE in lanes 0..2, the dual mode's coarse SE in lanes 4..6
     ses = ((se8[:, :4].sum(), se8[:, 4:].sum()) if dual else (se8.sum(),))
     outs = ses + (d_sproj, d_tproj, d_vcontrib)
-    if want_rgb:
-        outs += (rgb8,)
+    outs += tuple(x for x in (weights, rgb8) if x is not None)
+    if input_grads:
+        outs += (d_ro8, d_vd8, d_z)
     return outs + tuple(dwb)
 
 
@@ -538,6 +588,41 @@ class FusedCodesLoss(torch.autograd.Function):
         d_sproj, d_tproj, d_vcontrib = ctx.saved_tensors
         return ((d_sproj * g_loss, d_tproj * g_loss, d_vcontrib * g_loss)
                 + (None,) * 11)
+
+
+class FusedPoseLoss(torch.autograd.Function):
+    """``scale · Σ squared error`` of one ray batch under a frozen model,
+    differentiable with respect to the rays, the depths and the per-ray
+    operands ``(ro8, vd8, z, sproj, tproj, vcontrib)``: the kernel's pose
+    modes (``weight_grads=False, input_grads=True``) compute the loss and
+    all six cotangents in one pass, and the backward hands them on (times
+    the incoming gradient), so autograd chains them through the prologue,
+    the depth sampling and ray generation into the pose. Returns ``(loss,
+    fine, weights)``: ``fine`` equals the loss and carries no gradient;
+    ``weights`` (R, S), the compositing weights, only with
+    ``want_weights`` (else empty), carries none either."""
+
+    @staticmethod
+    def forward(ctx, ro8, vd8, z, sproj, tproj, vcontrib, cfg, white_bg,
+                scale, gt8, wops, want_weights):
+        R, S = z.shape
+        outs = train_fused(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
+                           tproj, vcontrib, gt8, wops,
+                           want_weights=want_weights, weight_grads=False,
+                           input_grads=True)
+        d_sproj, d_tproj, d_vcontrib = outs[1:4]
+        weights = outs[4] if want_weights else z.new_empty(0, S)
+        d_ro8, d_vd8, d_z = outs[-3:]
+        ctx.save_for_backward(d_ro8, d_vd8, d_z, d_sproj, d_tproj,
+                              d_vcontrib)
+        fine = (outs[0] * scale).detach()
+        ctx.mark_non_differentiable(fine, weights)
+        return outs[0] * scale, fine, weights
+
+    @staticmethod
+    def backward(ctx, g_loss, g_fine, g_weights):
+        return (tuple(x * g_loss for x in ctx.saved_tensors)
+                + (None,) * 6)
 
 
 class FusedTrainLoss(torch.autograd.Function):

@@ -26,9 +26,14 @@ checkpoint (``core/occupancy.rebuild_category_grid``; the jsonfile needs
 Eval renders with the jsonfile's full budget and no grid either way, as
 the JAX CLI does.
 
+``--pose_opt`` dispatches to the joint pose + code optimization CLI
+(``python -m codenerf_tpu_torch.pose_opt``, the twin of
+``tools/pose_opt.py``) with the remaining flags, as the root
+``optimize.py`` does.
+
 Flags of the JAX CLI that the port does not have yet (``--opt_group`` > 1,
-``--opt_rays``, ``--pose_opt``, multi-device axes) raise with the
-ROADMAP.md item that covers them.
+``--opt_rays``, multi-device axes) raise with the ROADMAP.md item that
+covers them.
 """
 
 from __future__ import annotations
@@ -82,9 +87,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--opt_samples", type=int, default=None,
                    help="sample budget of the optimization loop only (eval "
                         "keeps the jsonfile's N_samples)")
+    p.add_argument("--pose_opt", action="store_true",
+                   help="run joint camera-pose + code optimization instead "
+                        "(python -m codenerf_tpu_torch.pose_opt takes every "
+                        "other flag; see its --help)")
     # Flags of the JAX CLI the port does not have yet: accepted so the
     # surface matches, refused unless left at their defaults.
-    p.add_argument("--pose_opt", action="store_true")
     p.add_argument("--opt_group", type=int, default=1)
     p.add_argument("--opt_rays", type=int, default=None)
     p.add_argument("--data_axis", type=int, default=-1)
@@ -94,8 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.pose_opt, "--pose_opt (pose optimization)",
-         "Queue 1, item 10"),
         (args.opt_group > 1, "--opt_group > 1 (batched objects)",
          "Queue 1, item 7"),
         (args.opt_rays is not None, "--opt_rays (stochastic ray minibatches)",
@@ -110,7 +116,13 @@ def _refuse_unported(args) -> None:
 
 
 def main(argv=None) -> dict:
-    """Run the CLI; returns the summary rows and host-clock timings."""
+    """Run the CLI; returns the summary rows and host-clock timings (with
+    ``--pose_opt``, what ``pose_opt.main`` returns)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--pose_opt" in argv:
+        from codenerf_tpu_torch import pose_opt
+
+        return pose_opt.main([a for a in argv if a != "--pose_opt"])
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
 

@@ -73,13 +73,16 @@ def check_render_config(rcfg: RenderConfig) -> None:
 def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
                  viewdir: torch.Tensor,
                  generator: Optional[torch.Generator],
-                 occ_grid=None) -> torch.Tensor:
+                 occ_grid=None,
+                 jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Coarse depth samples (R, n_samples). Per-ray bounds tighten
     ``[near, far]`` to the bounding sphere and/or the occupancy grid
     (never under the reference's shared jitter, one global slab by
-    definition). Linspace between the bounds when ``generator`` is None
-    (deterministic), else stratified with per-ray (or the reference's
-    shared) jitter drawn from ``generator``."""
+    definition). Linspace between the bounds when ``generator`` and
+    ``jitter`` are None (deterministic), else stratified with per-ray (or
+    the reference's shared) jitter drawn from ``generator`` or given as
+    ``jitter`` (the tests feed both packages the same numbers).
+    Differentiable with respect to the rays through the bounds."""
     check_render_config(rcfg)
     R, dev = ray_o.shape[0], ray_o.device
     use_bounds = (rcfg.bound_sphere_radius is not None
@@ -96,7 +99,7 @@ def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
 
             t0, t1 = ray_grid_bounds(occ_grid, ray_o, viewdir, t0, t1,
                                      n_probes=rcfg.occ_probes)
-    if generator is None:
+    if generator is None and jitter is None:
         if use_bounds:
             t = lerp_linspace(0.0, 1.0, rcfg.n_samples, device=dev)
             return t0[:, None] + t[None, :] * (t1 - t0)[:, None]
@@ -104,9 +107,10 @@ def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
         return z.expand(R, rcfg.n_samples)
     if use_bounds:
         return stratified_zvals(generator, t0, t1, rcfg.n_samples,
-                                num_rays=R, device=dev)
+                                num_rays=R, jitter=jitter, device=dev)
     z = stratified_zvals(generator, rcfg.near, rcfg.far, rcfg.n_samples,
-                         num_rays=R, shared=rcfg.shared_jitter, device=dev)
+                         num_rays=R, shared=rcfg.shared_jitter, jitter=jitter,
+                         device=dev)
     return z.expand(R, rcfg.n_samples)
 
 
@@ -125,14 +129,17 @@ def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
                 generator: Optional[torch.Generator],
                 compute_dtype: torch.dtype = torch.bfloat16,
                 occ_grid=None, z: Optional[torch.Tensor] = None,
-                u: Optional[torch.Tensor] = None) -> RenderResult:
+                u: Optional[torch.Tensor] = None,
+                jitter: Optional[torch.Tensor] = None) -> RenderResult:
     """Render a batch of rays: the coarse pass and, with ``n_importance >
     0``, the fine pass. ``generator`` None renders deterministically
-    (linspace z, evenly spaced CDF probes). ``z`` (R, n_samples) and ``u``
-    (R, n_importance) replace the generator's draws — the tests feed both
-    packages the same numbers."""
+    (linspace z, evenly spaced CDF probes). ``z`` (R, n_samples), or the
+    coarse ``jitter`` of :func:`coarse_zvals`, and ``u`` (R, n_importance)
+    replace the generator's draws — the tests feed both packages the same
+    numbers."""
     if z is None:
-        z = coarse_zvals(rcfg, ray_o, viewdir, generator, occ_grid)
+        z = coarse_zvals(rcfg, ray_o, viewdir, generator, occ_grid,
+                         jitter=jitter)
     else:
         check_render_config(rcfg)
     sig_c, rgb_c = _eval_raw(model, ray_o, viewdir, z, shape_code,

@@ -117,8 +117,11 @@ def test_plain_kernel_matches_jax_train_kernel():
 
 @pytest.mark.parametrize("mode", ["dual", "want_weights", "input_grads"])
 def test_unported_modes_raise(mode):
-    """``want_weights`` and ``input_grads`` are not ported and raise naming
-    their ROADMAP.md item; the dual mode is ported, and excludes both (as
+    """``want_weights`` and ``input_grads`` are ported together, in the
+    pose modes (``weight_grads=False``, tests/test_torch_pose_kernel.py);
+    the combinations no path calls — ``want_weights`` without
+    ``input_grads``, ``input_grads`` with weight gradients — raise naming
+    their ROADMAP.md item. The dual mode excludes both (as
     ``invoke_train_fused`` does)."""
     cfg = NetConfig(**KW)
     if mode == "dual":
@@ -133,7 +136,7 @@ def test_unported_modes_raise(mode):
                                     coarse_mask=plane)
         return
     kw = {"want_weights": mode == "want_weights",
-          "input_grads": mode == "input_grads"}
+          "input_grads": mode == "input_grads", "weight_grads": True}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 8), **kw)
 

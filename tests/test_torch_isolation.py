@@ -27,6 +27,9 @@ def test_every_module_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'codenerf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "new = {'codenerf_tpu_torch.pose_opt', 'codenerf_tpu_torch.core.poses',"
+        " 'codenerf_tpu_torch.optimization.pose_opt'}\n"
+        "assert new <= set(names), new - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'codenerf_tpu' "
         "or m.startswith(('codenerf_tpu.', 'jax.'))]\n"
