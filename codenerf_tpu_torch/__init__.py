@@ -22,7 +22,17 @@ With hierarchical sampling (``N_importance > 0``, shared fine weights;
 forward (``ops/fused_mlp.sigma_fwd``) and then the single-pass kernel in
 its dual-composite mode at the union of the coarse and fine depths; sphere
 bounds and the occupancy grid (``core/occupancy.py``) tighten each ray's
-sampled span.
+sampled span. Joint pose and code optimization (``python -m
+codenerf_tpu_torch.pose_opt``) runs the kernel's pose modes.
+
+The plane-op route serves what the single pass does not: separate fine
+weights, ``fused_composite: false`` and code-optimization chunks that need
+padding. Its op (``ops/fused_train.PlaneOp``) is the four-plane forward
+(``ops/fused_mlp.planes_fwd``) and a backward that recomputes it and
+takes the planes' cotangents (``fused_train.plane_bwd``), under the
+PyTorch composite or chained into the standalone composite kernel
+(``ops/composite.py``). Every TPU kernel of the JAX package has its CUDA
+counterpart in ``ops/csrc/train_fused.cu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; requesting CUDA where there is none raises.

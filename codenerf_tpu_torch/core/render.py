@@ -13,6 +13,26 @@ from typing import NamedTuple
 import torch
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor with no zero
+    entry (the transmittance factors ``1 - alpha + 1e-10``). The backward
+    is PyTorch's own formula for that case, ``reversed_cumsum(out · g) /
+    x``, without the test for zeros that PyTorch's backward reads back
+    from the device: a stream synchronization in every backward of a
+    composite."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 class RenderOutput(NamedTuple):
     rgb: torch.Tensor      # (R, 3) composited color
     depth: torch.Tensor    # (R,) expected termination depth
@@ -36,7 +56,7 @@ def composite(sigmas: torch.Tensor, rgbs, z_vals: torch.Tensor,
     alphas = 1.0 - torch.exp(-sigmas * deltas)
     trans = torch.cat([torch.ones_like(alphas[..., :1]),
                        1.0 - alphas + 1e-10], dim=-1)
-    weights = alphas * torch.cumprod(trans, dim=-1)[..., :-1]
+    weights = alphas * _CumprodPositive.apply(trans)[..., :-1]
 
     if planes:
         rgb = torch.stack([torch.sum(weights * p, -1) for p in rgbs], -1)
@@ -61,4 +81,4 @@ def composite_weights(sigmas: torch.Tensor,
     alphas = 1.0 - torch.exp(-sigmas * deltas)
     trans = torch.cat([torch.ones_like(alphas[..., :1]),
                        1.0 - alphas + 1e-10], dim=-1)
-    return alphas * torch.cumprod(trans, dim=-1)[..., :-1]
+    return alphas * _CumprodPositive.apply(trans)[..., :-1]

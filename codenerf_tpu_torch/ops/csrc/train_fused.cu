@@ -549,7 +549,15 @@ struct HeadArgs {
   float* dsig;             // (P,)
   bf16* g_r;               // (P, W/2)
   float* part;             // (R, head_part_cols(W)) or null: per-ray sums
-};                         // for the sigma and rgb_out dW/db
+                           // for the sigma and rgb_out dW/db
+  // The plane-op backward (all four or none): the outside (R, S) f32
+  // cotangents of the sigma and r, g, b planes replace the composite and
+  // the loss; gt8, se8, rgb8, weights and dz are then unused.
+  const float* gsig;
+  const float* gr;
+  const float* gg;
+  const float* gb;
+};
 
 // A ray's row of head-kernel partial sums: [sigma dW (W) | rgb_out dW
 // (W/2 x 8) | rgb_out db (8) | sigma db (1) | padding (7)].
@@ -568,21 +576,27 @@ struct CompositeOut {
 };
 
 // One composite of a ray and its backward, run by one warp; lane l owns
-// the contiguous samples [l*per, l*per + per). Sample s has the delta
-// ``cdelta[s]`` and the cumprod factor e_s + 1e-10 * cmask[s] when the dual
-// mode's coarse planes are given; else the union delta z[s+1] - z[s]
-// (1e10 at the last sample) and e_s + 1e-10. The composite's sigma
-// cotangent (before the softplus derivative) goes to s_gs and its rgb
-// cotangents w_s * g_k to s_gc, in f32: stored, or with ``accumulate``
-// added to what a previous pass stored there. ``w_out`` (global, or null)
-// receives the weights w_s; ``s_dd`` (shared, or null) the delta
-// cotangents dx_s * sig_s (0 at the last sample), from which the caller
-// forms the composite's z cotangent.
+// the contiguous samples [l*per, l*per + per). ``s_pre`` holds the sigma
+// pre-activations (softplus applied here) or, with ``density``, the
+// densities themselves. Sample s has the delta ``cdelta[s]`` and the
+// cumprod factor e_s + 1e-10 * cmask[s] when the dual mode's coarse planes
+// are given; else the union delta z[s+1] - z[s] (1e10 at the last sample)
+// and e_s + 1e-10. Without ``backward`` the pass stops at the composited
+// ray. The backward takes the per-ray cotangent ``g8`` [r g b depth acc]
+// when given (the standalone composite) and otherwise forms the loss's,
+// 2 * scale * (rgb - gt) with no depth or acc term, and its squared error.
+// The composite's sigma cotangent (before the softplus derivative) goes
+// to s_gs and its rgb cotangents w_s * g_k to s_gc, in f32: stored, or
+// with ``accumulate`` added to what a previous pass stored there.
+// ``w_out`` (global or shared, or null) receives the weights w_s; ``s_dd``
+// (shared, or null) the delta cotangents dx_s * sig_s (0 at the last
+// sample), from which the caller forms the composite's z cotangent.
 __device__ __forceinline__ CompositeOut composite_pass(
     const HeadArgs& h, int ray, int lane, const float* s_pre,
     float (*s_c)[MAX_S], float (*s_gc)[MAX_S], float* s_gs,
     const float* cmask, const float* cdelta, bool accumulate,
-    float* w_out, float* s_dd) {
+    float* w_out, float* s_dd, bool density = false,
+    const float* g8 = nullptr, bool backward = true) {
   const int S = h.S;
   const int per = (S + 31) / 32;
   const float* zr = h.z + (size_t)ray * S;
@@ -595,7 +609,7 @@ __device__ __forceinline__ CompositeOut composite_pass(
     e_[q] = 1.f; u_[q] = 1.f; dl_[q] = 0.f; T_[q] = loc; sg_[q] = 0.f;
     if (q < per && s < S) {
       const float x = s_pre[s];
-      const float sig = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+      const float sig = density ? x : fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
       sg_[q] = sig;
       if (cdelta) {
         dl_[q] = cdelta[s];
@@ -638,15 +652,22 @@ __device__ __forceinline__ CompositeOut composite_pass(
   CompositeOut out;
   out.rgb[0] = rs0; out.rgb[1] = rs1; out.rgb[2] = rs2;
   out.dep = dep; out.acc = acc;
-  float g[3];
+  float g[3], gd = 0.f, ga = 0.f;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     if (h.white_bg) out.rgb[k] = (out.rgb[k] + 1.f) - acc;
-    const float diff = out.rgb[k] - h.gt8[(size_t)ray * 8 + k];
-    out.se[k] = diff * diff;
-    g[k] = h.two_scale * diff;
+    out.se[k] = 0.f;
+    if (g8) {
+      g[k] = g8[k];
+    } else if (backward) {
+      const float diff = out.rgb[k] - h.gt8[(size_t)ray * 8 + k];
+      out.se[k] = diff * diff;
+      g[k] = h.two_scale * diff;
+    }
   }
-  const float resid = h.white_bg ? -((g[0] + g[1]) + g[2]) : 0.f;
+  if (!backward) return out;
+  if (g8) { gd = g8[3]; ga = g8[4]; }
+  const float resid = h.white_bg ? ga - ((g[0] + g[1]) + g[2]) : ga;
 
   // dL_s = sum_{i > s} w_i dw_i: a reverse exclusive scan.
   float wdw[MAX_PER_LANE], dw[MAX_PER_LANE], lsum = 0.f;
@@ -656,6 +677,7 @@ __device__ __forceinline__ CompositeOut composite_pass(
     dw[q] = 0.f; wdw[q] = 0.f;
     if (q < per && s < S) {
       dw[q] = g[0] * s_c[0][s] + g[1] * s_c[1][s] + g[2] * s_c[2][s] + resid;
+      if (g8) dw[q] += gd * zr[s];
       wdw[q] = w_[q] * dw[q];
       lsum += wdw[q];
     }
@@ -721,23 +743,37 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
 
   // Phase 2 (warp 0): the composite forward, the loss and the composite
   // backward; in the dual mode a second pass over the coarse planes, whose
-  // cotangents add to the first's. Then dsig = g_sigma * sigmoid(sig_pre)
-  // and the bf16 rgb cotangents, with the same sample ownership. With
-  // ``weights`` the pass writes w_s; with ``dz`` the composite's z
-  // cotangent dz_s = ddelta_{s-1} - ddelta_s (the loss's depth lane is
-  // masked, so the TPU kernel's gd * w_s term is 0).
+  // cotangents add to the first's. In the plane-op backward the outside
+  // plane cotangents take the composite's place. Then dsig = g_sigma *
+  // sigmoid(sig_pre) and the bf16 rgb cotangents, with the same sample
+  // ownership. With ``weights`` the pass writes w_s; with ``dz`` the
+  // composite's z cotangent dz_s = ddelta_{s-1} - ddelta_s (the loss's
+  // depth lane is masked, so the TPU kernel's gd * w_s term is 0).
   if (warp == 0) {
-    const CompositeOut f = composite_pass(
-        h, ray, lane, s_pre, s_c, s_gc, s_dsig, nullptr, nullptr, false,
-        h.weights ? h.weights + p0 : nullptr, h.dz ? s_dd : nullptr);
-    float se_c[3] = {0.f, 0.f, 0.f};
-    if (h.cmask) {
-      const CompositeOut c = composite_pass(
-          h, ray, lane, s_pre, s_c, s_gc, s_dsig, h.cmask + p0,
-          h.cdelta + p0, true, nullptr, nullptr);
-      se_c[0] = c.se[0]; se_c[1] = c.se[1]; se_c[2] = c.se[2];
-    }
     const int per = (S + 31) / 32;
+    CompositeOut f = {};
+    float se_c[3] = {0.f, 0.f, 0.f};
+    if (h.gsig) {
+      for (int q = 0; q < per; ++q) {
+        const int s = lane * per + q;
+        if (s < S) {
+          s_dsig[s] = h.gsig[p0 + s];
+          s_gc[0][s] = h.gr[p0 + s];
+          s_gc[1][s] = h.gg[p0 + s];
+          s_gc[2][s] = h.gb[p0 + s];
+        }
+      }
+    } else {
+      f = composite_pass(
+          h, ray, lane, s_pre, s_c, s_gc, s_dsig, nullptr, nullptr, false,
+          h.weights ? h.weights + p0 : nullptr, h.dz ? s_dd : nullptr);
+      if (h.cmask) {
+        const CompositeOut c = composite_pass(
+            h, ray, lane, s_pre, s_c, s_gc, s_dsig, h.cmask + p0,
+            h.cdelta + p0, true, nullptr, nullptr);
+        se_c[0] = c.se[0]; se_c[1] = c.se[1]; se_c[2] = c.se[2];
+      }
+    }
     __syncwarp();
     for (int q = 0; q < per; ++q) {
       const int s = lane * per + q;
@@ -751,7 +787,7 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
         for (int k = 0; k < 3; ++k) s_gc[k][s] = round_bf(s_gc[k][s]);
       }
     }
-    if (lane == 0) {
+    if (lane == 0 && h.se8) {
       // The fine SE in lanes 0..2, the dual mode's coarse SE in 4..6.
       float* se_row = h.se8 + (size_t)ray * 8;
 #pragma unroll
@@ -1037,9 +1073,15 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
 // exact ray and depth cotangents d_ro8, d_vd8 (R, 8) and d_z (R, S): the
 // frozen forward also keeps y0, the dx chain runs on through enc_xyz's
 // ReLU mask, and input_chain_kernel finishes the PE Jacobian on top of the
-// composite's own dz, which the head kernel writes. ``wts`` is a host
-// array of the 2*k device pointers of ops/fused_train.py::flatten_params,
-// in its order:
+// composite's own dz, which the head kernel writes. ``gplanes`` (a host
+// array of four (R, S) f32 device pointers, or null) selects the plane-op
+// backward (the TPU's _bwd_kernel): the forward is recomputed as in the
+// other modes, the cotangents of the sigma, r, g, b planes take the place
+// of the composite and the loss (gt8, se8, rgb8, weights and cmask are
+// null), and the chains follow by flag, any of the four flag pairs; d_z
+// then holds the input chain's xyz term alone. ``wts`` is a host array of
+// the 2*k device pointers of ops/fused_train.py::flatten_params, in its
+// order:
 // 2-D weights bf16 (in, out), 1-D weights and biases f32. With
 // ``weight_grads``, ``dwb`` is a host array of 2*k f32 device pointers in
 // the same order, each the shape of its weight or bias, which receive the
@@ -1048,7 +1090,7 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
 extern "C" int fused_step(
     const float* ro8, const float* vd8, const float* z, const bf16* sproj,
     const bf16* tproj, const bf16* vcontrib, const float* gt8,
-    const float* cmask, const float* cdelta,
+    const float* cmask, const float* cdelta, const void* const* gplanes,
     const void* const* wts, bf16* ws, float* ws32, float* se8, float* rgb8,
     float* weights, bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib,
     float* d_ro8, float* d_vd8, float* d_z, void* const* dwb,
@@ -1056,7 +1098,9 @@ extern "C" int fused_step(
     int n_freq, float two_scale, int white_bg, cudaStream_t stream) {
   if (S > MAX_S || W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1
       || (cmask == nullptr) != (cdelta == nullptr)
-      || (cmask != nullptr && (weights != nullptr || input_grads)))
+      || (cmask != nullptr && (weights != nullptr || input_grads))
+      || (gplanes != nullptr && (cmask != nullptr || weights != nullptr
+                                 || rgb8 != nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S, PW = P * W;
   auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
@@ -1146,7 +1190,17 @@ extern "C" int fused_step(
   h.b_rgb = bias(i_rgbo); h.two_scale = two_scale; h.white_bg = white_bg;
   h.se8 = se8; h.rgb8 = rgb8; h.dsig = dsig; h.g_r = g_r;
   h.weights = weights;
-  if (input_grads) h.dz = d_z;
+  if (gplanes) {
+    h.gsig = static_cast<const float*>(gplanes[0]);
+    h.gr = static_cast<const float*>(gplanes[1]);
+    h.gg = static_cast<const float*>(gplanes[2]);
+    h.gb = static_cast<const float*>(gplanes[3]);
+    // No composite here: the input chain adds its xyz term to zeros.
+    if (input_grads)
+      CHECK((int)cudaMemsetAsync(d_z, 0, sizeof(float) * P, stream));
+  } else if (input_grads) {
+    h.dz = d_z;
+  }
   if (weight_grads) h.part = head_part;
   head_kernel<<<R, HEAD_THREADS, 0, stream>>>(h);
   CHECK((int)cudaGetLastError());
@@ -1267,14 +1321,141 @@ __global__ void sigma_head_kernel(const bf16* t, const float* w_sig,
   }
 }
 
+// Rgb head of the four-plane forward: one warp per point, the raw
+// rgb_out channels 0..2 of the bf16 rgb_hidden row (W/2 lanes; bf16
+// weights, f32 sums) plus their biases, into three (R, S) planes.
+__global__ void rgb_head_kernel(const bf16* r, const bf16* w_rgb,
+                                const float* b_rgb, float* c0, float* c1,
+                                float* c2, size_t P, int Wh) {
+  const int lane = threadIdx.x & 31;
+  const size_t warps = (size_t)gridDim.x * (blockDim.x / 32);
+  for (size_t p = blockIdx.x * (size_t)(blockDim.x / 32) + threadIdx.x / 32;
+       p < P; p += warps) {
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    for (int k = lane; k < Wh; k += 32) {
+      const float rv = bf(r[p * Wh + k]);
+      a0 += rv * bf(w_rgb[k * 8 + 0]);
+      a1 += rv * bf(w_rgb[k * 8 + 1]);
+      a2 += rv * bf(w_rgb[k * 8 + 2]);
+    }
+    a0 = warp_sum(a0); a1 = warp_sum(a1); a2 = warp_sum(a2);
+    if (lane == 0) {
+      c0[p] = a0 + b_rgb[0];
+      c1[p] = a1 + b_rgb[1];
+      c2[p] = a2 + b_rgb[2];
+    }
+  }
+}
+
+unsigned point_blocks(size_t P) {   // 8 warps a block, one point a warp
+  const size_t blocks = (P + 7) / 8;
+  return (unsigned)(blocks < 8192 ? blocks : 8192);
+}
+
+// The forward through enc_shape between the ping-pong (P, W) bf16 buffers
+// ``buf``: the enc_xyz GEMM with the PE built in its A-tile loads, each
+// shape block's injecting epilogue, enc_shape without activation; the
+// GEMMs and epilogues of fused_step's forward, so t is the same bits.
+// ``*cur`` receives the index of the buffer that holds t.
+int shape_trunk(const float* ro8, const float* vd8, const float* z,
+                const bf16* sproj, const void* const* wts, bf16* buf[2],
+                int R, int S, int W, int nb, int n_freq, int* cur,
+                cudaStream_t stream) {
+  auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
+  auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
+  GemmArgs base = {};
+  base.M = R * S;
+  base.S = S;
+  GemmArgs g = base;
+  g.K = 64; g.N = W; g.ro8 = ro8; g.vd8 = vd8; g.z = z; g.n_freq = n_freq;
+  g.B = wb(0); g.bias = bias(0); g.relu = 1;
+  g.out_inj = buf[0]; g.inj = sproj; g.inj_ld = nb * W;
+  CHECK(launch_gemm(g, true, false, stream));
+  int c = 0;
+  for (int j = 0; j < nb; ++j) {
+    g = base; g.K = W; g.N = W; g.A = buf[c]; g.B = wb(1 + j);
+    g.bias = bias(1 + j); g.relu = 1;
+    if (j + 1 < nb) {
+      g.out_inj = buf[1 - c];
+      g.inj = sproj + (size_t)(j + 1) * W; g.inj_ld = nb * W;
+    } else {
+      g.out = buf[1 - c];
+    }
+    CHECK(launch_gemm(g, false, false, stream));
+    c = 1 - c;
+  }
+  g = base; g.K = W; g.N = W; g.A = buf[c]; g.B = wb(nb + 1);
+  g.bias = bias(nb + 1); g.out = buf[1 - c];
+  CHECK(launch_gemm(g, false, false, stream));
+  *cur = 1 - c;
+  return 0;
+}
+
+// The standalone composite and its backward, one warp (block) per ray.
+struct CompositeArgs {
+  int S, white_bg;
+  const float* sig;        // (R, S) densities (softplus applied)
+  const float* c0;         // (R, S) raw rgb planes
+  const float* c1;
+  const float* c2;
+  const float* z;          // (R, S)
+  const float* g8;         // (R, 8) cotangent, or null: the forward
+  float* out8;             // forward: (R, 8) [r g b depth acc 0 0 0]
+  float* gsig;             // backward: (R, S) cotangents of the planes
+  float* gc0;
+  float* gc1;
+  float* gc2;
+  float* dz;
+};
+
+__global__ void __launch_bounds__(32) composite_kernel(CompositeArgs a) {
+  __shared__ float s_sig[MAX_S];
+  __shared__ float s_c[3][MAX_S];
+  __shared__ float s_gc[3][MAX_S];
+  __shared__ float s_gs[MAX_S];
+  __shared__ float s_dd[MAX_S];
+  __shared__ float s_w[MAX_S];
+  const int ray = blockIdx.x, lane = threadIdx.x, S = a.S;
+  const size_t p0 = (size_t)ray * S;
+  for (int s = lane; s < S; s += 32) {
+    s_sig[s] = a.sig[p0 + s];
+    s_c[0][s] = a.c0[p0 + s];
+    s_c[1][s] = a.c1[p0 + s];
+    s_c[2][s] = a.c2[p0 + s];
+  }
+  __syncwarp();
+  HeadArgs h = {};
+  h.S = S; h.z = a.z; h.white_bg = a.white_bg;
+  const bool bwd = a.g8 != nullptr;
+  const CompositeOut o = composite_pass(
+      h, ray, lane, s_sig, s_c, s_gc, s_gs, nullptr, nullptr, false,
+      bwd ? s_w : nullptr, bwd ? s_dd : nullptr, true,
+      bwd ? a.g8 + (size_t)ray * 8 : nullptr, bwd);
+  if (!bwd) {
+    if (lane < 8) {
+      const float v[8] = {o.rgb[0], o.rgb[1], o.rgb[2], o.dep, o.acc,
+                          0.f, 0.f, 0.f};
+      a.out8[(size_t)ray * 8 + lane] = v[lane];
+    }
+    return;
+  }
+  __syncwarp();
+  const float gd = a.g8[(size_t)ray * 8 + 3];
+  for (int s = lane; s < S; s += 32) {
+    a.gsig[p0 + s] = s_gs[s];
+    a.gc0[p0 + s] = s_gc[0][s];
+    a.gc1[p0 + s] = s_gc[1][s];
+    a.gc2[p0 + s] = s_gc[2][s];
+    a.dz[p0 + s] = gd * s_w[s] + (s > 0 ? s_dd[s - 1] : 0.f) - s_dd[s];
+  }
+}
+
 }  // namespace
 
 // Sigma-only forward on R rays x S samples: replaces
 // codenerf_tpu/ops/fused_mlp.py::_kernel(sigma_only=True), the coarse pass
 // of hierarchical sampling, whose compositing weights need sigma alone.
-// The shape trunk of fused_step's forward (the enc_xyz GEMM with the PE
-// built in its A-tile loads, each shape block's injecting epilogue,
-// enc_shape without activation) between two ping-pong (P, W) bf16 buffers
+// The shape trunk (shape_trunk) between two ping-pong (P, W) bf16 buffers
 // in ``ws`` (2 * R * S * W elements: nothing is kept for a backward), then
 // sigma_head_kernel writes ``sigma`` (R, S) f32. ``wts`` as for
 // fused_step; only the enc_xyz, shape, enc_shape and sigma entries are
@@ -1285,40 +1466,110 @@ extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
                           int n_freq, cudaStream_t stream) {
   if (W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t P = (size_t)R * S, PW = P * W;
+  const size_t P = (size_t)R * S;
+  bf16* buf[2] = {ws, ws + P * W};
+  int cur = 0;
+  CHECK(shape_trunk(ro8, vd8, z, sproj, wts, buf, R, S, W, nb, n_freq, &cur,
+                    stream));
+  sigma_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
+      buf[cur], static_cast<const float*>(wts[2 * (nb + 2)]),
+      static_cast<const float*>(wts[2 * (nb + 2) + 1]), sigma, P, W);
+  return (int)cudaGetLastError();
+}
+
+// Four-plane forward on R rays x S samples: replaces
+// codenerf_tpu/ops/fused_mlp.py::_kernel (sigma_only=False), the forward
+// of the plane op. sigma_step's trunk and sigma head (so the sigma plane
+// is sigma_step's, bit for bit), then the enc_viewdir GEMM (its epilogue
+// adds the per-ray vcontrib, applies the ReLU and writes texture block
+// 0's injected input), the texture blocks and rgb_hidden on the same
+// ping-pong buffers (``ws``: 2 * R * S * W bf16), and rgb_head_kernel
+// writes the raw r, g, b planes. Outputs (R, S) f32. Bound by operations:
+// 2 * W * (64 + W * (nb + nt + 2) + W / 2) FLOP per point.
+extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
+                           const bf16* sproj, const bf16* tproj,
+                           const bf16* vcontrib, const void* const* wts,
+                           bf16* ws, float* sigma, float* c0, float* c1,
+                           float* c2, int R, int S, int W, int nb, int nt,
+                           int n_freq, cudaStream_t stream) {
+  if (W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1)
+    return (int)cudaErrorInvalidValue;
   auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
   auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
-  bf16* buf[2] = {ws, ws + PW};
+  const int i_sig = nb + 2, i_encv = nb + 3, i_tex = nb + 4;
+  const int i_rgbh = nb + nt + 4, i_rgbo = nb + nt + 5;
+  const size_t P = (size_t)R * S;
+  bf16* buf[2] = {ws, ws + P * W};
+  int cur = 0;
+  CHECK(shape_trunk(ro8, vd8, z, sproj, wts, buf, R, S, W, nb, n_freq, &cur,
+                    stream));
+  sigma_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
+      buf[cur], static_cast<const float*>(wts[2 * i_sig]), bias(i_sig),
+      sigma, P, W);
+  CHECK((int)cudaGetLastError());
   GemmArgs base = {};
   base.M = (int)P;
   base.S = S;
-
   GemmArgs g = base;
-  g.K = 64; g.N = W; g.ro8 = ro8; g.vd8 = vd8; g.z = z; g.n_freq = n_freq;
-  g.B = wb(0); g.bias = bias(0); g.relu = 1;
-  g.out_inj = buf[0]; g.inj = sproj; g.inj_ld = nb * W;
-  CHECK(launch_gemm(g, true, false, stream));
-  int cur = 0;
-  for (int j = 0; j < nb; ++j) {
-    g = base; g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(1 + j);
-    g.bias = bias(1 + j); g.relu = 1;
-    if (j + 1 < nb) {
+  g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(i_encv); g.rowvec = vcontrib;
+  g.relu = 1; g.out_inj = buf[1 - cur]; g.inj = tproj; g.inj_ld = nt * W;
+  CHECK(launch_gemm(g, false, false, stream));
+  cur = 1 - cur;
+  for (int j = 0; j < nt; ++j) {
+    g = base; g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(i_tex + j);
+    g.bias = bias(i_tex + j); g.relu = 1;
+    if (j + 1 < nt) {
       g.out_inj = buf[1 - cur];
-      g.inj = sproj + (size_t)(j + 1) * W; g.inj_ld = nb * W;
+      g.inj = tproj + (size_t)(j + 1) * W; g.inj_ld = nt * W;
     } else {
       g.out = buf[1 - cur];
     }
     CHECK(launch_gemm(g, false, false, stream));
     cur = 1 - cur;
   }
-  g = base; g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(nb + 1);
-  g.bias = bias(nb + 1); g.out = buf[1 - cur];
+  g = base; g.K = W; g.N = W / 2; g.A = buf[cur]; g.B = wb(i_rgbh);
+  g.bias = bias(i_rgbh); g.relu = 1; g.out = buf[1 - cur];
   CHECK(launch_gemm(g, false, false, stream));
   cur = 1 - cur;
-  const size_t blocks = (P + 7) / 8;        // 8 warps a block
-  sigma_head_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0,
-                      stream>>>(buf[cur],
-                                static_cast<const float*>(wts[2 * (nb + 2)]),
-                                bias(nb + 2), sigma, P, W);
+  rgb_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
+      buf[cur], wb(i_rgbo), bias(i_rgbo), c0, c1, c2, P, W / 2);
+  return (int)cudaGetLastError();
+}
+
+// Standalone composite on R rays x S samples: replaces
+// codenerf_tpu/ops/pallas_composite.py::_fwd_kernel (launched by _call).
+// Five (R, S) f32 planes in (densities, raw r, g, b, depths), ``out8``
+// (R, 8) f32 [r g b depth acc 0 0 0] out; white or black background. One
+// warp per ray runs composite_pass's scan. Bound by bytes: 5 * R * S * 4
+// in, R * 32 out.
+extern "C" int composite_fwd(const float* sig, const float* c0,
+                             const float* c1, const float* c2,
+                             const float* z, float* out8, int R, int S,
+                             int white_bg, cudaStream_t stream) {
+  if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  CompositeArgs a = {};
+  a.S = S; a.white_bg = white_bg; a.sig = sig; a.c0 = c0; a.c1 = c1;
+  a.c2 = c2; a.z = z; a.out8 = out8;
+  composite_kernel<<<R, 32, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Its backward (pallas_composite.py::_bwd_kernel): recompute the forward,
+// then the five plane cotangents for the per-ray cotangent ``g8`` (R, 8),
+// depth and acc lanes included: gsig, the rgb cotangents w_s * g_k, and
+// dz_s = gd * w_s + ddelta_{s-1} - ddelta_s. Bound by bytes: 5 * R * S * 4
+// + R * 32 in, 5 * R * S * 4 out.
+extern "C" int composite_bwd(const float* sig, const float* c0,
+                             const float* c1, const float* c2,
+                             const float* z, const float* g8, float* gsig,
+                             float* gc0, float* gc1, float* gc2, float* dz,
+                             int R, int S, int white_bg,
+                             cudaStream_t stream) {
+  if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  CompositeArgs a = {};
+  a.S = S; a.white_bg = white_bg; a.sig = sig; a.c0 = c0; a.c1 = c1;
+  a.c2 = c2; a.z = z; a.g8 = g8; a.gsig = gsig; a.gc0 = gc0; a.gc1 = gc1;
+  a.gc2 = gc2; a.dz = dz;
+  composite_kernel<<<R, 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,21 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   7.3e10 for a 4096 × 32 optimization chunk (0.074 ms); its inputs and
   output are ~35 MB. :func:`sigma_fwd_plain` is its plain version, and
   ``sigma_fwd.launches["sigma"]`` counts its launches.
+- :func:`planes_fwd` — the four-plane forward, replacing the same TPU
+  kernel with ``sigma_only=False`` (the forward of the plane op,
+  ``ops/fused_train.py``): sigma (softplus) and the raw r, g, b of every
+  sample as (R, S) f32 planes, no composite. On CUDA tensors it launches
+  ``planes_step``: ``sigma_step``'s trunk and sigma head — its sigma
+  plane is ``sigma_fwd``'s, bit for bit — then the enc_viewdir, texture
+  and rgb_hidden GEMMs on the same two ping-pong buffers, their
+  epilogues adding vcontrib and injecting the texture latents, and a
+  warp-per-point rgb head. Bound by operations: 2W(64 + W(nb+nt+2) +
+  W/2) = 884,736 FLOP per point at W=256, nb=3, nt=1 — 0.94 ms for a
+  16,384 × 64 launch at 989 TFLOP/s dense bf16, 0.23 ms for 4096 × 64.
+  :func:`planes_fwd_plain` is its plain version (:func:`forward_plain`
+  is the forward every plain version shares), and
+  ``planes_fwd.launches["planes"]`` counts its launches.
+  :func:`fused_codenerf_apply` runs it from rays, depths and codes.
 """
 
 from __future__ import annotations
@@ -44,6 +59,18 @@ import torch
 
 from codenerf_tpu_torch.config import NetConfig
 from codenerf_tpu_torch.core.encoding import positional_encoding
+
+# The TPU forward kernel's ray tile. The CUDA kernels do not tile rays
+# this way; the port keeps the rule so both packages route alike.
+_TILE_RAYS = 32
+
+
+def fused_available(cfg: NetConfig, n_rays: int, n_samples: int) -> bool:
+    """The forward kernel's architecture family (W a multiple of 256, the
+    PE within 64 lanes) and the TPU's ray tiling."""
+    return (cfg.W % 256 == 0 and cfg.d_xyz <= 64
+            and n_rays % _TILE_RAYS == 0
+            and (_TILE_RAYS * n_samples) % 16 == 0)
 
 
 def pad_lanes(x: torch.Tensor, to: int) -> torch.Tensor:
@@ -181,6 +208,44 @@ def shape_trunk_plain(cfg: NetConfig, R: int, S: int, ro8, vd8, z, sproj,
             "sig_pre": sig_pre}
 
 
+def texture_branch_plain(cfg: NetConfig, R: int, S: int, t, tproj,
+                         vcontrib, wops) -> Dict[str, torch.Tensor]:
+    """The kernels' forward from enc_shape's bf16 output ``t`` on: the
+    enc_viewdir trunk rows plus the per-ray ``vcontrib`` and a ReLU
+    (``yv``), each texture block's injected input (``xts``) and output
+    (``yts``), the bf16 rgb_hidden output ``r`` and the f32 rgb_out rows
+    ``rgb`` (P, 8), rounding where the TPU kernels round."""
+    bf16 = torch.bfloat16
+    P, W, nb, nt = R * S, cfg.W, cfg.shape_blocks, cfg.texture_blocks
+    i_encv, i_tex, i_rgbh = nb + 3, nb + 4, nb + nt + 4
+
+    def dense(x, i):
+        return x.float() @ wops[2 * i].float() + wops[2 * i + 1]
+
+    u = t.float() @ wops[2 * i_encv].float()
+    yv = torch.relu(u.view(R, S, W) + vcontrib[:, None, :].float()
+                    ).view(P, W).to(bf16)
+    xts, yts, cur = [], [], yv
+    for j in range(nt):
+        xts.append((cur.view(R, S, W).float() + tproj[:, j][:, None, :].float()
+                    ).to(bf16).view(P, W))
+        cur = torch.relu(dense(xts[j], i_tex + j)).to(bf16)
+        yts.append(cur)
+    r = torch.relu(dense(cur, i_rgbh)).to(bf16)
+    return {"yv": yv, "xts": xts, "yts": yts, "r": r,
+            "rgb": dense(r, i_rgbh + 1)}
+
+
+def forward_plain(cfg: NetConfig, R: int, S: int, ro8, vd8, z, sproj, tproj,
+                  vcontrib, wops) -> Dict[str, torch.Tensor]:
+    """The whole forward of the kernels: :func:`shape_trunk_plain`'s
+    activations and :func:`texture_branch_plain`'s, in one dict."""
+    acts = shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj, wops)
+    acts.update(texture_branch_plain(cfg, R, S, acts["t"], tproj, vcontrib,
+                                     wops))
+    return acts
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus`` = logaddexp(x, 0)."""
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
@@ -249,6 +314,97 @@ def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
     if rc != 0:
         raise RuntimeError(f"sigma_fwd CUDA kernel failed: cudaError {rc}")
     return sigma
+
+
+def planes_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
+               vcontrib, wflat):
+    """Counterpart of ``invoke_fwd`` (four planes): ``(sigma, r, g, b)``,
+    each (R, S) f32 — sigma with softplus applied, the rgb raw (the
+    reference applies no sigmoid). Operands as for
+    ``fused_train.train_fused``.
+
+    On CPU tensors this is :func:`planes_fwd_plain`; on CUDA tensors it
+    launches the CUDA kernel and counts the launch in
+    ``planes_fwd.launches["planes"]``."""
+    if z.shape != (R, S):
+        raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
+    if z.device.type == "cpu":
+        return planes_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                                vcontrib, wflat)
+    if z.device.type != "cuda":
+        raise ValueError(f"planes_fwd: unsupported device {z.device}")
+    out = _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
+                              wflat)
+    planes_fwd.launches["planes"] += 1
+    return out
+
+
+planes_fwd.launches = {"planes": 0}
+
+
+def planes_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
+                     tproj, vcontrib, wflat):
+    """:func:`planes_fwd` in plain PyTorch."""
+    acts = forward_plain(cfg, R, S, ro8, vd8, z.float(), sproj, tproj,
+                         vcontrib, kernel_operands(wflat))
+    rgb = acts["rgb"].view(R, S, 8)
+    return (softplus(acts["sig_pre"]), rgb[..., 0].contiguous(),
+            rgb[..., 1].contiguous(), rgb[..., 2].contiguous())
+
+
+def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
+                        wflat):
+    from codenerf_tpu_torch.ops import fused_train as ft
+
+    lib = ft.library()
+    dev = z.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
+    if not ft.single_pass_available(cfg, R):
+        raise ValueError(f"planes_fwd: the CUDA kernel takes W % 256 == 0, "
+                         f"d_xyz <= 64 and R % 16 == 0; got W={W}, R={R}")
+    ins = dict(ro8=ft._aligned(ro8, f32), vd8=ft._aligned(vd8, f32),
+               z=ft._aligned(z, f32), sproj=ft._aligned(sproj, bf16),
+               tproj=ft._aligned(tproj, bf16),
+               vcontrib=ft._aligned(vcontrib, bf16))
+    expect = dict(ro8=(R, 8), vd8=(R, 8), z=(R, S), sproj=(R, nb, W),
+                  tproj=(R, nt, W), vcontrib=(R, W))
+    for name, x in ins.items():
+        if tuple(x.shape) != expect[name] or x.device != dev:
+            raise ValueError(f"planes_fwd: {name} is {tuple(x.shape)} on "
+                             f"{x.device}, expected {expect[name]} on {dev}")
+    wops = ft.checked_weights(cfg, wflat, dev)
+    ws = torch.empty(2 * R * S * W, dtype=bf16, device=dev)
+    planes = [torch.empty(R, S, dtype=f32, device=dev) for _ in range(4)]
+    wptrs, _keep = ft._ptr_array(wops)
+    rc = lib.planes_step(
+        ft._ptr(ins["ro8"]), ft._ptr(ins["vd8"]), ft._ptr(ins["z"]),
+        ft._ptr(ins["sproj"]), ft._ptr(ins["tproj"]),
+        ft._ptr(ins["vcontrib"]), wptrs, ft._ptr(ws),
+        *[ft._ptr(x) for x in planes], R, S, W, nb, nt, cfg.num_xyz_freq,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"planes_fwd CUDA kernel failed: cudaError {rc}")
+    return tuple(planes)
+
+
+def fused_codenerf_apply(model, cfg: NetConfig, ray_o, viewdir, z_vals,
+                         shape_code, texture_code):
+    """Counterpart of ``fused_mlp.fused_codenerf_apply``: the four-plane
+    forward from rays, depths (R, S) and codes ((R, D) or (D,)), forward
+    only. Returns ``(sigmas (R, S), (r, g, b))`` f32 planes."""
+    from codenerf_tpu_torch.ops.fused_train import flatten_params
+
+    R, S = z_vals.shape
+    if not fused_available(cfg, R, S):
+        raise ValueError(f"fused kernel unsupported for W={cfg.W}, R={R}, "
+                         f"S={S}")
+    with torch.no_grad():
+        ro8, vd8, z, sproj, tproj, vcontrib = prep_ray_operands(
+            model, cfg, ray_o, viewdir, z_vals, shape_code, texture_code)
+        sig, r, g, b = planes_fwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                                  vcontrib, flatten_params(model, cfg))
+    return sig, (r, g, b)
 
 
 def _deltas(z: torch.Tensor) -> torch.Tensor:

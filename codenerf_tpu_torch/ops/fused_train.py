@@ -36,6 +36,24 @@ TPU. The combinations no path calls (``input_grads`` with weight
 gradients, ``want_weights`` without ``input_grads``) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 
+The plane op (:class:`PlaneOp`, the TPU package's ``_make_plane_op``),
+replacing ``codenerf_tpu/ops/fused_train.py::_bwd_kernel`` (launched by
+``_invoke_bwd``) with :func:`plane_bwd`: the same ``fused_step``
+recomputes the forward and, where the single pass composites, takes the
+outside cotangents of the four planes ``fused_mlp.planes_fwd`` returns;
+the chains follow by flag, all four flag pairs (``plane_train``,
+``plane_codes``, ``plane_pose``, ``plane_train_input``). Per point it
+recomputes the forward (884,736 FLOP at W=256, nb=3, nt=1) and runs the
+dx chain (851,968), plus the dW products (884,736) with weight gradients
+and the input chain (32,768) with input gradients: 2.78 ms for a
+training call at 16,384 × 64 at 989 TFLOP/s, 0.46 ms for a frozen one at
+4096 × 64, 0.23 ms for a pose one at 2048 × 64. Recomputing keeps the
+forward call stateless, as the TPU design does; its factories
+(:func:`make_fused_train_op`, :func:`make_fused_codes_op`,
+:func:`make_fused_pose_op`, the ``*_composite_op`` s through
+``ops/composite.py``) and :func:`fused_apply_train` /
+:func:`fused_render_train` are the JAX package's.
+
 What bounds it on an H100. Matmul operations per point: forward
 2W(64 + W(nb+nt+2) + W/2), the dx chain 2W(W(nb+nt+2) + W/2) and, with
 weight gradients, the dW products as many as the forward. At W=256, nb=3,
@@ -297,54 +315,11 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
     ``sigma_terms``, a list, receives ``(Σ|t·dsig| (W,), Σ|dsig| (1,))``:
     the size of the terms of the sigma head's gradient sums, which cancel
     heavily (comparisons scale their bar by it)."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
-    P = R * S
     wops = kernel_operands(wflat)
-    idx = {n: j for j, (n, _, _) in enumerate(weight_shapes(cfg))}
-
-    def w(name):
-        return wops[2 * idx[name]]
-
-    def b(name):
-        return wops[2 * idx[name] + 1]
-
-    def dot(x, wm):      # (P, A) bf16 @ (A, B) bf16 -> f32
-        return x.float() @ wm.float()
-
-    def dot_t(g, wm):    # (P, B) bf16 @ (A, B)^T -> (P, A) f32
-        return g.float() @ wm.float().T
-
-    def inject(y, proj):
-        return (y.view(R, S, -1).float() + proj[:, None, :].float()
-                ).to(bf16).view(P, -1)
-
-    def ray_sum(x):
-        return x.view(R, S, -1).sum(dim=1)
-
-    dwb = {}
-
-    def acc(name, x, gh):   # dW = x^T @ gh, db = Σ gh, f32
-        if weight_grads:
-            dwb[name] = (x.float().T @ gh.float(), gh.float().sum(0))
-
-    # ---- forward
-    trunk = fused_mlp.shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj, wops)
-    pe, y0, xs, ys, t = (trunk[k] for k in ("pe", "y0", "xs", "ys", "t"))
-    sig_pre = trunk["sig_pre"]
-    w_sig = w("sigma")
-    u = dot(t, w("enc_viewdir_pt"))
-    yv = torch.relu(u.view(R, S, W) + vcontrib[:, None, :].float()
-                    ).view(P, W).to(bf16)
-    xts, yts, cur = [], [], yv
-    for j in range(nt):
-        xts.append(inject(cur, tproj[:, j]))
-        cur = torch.relu(dot(xts[j], w(f"texture_{j}"))
-                         + b(f"texture_{j}")).to(bf16)
-        yts.append(cur)
-    r = torch.relu(dot(cur, w("rgb_hidden")) + b("rgb_hidden")).to(bf16)
-    rgb = (dot(r, w("rgb_out")) + b("rgb_out")).view(R, S, 8)
-    sigma = fused_mlp.softplus(sig_pre)
+    acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
+                                   vcontrib, wops)
+    rgb = acts["rgb"].view(R, S, 8)
+    sigma = fused_mlp.softplus(acts["sig_pre"])
     c0, c1, c2 = rgb[..., 0], rgb[..., 1], rgb[..., 2]
 
     # ---- composite, loss, composite backward
@@ -371,16 +346,63 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
         g_sigma, gc0, gc1, gc2 = fused_mlp.composite_bwd_dual_in_kernel(
             c0, c1, c2, z, g8, g8_c, aux, white_bg)
 
-    # ---- dx chain (and dW/db)
-    gh8 = torch.zeros(R, S, 8, dtype=f32, device=z.device)
-    gh8[..., 0], gh8[..., 1], gh8[..., 2] = gc0, gc1, gc2
+    d_sproj, d_tproj, d_vcontrib, gh0, dwb = backward_chain_plain(
+        cfg, R, S, acts, sproj, tproj, wops, g_sigma, (gc0, gc1, gc2),
+        weight_grads, input_grads, sigma_terms)
+    outs = ses + (d_sproj, d_tproj, d_vcontrib)
+    if want_weights:
+        outs += (aux[4],)
+    if want_rgb:
+        outs += (out8,)
+    if input_grads:
+        outs += fused_mlp.input_chain_plain(R, S, ro8, vd8, z, gh0, wops[0],
+                                            dz_comp, cfg.num_xyz_freq)
+    return outs + tuple(dwb)
+
+
+def backward_chain_plain(cfg: NetConfig, R: int, S: int, acts, sproj, tproj,
+                         wops, g_sigma, g_rgb, weight_grads: bool,
+                         input_grads: bool, sigma_terms=None):
+    """The dx chain (and with ``weight_grads`` the dW/db of every layer)
+    from the per-sample cotangents of sigma ``g_sigma`` (R, S) and of the
+    raw rgb ``g_rgb`` (three (R, S) planes), over the activations of
+    :func:`fused_mlp.forward_plain` — the TPU kernels' ``_tile_backward``.
+    Returns ``(d_sproj, d_tproj, d_vcontrib, gh0, dwb)``: ``gh0`` is
+    enc_xyz's bf16 output cotangent (with ``weight_grads`` or
+    ``input_grads``, else None) and ``dwb`` the f32 gradients in
+    :func:`weight_shapes` order (empty without ``weight_grads``)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
+    P, dev = R * S, g_sigma.device
+    idx = {n: j for j, (n, _, _) in enumerate(weight_shapes(cfg))}
+
+    def w(name):
+        return wops[2 * idx[name]]
+
+    def dot_t(g, wm):    # (P, B) bf16 @ (A, B)^T -> (P, A) f32
+        return g.float() @ wm.float().T
+
+    def ray_sum(x):
+        return x.view(R, S, -1).sum(dim=1)
+
+    dwb = {}
+
+    def acc(name, x, gh):   # dW = x^T @ gh, db = Σ gh, f32
+        if weight_grads:
+            dwb[name] = (x.float().T @ gh.float(), gh.float().sum(0))
+
+    pe, y0, xs, ys, t = (acts[k] for k in ("pe", "y0", "xs", "ys", "t"))
+    yv, xts, yts, r = (acts[k] for k in ("yv", "xts", "yts", "r"))
+    gh8 = torch.zeros(R, S, 8, dtype=f32, device=dev)
+    for k in range(3):
+        gh8[..., k] = g_rgb[k]
     gh8 = gh8.view(P, 8).to(bf16)
     acc("rgb_out", r, gh8)
     gr = dot_t(gh8, w("rgb_out"))
     gh = (gr * (r.float() > 0)).to(bf16)
     acc("rgb_hidden", yts[-1], gh)
     g_cur = dot_t(gh, w("rgb_hidden"))
-    d_tproj = torch.empty(R, nt, W, dtype=bf16, device=z.device)
+    d_tproj = torch.empty(R, nt, W, dtype=bf16, device=dev)
     for j in reversed(range(nt)):
         gh = (g_cur * (yts[j].float() > 0)).to(bf16)
         acc(f"texture_{j}", xts[j], gh)
@@ -391,7 +413,8 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
     gu16 = gu.to(bf16)
     acc("enc_viewdir_pt", t, gu16)
     g_t = dot_t(gu16, w("enc_viewdir_pt"))
-    dsig = g_sigma * torch.sigmoid(sig_pre)
+    w_sig = w("sigma")
+    dsig = g_sigma.float() * torch.sigmoid(acts["sig_pre"])
     g_t = (g_t.view(R, S, W) + dsig[:, :, None] * w_sig[None, None, :]
            ).view(P, W)
     if weight_grads:
@@ -403,28 +426,103 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
     gh = g_t.to(bf16)
     acc("enc_shape", ys[-1], gh)
     g_cur = dot_t(gh, w("enc_shape"))
-    d_sproj = torch.empty(R, nb, W, dtype=bf16, device=z.device)
+    d_sproj = torch.empty(R, nb, W, dtype=bf16, device=dev)
     for j in reversed(range(nb)):
         gh = (g_cur * (ys[j].float() > 0)).to(bf16)
         acc(f"shape_{j}", xs[j], gh)
         g_cur = dot_t(gh, w(f"shape_{j}"))
         d_sproj[:, j] = ray_sum(g_cur).to(bf16)
+    gh0 = None
     if weight_grads or input_grads:
         gh0 = (g_cur * (y0.float() > 0)).to(bf16)
         acc("enc_xyz", pe, gh0)
+    flat = [x for name, _, _ in (weight_shapes(cfg) if weight_grads else ())
+            for x in dwb[name]]
+    return d_sproj, d_tproj, d_vcontrib, gh0, flat
 
-    outs = ses + (d_sproj, d_tproj, d_vcontrib)
-    if want_weights:
-        outs += (aux[4],)
-    if want_rgb:
-        outs += (out8,)
-    if input_grads:
-        outs += fused_mlp.input_chain_plain(R, S, ro8, vd8, z, gh0,
-                                            w("enc_xyz"), dz_comp,
-                                            cfg.num_xyz_freq)
-    for name, _, _ in (weight_shapes(cfg) if weight_grads else ()):
-        outs += dwb[name]
+
+# ---------------------------------------------------------------- plane op
+
+def fused_train_available(cfg: NetConfig, n_rays: int,
+                          n_samples: int) -> bool:
+    """Counterpart of ``fused_train.fused_train_available``: the plane-op
+    pair can tile this problem — the single-pass rule and the TPU forward
+    kernel's 32-ray tile (``fused_mlp._TILE_RAYS``). The CUDA kernels do
+    not tile by 32; the rule keeps both packages on the same routes.
+    ``n_samples`` is unconstrained, as on the TPU."""
+    del n_samples
+    return (single_pass_available(cfg, n_rays)
+            and n_rays % max(_TRAIN_TILE_RAYS, fused_mlp._TILE_RAYS) == 0)
+
+
+def _plane_mode(weight_grads: bool, input_grads: bool) -> str:
+    if weight_grads:
+        return "plane_train_input" if input_grads else "plane_train"
+    return "plane_pose" if input_grads else "plane_codes"
+
+
+def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
+              vcontrib, wflat, g_planes, weight_grads: bool = True,
+              input_grads: bool = True):
+    """Counterpart of ``_invoke_bwd``, the plane op's backward: recompute
+    the forward, then chain the outside cotangents ``g_planes`` — four
+    (R, S) f32 planes for sigma, r, g, b, as :func:`fused_mlp.planes_fwd`
+    returns them — down the network. Returns, in the TPU kernel's order,
+    ``[d_ro8 (R, 8), d_vd8 (R, 8), d_z (R, S)] f32`` (with
+    ``input_grads``: the PE Jacobian chain alone; the composite's z term
+    reaches z outside), ``d_sproj (R, nb, W), d_tproj (R, nt, W),
+    d_vcontrib (R, W)`` bf16, ``[dW_0, db_0, ...]`` f32 (with
+    ``weight_grads``). All four flag pairs run.
+
+    On CPU tensors this is :func:`plane_bwd_plain`; on CUDA tensors it
+    launches ``fused_step`` of ``csrc/train_fused.cu`` with the planes
+    in place of the composite (the same workspace, GEMMs, chains and
+    input-chain kernel as :func:`train_fused`) and counts the launch in
+    ``plane_bwd.launches``: ``plane_train`` (weight gradients),
+    ``plane_codes`` (neither), ``plane_pose`` (input gradients),
+    ``plane_train_input`` (both)."""
+    if z.shape != (R, S):
+        raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
+    if z.device.type == "cpu":
+        return plane_bwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                               vcontrib, wflat, g_planes, weight_grads,
+                               input_grads)
+    if z.device.type != "cuda":
+        raise ValueError(f"plane_bwd: unsupported device {z.device}")
+    outs = _launch_cuda(cfg, S, R, True, 1.0, ro8, vd8, z, sproj, tproj,
+                        vcontrib, None, wflat, False, False, weight_grads,
+                        input_grads, None, None, g_planes=g_planes)
+    plane_bwd.launches[_plane_mode(weight_grads, input_grads)] += 1
     return outs
+
+
+plane_bwd.launches = {"plane_train": 0, "plane_codes": 0, "plane_pose": 0,
+                      "plane_train_input": 0}
+
+
+def plane_bwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
+                    tproj, vcontrib, wflat, g_planes,
+                    weight_grads: bool = True, input_grads: bool = True,
+                    sigma_terms=None):
+    """:func:`plane_bwd` in plain PyTorch: :func:`fused_mlp.forward_plain`,
+    then :func:`backward_chain_plain` from the four planes (the rgb
+    cotangents rounded to bf16 there, as the TPU kernel rounds its g8
+    lanes), then :func:`fused_mlp.input_chain_plain` with no composite
+    term."""
+    wops = kernel_operands(wflat)
+    z = z.float()
+    acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
+                                   vcontrib, wops)
+    gsig, gr, gg, gb = (g.float() for g in g_planes)
+    d_sproj, d_tproj, d_vcontrib, gh0, dwb = backward_chain_plain(
+        cfg, R, S, acts, sproj, tproj, wops, gsig, (gr, gg, gb),
+        weight_grads, input_grads, sigma_terms)
+    outs = ()
+    if input_grads:
+        outs = fused_mlp.input_chain_plain(R, S, ro8, vd8, z, gh0, wops[0],
+                                           torch.zeros_like(z),
+                                           cfg.num_xyz_freq)
+    return outs + (d_sproj, d_tproj, d_vcontrib) + tuple(dwb)
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -444,18 +542,26 @@ def _aligned(x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_step.argtypes = ([vp] * 22 + [ci] * 8
+    lib.fused_step.argtypes = ([vp] * 23 + [ci] * 8
                                + [ctypes.c_float, ci, vp])
     lib.fused_step.restype = ci
     lib.fused_workspace.argtypes = [ci] * 7 + [vp, vp]
     lib.fused_workspace.restype = None
     lib.sigma_step.argtypes = [vp] * 7 + [ci] * 5 + [vp]
     lib.sigma_step.restype = ci
+    lib.planes_step.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+    lib.planes_step.restype = ci
+    lib.composite_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+    lib.composite_fwd.restype = ci
+    lib.composite_bwd.argtypes = [vp] * 11 + [ci] * 3 + [vp]
+    lib.composite_bwd.restype = ci
 
 
 def library() -> ctypes.CDLL:
     """``csrc/train_fused.cu`` built (at first use), loaded and bound: the
-    single-pass kernel's ``fused_step`` and the sigma-only ``sigma_step``."""
+    single-pass kernel's and the plane-op backward's ``fused_step``, the
+    forwards ``sigma_step`` and ``planes_step``, and the standalone
+    composite's ``composite_fwd`` and ``composite_bwd``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)
@@ -478,29 +584,40 @@ def checked_weights(cfg: NetConfig, wflat, dev) -> List[torch.Tensor]:
 
 def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
                  vcontrib, gt8, wflat, want_weights, want_rgb, weight_grads,
-                 input_grads, coarse_mask, coarse_delta):
+                 input_grads, coarse_mask, coarse_delta, g_planes=None):
+    """One ``fused_step`` launch. With ``g_planes`` (the plane-op
+    backward; ``gt8`` None) it returns :func:`plane_bwd`'s outputs, else
+    :func:`train_fused`'s."""
     lib = library()
     dev = z.device
     f32, bf16 = torch.float32, torch.bfloat16
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
     dual = coarse_mask is not None
+    planes = g_planes is not None
+    what = "plane_bwd" if planes else "train_fused"
     if S > _MAX_SAMPLES or not single_pass_available(cfg, R):
-        raise ValueError(f"train_fused: the CUDA kernel takes S <= "
+        raise ValueError(f"{what}: the CUDA kernel takes S <= "
                          f"{_MAX_SAMPLES}, W % 256 == 0, d_xyz <= 64 and "
                          f"R % 16 == 0; got S={S}, W={W}, R={R}")
     ins = dict(ro8=_aligned(ro8, f32), vd8=_aligned(vd8, f32),
                z=_aligned(z, f32), sproj=_aligned(sproj, bf16),
-               tproj=_aligned(tproj, bf16), vcontrib=_aligned(vcontrib, bf16),
-               gt8=_aligned(gt8, f32))
+               tproj=_aligned(tproj, bf16), vcontrib=_aligned(vcontrib, bf16))
     expect = dict(ro8=(R, 8), vd8=(R, 8), z=(R, S), sproj=(R, nb, W),
-                  tproj=(R, nt, W), vcontrib=(R, W), gt8=(R, 8))
+                  tproj=(R, nt, W), vcontrib=(R, W))
+    if planes:
+        for k, g in zip(("gsig", "gr", "gg", "gb"), g_planes):
+            ins[k] = _aligned(g, f32)
+            expect[k] = (R, S)
+    else:
+        ins["gt8"] = _aligned(gt8, f32)
+        expect["gt8"] = (R, 8)
     if dual:
         ins.update(cmask=_aligned(coarse_mask, f32),
                    cdelta=_aligned(coarse_delta, f32))
         expect.update(cmask=(R, S), cdelta=(R, S))
     for name, x in ins.items():
         if tuple(x.shape) != expect[name] or x.device != dev:
-            raise ValueError(f"train_fused: {name} is {tuple(x.shape)} on "
+            raise ValueError(f"{what}: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
     wops = checked_weights(cfg, wflat, dev)
     n_bf16, n_f32 = ctypes.c_size_t(), ctypes.c_size_t()
@@ -508,7 +625,7 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
                         ctypes.addressof(n_bf16), ctypes.addressof(n_f32))
     ws = torch.empty(n_bf16.value, dtype=bf16, device=dev)
     ws32 = torch.empty(n_f32.value, dtype=f32, device=dev)
-    se8 = torch.empty(R, 8, dtype=f32, device=dev)
+    se8 = None if planes else torch.empty(R, 8, dtype=f32, device=dev)
 
     def opt_out(on, *shape):
         return torch.empty(*shape, dtype=f32, device=dev) if on else None
@@ -532,19 +649,25 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
     def opt_ptr(x):
         return ctypes.c_void_p(0) if x is None else _ptr(x)
 
+    gptrs, _keep_g = (_ptr_array([ins[k] for k in ("gsig", "gr", "gg",
+                                                    "gb")])
+                      if planes else (ctypes.c_void_p(0), None))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.fused_step(
         _ptr(ins["ro8"]), _ptr(ins["vd8"]), _ptr(ins["z"]),
         _ptr(ins["sproj"]), _ptr(ins["tproj"]), _ptr(ins["vcontrib"]),
-        _ptr(ins["gt8"]), opt_ptr(ins.get("cmask")),
-        opt_ptr(ins.get("cdelta")), wptrs, _ptr(ws), _ptr(ws32), _ptr(se8),
-        opt_ptr(rgb8), opt_ptr(weights), _ptr(d_sproj), _ptr(d_tproj),
-        _ptr(d_vcontrib), opt_ptr(d_ro8), opt_ptr(d_vd8), opt_ptr(d_z),
-        dptrs, int(bool(weight_grads)), int(bool(input_grads)), R, S, W, nb,
-        nt, cfg.num_xyz_freq, ctypes.c_float(2.0 * scale),
+        opt_ptr(ins.get("gt8")), opt_ptr(ins.get("cmask")),
+        opt_ptr(ins.get("cdelta")), gptrs, wptrs, _ptr(ws), _ptr(ws32),
+        opt_ptr(se8), opt_ptr(rgb8), opt_ptr(weights), _ptr(d_sproj),
+        _ptr(d_tproj), _ptr(d_vcontrib), opt_ptr(d_ro8), opt_ptr(d_vd8),
+        opt_ptr(d_z), dptrs, int(bool(weight_grads)), int(bool(input_grads)),
+        R, S, W, nb, nt, cfg.num_xyz_freq, ctypes.c_float(2.0 * scale),
         int(bool(white_bg)), ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"train_fused CUDA kernel failed: cudaError {rc}")
+        raise RuntimeError(f"{what} CUDA kernel failed: cudaError {rc}")
+    if planes:
+        outs = (d_ro8, d_vd8, d_z) if input_grads else ()
+        return outs + (d_sproj, d_tproj, d_vcontrib) + tuple(dwb)
     # the fine SE in lanes 0..2, the dual mode's coarse SE in lanes 4..6
     ses = ((se8[:, :4].sum(), se8[:, 4:].sum()) if dual else (se8.sum(),))
     outs = ses + (d_sproj, d_tproj, d_vcontrib)
@@ -657,3 +780,133 @@ class FusedTrainLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss, g_fine):
         return (None,) + tuple(x * g_loss for x in ctx.saved_tensors)
+
+
+class PlaneOp(torch.autograd.Function):
+    """The plane op (the JAX package's ``_make_plane_op`` custom VJP):
+    ``apply(mode, ro8, vd8, z, sproj, tproj, vcontrib, *wflat) -> (sigma,
+    r, g, b)``, four (R, S) f32 planes from :func:`fused_mlp.planes_fwd`;
+    ``mode = (cfg, weight_grads, input_grads)``. The forward keeps only
+    its operands; the backward is :func:`plane_bwd`, which recomputes the
+    forward and returns the cotangents the mode asks for — the others are
+    None (zero), as the JAX op's zeros."""
+
+    @staticmethod
+    def forward(ctx, mode, ro8, vd8, z, sproj, tproj, vcontrib, *wflat):
+        cfg = mode[0]
+        R, S = z.shape
+        ctx.mode = mode
+        ctx.save_for_backward(ro8, vd8, z, sproj, tproj, vcontrib, *wflat)
+        return fused_mlp.planes_fwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                                    vcontrib, list(wflat))
+
+    @staticmethod
+    def backward(ctx, *g_planes):
+        cfg, weight_grads, input_grads = ctx.mode
+        ro8, vd8, z, sproj, tproj, vcontrib, *wflat = ctx.saved_tensors
+        R, S = z.shape
+        outs = list(plane_bwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                              vcontrib, wflat, g_planes, weight_grads,
+                              input_grads))
+        d_in = [None] * 3
+        if input_grads:
+            d_in, outs = outs[:3], outs[3:]
+        d_w = outs[3:] if weight_grads else [None] * len(wflat)
+        return (None, *d_in, *outs[:3], *d_w)
+
+
+def _make_plane_op(cfg: NetConfig, weight_grads: bool, input_grads: bool):
+    """``op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat) -> (sigma, r, g,
+    b)``: :class:`PlaneOp` in one mode. ro8/vd8 (R, 8) f32, z (R, S) f32,
+    sproj/tproj (R, blocks, W) and vcontrib (R, W) bf16, wflat the f32
+    operands of :func:`flatten_params`."""
+    mode = (cfg, weight_grads, input_grads)
+
+    def op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat):
+        return PlaneOp.apply(mode, ro8, vd8, z, sproj, tproj, vcontrib,
+                             *wflat)
+
+    return op
+
+
+def make_fused_train_op(cfg: NetConfig, input_grads: bool = True):
+    """The training plane op: every weight's gradient, and with
+    ``input_grads`` (the default, as in JAX) the ray and depth cotangents
+    too; a training step passes ``input_grads=False`` (its rays and depths
+    are constants)."""
+    return _make_plane_op(cfg, weight_grads=True, input_grads=input_grads)
+
+
+def make_fused_codes_op(cfg: NetConfig):
+    """The frozen-model plane op of code optimization: the code operands'
+    cotangents alone."""
+    return _make_plane_op(cfg, weight_grads=False, input_grads=False)
+
+
+def make_fused_pose_op(cfg: NetConfig):
+    """The frozen-model plane op of pose optimization: the codes' and the
+    rays' and depths' cotangents."""
+    return _make_plane_op(cfg, weight_grads=False, input_grads=True)
+
+
+def _with_composite(plane_op, white_bg: bool):
+    """A plane op chained into the standalone composite
+    (``ops/composite.py``): ``op(...) -> (R, 8) f32 [r g b depth acc 0 0
+    0]``, whose backward hands the composite's five plane cotangents (dz
+    included) to the plane op's. Coarse paths only: hierarchical sampling
+    needs the weights plane."""
+    from codenerf_tpu_torch.ops.composite import composite_op
+
+    def op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat):
+        sig, r, g, b = plane_op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat)
+        return composite_op(sig, r, g, b, z, white_bg)
+
+    return op
+
+
+def make_fused_train_composite_op(cfg: NetConfig, white_bg: bool = True,
+                                  input_grads: bool = True):
+    """The training plane op chained into the standalone composite."""
+    return _with_composite(make_fused_train_op(cfg, input_grads=input_grads),
+                           white_bg)
+
+
+def make_fused_codes_composite_op(cfg: NetConfig, white_bg: bool = True):
+    """The codes plane op chained into the standalone composite: the
+    coarse code-optimization route for chunks that need padding."""
+    return _with_composite(make_fused_codes_op(cfg), white_bg)
+
+
+def fused_apply_train(model, cfg: NetConfig, ray_o, viewdir, z_vals,
+                      shape_code, texture_code, op=None):
+    """The differentiable plane-op evaluation of ``model`` at rays (R, 3)
+    and depths (R, S) with codes (R, D) or (D,): ``(sigmas, (r, g, b))``,
+    (R, S) f32 planes for ``core.render.composite``. The per-ray prologue
+    is plain PyTorch, so autograd reaches the weights, codes, rays and
+    depths through it. ``op`` defaults to :func:`make_fused_train_op`."""
+    ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
+        model, cfg, ray_o, viewdir, z_vals, shape_code, texture_code)
+    if op is None:
+        op = make_fused_train_op(cfg)
+    sigmas, r, g, b = op(ro8, vd8, z, sproj, tproj, vcontrib,
+                         *flatten_params(model, cfg))
+    return sigmas, (r, g, b)
+
+
+def fused_render_train(model, cfg: NetConfig, ray_o, viewdir, z_vals,
+                       shape_code, texture_code, op=None,
+                       white_bg: bool = True):
+    """The plane op chained into the standalone composite, from rays,
+    depths and codes: a ``core.render.RenderOutput`` whose rgb, depth and
+    acc come from the composite kernel (``weights`` None). ``op``
+    defaults to :func:`make_fused_train_composite_op`."""
+    from codenerf_tpu_torch.core.render import RenderOutput
+
+    ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
+        model, cfg, ray_o, viewdir, z_vals, shape_code, texture_code)
+    if op is None:
+        op = make_fused_train_composite_op(cfg, white_bg=white_bg)
+    out8 = op(ro8, vd8, z, sproj, tproj, vcontrib,
+              *flatten_params(model, cfg))
+    return RenderOutput(rgb=out8[:, :3], depth=out8[:, 3], acc=out8[:, 4],
+                        weights=None)

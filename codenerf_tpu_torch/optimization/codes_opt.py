@@ -7,26 +7,43 @@ start the shape/texture codes at the mean of the trained embeddings, run
 model frozen — with the lr halved every ``lr_half_interval`` steps, then
 score PSNR/SSIM on the remaining views.
 
-Each optimization step runs the single-pass route of the JAX package: per
-ray chunk, the per-ray prologue (``ops/fused_mlp.prep_ray_operands``), then
-the fused loss kernel (``ops/fused_train.FusedCodesLoss``), whose
-cotangents flow back through the prologue into the codes; the code-norm
-regularizer adds its gradient; ``torch.optim.AdamW`` steps. With
-hierarchical sampling the chunk runs as a training step does: the
-sigma-only coarse forward (``ops/fused_mlp.sigma_fwd``), the importance
-samples, and one dual-mode kernel call that optimizes ``se_fine +
-se_coarse``; the reported MSE is the fine pass's alone. An occupancy grid
-(``occ_grid``, e.g. the category grid ``--opt_occ`` rebuilds) bounds the
-coarse depths of the optimization loop. Eval renders through the plain
-``CodeNeRF`` module, as the JAX package renders eval through plain XLA,
-with ``eval_hp`` (the full sample budget) and without the grid unless
-``eval_occ``.
+Routes, chosen as the JAX package chooses them (``codes_route``):
 
-This slice ports the sequential per-object path with full-view steps. The
-JAX package's other routes — autodiff through the plain model
-(``use_fused_train`` off), the plane-op kernels (``fused_composite`` off,
-or chunks that need padding), stochastic ``opt_rays``, batched groups —
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+- **single pass** (``use_fused_train`` and ``fused_composite``; coarse or
+  with shared fine weights; chunks that split the rays exactly and that
+  the single-pass kernel tiles): per ray chunk, the per-ray prologue
+  (``ops/fused_mlp.prep_ray_operands``), then the fused loss kernel
+  (``ops/fused_train.FusedCodesLoss``), whose cotangents flow back
+  through the prologue into the codes. With hierarchical sampling the
+  chunk runs as a training step does: the sigma-only coarse forward
+  (``ops/fused_mlp.sigma_fwd``), the importance samples, and one
+  dual-mode kernel call that optimizes ``se_fine + se_coarse``;
+- **plane op** (``use_fused_train`` otherwise, when the plane ops tile
+  the chunk; ``build_fused_codes_fns``): ``render_rays`` through the
+  frozen-model plane op (``make_fused_codes_op``) and the PyTorch
+  composite — separate fine weights, or ``fused_composite: false`` — or,
+  coarse with ``fused_composite``, through the plane op chained into the
+  standalone composite kernel (``make_fused_codes_composite_op``): the
+  route of chunks that need padding (a 127×127 view is 4 × 4096 rays
+  with 255 pad rays);
+- **autodiff** (``use_fused_train`` off, e.g. ``srncar.json``, or the
+  plane ops cannot tile the chunk): ``render_rays`` through the plain
+  ``CodeNeRF``.
+
+Pad rays (edge repeats) are masked out of the loss, and the loss scale is
+``1 / (3 · real rays)``. The reported MSE is the fine pass's alone; the
+code-norm regularizer adds its gradient; ``torch.optim.AdamW`` steps.
+Each chunk's backward runs as soon as its loss exists, so memory is
+bounded by a chunk (the JAX package rematerializes per chunk). An
+occupancy grid (``occ_grid``, e.g. the category grid ``--opt_occ``
+rebuilds) bounds the coarse depths of the optimization loop. Eval renders
+through the plain ``CodeNeRF`` module(s), as the JAX package renders eval
+through plain XLA, with ``eval_hp`` (the full sample budget) and without
+the grid unless ``eval_occ``.
+
+This slice ports the sequential per-object path with full-view steps;
+stochastic ``opt_rays`` and batched groups raise ``NotImplementedError``
+in the CLI, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -43,8 +60,8 @@ from codenerf_tpu_torch.core.render import composite_weights
 from codenerf_tpu_torch.evaluation.metrics import (psnr, reference_psnr_mse,
                                                    ssim)
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
-from codenerf_tpu_torch.renderer import (check_render_config, chunk_plan,
-                                         coarse_zvals, render_image)
+from codenerf_tpu_torch.renderer import (chunk_plan, coarse_zvals, pad_rays,
+                                         render_image, render_rays)
 from codenerf_tpu_torch.training.schedules import step_halving
 
 
@@ -80,27 +97,75 @@ def _flat_target_rays(images, poses, focal, view_idxs: Sequence[int],
     return torch.cat(ros), torch.cat(vds), torch.cat(gts)
 
 
-def _check_single_pass(hp: Hparams, n_rays: int, chunk: int,
-                       n_chunks: int) -> None:
-    check_render_config(hp.render)
-    if not hp.use_fused_train:
-        raise NotImplementedError(
-            "code optimization without use_fused_train (autodiff through "
-            "the plain model) is not ported yet (ROADMAP.md Queue 1, item 7); "
-            "use a jsonfile with use_fused_train, e.g. srncar_fused.json")
-    if not hp.fused_composite:
-        raise NotImplementedError(
-            "fused_composite=false (plane-op kernels) is not ported yet "
-            "(ROADMAP.md Queue 2)")
-    if n_chunks * chunk != n_rays:
-        raise NotImplementedError(
-            f"{n_rays} target rays do not split into equal chunks of "
-            f"{chunk}; padded chunks take the plane-op kernels, which are "
-            "not ported yet (ROADMAP.md Queue 2)")
-    if not fused_train.single_pass_available(hp.net, chunk):
-        raise NotImplementedError(
-            f"the fused kernel cannot tile W={hp.net.W}, chunk={chunk} "
-            "(needs W % 256 == 0, chunk % 16 == 0)")
+def build_fused_codes_fns(hp: Hparams, chunk: int, *,
+                          use_fused: Optional[bool] = None,
+                          input_grads: bool = False):
+    """Counterpart of ``codes_opt.build_fused_codes_fns``: ``(apply_fn,
+    composite_fn)`` for :func:`renderer.render_rays` on the frozen model's
+    plane-op route, both None where plain autodiff runs. ``use_fused``
+    None defers to ``hp.use_fused_train`` and falls back to autodiff
+    quietly when the plane ops cannot tile the chunk; ``use_fused=True``
+    raises ``ValueError`` there. ``input_grads`` selects the pose variant
+    (the rays' and depths' cotangents kept), which never takes the
+    composite op; the codes variant does, coarse with
+    ``fused_composite``."""
+    net_cfg, rcfg = hp.net, hp.render
+    explicit = use_fused is True
+    if use_fused is None:
+        use_fused = hp.use_fused_train
+    if not use_fused:
+        return None, None
+    counts = [rcfg.n_samples] + ([rcfg.n_samples + rcfg.n_importance]
+                                 if rcfg.n_importance > 0 else [])
+    if not all(fused_train.fused_train_available(net_cfg, chunk, n)
+               for n in counts):
+        if explicit:
+            raise ValueError(
+                "use_fused=True but the fused kernels can't tile this "
+                f"problem (W={net_cfg.W}, chunk={chunk}, samples={counts})")
+        return None, None
+    if hp.fused_composite and rcfg.n_importance == 0 and not input_grads:
+        op = fused_train.make_fused_codes_composite_op(
+            net_cfg, white_bg=rcfg.white_bg)
+
+        def composite_fn(m, cfg, ray_o, viewdir, z, s_code, t_code):
+            return fused_train.fused_render_train(
+                m, cfg, ray_o, viewdir, z, s_code, t_code, op=op,
+                white_bg=rcfg.white_bg)
+
+        return None, composite_fn
+    op = (fused_train.make_fused_pose_op if input_grads
+          else fused_train.make_fused_codes_op)(net_cfg)
+
+    def apply_fn(m, cfg, ray_o, viewdir, z, s_code, t_code):
+        return fused_train.fused_apply_train(m, cfg, ray_o, viewdir, z,
+                                             s_code, t_code, op=op)
+
+    return apply_fn, None
+
+
+def codes_route(hp: Hparams, n_rays: int, chunk: int,
+                use_fused: Optional[bool] = None) -> str:
+    """The route of a full-view optimization of ``n_rays`` target rays in
+    chunks of ``chunk`` (:func:`renderer.chunk_plan`'s): ``"single_pass"``,
+    ``"plane_op"`` (``apply_fn``), ``"plane_op_composite"``
+    (``composite_fn``) or ``"autodiff"`` — JAX ``codes_opt.py:250-268``.
+    Raises where :func:`build_fused_codes_fns` does."""
+    rcfg = hp.render
+    chunk, n_chunks, _ = chunk_plan(n_rays, chunk)
+    want = hp.use_fused_train if use_fused is None else use_fused
+    if (want and hp.fused_composite
+            and (rcfg.n_importance == 0 or rcfg.share_fine_weights)
+            and n_chunks * chunk == n_rays
+            and fused_train.single_pass_available(hp.net, chunk)):
+        return "single_pass"
+    if not want:
+        return "autodiff"
+    apply_fn, composite_fn = build_fused_codes_fns(hp, chunk,
+                                                   use_fused=use_fused)
+    if composite_fn is not None:
+        return "plane_op_composite"
+    return "plane_op" if apply_fn is not None else "autodiff"
 
 
 def _chunk_loss(model, hp: Hparams, wops, ro, vd, gt, sc, tc, scale,
@@ -131,28 +196,55 @@ def _chunk_loss(model, hp: Hparams, wops, ro, vd, gt, sc, tc, scale,
         gt8, wops, want_rgb, cmask, cdelta)
 
 
+def _render_chunk_loss(model, hp: Hparams, ro, vd, gt, mask, sc, tc, scale,
+                       generator, occ_grid=None, fine_model=None,
+                       apply_fn=None, composite_fn=None, z=None, u=None):
+    """``(loss, fine, rgb)`` of one ray chunk through ``render_rays``: the
+    loss ``scale · Σ mask · (se_fine [+ se_coarse])`` (differentiable),
+    the reported ``scale · Σ mask · se_fine`` and the final rgb rows (no
+    gradient). ``z`` and ``u`` replace the generator's draws."""
+    res = render_rays(model, hp.render, ro, vd, sc, tc, generator,
+                      compute_dtype=resolve_dtype(hp.compute_dtype),
+                      occ_grid=occ_grid, z=z, u=u, fine_model=fine_model,
+                      apply_fn=apply_fn, composite_fn=composite_fn)
+    m = mask.float()[:, None]
+    se = torch.sum(m * (res.final.rgb - gt) ** 2)
+    fine = (se * scale).detach()
+    if res.fine is not None:
+        se = se + torch.sum(m * (res.coarse.rgb - gt) ** 2)
+    return se * scale, fine, res.final.rgb.detach()
+
+
 def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
                    viewdir: torch.Tensor, gt_rgb: torch.Tensor,
                    init_shape: torch.Tensor, init_texture: torch.Tensor,
                    generator: Optional[torch.Generator],
                    num_opts: int = 200, lr: float = 1e-2,
                    lr_half_interval: int = 50, chunk: int = 4096,
-                   progress_rays: int = 0,
-                   occ_grid=None) -> OptimizationResult:
+                   progress_rays: int = 0, occ_grid=None, fine_model=None,
+                   use_fused: Optional[bool] = None) -> OptimizationResult:
     """Optimize one object's codes against flat target rays (all on the
-    model's device) through the fused kernel, full view every step."""
+    model's device), full view every step, on :func:`codes_route`'s
+    route; ``fine_model`` is the separate fine network."""
     rcfg = hp.render
     n_rays = ray_o.shape[0]
-    chunk, n_chunks, _ = chunk_plan(n_rays, chunk)
-    _check_single_pass(hp, n_rays, chunk, n_chunks)
+    route = codes_route(hp, n_rays, chunk, use_fused)
+    chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
     if occ_grid is not None and rcfg.shared_jitter:
         raise ValueError("occ_grid requires per-ray sampling: shared_jitter "
                          "is one global [near, far] slab")
     scale = 1.0 / (n_rays * 3.0)
     progress_rays = min(int(progress_rays), n_rays)
     want_rgb = progress_rays > 0
-    wops = fused_train.kernel_operands(
-        fused_train.flatten_params(model, hp.net))
+    if route == "single_pass":
+        wops = fused_train.kernel_operands(
+            fused_train.flatten_params(model, hp.net))
+    else:
+        apply_fn, composite_fn = build_fused_codes_fns(hp, chunk,
+                                                       use_fused=use_fused)
+        ray_o, viewdir, gt_rgb = (pad_rays(x, n_padded)
+                                  for x in (ray_o, viewdir, gt_rgb))
+        mask = torch.arange(n_padded, device=ray_o.device) < n_rays
 
     sc = init_shape.detach().float().clone().requires_grad_(True)
     tc = init_texture.detach().float().clone().requires_grad_(True)
@@ -164,18 +256,26 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
         for group in opt.param_groups:
             group["lr"] = lr_at(step)
         opt.zero_grad(set_to_none=True)
-        loss, mse, rows = 0.0, 0.0, []
+        mse, rows = 0.0, []
         for c in range(n_chunks):
             sl = slice(c * chunk, (c + 1) * chunk)
-            loss_c, fine_c, rgb8 = _chunk_loss(
-                model, hp, wops, ray_o[sl], viewdir[sl], gt_rgb[sl], sc, tc,
-                scale, generator, want_rgb, occ_grid)
-            loss = loss + loss_c
+            if route == "single_pass":
+                loss_c, fine_c, rgb8 = _chunk_loss(
+                    model, hp, wops, ray_o[sl], viewdir[sl], gt_rgb[sl], sc,
+                    tc, scale, generator, want_rgb, occ_grid)
+                rgb = rgb8[:, :3]
+            else:
+                loss_c, fine_c, rgb = _render_chunk_loss(
+                    model, hp, ray_o[sl], viewdir[sl], gt_rgb[sl], mask[sl],
+                    sc, tc, scale, generator, occ_grid, fine_model, apply_fn,
+                    composite_fn)
+            # Each chunk's backward at once: memory is bounded by a chunk.
+            loss_c.backward()
             mse = mse + fine_c
             if want_rgb:
-                rows.append(rgb8[:, :3])
-        reg = safe_code_norm(sc) + safe_code_norm(tc)
-        (loss + hp.loss_reg_coef * reg).backward()
+                rows.append(rgb)
+        (hp.loss_reg_coef * (safe_code_norm(sc) + safe_code_norm(tc))
+         ).backward()
         opt.step()
         history.append(psnr(mse))
         if want_rgb:
@@ -188,7 +288,8 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
 
 class CodeOptimizer:
     """The reference ``Optimizer``'s protocol: per-object code
-    optimization, then held-out-view evaluation. The model is frozen (its
+    optimization, then held-out-view evaluation. The model and the
+    separate fine network (``fine_model``), if any, are frozen (their
     parameters stop requiring gradients) and moved to ``device``.
 
     ``occ_grid`` (an ``OccupancyGrid``) bounds the optimization loop's
@@ -201,9 +302,12 @@ class CodeOptimizer:
     def __init__(self, model, hp: Hparams, mean_shape: torch.Tensor,
                  mean_texture: torch.Tensor, chunk: int = 4096,
                  device="cuda", occ_grid=None,
-                 eval_hp: Optional[Hparams] = None, eval_occ: bool = True):
+                 eval_hp: Optional[Hparams] = None, eval_occ: bool = True,
+                 fine_model=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).requires_grad_(False)
+        self.fine_model = (None if fine_model is None else
+                           fine_model.to(self.device).requires_grad_(False))
         self.hp = hp
         self.mean_shape = mean_shape.float().to(self.device)
         self.mean_texture = mean_texture.float().to(self.device)
@@ -228,7 +332,7 @@ class CodeOptimizer:
             self.mean_texture, generator, num_opts=num_opts, lr=lr,
             lr_half_interval=lr_half_interval, chunk=self.chunk,
             progress_rays=H * W if progress_images else 0,
-            occ_grid=self.occ_grid)
+            occ_grid=self.occ_grid, fine_model=self.fine_model)
         if progress_images:
             res = res._replace(progress=res.progress.reshape(num_opts, H, W,
                                                              3))
@@ -258,7 +362,8 @@ class CodeOptimizer:
                 shape_code, texture_code,
                 None if deterministic else generator, chunk=self.chunk,
                 compute_dtype=cd,
-                occ_grid=self.occ_grid if self.eval_occ else None)
+                occ_grid=self.occ_grid if self.eval_occ else None,
+                fine_model=self.fine_model)
             ps.append(psnr(reference_psnr_mse(rgb, gt)))
             ss.append(ssim(rgb, gt))
             if return_images:

@@ -21,11 +21,16 @@ Routes, chosen as the JAX package chooses them:
   explicit ``vjp`` s. The fine call's depth cotangent reaches the coarse
   depths only through the union sort: the importance samples are
   constants (``sample_pdf`` detaches, as JAX's stops the gradient);
-- **autodiff** (``use_fused_train`` off, e.g. ``srncar.json``): the loss
-  through the plain ``CodeNeRF`` and ``render_rays``, as JAX runs plain
-  XLA there;
-- the **plane-op** route (fused, but not single-pass) is not ported and
-  raises.
+- **plane op** (``use_fused_train`` otherwise — ``fused_composite:
+  false`` or separate fine weights — when the plane ops tile the ray
+  count): the loss through ``render_rays`` with ``apply_fn`` the
+  frozen-model plane op in its pose mode (``make_fused_pose_op``, from
+  ``codes_opt.build_fused_codes_fns(input_grads=True)``): the kernel's
+  ray and depth cotangents, and the composite's depth cotangent through
+  PyTorch autograd; the fine pass through ``fine_model``;
+- **autodiff** (``use_fused_train`` off, e.g. ``srncar.json``, or a ray
+  count the plane ops cannot tile): the loss through the plain
+  ``CodeNeRF`` and ``render_rays``, as JAX runs plain XLA there.
 
 Optimizer: Adam on ``xi`` and AdamW on the codes (``weight_decay``), each
 with a step-halving lr. The first ``pose_only_steps`` steps leave the codes
@@ -48,9 +53,9 @@ from codenerf_tpu_torch.core.poses import refine_pose
 from codenerf_tpu_torch.core.rays import pixel_rays
 from codenerf_tpu_torch.evaluation.metrics import psnr
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
-from codenerf_tpu_torch.optimization.codes_opt import safe_code_norm
-from codenerf_tpu_torch.renderer import (check_render_config, coarse_zvals,
-                                         render_rays)
+from codenerf_tpu_torch.optimization.codes_opt import (build_fused_codes_fns,
+                                                      safe_code_norm)
+from codenerf_tpu_torch.renderer import coarse_zvals, render_rays
 from codenerf_tpu_torch.training.schedules import step_halving
 
 
@@ -75,20 +80,20 @@ class PoseState(NamedTuple):
 
 def pose_route(hp: Hparams, rays_per_step: int,
                use_fused: Optional[bool] = None) -> str:
-    """``"single_pass"`` or ``"autodiff"``; raises for the routes the
-    port does not have."""
-    check_render_config(hp.render)
+    """``"single_pass"``, ``"plane_op"`` or ``"autodiff"``, as JAX
+    ``pose_opt.py:89-98`` chooses: the single pass where it applies, else
+    ``build_fused_codes_fns(input_grads=True)`` — which falls back to
+    autodiff quietly when ``use_fused`` is None and raises ``ValueError``
+    when it is True."""
     fused = hp.use_fused_train if use_fused is None else use_fused
-    if not fused:
-        return "autodiff"
-    if hp.fused_composite and fused_train.single_pass_available(
-            hp.net, rays_per_step):
+    if fused and hp.fused_composite and (
+            hp.render.n_importance == 0 or hp.render.share_fine_weights) \
+            and fused_train.single_pass_available(hp.net, rays_per_step):
         return "single_pass"
-    raise NotImplementedError(
-        "pose optimization through the plane-op kernels (fused_composite="
-        "false, or a ray count the single-pass kernel cannot tile: needs "
-        "W % 256 == 0 and rays_per_step % 16 == 0) is not ported yet "
-        "(ROADMAP.md Queue 2, item 6)")
+    apply_fn, _ = build_fused_codes_fns(hp, rays_per_step,
+                                        use_fused=use_fused,
+                                        input_grads=True)
+    return "autodiff" if apply_fn is None else "plane_op"
 
 
 def make_pose_state(hp: Hparams, init_shape: torch.Tensor,
@@ -113,7 +118,7 @@ def make_pose_state(hp: Hparams, init_shape: torch.Tensor,
 def build_pose_loss(model, hp: Hparams, image: torch.Tensor,
                     init_c2w: torch.Tensor, focal: float,
                     rays_per_step: int = 2048, optimize_codes: bool = True,
-                    use_fused: Optional[bool] = None):
+                    use_fused: Optional[bool] = None, fine_model=None):
     """Returns ``loss_fn(xi, shape, texture, generator, pix=None,
     jitter=None, u=None) -> (loss, mse)`` for one step on ``image`` (H, W,
     3) float [0, 1] on the model's device: the pixel indices ``pix``
@@ -121,7 +126,8 @@ def build_pose_loss(model, hp: Hparams, image: torch.Tensor,
     the importance probes ``u`` (rays_per_step, N_importance) come from
     ``generator`` unless given (the tests feed both packages the same
     numbers). ``loss`` is differentiable; ``mse`` (the fine pass's under
-    hierarchical sampling) is detached. The model is frozen."""
+    hierarchical sampling) is detached. The model (and ``fine_model``,
+    the separate fine network) is frozen."""
     net_cfg, rcfg = hp.net, hp.render
     H, W = image.shape[0], image.shape[1]
     R = min(rays_per_step, H * W)
@@ -135,6 +141,9 @@ def build_pose_loss(model, hp: Hparams, image: torch.Tensor,
     compute_dtype = resolve_dtype(hp.compute_dtype)
     wops = (fused_train.kernel_operands(fused_train.flatten_params(
         model, net_cfg)) if route == "single_pass" else None)
+    apply_fn = (build_fused_codes_fns(hp, R, use_fused=use_fused,
+                                      input_grads=True)[0]
+                if route == "plane_op" else None)
 
     def rays(xi, generator, pix):
         if pix is None:
@@ -164,7 +173,8 @@ def build_pose_loss(model, hp: Hparams, image: torch.Tensor,
 
     def autodiff(ro, vd, gt, sc, tc, generator, jitter, u):
         res = render_rays(model, rcfg, ro, vd, sc, tc, generator,
-                          compute_dtype=compute_dtype, u=u, jitter=jitter)
+                          compute_dtype=compute_dtype, u=u, jitter=jitter,
+                          fine_model=fine_model, apply_fn=apply_fn)
         mse = torch.mean((res.final.rgb - gt) ** 2)
         loss = mse
         if res.fine is not None:
@@ -235,17 +245,21 @@ def optimize_pose_and_codes(model, hp: Hparams, image: torch.Tensor,
                             rays_per_step: int = 2048,
                             optimize_codes: bool = True,
                             pose_only_steps: int = 0,
-                            use_fused: Optional[bool] = None
-                            ) -> PoseOptimizationResult:
+                            use_fused: Optional[bool] = None,
+                            fine_model=None) -> PoseOptimizationResult:
     """Jointly refine (pose, codes) against one target ``image`` (H, W, 3)
     float [0, 1], with ``init_c2w`` (4, 4), the codes and the model all on
     one device. ``optimize_codes=False`` freezes the codes (registration
     only); ``pose_only_steps`` freezes them for the first steps (the
     pose/code ambiguity: free codes can absorb a pose error). The draws
-    come from ``generator``."""
+    come from ``generator``; ``fine_model`` is the separate fine
+    network."""
     model.requires_grad_(False)
+    if fine_model is not None:
+        fine_model.requires_grad_(False)
     loss_fn = build_pose_loss(model, hp, image, init_c2w, focal,
-                              rays_per_step, optimize_codes, use_fused)
+                              rays_per_step, optimize_codes, use_fused,
+                              fine_model)
     state = make_pose_state(hp, init_shape, init_texture, lr_codes, lr_pose,
                             lr_half_interval)
     history = [psnr(pose_step(loss_fn, state, step, pose_only_steps,

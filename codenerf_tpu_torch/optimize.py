@@ -10,9 +10,13 @@ every ``--lr_half_interval``), then report PSNR/SSIM over all other views.
 
 Reads the run's training checkpoint, the latest
 ``<exps_root>/<saved_dir>/ckpt/step_*.pt`` that ``python -m
-codenerf_tpu_torch.train`` writes (as the JAX CLI reads ``<run>/ckpt``);
-a run without ``ckpt/`` is read from ``models.pth`` in the reference
-layout (``model_params``, ``shape_code_params``, ``texture_code_params``).
+codenerf_tpu_torch.train`` writes (as the JAX CLI reads ``<run>/ckpt``),
+the fine network included for a jsonfile with separate fine weights; a
+run without ``ckpt/`` is read from ``models.pth`` in the reference layout
+(``model_params``, ``shape_code_params``, ``texture_code_params``). Any
+config the trainer takes runs, each on the JAX package's route
+(``optimization/codes_opt.codes_route``), and any view size: a view whose
+rays do not split into equal chunks is padded.
 Writes
 under ``<exps_root>/<saved_dir>/test[_N]/``, like the JAX CLI:
 ``opt_hpams.json``, ``codes.npz``, ``codes.pth`` (reference payload),
@@ -130,32 +134,22 @@ def main(argv=None) -> dict:
     from codenerf_tpu_torch.config import resolve_dtype
     from codenerf_tpu_torch.core.occupancy import rebuild_category_grid
     from codenerf_tpu_torch.data.srn import SRNDataset
-    from codenerf_tpu_torch.models.codenerf import CodeNeRF
     from codenerf_tpu_torch.models.codes import mean_code
     from codenerf_tpu_torch.optimization.codes_opt import CodeOptimizer
-    from codenerf_tpu_torch.renderer import check_render_config
-    from codenerf_tpu_torch.utils.checkpoint import (
-        latest_step, load_reference_checkpoint, load_training_checkpoint,
-        save_reference_codes)
+    from codenerf_tpu_torch.utils.checkpoint import load_run, \
+        save_reference_codes
     from codenerf_tpu_torch.utils.images import save_png, side_by_side
 
     device = resolve_device(
         f"cuda:{args.gpu}" if args.device == "cuda" else args.device)
     hp = load_hparams(args.jsonfile)
-    check_render_config(hp.render)
     if args.opt_occ and hp.train_occupancy is None:
         raise SystemExit(f"--opt_occ needs a jsonfile with train_occupancy "
                          f"(e.g. srncar_hier_occ.json); {args.jsonfile} has "
                          "none")
     run_dir = os.path.join(args.exps_root, args.saved_dir)
-    if latest_step(os.path.join(run_dir, "ckpt")) is not None:
-        state, shape_codes, texture_codes = load_training_checkpoint(
-            os.path.join(run_dir, "ckpt"))
-    else:
-        state, shape_codes, texture_codes = load_reference_checkpoint(
-            os.path.join(run_dir, "models.pth"))
-    model = CodeNeRF(hp.net)
-    model.load_state_dict(state)
+    model, fine_model, shape_codes, texture_codes = load_run(run_dir, hp,
+                                                             device)
     save_dir = _unique_test_dir(os.path.join(run_dir, "test"))
     print("we are going to save at", save_dir)
 
@@ -169,7 +163,7 @@ def main(argv=None) -> dict:
         # the trainer does on a resume past its warm-up.
         oc = hp.train_occupancy
         occ = rebuild_category_grid(
-            model.to(device), shape_codes.to(device), texture_codes.to(device),
+            model, shape_codes.to(device), texture_codes.to(device),
             oc, oc.radius if oc.radius is not None
             else hp.render.bound_sphere_radius,
             compute_dtype=resolve_dtype(hp.compute_dtype))
@@ -180,7 +174,7 @@ def main(argv=None) -> dict:
     optimizer = CodeOptimizer(model, opt_hp, mean_code(shape_codes),
                               mean_code(texture_codes), chunk=args.batchsize,
                               device=device, occ_grid=occ, eval_hp=hp,
-                              eval_occ=False)
+                              eval_occ=False, fine_model=fine_model)
 
     with open(os.path.join(save_dir, "opt_hpams.json"), "w") as f:
         json.dump({"instance_ids": args.tgt_instances, "lr": args.lr,

@@ -21,7 +21,8 @@ default 3/4 of ``--num_opts``). Report the rotation and translation error
 before and after against the ground-truth pose.
 
 Reads the run as the port's optimize CLI does: the latest
-``<exps_root>/<saved_dir>/ckpt/step_*.pt``, else ``models.pth``. Writes
+``<exps_root>/<saved_dir>/ckpt/step_*.pt`` (with the fine network of a
+separate-fine config), else ``models.pth``. Writes
 under ``<exps_root>/<saved_dir>/pose_opt[_N]/``: ``results.json`` (per
 object pose errors and first/last PSNR) and ``<obj_id>.png``, the
 [initial-guess render | refined render | GT] strip (``--save_img``).
@@ -117,29 +118,19 @@ def main(argv=None) -> dict:
     from codenerf_tpu_torch.config import load_hparams, resolve_dtype
     from codenerf_tpu_torch.core.poses import exp_se3
     from codenerf_tpu_torch.data.srn import SRNDataset
-    from codenerf_tpu_torch.models.codenerf import CodeNeRF
     from codenerf_tpu_torch.models.codes import mean_code
-    from codenerf_tpu_torch.optimization.pose_opt import (
-        optimize_pose_and_codes, pose_route)
+    from codenerf_tpu_torch.optimization.pose_opt import \
+        optimize_pose_and_codes
     from codenerf_tpu_torch.renderer import render_image
-    from codenerf_tpu_torch.utils.checkpoint import (
-        latest_step, load_reference_checkpoint, load_training_checkpoint)
+    from codenerf_tpu_torch.utils.checkpoint import load_run
     from codenerf_tpu_torch.utils.images import image_float_to_uint8, save_png
 
     device = resolve_device(
         f"cuda:{args.gpu}" if args.device == "cuda" else args.device)
     hp = load_hparams(args.jsonfile)
-    pose_route(hp, args.rays_per_step)     # refuse unported routes first
     run_dir = os.path.join(args.exps_root, args.saved_dir)
-    if latest_step(os.path.join(run_dir, "ckpt")) is not None:
-        state, shape_codes, texture_codes = load_training_checkpoint(
-            os.path.join(run_dir, "ckpt"))
-    else:
-        state, shape_codes, texture_codes = load_reference_checkpoint(
-            os.path.join(run_dir, "models.pth"))
-    model = CodeNeRF(hp.net)
-    model.load_state_dict(state)
-    model = model.to(device).requires_grad_(False)
+    model, fine_model, shape_codes, texture_codes = load_run(run_dir, hp,
+                                                             device)
     save_dir = _unique_dir(os.path.join(run_dir, "pose_opt"))
     print("we are going to save at", save_dir)
 
@@ -182,7 +173,8 @@ def main(argv=None) -> dict:
             model, hp, image, init_t, focal, mean_shape, mean_texture, gen,
             num_opts=args.num_opts, lr_codes=args.lr_codes,
             lr_pose=args.lr_pose, lr_half_interval=args.lr_half_interval,
-            rays_per_step=args.rays_per_step, pose_only_steps=pose_only)
+            rays_per_step=args.rays_per_step, pose_only_steps=pose_only,
+            fine_model=fine_model)
         sync()
         timing["opt_s"] += time.perf_counter() - t0
         timing["opt_steps"] += args.num_opts
@@ -209,7 +201,7 @@ def main(argv=None) -> dict:
                 return render_image(
                     model, hp.render, H, W, focal, pose, res.shape_code,
                     res.texture_code, None, chunk=min(4096, H * W),
-                    compute_dtype=cd).cpu().numpy()
+                    compute_dtype=cd, fine_model=fine_model).cpu().numpy()
 
             strip = np.concatenate([rend(init_pose), rend(refined),
                                     image_np], axis=1)

@@ -1,17 +1,23 @@
-"""Ray and image rendering through the plain ``CodeNeRF`` module — the
-eval path (counterpart of ``codenerf_tpu/renderer.py``).
-
-The JAX package renders eval views through plain XLA (``apply_codenerf``
-+ ``composite``), no Pallas kernel; here the same is plain PyTorch.
+"""Ray and image rendering (counterpart of ``codenerf_tpu/renderer.py``).
 
 Coarse pass: stratified z-values between per-ray bounds — the global
 ``[near, far]`` slab, tightened to the bounding sphere
 (``bound_sphere_radius``) and to an occupancy grid's occupied span — then
-the MLP and the composite. Fine pass (``n_importance > 0``, shared
-weights): inverse-CDF samples from the coarse weights; only the new
-samples go through the MLP, and their sigma and rgb planes are merged
-with the coarse pass's by ``merge_sorted_samples`` and composited again
-(the JAX package's ``reuse_coarse`` recipe). Separate fine weights raise.
+the MLP and the composite. Fine pass (``n_importance > 0``):
+inverse-CDF samples from the coarse weights. With shared weights and the
+plain module only the new samples go through the MLP, and their sigma and
+rgb planes are merged with the coarse pass's by ``merge_sorted_samples``
+and composited again (the JAX package's ``reuse_coarse`` recipe);
+otherwise the fine pass evaluates the union of the coarse and fine depths
+explicitly, through the fine network (``fine_model``) when the weights
+are not shared.
+
+``apply_fn`` swaps the plain ``CodeNeRF`` for another evaluation of
+sigma and rgb planes (the plane-op kernels, ``ops/fused_train.
+fused_apply_train``) under the PyTorch composite; ``composite_fn`` for
+one that composites too (``fused_render_train``), coarse only. Eval
+renders through the plain modules, as the JAX package renders eval
+through plain XLA.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from codenerf_tpu_torch.core.rays import camera_rays, ray_sphere_bounds
 from codenerf_tpu_torch.core.render import RenderOutput, composite
 from codenerf_tpu_torch.core.sampling import (fixed_zvals, lerp_linspace,
                                               merge_sorted_samples,
-                                              sample_pdf, stratified_zvals)
+                                              sample_pdf, stratified_zvals,
+                                              union_sorted_zvals)
 
 
 class RenderResult(NamedTuple):
@@ -61,15 +68,6 @@ def pad_rays(x: torch.Tensor, n_padded: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(n_padded - n, *x.shape[1:])], dim=0)
 
 
-def check_render_config(rcfg: RenderConfig) -> None:
-    """Raise for the render options the port does not have yet."""
-    if rcfg.n_importance > 0 and not rcfg.share_fine_weights:
-        raise NotImplementedError(
-            "hierarchical_share_weights=false (separate fine weights) is not "
-            "ported yet; the JAX package runs it through the plane-op "
-            "kernels (ROADMAP.md Queue 2, item 6)")
-
-
 def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
                  viewdir: torch.Tensor,
                  generator: Optional[torch.Generator],
@@ -83,7 +81,6 @@ def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
     the reference's shared) jitter drawn from ``generator`` or given as
     ``jitter`` (the tests feed both packages the same numbers).
     Differentiable with respect to the rays through the bounds."""
-    check_render_config(rcfg)
     R, dev = ray_o.shape[0], ray_o.device
     use_bounds = (rcfg.bound_sphere_radius is not None
                   or occ_grid is not None) and not rcfg.shared_jitter
@@ -130,35 +127,75 @@ def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 occ_grid=None, z: Optional[torch.Tensor] = None,
                 u: Optional[torch.Tensor] = None,
-                jitter: Optional[torch.Tensor] = None) -> RenderResult:
+                jitter: Optional[torch.Tensor] = None, fine_model=None,
+                apply_fn=None, composite_fn=None) -> RenderResult:
     """Render a batch of rays: the coarse pass and, with ``n_importance >
     0``, the fine pass. ``generator`` None renders deterministically
     (linspace z, evenly spaced CDF probes). ``z`` (R, n_samples), or the
     coarse ``jitter`` of :func:`coarse_zvals`, and ``u`` (R, n_importance)
     replace the generator's draws — the tests feed both packages the same
-    numbers."""
+    numbers.
+
+    ``fine_model``: the fine network when ``rcfg.share_fine_weights`` is
+    False (ignored otherwise). ``apply_fn(model, cfg, ray_o, viewdir, z,
+    shape_code, texture_code) -> (sigmas (R, S), rgbs)`` (rgbs (R, S, 3)
+    or three (R, S) planes) replaces the plain module's evaluation;
+    ``composite_fn``, of the same signature, returns a finished
+    ``RenderOutput`` whose ``weights`` may be None, so it excludes
+    ``n_importance > 0`` (a ``ValueError``)."""
+    if composite_fn is not None and rcfg.n_importance > 0:
+        raise ValueError(
+            "composite_fn (the fused composite) does not emit the weights "
+            "plane hierarchical sampling needs; use apply_fn with "
+            "n_importance > 0")
     if z is None:
         z = coarse_zvals(rcfg, ray_o, viewdir, generator, occ_grid,
                          jitter=jitter)
+
+    def eval_and_composite(m, zz):
+        if composite_fn is not None:
+            return composite_fn(m, m.cfg, ray_o, viewdir, zz, shape_code,
+                                texture_code)
+        if apply_fn is not None:
+            sig, rgbs = apply_fn(m, m.cfg, ray_o, viewdir, zz, shape_code,
+                                 texture_code)
+        else:
+            sig, rgbs = _eval_raw(m, ray_o, viewdir, zz, shape_code,
+                                  texture_code, compute_dtype)
+        return composite(sig, rgbs, zz, white_bg=rcfg.white_bg)
+
+    # With shared weights on the plain module the fine pass evaluates only
+    # the new samples: the coarse ones' values are the same network at the
+    # same z, so they are cached and merged into union order. The other
+    # evaluations evaluate the union explicitly.
+    reuse_coarse = (rcfg.n_importance > 0 and apply_fn is None
+                    and composite_fn is None
+                    and (rcfg.share_fine_weights or fine_model is None))
+    if reuse_coarse:
+        sig_c, rgb_c = _eval_raw(model, ray_o, viewdir, z, shape_code,
+                                 texture_code, compute_dtype)
+        coarse = composite(sig_c, rgb_c, z, white_bg=rcfg.white_bg)
     else:
-        check_render_config(rcfg)
-    sig_c, rgb_c = _eval_raw(model, ray_o, viewdir, z, shape_code,
-                             texture_code, compute_dtype)
-    coarse = composite(sig_c, rgb_c, z, white_bg=rcfg.white_bg)
+        coarse = eval_and_composite(model, z)
     if rcfg.n_importance <= 0:
         return RenderResult(coarse=coarse, fine=None)
     # Interior coarse weights drive a piecewise-constant pdf over the
-    # z midpoints; the fine samples' planes merge with the cached coarse
-    # ones (the same network at the same z gives the same values).
+    # z midpoints.
     z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
     z_fine = sample_pdf(z_mid, coarse.weights[:, 1:-1], rcfg.n_importance,
                         generator,
                         deterministic=generator is None and u is None, u=u)
-    sig_f, rgb_f = _eval_raw(model, ray_o, viewdir, z_fine, shape_code,
-                             texture_code, compute_dtype)
-    z_all, merged = merge_sorted_samples(z, z_fine, (sig_c,) + rgb_c,
-                                         (sig_f,) + rgb_f)
-    fine = composite(merged[0], merged[1:], z_all, white_bg=rcfg.white_bg)
+    if reuse_coarse:
+        sig_f, rgb_f = _eval_raw(model, ray_o, viewdir, z_fine, shape_code,
+                                 texture_code, compute_dtype)
+        z_all, merged = merge_sorted_samples(z, z_fine, (sig_c,) + rgb_c,
+                                             (sig_f,) + rgb_f)
+        fine = composite(merged[0], merged[1:], z_all,
+                         white_bg=rcfg.white_bg)
+        return RenderResult(coarse=coarse, fine=fine)
+    m_fine = (model if rcfg.share_fine_weights or fine_model is None
+              else fine_model)
+    fine = eval_and_composite(m_fine, union_sorted_zvals(z, z_fine))
     return RenderResult(coarse=coarse, fine=fine)
 
 
@@ -169,8 +206,10 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                  generator: Optional[torch.Generator] = None,
                  chunk: int = 4096,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 occ_grid=None) -> torch.Tensor:
-    """Render a full H×W image in fixed-size ray chunks; (H, W, 3) f32."""
+                 occ_grid=None, fine_model=None) -> torch.Tensor:
+    """Render a full H×W image in fixed-size ray chunks through the plain
+    module(s) (``fine_model``: the separate fine network); (H, W, 3)
+    f32."""
     dev = shape_code.device
     n_rays = H * W
     chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
@@ -181,6 +220,6 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
         render_rays(model, rcfg, ro[i * chunk:(i + 1) * chunk],
                     vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
                     generator, compute_dtype=compute_dtype,
-                    occ_grid=occ_grid).final.rgb
+                    occ_grid=occ_grid, fine_model=fine_model).final.rgb
         for i in range(n_chunks)])
     return rgb[:n_rays].reshape(H, W, 3)

@@ -10,10 +10,12 @@ The flags and defaults are those of the root ``train.py`` (the reference
 as the port's optimize CLI has them. One step is one globally-sampled
 batch of ``--batchsize`` rays (16,384 = one 128×128 image's rays).
 
-Any configuration of the JAX package's fused or autodiff route runs,
-hierarchical ones with the training occupancy grid included
-(``srncar_hier_occ.json``); separate fine weights and the plane-op
-kernels (``fused_composite: false``) raise with their ROADMAP.md item.
+Any configuration of the JAX package's routes runs: the single-pass
+loss kernel, the plane-op kernels (``fused_composite: false``, or
+hierarchical sampling with separate fine weights,
+``hierarchical_share_weights: false``, whose checkpoints hold the fine
+network too) and plain autodiff, hierarchical ones with the training
+occupancy grid included (``srncar_hier_occ.json``).
 
 Writes ``<exps_root>/<save_dir>/{hpam.json, metrics.jsonl, ckpt/}``;
 ``python -m codenerf_tpu_torch.optimize --saved_dir <save_dir>`` reads the

@@ -14,6 +14,14 @@ batch's gathered codes. Two routes compute its gradients:
   kernel in ``weight_grads=True`` mode — and one ``backward()`` that
   chains the kernel's cotangents and dW/db through the prologue, as the
   JAX package's one ``jax.vjp`` does;
+- **plane op** (``use_fused_train`` without the single-pass loss:
+  ``fused_composite: false``, or hierarchical sampling with separate fine
+  weights): ``render_rays`` with ``apply_fn`` the plane op in its
+  training mode (``ops/fused_train.make_fused_train_op(input_grads=
+  False)``: the four-plane forward, and a backward that recomputes it and
+  returns the codes' and every weight's cotangents from the planes'),
+  the composite in PyTorch autograd, then ``backward()``; the coarse and
+  the fine pass each run it, on their own network;
 - **autodiff** (configs without ``use_fused_train``, e.g. the root CLI's
   ``srncar.json``): the plain ``CodeNeRF.forward`` and ``composite``, then
   ``backward()``.
@@ -24,9 +32,12 @@ code tables on ``[1]``, each step-halved; with
 ``quirks.optimizer_reset_every`` the window-frozen schedule and a reset of
 the Adam moments at each window start.
 
-Hierarchical sampling (``N_importance > 0``, shared fine weights) adds the
-coarse MSE to the loss, as standard NeRF does; ``mse`` (and PSNR) stay the
-fine pass's. On the fused route the coarse pass is forward-only — the
+Hierarchical sampling (``N_importance > 0``) adds the coarse MSE to the
+loss, as standard NeRF does; ``mse`` (and PSNR) stay the fine pass's.
+With separate fine weights (``hierarchical_share_weights: false``) the
+fine pass runs the state's ``fine_model`` at the union of the coarse and
+fine depths, and AdamW's model group holds both networks. On the fused
+route the coarse pass is forward-only — the
 sigma-only kernel (``ops/fused_mlp.sigma_fwd``), ``composite_weights``,
 ``hier_fine_zvals_meta`` — and one dual-mode kernel call at the union of
 the coarse and fine depths computes both losses, its cotangents already
@@ -43,9 +54,7 @@ drawn for the whole batch first, so the result does not depend on the
 split. The metrics are the mean over microbatches, with PSNR recomputed
 from the mean MSE.
 
-Separate fine weights, the plane-op kernels (``fused_composite=false``)
-and a device mesh raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+A device mesh raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -60,8 +69,7 @@ from codenerf_tpu_torch.core.render import composite, composite_weights
 from codenerf_tpu_torch.core.sampling import fine_uniforms
 from codenerf_tpu_torch.evaluation.metrics import psnr
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
-from codenerf_tpu_torch.renderer import (check_render_config, coarse_zvals,
-                                         render_rays)
+from codenerf_tpu_torch.renderer import coarse_zvals, render_rays
 from codenerf_tpu_torch.training.schedules import (step_halving,
                                                    window_frozen_step_halving)
 from codenerf_tpu_torch.training.state import TrainState
@@ -94,18 +102,29 @@ def lr_schedules(hp: Hparams):
                  for s in (hp.lr_model, hp.lr_codes))
 
 
-def build_optimizer(hp: Hparams, model, shape_codes,
-                    texture_codes) -> torch.optim.AdamW:
-    """AdamW with two groups: the model (group 0) and both code tables
-    (group 1). The step sets each group's lr from :func:`lr_schedules`."""
+def build_optimizer(hp: Hparams, model, shape_codes, texture_codes,
+                    fine_model=None) -> torch.optim.AdamW:
+    """AdamW with two groups: the model and the fine network, if any
+    (group 0), and both code tables (group 1). The step sets each group's
+    lr from :func:`lr_schedules`."""
+    nets = list(model.parameters()) + (
+        [] if fine_model is None else list(fine_model.parameters()))
     return torch.optim.AdamW(
-        [{"params": list(model.parameters()), "lr": hp.lr_model.lr},
+        [{"params": nets, "lr": hp.lr_model.lr},
          {"params": [shape_codes, texture_codes], "lr": hp.lr_codes.lr}],
         betas=(0.9, 0.999), eps=1e-8, weight_decay=hp.weight_decay)
 
 
+def uses_single_pass_loss(hp: Hparams) -> bool:
+    """The single-pass loss kernel's route: ``use_fused_train`` with
+    ``fused_composite``, coarse or with shared fine weights (JAX
+    ``train_step.py:286``). The other ``use_fused_train`` configs take
+    the plane op."""
+    return hp.use_fused_train and hp.fused_composite and (
+        hp.render.n_importance == 0 or hp.render.share_fine_weights)
+
+
 def _check_supported(hp: Hparams, mesh) -> None:
-    check_render_config(hp.render)
     if hp.train_occupancy is not None:
         if hp.render.shared_jitter:
             raise ValueError(
@@ -116,10 +135,6 @@ def _check_supported(hp: Hparams, mesh) -> None:
             raise ValueError(
                 "train_occupancy needs a grid extent: set "
                 "train_occupancy.radius or bound_sphere_radius")
-    if hp.use_fused_train and not hp.fused_composite:
-        raise NotImplementedError(
-            "fused_composite=false (the plane-op kernels) is not ported yet "
-            "(ROADMAP.md Queue 2, items 3 and 6)")
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (multi-GPU training) is not ported yet "
@@ -141,15 +156,36 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
     compute_dtype = resolve_dtype(hp.compute_dtype)
     reg_coef = hp.loss_reg_coef / hp.quirks.reg_chunk_divisor
     hier = rcfg.n_importance > 0
+    single_pass = uses_single_pass_loss(hp)
     step_rays = microbatch_rays or batch_size
-    if hp.use_fused_train and step_rays and not \
-            fused_train.single_pass_available(net_cfg, step_rays):
+    if single_pass:
+        ok = not step_rays or fused_train.single_pass_available(net_cfg,
+                                                                step_rays)
+        tile = fused_train._TRAIN_TILE_RAYS
+    else:
+        # The plane op's rule for every sample count it evaluates, as the
+        # JAX step checks it (32 * 16 rays when the batch is not known).
+        step_rays = step_rays or 32 * fused_train._TRAIN_TILE_RAYS
+        counts = [rcfg.n_samples] + ([rcfg.n_samples + rcfg.n_importance]
+                                     if hier else [])
+        ok = all(fused_train.fused_train_available(net_cfg, step_rays, n)
+                 for n in counts)
+        tile = fused_mlp._TILE_RAYS
+    if hp.use_fused_train and not ok:
         raise ValueError(
             "use_fused_train requires W % 256 == 0, num_xyz_freq <= 10, "
             ">= 1 shape/texture block and a ray count divisible by "
-            f"{fused_train._TRAIN_TILE_RAYS} (got W={net_cfg.W}, "
-            f"d_xyz={net_cfg.d_xyz}, blocks={net_cfg.shape_blocks}/"
-            f"{net_cfg.texture_blocks}, rays/step={step_rays})")
+            f"{tile} (got W={net_cfg.W}, d_xyz={net_cfg.d_xyz}, blocks="
+            f"{net_cfg.shape_blocks}/{net_cfg.texture_blocks}, rays/step="
+            f"{step_rays})")
+    apply_fn = None
+    if hp.use_fused_train and not single_pass:
+        plane_op = fused_train.make_fused_train_op(net_cfg,
+                                                   input_grads=False)
+
+        def apply_fn(m, cfg, ray_o, viewdir, z, s_code, t_code):
+            return fused_train.fused_apply_train(m, cfg, ray_o, viewdir, z,
+                                                 s_code, t_code, op=plane_op)
 
     def fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc):
         """(loss, mse) from the single-pass kernel; with hierarchical
@@ -183,13 +219,17 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         # object hits the same row) and took ~5 ms per 16,384-ray step.
         sc = state.shape_codes.index_select(0, obj)
         tc = state.texture_codes.index_select(0, obj)
-        if hp.use_fused_train:
+        if single_pass:
             loss, mse = fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc)
-        elif hier:
+        elif hier or apply_fn is not None:
             res = render_rays(model, rcfg, ray_o, viewdir, sc, tc, None,
-                              compute_dtype=compute_dtype, z=z, u=u)
-            mse = torch.mean((res.fine.rgb - rgb) ** 2)
-            loss = mse + torch.mean((res.coarse.rgb - rgb) ** 2)
+                              compute_dtype=compute_dtype, z=z, u=u,
+                              fine_model=state.fine_model,
+                              apply_fn=apply_fn)
+            mse = torch.mean((res.final.rgb - rgb) ** 2)
+            loss = mse
+            if res.fine is not None:
+                loss = loss + torch.mean((res.coarse.rgb - rgb) ** 2)
         else:
             xyz = ray_o[:, None, :] + viewdir[:, None, :] * z[..., None]
             sig, rgbs = model(xyz, viewdir, sc, tc,

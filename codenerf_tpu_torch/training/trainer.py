@@ -23,7 +23,8 @@ full grid during warm-up; at the warm-up boundary a rebuild from every
 object's codes (``category_density_scan``); then every ``update_every``
 steps an EMA refresh from ``codes_per_update`` objects taken round-robin.
 The density is a function of the model and codes and is not
-checkpointed: a run resumed past warm-up rebuilds it.
+checkpointed: a run resumed past warm-up rebuilds it. With separate fine
+weights the grid is scanned from the coarse network, as in JAX.
 """
 
 from __future__ import annotations
@@ -330,8 +331,8 @@ class Trainer:
         return out
 
     def render_view(self, obj_idx: int, view_idx: int) -> np.ndarray:
-        """Render one dataset view with the current model (linspace z);
-        (H, W, 3) f32."""
+        """Render one dataset view with the current model and fine network
+        (linspace z); (H, W, 3) f32."""
         st = self.state
         img = render_image(
             st.model, self.hp.render, self.H, self.W,
@@ -340,7 +341,8 @@ class Trainer:
             st.shape_codes[obj_idx].detach(),
             st.texture_codes[obj_idx].detach(),
             chunk=min(4096, self.H * self.W),
-            compute_dtype=resolve_dtype(self.hp.compute_dtype))
+            compute_dtype=resolve_dtype(self.hp.compute_dtype),
+            fine_model=st.fine_model)
         return img.cpu().numpy()
 
     def _log_render(self, step: int, obj_idx: int = 0,

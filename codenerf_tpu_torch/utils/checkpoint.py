@@ -50,6 +50,8 @@ def save_checkpoint(ckpt_dir: str, state) -> str:
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save({
         "model": state.model.state_dict(),
+        "fine_model": (None if state.fine_model is None
+                       else state.fine_model.state_dict()),
         "shape_codes": state.shape_codes.detach(),
         "texture_codes": state.texture_codes.detach(),
         "optimizer": state.optimizer.state_dict(),
@@ -86,6 +88,11 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     per step."""
     ck = _load(ckpt_dir, step, "cpu")
     state.model.load_state_dict(ck["model"])
+    if (state.fine_model is None) != (ck.get("fine_model") is None):
+        raise ValueError(f"{ckpt_dir}: the checkpoint's fine network and the "
+                         "state's do not match (hierarchical_share_weights)")
+    if state.fine_model is not None:
+        state.fine_model.load_state_dict(ck["fine_model"])
     with torch.no_grad():
         state.shape_codes.copy_(ck["shape_codes"])
         state.texture_codes.copy_(ck["texture_codes"])
@@ -101,10 +108,48 @@ def load_training_checkpoint(ckpt_dir: str, step: Optional[int] = None
     """A training checkpoint read blind (the optimize CLI does not know the
     training-time object count): (``CodeNeRF`` state dict, shape code table
     (N, D), texture code table (N, D)), float32 on the CPU — the same
-    triple as :func:`load_reference_checkpoint`."""
+    triple as :func:`load_reference_checkpoint`. The fine network, if the
+    run has one, is :func:`load_run`'s."""
     ck = _load(ckpt_dir, step, "cpu")
     return ({k: v.float() for k, v in ck["model"].items()},
             ck["shape_codes"].float(), ck["texture_codes"].float())
+
+
+def load_run(run_dir: str, hp, device):
+    """The trained networks and code tables of a run directory, for the
+    optimize and pose CLIs: the latest ``<run_dir>/ckpt/step_*.pt``, else
+    ``<run_dir>/models.pth`` (reference layout). Returns ``(model,
+    fine_model, shape_codes, texture_codes)``: the networks frozen on
+    ``device``, ``fine_model`` None unless ``hp`` has separate fine
+    weights (which a ``models.pth`` cannot hold), the tables on the
+    CPU."""
+    from codenerf_tpu_torch.models.codenerf import CodeNeRF
+    from codenerf_tpu_torch.training.state import needs_fine_model
+
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    fine_sd = None
+    if latest_step(ckpt_dir) is not None:
+        ck = _load(ckpt_dir, None, "cpu")
+        sd, sc, tc = ck["model"], ck["shape_codes"], ck["texture_codes"]
+        fine_sd = ck.get("fine_model")
+    else:
+        sd, sc, tc = load_reference_checkpoint(os.path.join(run_dir,
+                                                            "models.pth"))
+
+    def net(state_dict):
+        m = CodeNeRF(hp.net)
+        m.load_state_dict({k: v.float() for k, v in state_dict.items()})
+        return m.to(device).requires_grad_(False)
+
+    fine = None
+    if needs_fine_model(hp):
+        if fine_sd is None:
+            raise ValueError(
+                f"{run_dir} holds no fine network, and the jsonfile asks "
+                "for separate fine weights (hierarchical_share_weights: "
+                "false)")
+        fine = net(fine_sd)
+    return net(sd), fine, sc.float(), tc.float()
 
 
 def load_reference_checkpoint(path: str

@@ -28,7 +28,8 @@ def test_every_module_imports_with_jax_blocked():
         "'codenerf_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "new = {'codenerf_tpu_torch.pose_opt', 'codenerf_tpu_torch.core.poses',"
-        " 'codenerf_tpu_torch.optimization.pose_opt'}\n"
+        " 'codenerf_tpu_torch.optimization.pose_opt',"
+        " 'codenerf_tpu_torch.ops.composite'}\n"
         "assert new <= set(names), new - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'codenerf_tpu' "

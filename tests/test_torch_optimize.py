@@ -191,14 +191,22 @@ def test_unported_flags_raise(flag, setup):
 
 
 def test_unported_configs_raise(setup, tmp_path):
+    """The plane-op and autodiff routes are ported (``fused_composite:
+    false`` and ``use_fused_train: false`` run on this ``models.pth``
+    run: tests/test_torch_plane_routes.py holds their numbers against
+    JAX); a separate fine network needs fine weights, which a reference
+    ``models.pth`` cannot hold, and is refused."""
     root, _, _, _, jsonfile = setup
     base = json.loads(open(jsonfile).read())
-    for extra in ({"N_importance": 8, "hierarchical_share_weights": False},
-                  {"fused_composite": False}, {"use_fused_train": False}):
+    args = ["--device", "cpu", "--exps_root", str(root / "exps"),
+            "--saved_dir", "run", "--num_opts", "1", "--tgt_instances",
+            "0", "--save_img", "false", "--save_progress", "false"]
+    for extra in ({"fused_composite": False}, {"use_fused_train": False}):
         path = tmp_path / "cfg.json"
         path.write_text(json.dumps({**base, **extra}))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_optimize.main(["--device", "cpu", "--jsonfile", str(path),
-                             "--exps_root", str(root / "exps"),
-                             "--saved_dir", "run", "--num_opts", "1",
-                             "--tgt_instances", "0"])
+        out = t_optimize.main(["--jsonfile", str(path)] + args)
+        assert np.isfinite([r["psnr"] for r in out["summary"]]).all()
+    path.write_text(json.dumps({**base, "N_importance": 8,
+                                "hierarchical_share_weights": False}))
+    with pytest.raises(ValueError, match="no fine network"):
+        t_optimize.main(["--jsonfile", str(path)] + args)

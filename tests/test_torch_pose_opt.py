@@ -371,10 +371,17 @@ def test_pose_only_gate_matches_optax():
 
 
 def test_routes_the_port_does_not_have_raise(scene):
+    """Every route is ported: the plane op takes ``fused_composite:
+    false`` and separate fine weights where it tiles the rays (32), and
+    elsewhere the JAX package's quiet fallback to autodiff — or, with
+    ``use_fused=True``, its ``ValueError`` (the route against JAX:
+    tests/test_torch_plane_routes.py)."""
     for extra in ({"fused_composite": False},
                   {"N_importance": 8, "hierarchical_share_weights": False}):
         hp = hparams_from_dict(_cfg(scene, False, **extra))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pose_opt.pose_route(hp, 64)
-    with pytest.raises(NotImplementedError, match="Queue 2, item 6"):
-        pose_opt.pose_route(hparams_from_dict(_cfg(scene, False)), 40)
+        assert pose_opt.pose_route(hp, 64) == "plane_op"
+        assert pose_opt.pose_route(hp, 48) == "autodiff"
+        with pytest.raises(ValueError, match="can't tile"):
+            pose_opt.pose_route(hp, 48, use_fused=True)
+    assert pose_opt.pose_route(hparams_from_dict(_cfg(scene, False)),
+                               40) == "autodiff"

@@ -429,11 +429,17 @@ def test_schedules_match_jax():
     {"fused_composite": False}])
 def test_unported_training_configs_raise(scene, extra):
     """Separate fine weights (either route) and the plane-op kernels are
-    not ported yet; hierarchical sampling with shared weights, sphere
-    bounds and the occupancy grid are (tests/test_torch_hier.py)."""
+    ported (their steps against JAX: tests/test_torch_plane_routes.py).
+    What still raises on these configs is what the JAX package refuses: a
+    batch the plane op cannot tile (it tiles by 32 rays)."""
     _, hp = _hparams(scene, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_step.build_train_step(hp, 16, 16, batch_size=R)
+    train_step.build_train_step(hp, 16, 16, batch_size=R)
+    if hp.use_fused_train:
+        assert not train_step.uses_single_pass_loss(hp)
+        with pytest.raises(ValueError, match="divisible by 32"):
+            train_step.build_train_step(hp, 16, 16, batch_size=48)
+    else:
+        train_step.build_train_step(hp, 16, 16, batch_size=48)
 
 
 def test_mesh_raises(scene):
