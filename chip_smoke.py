@@ -34,8 +34,16 @@ Phases, each printed on its own line with its seconds:
    cotangent nonzero; and the chain identity: planes, composite, MSE,
    composite backward and plane-op backward against the single-pass
    kernel's ``train`` mode (4096 × 64) and ``pose`` mode (2048 × 64) on
-   the same inputs. Timings of each kernel, its plain version and its
-   bound, and a ``torch.profiler`` breakdown by kernel name;
+   the same inputs; the two flag pairs no path calls, ``train_input``
+   (weight and input gradients, 4096 × 32) and ``train_weights`` (the
+   weights plane with weight gradients, 16,384 × 32), each against its
+   plain version and against the weight-gradient mode on the same inputs
+   (its dW/db the same bits). First the CUDA weight packing against its
+   plain version (bit-equal); the weight-gradient mode's dW/db must be
+   the same bits over two calls. Timings of each kernel, its plain
+   version and its bound, a ``torch.profiler`` breakdown by kernel name,
+   and the trunk kernels' ms per launch and TFLOP/s at the training
+   shape;
 3. coarse training: ``codenerf_tpu_torch.train.main`` at
    ``jsonfiles/srncar_fused.json`` widths and the CLI's batch of 16,384
    rays on a seeded SRN-layout ``cars_train`` set (4 objects x 4 views,
@@ -85,8 +93,11 @@ Phases, each printed on its own line with its seconds:
     Phases 3-12 each start with every launch count at 0, fail if a plain
     version ran on a CUDA tensor, and print the peak device memory and
     their step profiles;
-13. the ``kernels`` JSON line (14 rows), the card line, and the last line
-    ``{"ok": true, "device": {...}}``.
+13. the order of the next work (each mode's ms above its bound, summed
+    over the main paths' launches, each launch priced at its own R·S
+    points against the phase-2 shape's), the ``kernels`` JSON line (16
+    rows), the card line, and the last line ``{"ok": true, "device":
+    {...}}``.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
 or of the JAX package.
@@ -116,6 +127,17 @@ REPLACES_SIGMA = "codenerf_tpu/ops/fused_mlp.py:518"
 REPLACES_PLANES = "codenerf_tpu/ops/fused_mlp.py:518"
 REPLACES_BWD = "codenerf_tpu/ops/fused_train.py:846"
 REPLACES_COMPOSITE = "codenerf_tpu/ops/pallas_composite.py:84"
+# The points (R * S) of each mode's phase-2 check: its ms and bound_ms
+# are taken there.
+PHASE2_POINTS = {
+    "codes": R_CODES * S_FULL, "train": R_TRAIN * S_FULL,
+    "sigma": R_TRAIN * S_COARSE, "dual_train": R_TRAIN * S_UNION,
+    "dual_codes": R_CODES * S_UNION, "pose": R_POSE * S_FULL,
+    "pose_weights": R_POSE * S_COARSE, "planes": R_TRAIN * S_UNION,
+    "plane_train": R_TRAIN * S_UNION, "plane_codes": R_CODES * S_UNION,
+    "plane_pose": R_POSE * S_UNION, "plane_train_input": R_CODES * S_COARSE,
+    "composite": R_CODES * S_FULL, "composite_bwd": R_CODES * S_FULL,
+    "train_input": R_CODES * S_COARSE, "train_weights": R_TRAIN * S_COARSE}
 PLANE_MODES = {   # launch counter: (weight_grads, input_grads)
     "plane_train": (True, False), "plane_codes": (False, False),
     "plane_pose": (False, True), "plane_train_input": (True, True)}
@@ -247,9 +269,9 @@ def bound(cfg, R: int, S: int, wops, weight_grads: bool, dual: bool = False,
     """(bound ms, bound_by, FLOP, bytes): matmul operations at the dense
     bf16 peak against the bytes the function must move (inputs read once,
     outputs written once) at the HBM rate. The dual mode reads the coarse
-    mask and deltas besides; the pose modes (``input_grads``) add the
-    input chain's 2·64·W FLOP per point and write d_ro8, d_vd8, d_z (and
-    the weights plane) instead of the rgb rows."""
+    mask and deltas besides; ``input_grads`` adds the input chain's 2·64·W
+    FLOP per point and writes d_ro8, d_vd8, d_z, ``want_weights`` the
+    weights plane; the frozen mode writes the rgb rows."""
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
     P = R * S
     fwd = 2 * P * (64 * W + W * W * (nb + nt + 2) + W * W // 2)
@@ -262,10 +284,12 @@ def bound(cfg, R: int, S: int, wops, weight_grads: bool, dual: bool = False,
     out_bytes = R * 8 * 4 + R * (nb + nt + 1) * W * 2
     if weight_grads:
         out_bytes += 4 * sum(w.numel() for w in wops)
-    elif input_grads:
+    if input_grads:
         flops += 2 * P * 64 * W
-        out_bytes += R * 8 * 4 * 2 + R * S * 4 * (1 + want_weights)
-    else:
+        out_bytes += R * 8 * 4 * 2 + R * S * 4
+    if want_weights:
+        out_bytes += R * S * 4
+    if not weight_grads and not input_grads:
         out_bytes += R * 8 * 4                     # rgb8
     return _bound(flops, in_bytes + out_bytes)
 
@@ -322,12 +346,20 @@ def kernel_check(dev, weight_grads: bool):
                 f"difference {d:.3e}{'' if ok else '  <-- FAILS'}")
             checks.append((f"{name} (vs frozen mode)", d, ok))
         del frozen
+        # dW and db come from gh planes written without atomics and
+        # fixed-order sums: the same bits on every call.
+        again = fused_train.train_fused(*args, **kw)
+        ok = all(torch.equal(a, b) for a, b in zip(got[4:], again[4:]))
+        log(f"  dW/db over two calls: {'bit-equal' if ok else 'DIFFER'}"
+            f"{'' if ok else '  <-- FAILS'}")
+        checks.append(("dW/db (two calls)", 0.0, ok))
+        del again
     del got, want
     failed = [name for name, _, ok in checks if not ok]
     if failed:
         raise AssertionError(f"kernel disagrees with its plain version on "
                              f"{failed}")
-    errs = [e for name, e, _ in checks if "frozen" not in name]
+    errs = [e for name, e, _ in checks if "(" not in name]
 
     ms = time_cuda(lambda: fused_train.train_fused(*args, **kw), reps=10)
     plain_ms = time_cuda(lambda: fused_train.train_fused_plain(*args, **kw),
@@ -339,15 +371,7 @@ def kernel_check(dev, weight_grads: bool):
         f"{nbytes} B at {PEAK_HBM_BYTES:.3e} B/s) at R={R}, S={S}")
     profile_breakdown(lambda: fused_train.train_fused(*args, **kw),
                       sequence=weight_grads)
-    if weight_grads:
-        # The weight-gradient mode stores the PE once (pe_kernel) and
-        # reads it in the enc_xyz forward and dW GEMMs; the frozen mode
-        # builds it inside the enc_xyz GEMM's A-tile loads. Its profile
-        # on the same inputs prices that recomputation.
-        log(f"  frozen mode on the same inputs (R={R}), for the cost of "
-            f"building the PE in the GEMM's loads:")
-        profile_breakdown(lambda: fused_train.train_fused(
-            *args, weight_grads=False))
+    trunk_rates(cfg, R, S, lambda: fused_train.train_fused(*args, **kw))
     mode = ("weight_grads=True" if weight_grads
             else "weight_grads=False, want_rgb")
     return {"name": f"train_fused ({mode})", "route": "cuda",
@@ -838,6 +862,114 @@ def chain_check(dev, input_grads: bool, R: int, S: int):
     _fail_on(checks, f"the plane-op chain vs the single-pass {what} mode")
 
 
+def trunk_rates(cfg, R: int, S: int, fn) -> None:
+    """One line per trunk kernel: device ms per launch (torch.profiler)
+    and TFLOP/s of its matmuls in ``fn``'s call at R × S."""
+    W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
+    P = R * S
+    flops = {"trunk_fwd_kernel": 2 * P * (64 * W + W * W * (nb + nt + 2)
+                                          + W * W // 2),
+             "trunk_dx_kernel": 2 * P * (W * W * (nb + nt + 2)
+                                         + W * W // 2)}
+    for name, f in flops.items():
+        ms = device_ms(fn, name, calls=5)
+        rate = "not measured" if ms is None else \
+            f"{ms:.4f} ms per launch, {f / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
+        log(f"  {name} at R={R}, S={S} ({f:.4e} FLOP): {rate} "
+            f"({PEAK_BF16_FLOPS / 1e12:.0f} peak)")
+
+
+def pack_check(dev) -> None:
+    """Phase 2: the CUDA weight packer against its plain version
+    (fused_train.pack_trunk_weights_plain), bit for bit."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_train
+
+    cfg, args = kernel_inputs(dev, 16, 8)
+    wops = args[-1]
+    got = fused_train.pack_trunk_weights(cfg, wops)
+    want = fused_train.pack_trunk_weights_plain(cfg, wops)
+    ok = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    log(f"  packed trunk weights ({got.numel()} bf16) vs the plain packing: "
+        f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
+    if not ok:
+        raise AssertionError("pack_kernel disagrees with wgmma_pack")
+
+
+PAIRS = {   # launch counter: the flag pair no path calls, and its shape
+    "train_input": (dict(weight_grads=True, input_grads=True), R_CODES,
+                    S_COARSE),
+    "train_weights": (dict(weight_grads=True, want_weights=True), R_TRAIN,
+                      S_COARSE)}
+
+
+def pair_check(dev, mode: str):
+    """Phase 2: a flag pair of the single pass that no path calls (CUDA) vs
+    train_fused_plain, every output; it only adds outputs to the
+    weight-gradient mode, so on the same inputs its dW/db are that mode's
+    bits and its SE and code cotangents that mode's within the order of
+    the f32 atomic ray sums; d_ro8, d_vd8, d_z the same bits over two
+    launches."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_train
+
+    kw, R, S = PAIRS[mode]
+    cfg, args = kernel_inputs(dev, R, S)
+    got = fused_train.train_fused(*args, **kw)
+    torch.cuda.synchronize()
+    terms = []
+    want = fused_train.train_fused_plain(*args, sigma_terms=terms, **kw)
+    ig, ww = kw.get("input_grads", False), kw.get("want_weights", False)
+    wnames = [f"{n}.{k}" for n, _, _ in fused_train.weight_shapes(cfg)
+              for k in ("w", "b")]
+    names = (["se_sum", "d_sproj", "d_tproj", "d_vcontrib"]
+             + ["weights"] * ww + list(INPUT_CHAIN) * ig + wnames)
+    scale = dict(zip(["sigma.w", "sigma.b"], terms))
+    checks = []
+    for name, g, w in zip(names, got, want):
+        if name == "se_sum":
+            g, w = g.reshape(1), w.reshape(1)
+        checks.append((name, *_close(
+            name, g, w, scale.get(name), per_ray=name.startswith(
+                ("d_", "weights")),
+            slack=2.0 if name in INPUT_CHAIN else 1.0)))
+    base = fused_train.train_fused(*args, weight_grads=True)
+    n_extra = len(got) - len(base)
+    for name, a, b in zip(names[:4], got[:4], base[:4]):
+        d = float((a.float() - b.float()).abs().max())
+        ok = d <= 1e-2 * float(b.float().abs().max())
+        log(f"  {name}: {mode} vs the weight-gradient mode, max abs "
+            f"difference {d:.3e}{'' if ok else '  <-- FAILS'}")
+        checks.append((f"{name} (vs train mode)", d, ok))
+    ok = all(torch.equal(a, b) for a, b in zip(got[4 + n_extra:], base[4:]))
+    log(f"  dW/db vs the weight-gradient mode: "
+        f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
+    checks.append(("dW/db (vs train mode)", 0.0, ok))
+    if ig:
+        again = fused_train.train_fused(*args, **kw)
+        for k, name in enumerate(INPUT_CHAIN):
+            i = 4 + ww + k
+            ok = torch.equal(got[i], again[i])
+            log(f"  {name}: two launches {'bit-equal' if ok else 'DIFFER'}"
+                f"{'' if ok else '  <-- FAILS'}")
+            checks.append((f"{name} (two launches)", 0.0, ok))
+        del again
+    del got, want, base
+    err = _fail_on(checks, f"train_fused ({mode})")
+    bnd = bound(cfg, R, S, args[-1], True, input_grads=ig, want_weights=ww)
+    ms, plain_ms = _timings(lambda: fused_train.train_fused(*args, **kw),
+                            lambda: fused_train.train_fused_plain(*args,
+                                                                  **kw),
+                            bnd, f"R={R}, S={S}")
+    flags = ", ".join(k for k in kw)
+    return {"name": f"train_fused ({flags})", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
 def profile_breakdown(fn, sequence: bool = False) -> None:
     """Device time per CUDA kernel name over three calls (torch.profiler);
     prints 'not measured' when the trace carries no device time. With
@@ -885,8 +1017,9 @@ def _short(name: str) -> str:
 # The __global__ functions of ops/csrc/*.cu. PyTorch names some of its
 # own kernels in anonymous namespaces too, so the port's are told apart
 # by name.
-PORT_KERNELS = ("gemm_kernel", "dw_kernel", "head_kernel", "pe_kernel",
-                "colsum_kernel", "f32_to_bf16_kernel", "sigma_head_kernel",
+PORT_KERNELS = ("trunk_fwd_kernel", "trunk_dx_kernel", "pack_kernel",
+                "dw_kernel", "head_kernel", "colsum_kernel",
+                "f32_to_bf16_kernel", "sigma_head_kernel",
                 "input_chain_kernel", "rgb_head_kernel", "composite_kernel")
 
 
@@ -998,7 +1131,11 @@ class LaunchCounts:
                           fused_mlp.planes_fwd.launches,
                           fused_train.plane_bwd.launches,
                           composite.launches)
-        for c in self._counters:
+        self._points = (fused_train.train_fused.points,
+                        fused_mlp.sigma_fwd.points,
+                        fused_mlp.planes_fwd.points,
+                        fused_train.plane_bwd.points, composite.points)
+        for c in self._counters + self._points:
             for k in c:
                 c[k] = 0
         self.plain_on_cuda = 0
@@ -1028,7 +1165,15 @@ class LaunchCounts:
     def __exit__(self, *exc):
         for mod, name, fn in self._orig:
             setattr(mod, name, fn)
+        for c in self._points:
+            for k, v in c.items():
+                MAIN_POINTS[k] = MAIN_POINTS.get(k, 0) + v
         return False
+
+
+# The points (R * S) of every launch the main paths made, per mode, summed
+# over phases 3-12 (each LaunchCounts window adds its own).
+MAIN_POINTS = {}
 
 
 def _config(work: str, name: str, out=None, data: str = "data",
@@ -1623,10 +1768,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for p in paths:
         for line in p.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Function" in line:
+            if any(k in line for k in ("registers", "spill", "Function",
+                                       "wgmma", "setmaxnreg", "arning")):
                 log(f"  ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
+    log("phase 2: the trunk weights' packing vs its plain version")
+    pack_check(dev)
     log(f"phase 2: kernel vs plain version at full width (W=256, 3+1 "
         f"blocks, S={S_FULL}); frozen-model mode at R={R_CODES}")
     entries = {"codes": kernel_check(dev, weight_grads=False)}
@@ -1674,6 +1822,11 @@ def main() -> int:
         f"pose mode at R={R_POSE}, S={S_UNION}")
     chain_check(dev, False, R_CODES, S_UNION)
     chain_check(dev, True, R_POSE, S_UNION)
+    for mode, (kw, R, S) in PAIRS.items():
+        torch.cuda.empty_cache()
+        log(f"phase 2: the pair no path calls, {mode} ({kw}) at R={R}, "
+            f"S={S}")
+        entries[mode] = pair_check(dev, mode)
     torch.cuda.empty_cache()
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     if args.check:
@@ -1721,16 +1874,20 @@ def main() -> int:
     for mode in ("codes", "train", "sigma", "dual_train", "dual_codes",
                  "pose", "pose_weights", "planes", "plane_train",
                  "plane_codes", "plane_pose", "plane_train_input",
-                 "composite", "composite_bwd"):
-        # plane_train_input (both flags) has no caller on a main path
+                 "composite", "composite_bwd", "train_input",
+                 "train_weights"):
+        # plane_train_input, train_input and train_weights have no caller
+        # on a main path
         e = entries[mode]
         e["launches"] = launches.get(mode, 0)
         rows.append({k: e[k] for k in keys})
-        excess.append((e["launches"] * (e["ms"] - e["bound_ms"]), mode))
+        excess.append((MAIN_POINTS.get(mode, 0) / PHASE2_POINTS[mode]
+                       * (e["ms"] - e["bound_ms"]), mode))
     # The order of the next work: the device ms above the bound that the
-    # main paths' launches spent, each launch at its mode's phase-2 shape.
-    log("launches x (ms - bound_ms), ms at the phase-2 shapes: " + ", ".join(
-        f"{mode} {v:.1f}" for v, mode in sorted(excess, reverse=True)))
+    # main paths' launches spent, each launch priced at its own shape.
+    log("sum over launches of (ms - bound_ms) x launch points / phase-2 "
+        "points (each launch priced at the shape it ran): " + ", ".join(
+            f"{mode} {v:.1f}" for v, mode in sorted(excess, reverse=True)))
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,8 @@ TB/s); their arithmetic is a few dozen f32 operations per sample.
 :func:`composite_fwd_plain` and :func:`composite_bwd_plain` are their
 plain versions (``fused_mlp.composite_fwd_in_kernel`` /
 ``composite_bwd_in_kernel``); ``launches["composite"]`` and
-``launches["composite_bwd"]`` count the launches. :func:`composite_op`
+``launches["composite_bwd"]`` count the launches (``points`` their
+R·S). :func:`composite_op`
 is the differentiable op (``make_composite_op``'s custom VJP).
 """
 
@@ -36,6 +37,8 @@ import torch
 from codenerf_tpu_torch.ops import fused_mlp
 
 launches = {"composite": 0, "composite_bwd": 0}
+# The points (R * S) of those launches, per mode.
+points = {"composite": 0, "composite_bwd": 0}
 
 
 def _check(planes, R: int, S: int, what: str):
@@ -59,6 +62,7 @@ def composite_fwd(sig, c0, c1, c2, z, white_bg: bool) -> torch.Tensor:
     out8 = torch.empty(R, 8, dtype=torch.float32, device=dev)
     _run("composite_fwd", *ins, out8, R=R, S=S, white_bg=white_bg, dev=dev)
     launches["composite"] += 1
+    points["composite"] += R * S
     return out8
 
 
@@ -84,6 +88,7 @@ def composite_bwd(sig, c0, c1, c2, z, g8, white_bg: bool):
             for _ in range(5)]
     _run("composite_bwd", *ins, *outs, R=R, S=S, white_bg=white_bg, dev=dev)
     launches["composite_bwd"] += 1
+    points["composite_bwd"] += R * S
     return tuple(outs)
 
 

@@ -1,6 +1,6 @@
 // Single-pass CodeNeRF loss kernel for Hopper (sm_90a), in its modes, and
-// the sigma-only forward of the hierarchical coarse pass (sigma_step, at
-// the end of this file).
+// the forwards of the hierarchical coarse pass (sigma_step) and of the
+// plane op (planes_step), at the end of this file.
 //
 // Replaces the TPU kernel codenerf_tpu/ops/fused_train.py::_train_kernel:
 // per ray, the in-kernel xyz expansion and 64-lane positional encoding, the
@@ -15,41 +15,52 @@
 // Either mode takes the dual composite of hierarchical sampling (the TPU
 // kernel's dual=True): z is the union of coarse and fine depths, and the
 // head kernel also composites the coarse subset from the same evaluation,
-// adding its loss's cotangents before the one backward chain. The pose
-// modes (the TPU kernel's input_grads with weight_grads=False, optionally
-// want_weights) also return the compositing weights and the exact ray and
-// depth cotangents d_ro8, d_vd8, d_z.
+// adding its loss's cotangents before the one backward chain. The
+// input_grads flag (the pose modes, and with weight gradients the pair no
+// path calls) also returns the exact ray and depth cotangents d_ro8,
+// d_vd8, d_z; want_weights the compositing weights.
 //
-// Design (see ops/fused_train.py for the bound). The TPU kernel keeps all
-// weights and every activation of a 16-ray tile (~6 MB) in VMEM for the
-// whole grid, and its dW/db blocks stay resident as accumulators across the
-// sequential grid; an H100 block has 227 KB of shared memory and blocks run
-// in no order. This design therefore runs as kernels on one stream:
-//   (i)   gemm_kernel<PE, false>: tiled bf16 WMMA GEMM (128 x 128 blocks,
-//         f32 accumulation) fed by a 3-stage cp.async pipeline; for
-//         enc_xyz the A tile is the PE, built from ro/vd/z as it loads.
-//         The epilogue (bias, per-ray vector, ReLU) writes the bf16
-//         activation and, where the next layer injects a latent, that
-//         layer's input bf16(activation + proj[ray]) too. Activations go to
-//         a device-memory workspace the wrapper allocates.
-//   (ii)  head_kernel: one block per ray. Sigma head (dot with the w_sig
+// Design. The TPU kernel keeps all weights and every activation of a
+// 16-ray tile (~6 MB) in VMEM for the whole grid. An H100 block has 227 KB
+// of shared memory and blocks run in no order, so the trunk runs as two
+// chained wgmma kernels that keep a 128-point tile's activations on chip
+// across layers and stream the weights from L2, and the rest as kernels on
+// one stream:
+//   (i)   pack_kernel: every trunk weight once per call into the operand
+//         layout of wgmma (K-major, 128-byte swizzled, in 64-wide K slices;
+//         ops/fused_train.py::wgmma_pack is its plain version): W^T for the
+//         forward, W for the dx chain.
+//   (ii)  trunk_fwd_kernel: one persistent block per SM walks 128-point
+//         tiles. Four consumer warpgroups each own a (64-point row half,
+//         128-column half) of every layer's output; a producer warp streams
+//         the weight slices (32 KB) into a 4-stage ring with cp.async.bulk
+//         and mbarriers. The block builds the PE of its points into shared
+//         memory, then runs the layers on the resident (64, 256) bf16 tile
+//         of each row half: wgmma m64n128k16 (n64 for rgb_hidden) from
+//         shared memory into f32 registers, and an epilogue in registers
+//         (bias, per-ray vector, ReLU, bf16 y into the tile, the ReLU mask
+//         as bits) and then 16 bytes a thread (the stores, the latent
+//         injection as a bf16 add) that leaves the next layer's input in
+//         place. Device memory sees only what later kernels read: ReLU-mask bit
+//         planes (32 B a point) for the dx chain, t and r for the heads,
+//         and in weight-gradient mode each dW GEMM's bf16 input (the PE,
+//         the injected inputs, the last shape and texture blocks' outputs).
+//   (iii) head_kernel: one block per ray. Sigma head (dot with the w_sig
 //         row, softplus), rgb_out head, composite with a warp scan over the
 //         samples, MSE, composite backward; emits dsig = g_sigma *
 //         sigmoid(sig_pre) and the rgb_hidden cotangent (masked, bf16).
-//   (iii) gemm_kernel<false, true>: the dx chain g @ W^T with fused
-//         epilogues (ReLU mask from the stored bf16 activation, the sigma
-//         term dsig * w_sig, per-ray row sums into f32 buffers by atomics),
-//         then f32_to_bf16 writes the three cotangent outputs.
-// Every epilogue walks its warp's 32 x 64 tile row by row from shared
-// memory: coalesced 128-byte rows, ray sums in registers.
+//   (iv)  trunk_dx_kernel: the dx chain gh @ W^T from the rgb_hidden
+//         cotangent down to enc_xyz's output in one launch, with the same
+//         tiles, warpgroups, ring and wgmma shapes. The epilogue
+//         adds the sigma term dsig * w_sig, masks with the prefetched bits,
+//         rounds gh to bf16 in place, and reduces the per-ray row sums in
+//         registers (a shuffle ladder over the warp's 16 rows) into one f32
+//         atomic per (ray, column) and warp; f32_to_bf16 then writes the
+//         three cotangent outputs. In weight-gradient mode it also stores
+//         every gh plane, 16 bytes a thread.
 // Weight-gradient mode adds:
-//   (iv)  pe_kernel: the bf16 PE written once to the workspace, so that
-//         enc_xyz's forward reads it as a plain A operand and its dW can
-//         read it again (the frozen mode builds it in the A-tile load);
-//         the enc_xyz output y0 is stored for the last ReLU mask;
-//   (v)   dw_kernel: dW = X^T @ GH, a GEMM whose reduction axis is the
-//         points, launched right after the dx step that produces GH while
-//         X (the layer's stored bf16 input) is still in the workspace. The
+//   (v)   dw_kernel: dW = X^T @ GH per layer after the dx chain, a GEMM
+//         whose reduction axis is the points (WMMA tiles, cp.async). The
 //         points are split over blockIdx.z; each block reduces its slice
 //         into an f32 register tile and writes it to a partial buffer, and
 //         column sums of the GH tiles it loads give the bias partials.
@@ -59,14 +70,18 @@
 //         sum_s dsig, sum_s r*gh8 and sum_s gh8 (rgb_out dW, db) into a
 //         (R, HEAD_PART) buffer, then colsum_kernel in two fixed-order
 //         stages.
-// The pose modes add:
-//   (vii) head_kernel writes the weights w_s and the composite's z
-//         cotangent; the frozen forward keeps y0 and the dx chain runs on
-//         through enc_xyz's ReLU mask to gh0;
+// The input gradients add:
+//   (vii) head_kernel writes the composite's z cotangent; the forward keeps
+//         y0 and the dx chain runs on through enc_xyz's ReLU mask to gh0;
 //   (viii) input_chain_kernel: per point d_pe = gh0 . W_enc^T (CUDA-core
 //         f32 dots against W_enc^T in shared memory, 2 * 64 * W FLOP, ~2%
 //         of the call), the PE Jacobian, d_z += d_xyz . vd; per ray
 //         d_ro8, d_vd8 in a fixed order.
+// What bounds the trunk: at W=256 a layer is 131,072 FLOP per point
+// against 512 B per stored bf16 plane, so the chain is bound by operations
+// once activations stay on chip; the weights (0.9 MB) come from L2 once per
+// tile and layer. On the card the epilogues, not the products, take most
+// of each layer (PERF.md).
 // Rounding points follow the TPU kernel: bf16 activations after each ReLU,
 // the latent injection as a bf16 add, sig_pre in f32 from bf16 t, masks on
 // the stored bf16 activations, the composite entirely in f32; gh rounded to
@@ -80,62 +95,48 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
+// dw_kernel: 128 x 128 WMMA tiles of 8 warps, a 3-stage cp.async pipeline.
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
 constexpr int GEMM_THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int LDA = BK + 8;
+constexpr int LDA_T = BM + 8;      // A stage held (BK, BM), k-major
 constexpr int LDB_ROW = BN + 8;
-constexpr int LDB_COL = BK + 8;
-constexpr int A_STAGE = BM * LDA;                       // bf16 elements
-constexpr int B_STAGE = (BK * LDB_ROW > BN * LDB_COL) ? BK * LDB_ROW
-                                                      : BN * LDB_COL;
-constexpr int LDS = 64 + 4;        // floats per staged epilogue row
-constexpr size_t PIPE_BYTES = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
-constexpr size_t EPI_BYTES = sizeof(float) * (GEMM_THREADS / 32) * 32 * LDS;
-constexpr size_t GEMM_SMEM = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
+constexpr int A_STAGE = BK * LDA_T;                     // bf16 elements
+constexpr int B_STAGE = BK * LDB_ROW;
+constexpr size_t GEMM_SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
 constexpr int HEAD_THREADS = 128;
 constexpr int MAX_PER_LANE = 8;    // samples per lane in the head scan
 constexpr int MAX_S = 32 * MAX_PER_LANE;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int LDA_T = BM + 8;      // dW GEMM: A stage held (BK, BM), k-major
-static_assert(BK * LDA_T <= A_STAGE, "dW A stage must fit the A buffer");
 // dW GEMM blocks per launch: 2 blocks of GEMM_THREADS on each of the
 // H100's 132 SMs. A constant, so the split of the points (and with it the
 // order of the sums) does not depend on the card.
 constexpr int DW_BLOCKS = 264;
 constexpr int COLSUM_GROUPS = 64;  // first-stage row groups of a column sum
 
-struct GemmArgs {
-  int M, N, K, S;          // C (M x N) = A (M x K) @ B (K x N); ray = m / S
-  const bf16* A;           // M x K row-major (unused in PE mode)
-  const float* ro8;        // PE mode: (R, 8), (R, 8), (R, S)
-  const float* vd8;
-  const float* z;
-  int n_freq;
-  const bf16* B;           // K x N row-major; transposed mode: N x K row-major
-  // Epilogue, in this order: rs_pre += raw; + dsig[m] * wsig[n]; + bias[n];
-  // + rowvec[ray][n]; ReLU; * (mask[m][n] > 0); rs_post += value; stores.
-  const float* bias;
-  const bf16* rowvec;      // per-ray [R][N]
-  int relu;
-  const float* dsig;
-  const float* wsig;
-  float* rs_pre;           // per-ray sums [R][ld] (f32, atomics)
-  int rs_pre_ld;
-  const bf16* mask;        // [M][N]
-  float* rs_post;
-  int rs_post_ld;
-  bf16* out;               // [M][N] bf16(value)
-  bf16* out_inj;           // [M][N] bf16(bf16(value) + inj[ray][n]): the
-  const bf16* inj;         // next layer's input with its latent injected
-  int inj_ld;
-};
+// The trunk kernels.
+constexpr int TW = 256;            // the trunk width they take
+constexpr int TM = 128;            // points per tile: 2 row halves x 64
+// Four consumer warpgroups, one per (64-point row half, 128-column half)
+// of the tile's outputs, and a producer warpgroup. Of the block's 640 x 96
+// registers the producer gives back all but 24 per thread and the
+// consumers take 112.
+constexpr int CONSUMERS = 4;
+constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
+constexpr int TRUNK_THREADS = 128 * (CONSUMERS + 1);
+constexpr int RING = 4;            // weight slices in flight
+constexpr int SLICE_BYTES = TW * 64 * 2;    // one 64-deep K slice of B
+constexpr int ACT_BYTES = 64 * TW * 2;      // a row half's (64, 256) tile
+constexpr int BLOCK_BYTES = 64 * 128;       // its 64 columns of one K slice
+constexpr int MAX_LAYERS = 16;
+constexpr size_t DX_SMEM = 1024 + 2 * ACT_BYTES + RING * SLICE_BYTES
+                           + 2 * RING * sizeof(uint64_t);
+constexpr size_t FWD_SMEM = DX_SMEM + MAX_LAYERS * TW * sizeof(float)
+                            + TM * sizeof(int);
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 
@@ -175,221 +176,722 @@ __device__ __forceinline__ PeLane pe_lane(int k, int F) {
   return {0, 0.f, 3};
 }
 
-__device__ __forceinline__ float pe_value(const GemmArgs& g, const PeLane& l,
-                                          int m) {
-  if (l.kind == 3) return 0.f;
-  const int ray = m / g.S;
-  const float x = __fadd_rn(g.ro8[ray * 8 + l.d],
-                            __fmul_rn(g.vd8[ray * 8 + l.d], g.z[m]));
-  const float t = x * l.scale;
-  return l.kind == 0 ? t : (l.kind == 1 ? sinf(t) : cosf(t));
+// ---------------------------------------------------------------- Hopper
+// primitives: shared-memory addresses, mbarriers, bulk copies, wgmma.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One pipeline stage: the BM x BK tile of A and the BK x BN tile of B.
-template <bool PE, bool BT>
-__device__ __forceinline__ void load_stage(const GemmArgs& g, bf16* As,
-                                           bf16* Bs, int m0, int n0, int k0,
-                                           int tid) {
-  if constexpr (PE) {
-    // enc_xyz: the A tile is the PE of the tile's points, built here.
-    // Each thread keeps one column (PE lane) of the tile.
-    const int c = tid % BK;
-    const PeLane l = pe_lane(k0 + c, g.n_freq);
-#pragma unroll 4
-    for (int r = tid / BK; r < BM; r += GEMM_THREADS / BK) {
-      const int m = m0 + r;
-      As[r * LDA + c] = __float2bfloat16_rn(m < g.M ? pe_value(g, l, m) : 0.f);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < (BM * BK) / (8 * GEMM_THREADS); ++q) {
-      const int idx = tid + q * GEMM_THREADS;
-      const int r = idx / (BK / 8), c8 = (idx % (BK / 8)) * 8;
-      const int m = m0 + r;
-      const int mc = m < g.M ? m : g.M - 1;   // rows past M read as zeros
-      cp_async16(&As[r * LDA + c8], g.A + (size_t)mc * g.K + k0 + c8,
-                 m < g.M ? 16 : 0);
-    }
-  }
-  if constexpr (BT) {
-#pragma unroll
-    for (int q = 0; q < (BK * BN) / (8 * GEMM_THREADS); ++q) {
-      const int idx = tid + q * GEMM_THREADS;
-      const int n = idx / (BK / 8), k8 = (idx % (BK / 8)) * 8;
-      cp_async16(&Bs[n * LDB_COL + k8], g.B + (size_t)(n0 + n) * g.K + k0 + k8,
-                 16);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < (BK * BN) / (8 * GEMM_THREADS); ++q) {
-      const int idx = tid + q * GEMM_THREADS;
-      const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
-      cp_async16(&Bs[r * LDB_ROW + c8], g.B + (size_t)(k0 + r) * g.N + n0 + c8,
-                 16);
-    }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Wait until the barrier's phase of parity ``parity`` has completed. A
+// wait of more than ~2^34 cycles (seconds) traps: a pipeline fault then
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
   }
 }
 
-__device__ __forceinline__ void flush_sums(float* dst, int ld, int ray, int n,
-                                           float a, float b) {
-  atomicAdd(&dst[(size_t)ray * ld + n], a);
-  atomicAdd(&dst[(size_t)ray * ld + n + 1], b);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
 }
 
-// The warp's staged 32 x 64 tile, row by row; this lane owns the global
-// columns n, n + 1 (local 2 * lane, 2 * lane + 1). Row writes and mask
-// reads are 128 contiguous bytes per warp; the rows' masks and dsig are
-// loaded before the loop so their latencies overlap. Ray sums stay in
-// registers and go out with one atomic per (ray, column) when the ray
-// changes.
-__device__ void epilogue_rows(const GemmArgs& g, const float* st, int mrow0,
-                              int n, int lane) {
-  float b0 = 0.f, b1 = 0.f, w0 = 0.f, w1 = 0.f;
-  if (g.bias) { b0 = g.bias[n]; b1 = g.bias[n + 1]; }
-  if (g.dsig) { w0 = g.wsig[n]; w1 = g.wsig[n + 1]; }
-  const int rows = min(32, g.M - mrow0);
-  if (rows <= 0) return;
-  __nv_bfloat162 mk[32];
-  float ds[32];
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// ``bytes`` contiguous bytes from device memory into shared memory; the
+// barrier's transaction count takes their arrival.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The 256 threads of the two warpgroups that share row half ``rh``
+// (named barrier rh + 1).
+__device__ __forceinline__ void pair_sync(int rh) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(rh + 1) : "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across wgmma.
+__device__ __forceinline__ void reg_fence(float (&d)[64]) {
 #pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    const int m = mrow0 + (r < rows ? r : 0);
-    if (g.mask)
-      mk[r] = *reinterpret_cast<const __nv_bfloat162*>(g.mask + (size_t)m * g.N + n);
-    if (g.dsig) ds[r] = g.dsig[m];
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma descriptor of a K-major, 128-byte-swizzled operand at ``p``
+// (1024-byte aligned): rows of 64 bf16 (128 B), 8-row atoms 1024 B apart.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Byte offset of element (row, col) of a (64, 256) tile in that layout:
+// four 64-column blocks of 8 KB; 16-byte chunk c of row r at c ^ (r % 8).
+__device__ __forceinline__ int act_off(int row, int col) {
+  return (col >> 6) * BLOCK_BYTES + row * 128
+         + ((((col >> 3) & 7) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// D (64 x 128, f32 registers) += A (64 x 16) * B (16 x 128), both bf16
+// K-major in shared memory (descriptors); scale_d = 0 overwrites D.
+// Element i of d is row 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column
+// 8 * (i / 4) + 2 * (lane % 4) + i % 2 of D.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with B (16 x 64): d[0..31] only.
+__device__ __forceinline__ void wgmma_n64(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------- packing
+
+// B (N x K) = transpose ? w^T : w, for w (rows, cols) row-major bf16,
+// written to dst in 64-deep K slices of N rows x 128 B, 16-byte chunk c of
+// row n at c ^ (n % 8): the byte image each weight slice has in the ring.
+struct PackJob {
+  const bf16* w;
+  bf16* dst;
+  int rows, cols, transpose;
+};
+
+struct PackArgs {
+  int n;
+  PackJob j[2 * MAX_LAYERS];
+};
+
+__global__ void pack_kernel(const __grid_constant__ PackArgs a) {
+  const PackJob& J = a.j[blockIdx.y];
+  const int N = J.transpose ? J.cols : J.rows;
+  const int K = J.transpose ? J.rows : J.cols;
+  const int chunks = N * K / 8;
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < chunks;
+       q += gridDim.x * blockDim.x) {
+    const int s = q / (N * 8), n = (q / 8) % N, p = q % 8;
+    const int k0 = s * 64 + ((p ^ (n & 7)) * 8);
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = J.transpose ? J.w[(size_t)(k0 + e) * J.cols + n]
+                         : J.w[(size_t)n * J.cols + k0 + e];
+    *reinterpret_cast<uint4*>(J.dst + (size_t)q * 8) =
+        *reinterpret_cast<const uint4*>(v);
   }
-  int cur = -1;
-  float pre0 = 0.f, pre1 = 0.f, post0 = 0.f, post1 = 0.f;
-  float rv0 = 0.f, rv1 = 0.f, pj0 = 0.f, pj1 = 0.f;
-#pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    if (r >= rows) break;
-    const int m = mrow0 + r;
-    const int ray = m / g.S;
-    if (ray != cur) {
-      if (cur >= 0 && g.rs_pre) flush_sums(g.rs_pre, g.rs_pre_ld, cur, n, pre0, pre1);
-      if (cur >= 0 && g.rs_post) flush_sums(g.rs_post, g.rs_post_ld, cur, n, post0, post1);
-      cur = ray;
-      pre0 = pre1 = post0 = post1 = 0.f;
-      if (g.rowvec) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-            g.rowvec + (size_t)ray * g.N + n);
-        rv0 = __low2float(v); rv1 = __high2float(v);
+}
+
+// ---------------------------------------------------------------- trunk
+
+// One forward layer: y = act(x @ W + bias + rowvec[ray]); the next layer's
+// input is bf16(bf16(y) + inj[ray]) with a latent, else bf16(y).
+struct FwdLayer {
+  const bf16* w;          // packed W^T (N rows, K deep)
+  const float* bias;      // (N,) or null
+  const bf16* rowvec;     // per ray [R][rowvec_ld], or null
+  const bf16* inj;        // the next layer's latent, per ray [R][inj_ld]
+  bf16* out;              // (P, N) bf16(y), or null
+  bf16* out_in;           // (P, N) the next layer's input, or null
+  uint32_t* mask_out;     // (P, 8) ReLU-mask bits of y, or null
+  int K, N, relu, rowvec_ld, inj_ld;
+};
+
+struct FwdArgs {
+  int P, S, n_freq, n_layers;
+  const float* ro8;       // (R, 8)
+  const float* vd8;       // (R, 8)
+  const float* z;         // (R, S)
+  bf16* pe_out;           // (P, 64): the PE, or null
+  FwdLayer L[MAX_LAYERS];
+};
+
+// A ReLU mask as bits: word w of a point's 8 holds columns 32 w .. 32 w + 31
+// (bit b: column 32 w + b set where the stored bf16 activation is > 0),
+// 32 B per point in place of a 512 B bf16 plane.
+constexpr int MASK_WORDS = TW / 32;
+
+// One dx layer: v = gh @ W^T (+ dsig[m] * wsig[n]), then * mask; rs_pre
+// sums the raw products per ray, rs_post the masked values.
+struct DxLayer {
+  const bf16* w;          // packed W (N = the layer's inputs, K outputs)
+  const uint32_t* mask;   // (P, 8) ReLU-mask bits, or null
+  float* rs_pre;          // per ray [R][rs_pre_ld], or null
+  float* rs_post;
+  bf16* out;              // (P, N) bf16 gh, or null
+  int K, N, dsig_term, rs_pre_ld, rs_post_ld;
+};
+
+struct DxArgs {
+  int P, S, n_layers;
+  const bf16* g_in;       // (P, L[0].K): the first layer's gh
+  const float* dsig;      // (P,)
+  const float* wsig;      // (N,)
+  DxLayer L[MAX_LAYERS];
+};
+
+// The first 1024-byte aligned address of the dynamic shared memory, as an
+// offset into it, so that the compiler keeps its address space (shared
+// loads and stores rather than generic ones).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// The producer warp's lane 0: every K slice of every layer, tile after
+// tile, into the ring, each stage reused once the 16 consumer warps freed
+// it.
+template <class Layer>
+__device__ void produce(const Layer* L, int n_layers, int ntiles,
+                        unsigned char* ring, uint64_t* full,
+                        uint64_t* empty) {
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+    for (int l = 0; l < n_layers; ++l) {
+      const uint32_t bytes = (uint32_t)L[l].N * 128;
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(
+          L[l].w);
+      for (int ks = 0; ks < L[l].K / 64; ++ks) {
+        mbar_wait(empty + stage, phase ^ 1);
+        mbar_expect_tx(full + stage, bytes);
+        bulk_load(ring + stage * SLICE_BYTES, src + (size_t)ks * bytes,
+                  bytes, full + stage);
+        if (++stage == RING) { stage = 0; phase ^= 1; }
       }
-      if (g.inj) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
-            g.inj + (size_t)ray * g.inj_ld + n);
-        pj0 = __low2float(v); pj1 = __high2float(v);
-      }
     }
-    const float2 a = *reinterpret_cast<const float2*>(st + r * LDS + 2 * lane);
-    float v0 = a.x, v1 = a.y;
-    pre0 += v0; pre1 += v1;
-    if (g.dsig) {
-      v0 = __fadd_rn(v0, __fmul_rn(ds[r], w0));
-      v1 = __fadd_rn(v1, __fmul_rn(ds[r], w1));
-    }
-    if (g.bias) { v0 += b0; v1 += b1; }
-    if (g.rowvec) { v0 += rv0; v1 += rv1; }
-    if (g.relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
-    if (g.mask) {
-      v0 = __low2float(mk[r]) > 0.f ? v0 : 0.f;
-      v1 = __high2float(mk[r]) > 0.f ? v1 : 0.f;
-    }
-    post0 += v0; post1 += v1;
-    const size_t o = (size_t)m * g.N + n;
-    if (g.out)
-      *reinterpret_cast<__nv_bfloat162*>(g.out + o) = __floats2bfloat162_rn(v0, v1);
-    if (g.out_inj)
-      *reinterpret_cast<__nv_bfloat162*>(g.out_inj + o) =
-          __floats2bfloat162_rn(round_bf(v0) + pj0, round_bf(v1) + pj1);
-  }
-  if (cur >= 0 && g.rs_pre) flush_sums(g.rs_pre, g.rs_pre_ld, cur, n, pre0, pre1);
-  if (cur >= 0 && g.rs_post) flush_sums(g.rs_post, g.rs_post_ld, cur, n, post0, post1);
 }
 
-template <bool PE, bool BT>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
+// One layer's products for a warpgroup: its row half's resident (64, K)
+// tile times column half ``nh`` of each ring slice (N rows in all, N / 2
+// here): K/64 slices, four k16 steps each, one commit group per slice; a
+// slice is released as soon as the group after it is issued and it has
+// completed.
+__device__ __forceinline__ void mma_layer(float (&acc)[64], int N, int nks,
+                                          int nh, uint64_t da, uint64_t dr,
+                                          uint64_t* full, uint64_t* empty,
+                                          int& stage, uint32_t& phase,
+                                          int lane) {
+  int prev = -1;
+  const uint64_t half = (uint64_t)((nh * (N / 2) * 128) >> 4);
+  for (int ks = 0; ks < nks; ++ks) {
+    mbar_wait(full + stage, phase);
+    __syncwarp();     // wgmma.*.aligned wants the warp converged
+    reg_fence(acc);
+    wgmma_fence();
+    const uint64_t a = da + (uint64_t)((ks * BLOCK_BYTES) >> 4);
+    const uint64_t b = dr + (uint64_t)((stage * SLICE_BYTES) >> 4) + half;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {   // +32 B along K per k16 step
+      if (N == 256) wgmma_n128(acc, a + 2 * k, b + 2 * k, ks | k);
+      else wgmma_n64(acc, a + 2 * k, b + 2 * k, ks | k);
+    }
+    wgmma_commit();
+    reg_fence(acc);
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      reg_fence(acc);
+      if (lane == 0) mbar_arrive(empty + prev);
+    }
+    prev = stage;
+    if (++stage == RING) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  if (lane == 0) mbar_arrive(empty + prev);
+}
 
+// The bf16 PE of a row half's 64 points into lanes 0..63 of its tile: the
+// 4 threads of a point (t2 = 0..255 over the pair of warpgroups) split its
+// 3F (coordinate, frequency) pairs, one sincosf each for the pair's sin and
+// cos lanes; it also records each row's ray in ``rays``.
+__device__ __forceinline__ void build_pe(const FwdArgs& a, unsigned char* A,
+                                         int* rays, int m0, int t2) {
+  const int row = t2 >> 2, part = t2 & 3, m = m0 + row, F = a.n_freq;
+  const bool ok = m < a.P;
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+  if (part == 0) rays[row] = ok ? m / a.S : 0;
+  if (ok) {
+    const int ray = m / a.S;
+    const float zz = a.z[m];
+    const float* ro = a.ro8 + (size_t)ray * 8;
+    const float* vd = a.vd8 + (size_t)ray * 8;
+    x0 = __fadd_rn(ro[0], __fmul_rn(vd[0], zz));
+    x1 = __fadd_rn(ro[1], __fmul_rn(vd[1], zz));
+    x2 = __fadd_rn(ro[2], __fmul_rn(vd[2], zz));
+  }
+  auto put = [&](int lane, float v) {
+    *reinterpret_cast<bf16*>(A + act_off(row, lane)) = __float2bfloat16_rn(v);
+  };
+  if (part == 0) {
+    put(0, x0); put(1, x1); put(2, x2);
+  } else if (part == 3) {
+    for (int k = 3 + 6 * F; k < 64; ++k) put(k, 0.f);
+  }
+  const int per = (3 * F + 3) / 4, end = min(3 * F, (part + 1) * per);
+#pragma unroll 1
+  for (int k = part * per; k < end; ++k) {
+    const int d = k % 3;
+    const float s = (d == 0 ? x0 : (d == 1 ? x1 : x2)) * (float)(1 << (k / 3));
+    float sv, cv;
+    sincosf(s, &sv, &cv);
+    put(3 + k, ok ? sv : 0.f);
+    put(3 + 3 * F + k, ok ? cv : 0.f);
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Epilogue operands (latents, per-ray vectors, dsig) are read-only for
+// the kernel: loaded through the non-coherent path, so that the compiler
+// may batch them ahead of the epilogue's stores.
+__device__ __forceinline__ __nv_bfloat162 ld_bf2(const bf16* p) {
+  return as_bf2(__ldg(reinterpret_cast<const unsigned int*>(p)));
+}
+
+__device__ __forceinline__ float2 ld_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// A forward layer's epilogue, in registers, on this thread's two rows of
+// its warpgroup's column half: bias (from shared memory), per-ray vector,
+// ReLU, bf16 y into the tile; with mask_out the ReLU mask as bits (the 4
+// lanes of a quad hold the row's 128 columns of the half between them).
+__device__ __forceinline__ void fwd_epilogue(const float (&acc)[64],
+                                             const FwdLayer& L,
+                                             const float* __restrict__ bias,
+                                             unsigned char* __restrict__ A,
+                                             int nh, int m0, int P, int S,
+                                             int wl, int lane) {
+  const int q = lane & 3, jn = L.N / 16, c0 = nh * 8 * jn;
+  const bool relu = L.relu;
+  const bf16* rv[2] = {nullptr, nullptr};
+  int rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rows[h] = wl * 16 + (lane >> 2) + 8 * h;
+    const int m = m0 + rows[h];
+    if (L.rowvec)
+      rv[h] = L.rowvec + (size_t)(m < P ? m / S : 0) * L.rowvec_ld;
+  }
+  uint32_t bits[2][4] = {};
+#pragma unroll
+  for (int j = 0; j < TW / 16; ++j) {
+    if (j >= jn) break;
+    const int col = c0 + 8 * j + 2 * q;
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h] + b.x, v1 = acc[4 * j + 2 * h + 1] + b.y;
+      if (rv[h]) {
+        const __nv_bfloat162 r = ld_bf2(rv[h] + col);
+        v0 += __low2float(r); v1 += __high2float(r);
+      }
+      if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
+      const uint32_t y = as_u32(__floats2bfloat162_rn(v0, v1));
+      *reinterpret_cast<uint32_t*>(A + act_off(rows[h], col)) = y;
+      bits[h][j / 4] |= (((y & 0x7fffu) ? 1u : 0u)
+                         | ((y & 0x7fff0000u) ? 2u : 0u))
+                        << (8 * (j % 4) + 2 * q);
+    }
+  }
+  uint32_t* mask_out = L.mask_out;
+  if (!mask_out) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      bits[h][w] |= __shfl_xor_sync(FULL, bits[h][w], 1);
+      bits[h][w] |= __shfl_xor_sync(FULL, bits[h][w], 2);
+    }
+    const int m = m0 + rows[h];
+    if (m < P && q == 0)
+      *reinterpret_cast<uint4*>(mask_out + (size_t)m * MASK_WORDS + 4 * nh) =
+          make_uint4(bits[h][0], bits[h][1], bits[h][2], bits[h][3]);
+  }
+}
+
+// A row half's (64, N) tile, 16 bytes a thread at a time over the pair of
+// warpgroups (t2 = 0..255): the stores of y (out) and, with a latent, the
+// injected next input into the tile (and out_in). Rows are consecutive
+// points, so a warp stores 512 contiguous bytes; ``rays`` holds each row's
+// ray.
+__device__ __forceinline__ void fwd_vector_pass(const FwdLayer& L,
+                                                unsigned char* A,
+                                                const int* rays, bool to_smem,
+                                                int m0, int P, int t2) {
+  const int per_row = L.N / 8;
+  for (int idx = t2; idx < 64 * per_row; idx += 256) {
+    const int row = idx / per_row, c = idx % per_row, m = m0 + row;
+    const bool ok = m < P;
+    uint4* p = reinterpret_cast<uint4*>(A + act_off(row, c * 8));
+    const uint4 y = *p;
+    if (ok && L.out)
+      *reinterpret_cast<uint4*>(L.out + (size_t)m * L.N + c * 8) = y;
+    if (!L.inj) continue;
+    uint4 pj = make_uint4(0u, 0u, 0u, 0u);
+    if (ok)
+      pj = __ldg(reinterpret_cast<const uint4*>(
+          L.inj + (size_t)rays[row] * L.inj_ld + c * 8));
+    uint4 x;
+    uint32_t* xs = reinterpret_cast<uint32_t*>(&x);
+    const uint32_t* ys = reinterpret_cast<const uint32_t*>(&y);
+    const uint32_t* ps = reinterpret_cast<const uint32_t*>(&pj);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 a2 = as_bf2(ys[i]), b2 = as_bf2(ps[i]);
+      xs[i] = as_u32(__floats2bfloat162_rn(
+          __low2float(a2) + __low2float(b2),
+          __high2float(a2) + __high2float(b2)));
+    }
+    if (to_smem) *p = x;
+    if (ok && L.out_in)
+      *reinterpret_cast<uint4*>(L.out_in + (size_t)m * L.N + c * 8) = x;
+  }
+}
+
+// Copies a row half's (64, cols) tile to ``dst`` (P, cols), 16 bytes a
+// thread at a time over the pair of warpgroups.
+__device__ __forceinline__ void store_tile(bf16* dst, const unsigned char* A,
+                                           int cols, int m0, int P, int t2) {
+  const int per_row = cols / 8;
+  for (int idx = t2; idx < 64 * per_row; idx += 256) {
+    const int row = idx / per_row, c = idx % per_row, m = m0 + row;
+    if (m < P)
+      *reinterpret_cast<uint4*>(dst + (size_t)m * cols + c * 8) =
+          *reinterpret_cast<const uint4*>(A + act_off(row, c * 8));
+  }
+}
+
+// 64 rows of ``src`` (P, K) bf16 from row m0 into a (64, K) tile in the
+// swizzled layout by cp.async over the pair of warpgroups; rows past P
+// read as zeros.
+__device__ __forceinline__ void load_tile(unsigned char* dst, const bf16* src,
+                                          int K, int m0, int P, int t2) {
+  const int per_row = K / 8;
+  for (int q = t2; q < 64 * per_row; q += 256) {
+    const int row = q / per_row, c = q % per_row, m = m0 + row;
+    const bool ok = m < P;
+    cp_async16(dst + act_off(row, c * 8),
+               ok ? src + (size_t)m * K + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(TRUNK_THREADS, 1) trunk_fwd_kernel(
+    const __grid_constant__ FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* act = align1024(smem_raw);
+  unsigned char* ring = act + 2 * ACT_BYTES;
+  float* biases = reinterpret_cast<float*>(ring + RING * SLICE_BYTES);
+  int* row_rays = reinterpret_cast<int*>(biases + MAX_LAYERS * TW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(row_rays + TM);
+  uint64_t* empty = full + RING;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int nk = g.K / BK;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // 3-stage cp.async pipeline: group s carries stage s.
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage<PE, BT>(g, As + s * A_STAGE, Bs + s * B_STAGE, m0, n0, s * BK,
-                         tid);
-    cp_async_commit();
+  const int ntiles = (a.P + TM - 1) / TM;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int pf = kt + STAGES - 1;
-    if (pf < nk)
-      load_stage<PE, BT>(g, As + (pf % STAGES) * A_STAGE,
-                         Bs + (pf % STAGES) * B_STAGE, m0, n0, pf * BK, tid);
-    cp_async_commit();
-    const bf16* a = As + (kt % STAGES) * A_STAGE;
-    const bf16* b = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      using BLayout = typename std::conditional<BT, wmma::col_major,
-                                                wmma::row_major>::type;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], a + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (BT)
-          wmma::load_matrix_sync(bfr[j], b + (wn * 64 + j * 16) * LDB_COL + kk,
-                                 LDB_COL);
-        else
-          wmma::load_matrix_sync(bfr[j], b + kk * LDB_ROW + wn * 64 + j * 16,
-                                 LDB_ROW);
+  for (int i = tid; i < a.n_layers * TW; i += TRUNK_THREADS) {
+    const FwdLayer& L = a.L[i / TW];
+    biases[i] = (L.bias && i % TW < L.N) ? L.bias[i % TW] : 0.f;
+  }
+  __syncthreads();
+  if (warp >= CONSUMER_WARPS) {      // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == CONSUMER_WARPS && lane == 0)
+      produce(a.L, a.n_layers, ntiles, ring, full, empty);
+  } else {                           // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+    const int wg = warp >> 2, wl = warp & 3, rh = wg >> 1, nh = wg & 1;
+    const int t2 = tid & 255;        // thread in the row half's pair
+    unsigned char* A = act + rh * ACT_BYTES;
+    const uint64_t da = sw128_desc(A), dr = sw128_desc(ring);
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[64];
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int m0 = tile * TM + rh * 64;
+      int* rays = row_rays + rh * 64;
+      build_pe(a, A, rays, m0, t2);
+      pair_sync(rh);
+      if (a.pe_out) store_tile(a.pe_out, A, 64, m0, a.P, t2);
+      fence_async_smem();
+      pair_sync(rh);
+      for (int l = 0; l < a.n_layers; ++l) {
+        const FwdLayer& L = a.L[l];
+        mma_layer(acc, L.N, L.K / 64, nh, da, dr, full, empty, stage, phase,
+                  lane);
+        pair_sync(rh);  // both halves' products are done: A may be rewritten
+        fwd_epilogue(acc, L, biases + l * TW, A, nh, m0, a.P, a.S, wl, lane);
+        pair_sync(rh);
+        fwd_vector_pass(L, A, rays, l + 1 < a.n_layers, m0, a.P, t2);
+        fence_async_smem();
+        pair_sync(rh);
       }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();   // the pipeline buffers become the epilogue stage
-
-  float* st = reinterpret_cast<float*>(smem) + warp * 32 * LDS;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(st + i * 16 * LDS + j * 16, acc[i][j], LDS,
-                              wmma::mem_row_major);
-  __syncwarp();
-  epilogue_rows(g, st, m0 + wm * 32, n0 + wn * 64 + 2 * lane, lane);
 }
 
-// The PE of every point, (M, 64) bf16: the values the A-tile load of
-// gemm_kernel<true, false> builds, bit for bit.
-__global__ void pe_kernel(GemmArgs g, bf16* out) {
-  const size_t n = (size_t)g.M * 64;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int m = (int)(i / 64), k = (int)(i % 64);
-    out[i] = __float2bfloat16_rn(pe_value(g, pe_lane(k, g.n_freq), m));
+// One ladder step of the warp's row reduction: the lanes whose ``mask``
+// bit is clear keep x[0, half) and those with it set x[half, 2 half), each
+// adding its partner's copy of the half it keeps.
+template <int HALF>
+__device__ __forceinline__ void reduce_step(float (&x)[16], int mask,
+                                            int lane) {
+  const bool hi = lane & mask;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = hi ? x[i] : x[i + HALF];
+    const float keep = hi ? x[i + HALF] : x[i];
+    x[i] = keep + __shfl_xor_sync(FULL, send, mask);
+  }
+}
+
+// Per-ray sums of this warp's 16 rows and 128 columns (from column c0)
+// into rs [ray][ld] (+= by f32 atomics), one atomic per (ray, column): for
+// each ray the rows touch and each quarter of the columns, a reduction
+// over the 8 lanes that share lane % 4, laddered so that every lane ends
+// with 2 of the quarter's columns.
+__device__ __forceinline__ void ray_sums(const float (&acc)[64], float* rs,
+                                         int ld, int c0, int mw, int P,
+                                         int S, int ray0, int ray1,
+                                         int lane) {
+  if (mw >= P) return;
+  const int last = min(mw + 15, P - 1) / S;
+  const int jj = 4 * ((lane >> 2) & 1) + 2 * ((lane >> 3) & 1)
+                 + ((lane >> 4) & 1);
+  for (int ray = mw / S; ray <= last; ++ray) {
+    float* dst = rs + (size_t)ray * ld + c0 + 2 * (lane & 3);
+#pragma unroll
+    for (int qt = 0; qt < 2; ++qt) {
+      float x[16];   // x[2 i + e]: column c0 + 8 (8 qt + i) + 2 (lane % 4) + e
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int j = 8 * qt + i / 2, e = i % 2;
+        x[i] = (ray0 == ray ? acc[4 * j + e] : 0.f)
+               + (ray1 == ray ? acc[4 * j + 2 + e] : 0.f);
+      }
+      reduce_step<8>(x, 4, lane);
+      reduce_step<4>(x, 8, lane);
+      reduce_step<2>(x, 16, lane);
+      atomicAdd(dst + 8 * (8 * qt + jj), x[0]);
+      atomicAdd(dst + 8 * (8 * qt + jj) + 1, x[1]);
+    }
+  }
+}
+
+// A dx layer's epilogue on this thread's two rows of its warpgroup's
+// column half (N = 256), in the order of the TPU kernel: the raw sums, the
+// sigma term, the mask (its bits ``mk`` prefetched per row), the masked
+// sums; then with ``store`` bf16 gh into the tile.
+__device__ __forceinline__ void dx_epilogue(float (&acc)[64],
+                                            const DxLayer& L,
+                                            const DxArgs& a, unsigned char* A,
+                                            const uint4 (&mk)[2], bool store,
+                                            int nh, int m0, int wl,
+                                            int lane) {
+  const int q = lane & 3, c0 = nh * (TW / 2);
+  int rows[2], ms[2], rays[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rows[h] = wl * 16 + (lane >> 2) + 8 * h;
+    ms[h] = m0 + rows[h];
+    rays[h] = ms[h] < a.P ? ms[h] / a.S : -1;
+  }
+  const int mw = m0 + wl * 16;
+  if (L.rs_pre)
+    ray_sums(acc, L.rs_pre, L.rs_pre_ld, c0, mw, a.P, a.S, rays[0], rays[1],
+             lane);
+  if (L.dsig_term || L.mask) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float ds = (L.dsig_term && rays[h] >= 0) ? __ldg(a.dsig + ms[h])
+                                                     : 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if (L.dsig_term) {
+          const float2 w = ld_f2(a.wsig + c0 + 8 * j + 2 * q);
+          v0 = __fadd_rn(v0, __fmul_rn(ds, w.x));
+          v1 = __fadd_rn(v1, __fmul_rn(ds, w.y));
+        }
+        if (L.mask) {
+          const uint32_t wd = word_of(mk[h], j / 4) >> (8 * (j % 4) + 2 * q);
+          v0 = (wd & 1u) ? v0 : 0.f;
+          v1 = (wd & 2u) ? v1 : 0.f;
+        }
+        acc[4 * j + 2 * h] = v0;
+        acc[4 * j + 2 * h + 1] = v1;
+      }
+    }
+  }
+  if (L.rs_post)
+    ray_sums(acc, L.rs_post, L.rs_post_ld, c0, mw, a.P, a.S, rays[0],
+             rays[1], lane);
+  if (!store) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(A + act_off(rows[h], c0 + 8 * j + 2 * q)) =
+          as_u32(__floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                       acc[4 * j + 2 * h + 1]));
+}
+
+__global__ void __launch_bounds__(TRUNK_THREADS, 1) trunk_dx_kernel(
+    const __grid_constant__ DxArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* act = align1024(smem_raw);
+  unsigned char* ring = act + 2 * ACT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING * SLICE_BYTES);
+  uint64_t* empty = full + RING;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ntiles = (a.P + TM - 1) / TM;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= CONSUMER_WARPS) {      // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == CONSUMER_WARPS && lane == 0)
+      produce(a.L, a.n_layers, ntiles, ring, full, empty);
+  } else {                           // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+    const int wg = warp >> 2, wl = warp & 3, rh = wg >> 1, nh = wg & 1;
+    const int t2 = tid & 255;
+    unsigned char* A = act + rh * ACT_BYTES;
+    const uint64_t da = sw128_desc(A), dr = sw128_desc(ring);
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[64];
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int m0 = tile * TM + rh * 64;
+      load_tile(A, a.g_in, a.L[0].K, m0, a.P, t2);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_smem();
+      pair_sync(rh);
+      for (int l = 0; l < a.n_layers; ++l) {
+        const DxLayer& L = a.L[l];
+        uint4 mk[2] = {};
+        if (L.mask) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wl * 16 + (lane >> 2) + 8 * h;
+            if (m < a.P)
+              mk[h] = __ldg(reinterpret_cast<const uint4*>(
+                  L.mask + (size_t)m * MASK_WORDS + 4 * nh));
+          }
+        }
+        mma_layer(acc, TW, L.K / 64, nh, da, dr, full, empty, stage, phase,
+                  lane);
+        pair_sync(rh);  // both halves' products are done: A may be rewritten
+        const bool to_smem = l + 1 < a.n_layers;
+        dx_epilogue(acc, L, a, A, mk, to_smem || L.out, nh, m0, wl, lane);
+        if (L.out) {
+          pair_sync(rh);
+          store_tile(L.out, A, TW, m0, a.P, t2);
+        }
+        fence_async_smem();
+        pair_sync(rh);
+      }
+    }
   }
 }
 
@@ -853,24 +1355,6 @@ __global__ void f32_to_bf16_kernel(const float* x, bf16* y, size_t n) {
     y[i] = __float2bfloat16_rn(x[i]);
 }
 
-template <bool PE, bool BT>
-int launch_gemm_t(const GemmArgs& g, cudaStream_t stream) {
-  const cudaError_t rc = cudaFuncSetAttribute(
-      gemm_kernel<PE, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GEMM_SMEM);
-  if (rc != cudaSuccess) return (int)rc;
-  const dim3 grid(g.N / BN, (g.M + BM - 1) / BM);
-  gemm_kernel<PE, BT><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(g);
-  return (int)cudaGetLastError();
-}
-
-int launch_gemm(const GemmArgs& g, bool pe, bool bt, cudaStream_t stream) {
-  if (g.N % BN != 0 || g.K % BK != 0) return (int)cudaErrorInvalidValue;
-  if (pe) return launch_gemm_t<true, false>(g, stream);
-  if (bt) return launch_gemm_t<false, true>(g, stream);
-  return launch_gemm_t<false, false>(g, stream);
-}
-
 int launch_convert(const float* x, bf16* y, size_t n, cudaStream_t stream) {
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
   f32_to_bf16_kernel<<<blocks, 256, 0, stream>>>(x, y, n);
@@ -929,7 +1413,6 @@ int launch_dw(const bf16* X, const bf16* G, int P, int M, int N, float* part,
                       stream));
   return launch_colsum(d.part_b, N, pl.splits, N, pl.splits, db, stream);
 }
-
 
 struct InputArgs {
   int S, W, n_freq;
@@ -1040,21 +1523,171 @@ __global__ void __launch_bounds__(INPUT_THREADS) input_chain_kernel(
   }
 }
 
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// Trunk layer j's operand index in flatten_params order (forward order:
+// enc_xyz, the nb shape blocks, enc_shape, enc_viewdir, the nt texture
+// blocks, rgb_hidden).
+int trunk_index(int j, int nb) {
+  if (j <= nb + 1) return j;          // enc_xyz, shape blocks, enc_shape
+  return j + 1;                       // skips the sigma row
+}
+
+int trunk_layers(int nb, int nt) { return nb + nt + 4; }
+
+size_t packed_elems(int W, int nb, int nt, bool dx) {
+  const size_t body = (size_t)(nb + nt + 2) * W * W + (size_t)W * W / 2;
+  return (size_t)64 * W + body + (dx ? body : 0);
+}
+
+// Every trunk weight into ``dst`` in the wgmma operand layout: the forward
+// B operands (W^T, forward order), then with ``dx`` the dx chain's (W of
+// every layer but enc_xyz, forward order). ``fwd`` and ``dxw`` (or null)
+// receive each layer's packed pointer, in forward order.
+int launch_pack(const void* const* wts, int W, int nb, int nt, bool dx,
+                bf16* dst, const bf16** fwd, const bf16** dxw,
+                cudaStream_t stream) {
+  PackArgs a = {};
+  bf16* p = dst;
+  const int n = trunk_layers(nb, nt);
+  for (int pass = 0; pass < (dx ? 2 : 1); ++pass)
+    for (int j = pass; j < n; ++j) {
+      const int rows = j == 0 ? 64 : W, cols = j == n - 1 ? W / 2 : W;
+      a.j[a.n++] = {static_cast<const bf16*>(wts[2 * trunk_index(j, nb)]), p,
+                    rows, cols, pass == 0};
+      (pass == 0 ? fwd : dxw)[j] = p;
+      p += (size_t)rows * cols;
+    }
+  pack_kernel<<<dim3(32, a.n), 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// What the forward stores (each pointer or null): bf16 planes (P, W) for
+// the heads and the dW GEMMs, ReLU-mask bit planes (P, 8) for the dx chain.
+struct FwdOut {
+  bf16* pe;         // (P, 64)
+  bf16* xs;         // nb shape-block inputs (latent injected)
+  bf16* ys_last;    // the last shape block's output (enc_shape's input)
+  bf16* t;          // enc_shape's output
+  bf16* xt;         // nt texture-block inputs (latent injected)
+  bf16* yts_last;   // the last texture block's output (rgb_hidden's input)
+  bf16* r;          // rgb_hidden's output, (P, W/2)
+  uint32_t* m0;     // enc_xyz's mask
+  uint32_t* ms;     // nb shape-block masks
+  uint32_t* mv;     // enc_viewdir's mask
+  uint32_t* mt;     // nt texture-block masks
+};
+
+// The forward chain from the PE through enc_shape (``full`` false) or
+// through rgb_hidden, with the stores ``o`` asks for.
+FwdArgs fwd_args(const float* ro8, const float* vd8, const float* z,
+                 const bf16* sproj, const bf16* tproj, const bf16* vcontrib,
+                 const void* const* wts, const bf16* const* packed, int R,
+                 int S, int W, int nb, int nt, int n_freq, bool full,
+                 const FwdOut& o) {
+  const size_t P = (size_t)R * S, PW = P * W;
+  auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
+  auto at = [&](bf16* base, int j) { return base ? base + j * PW : nullptr; };
+  auto bits = [&](uint32_t* base, int j) {
+    return base ? base + j * P * MASK_WORDS : nullptr;
+  };
+  FwdArgs a = {};
+  a.P = (int)P; a.S = S; a.n_freq = n_freq;
+  a.ro8 = ro8; a.vd8 = vd8; a.z = z; a.pe_out = o.pe;
+  a.n_layers = full ? trunk_layers(nb, nt) : nb + 2;
+  for (int j = 0; j < a.n_layers; ++j) {
+    FwdLayer& L = a.L[j];
+    L.w = packed[j];
+    L.K = j == 0 ? 64 : W;
+    L.N = j == trunk_layers(nb, nt) - 1 ? W / 2 : W;
+    L.relu = j != nb + 1;                       // enc_shape has none
+    if (j != nb + 2) L.bias = bias(trunk_index(j, nb));
+    if (j <= nb) {                              // enc_xyz and shape blocks
+      L.mask_out = j == 0 ? o.m0 : bits(o.ms, j - 1);
+      if (j == nb) L.out = o.ys_last;
+      if (j < nb) {
+        L.inj = sproj + (size_t)j * W; L.inj_ld = nb * W;
+        L.out_in = at(o.xs, j);
+      }
+    } else if (j == nb + 1) {
+      L.out = o.t;
+    } else if (j == nb + 2) {                   // enc_viewdir's trunk rows
+      L.rowvec = vcontrib; L.rowvec_ld = W;
+      L.mask_out = o.mv;
+      L.inj = tproj; L.inj_ld = nt * W;
+      L.out_in = at(o.xt, 0);
+    } else if (j < nb + nt + 3) {               // texture block j - nb - 3
+      const int k = j - nb - 3;
+      L.mask_out = bits(o.mt, k);
+      if (k + 1 < nt) {
+        L.inj = tproj + (size_t)(k + 1) * W; L.inj_ld = nt * W;
+        L.out_in = at(o.xt, k + 1);
+      } else {
+        L.out = o.yts_last;
+      }
+    } else {
+      L.out = o.r;
+    }
+  }
+  return a;
+}
+
+int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+  if (a.P == 0) return 0;
+  CHECK((int)cudaFuncSetAttribute(trunk_fwd_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)FWD_SMEM));
+  const int tiles = (a.P + TM - 1) / TM, sms = sm_count();
+  const int grid = tiles < sms ? tiles : sms;   // persistent: one per SM
+  trunk_fwd_kernel<<<grid, TRUNK_THREADS, FWD_SMEM,
+                     stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_dx(const DxArgs& a, cudaStream_t stream) {
+  if (a.P == 0) return 0;
+  CHECK((int)cudaFuncSetAttribute(trunk_dx_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)DX_SMEM));
+  const int tiles = (a.P + TM - 1) / TM, sms = sm_count();
+  const int grid = tiles < sms ? tiles : sms;   // persistent: one per SM
+  trunk_dx_kernel<<<grid, TRUNK_THREADS, DX_SMEM,
+                    stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+bool trunk_shapes_ok(int W, int nb, int nt, int n_freq) {
+  return W == TW && 3 + 6 * n_freq <= 64 && nb >= 1 && nt >= 1
+         && trunk_layers(nb, nt) <= MAX_LAYERS;
+}
+
 }  // namespace
 
-// Workspace sizes (elements) for one call: bf16 activations and gradients,
-// f32 dsig and per-ray cotangent sums; with weight gradients or input
-// gradients also y0; in weight-gradient mode also the PE, the dW partials
-// and the head kernel's per-ray partials.
+// Workspace sizes (elements) for one call: the packed weights; the bf16
+// planes the heads read (t, r) and the rgb_hidden cotangent; the ReLU-mask
+// bit planes of the dx chain (P x 32 B each: the shape blocks, enc_viewdir,
+// the texture blocks, and with weight or input gradients enc_xyz); f32
+// dsig and the per-ray cotangent sums. Weight-gradient mode adds every dW
+// GEMM's bf16 input (the PE, the injected inputs, the last shape and
+// texture blocks' outputs) and gh plane (nb + nt + 3), the dW partials and
+// the head kernel's per-ray partials; input gradients alone add gh0.
 extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
                                 int weight_grads, int input_grads,
                                 size_t* n_bf16, size_t* n_f32) {
-  const size_t P = (size_t)R * S;
-  *n_bf16 = (size_t)(2 * nb + 2 * nt + 5) * P * W;
+  const size_t P = (size_t)R * S, PW = P * W;
+  const size_t mask_planes = nb + nt + 1 + (weight_grads || input_grads);
+  *n_bf16 = packed_elems(W, nb, nt, true) + 2 * PW
+            + mask_planes * P * MASK_WORDS * 2;
   *n_f32 = P + (size_t)R * (nb + nt + 1) * W;
-  if (weight_grads || input_grads) *n_bf16 += P * W;
+  if (input_grads && !weight_grads) *n_bf16 += PW;
   if (!weight_grads) return;
-  *n_bf16 += P * 64;
+  *n_bf16 += P * 64 + (size_t)(nb + nt + 2) * PW
+             + (size_t)(nb + nt + 3) * PW;
   size_t part = dw_part_elems(64, W, (int)P);
   const size_t sq = dw_part_elems(W, W, (int)P);
   const size_t half = dw_part_elems(W, W / 2, (int)P);
@@ -1069,24 +1702,23 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
 // (deltas cdelta) adds its squared error in se8 lanes 4..6 and its
 // cotangents to the fine composite's. ``weights`` ((R, S) f32, or null)
 // receives the compositing weights (the TPU kernel's want_weights).
-// ``input_grads`` (the pose modes; not with the dual mode) writes the
-// exact ray and depth cotangents d_ro8, d_vd8 (R, 8) and d_z (R, S): the
-// frozen forward also keeps y0, the dx chain runs on through enc_xyz's
-// ReLU mask, and input_chain_kernel finishes the PE Jacobian on top of the
-// composite's own dz, which the head kernel writes. ``gplanes`` (a host
-// array of four (R, S) f32 device pointers, or null) selects the plane-op
-// backward (the TPU's _bwd_kernel): the forward is recomputed as in the
-// other modes, the cotangents of the sigma, r, g, b planes take the place
-// of the composite and the loss (gt8, se8, rgb8, weights and cmask are
-// null), and the chains follow by flag, any of the four flag pairs; d_z
-// then holds the input chain's xyz term alone. ``wts`` is a host array of
-// the 2*k device pointers of ops/fused_train.py::flatten_params, in its
-// order:
-// 2-D weights bf16 (in, out), 1-D weights and biases f32. With
+// ``input_grads`` (not with the dual mode) writes the exact ray and depth
+// cotangents d_ro8, d_vd8 (R, 8) and d_z (R, S): the forward also keeps
+// y0, the dx chain runs on through enc_xyz's ReLU mask, and
+// input_chain_kernel finishes the PE Jacobian on top of the composite's
+// own dz, which the head kernel writes. ``gplanes`` (a host array of four
+// (R, S) f32 device pointers, or null) selects the plane-op backward (the
+// TPU's _bwd_kernel): the forward is recomputed as in the other modes, the
+// cotangents of the sigma, r, g, b planes take the place of the composite
+// and the loss (gt8, se8, rgb8, weights and cmask are null), and the
+// chains follow by flag, any of the four flag pairs; d_z then holds the
+// input chain's xyz term alone. ``wts`` is a host array of the 2*k device
+// pointers of ops/fused_train.py::flatten_params, in its order: 2-D
+// weights bf16 (in, out), 1-D weights and biases f32. With
 // ``weight_grads``, ``dwb`` is a host array of 2*k f32 device pointers in
 // the same order, each the shape of its weight or bias, which receive the
-// gradients; else it is null. Returns the first nonzero
-// cudaGetLastError() after a launch, else 0.
+// gradients; else it is null. The trunk takes W = 256. Returns the first
+// nonzero cudaGetLastError() after a launch, else 0.
 extern "C" int fused_step(
     const float* ro8, const float* vd8, const float* z, const bf16* sproj,
     const bf16* tproj, const bf16* vcontrib, const float* gt8,
@@ -1096,14 +1728,13 @@ extern "C" int fused_step(
     float* d_ro8, float* d_vd8, float* d_z, void* const* dwb,
     int weight_grads, int input_grads, int R, int S, int W, int nb, int nt,
     int n_freq, float two_scale, int white_bg, cudaStream_t stream) {
-  if (S > MAX_S || W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1
+  if (S > MAX_S || !trunk_shapes_ok(W, nb, nt, n_freq)
       || (cmask == nullptr) != (cdelta == nullptr)
       || (cmask != nullptr && (weights != nullptr || input_grads))
       || (gplanes != nullptr && (cmask != nullptr || weights != nullptr
                                  || rgb8 != nullptr)))
     return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S, PW = P * W;
-  auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
   auto wf = [&](int i) { return static_cast<const float*>(wts[2 * i]); };
   auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
   auto dw = [&](int i) { return static_cast<float*>(dwb[2 * i]); };
@@ -1111,18 +1742,40 @@ extern "C" int fused_step(
   const int i_encs = nb + 1, i_sig = nb + 2, i_encv = nb + 3;
   const int i_tex = nb + 4, i_rgbh = nb + nt + 4, i_rgbo = nb + nt + 5;
 
-  bf16* xs = ws;                      // nb shape-block inputs (injected)
-  bf16* ys = xs + (size_t)nb * PW;    // nb shape-block outputs
-  bf16* t = ys + (size_t)nb * PW;
-  bf16* yv = t + PW;
-  bf16* xt = yv + PW;                 // nt texture-block inputs (injected)
-  bf16* yts = xt + (size_t)nt * PW;   // nt texture-block outputs
-  bf16* r = yts + (size_t)nt * PW;    // P x W/2
-  bf16* g_r = r + PW / 2;             // P x W/2
-  bf16* gA = g_r + PW / 2;
-  bf16* gB = gA + PW;
-  bf16* y0 = gB + PW;                 // weight or input grads: enc_xyz out
-  bf16* pe = y0 + PW;                 // weight_grads: P x 64
+  bf16* p = ws + packed_elems(W, nb, nt, true);
+  auto take = [&](size_t n) { bf16* q = p; p += n; return q; };
+  auto take_bits = [&](size_t planes) {
+    return reinterpret_cast<uint32_t*>(take(planes * P * MASK_WORDS * 2));
+  };
+  FwdOut o = {};
+  o.t = take(PW);
+  o.r = take(PW / 2);
+  bf16* g_r = take(PW / 2);
+  if (weight_grads || input_grads) o.m0 = take_bits(1);
+  o.ms = take_bits(nb);
+  o.mv = take_bits(1);
+  o.mt = take_bits(nt);
+  // gh planes, each the cotangent of a layer's output: texture blocks
+  // 0..nt-1, enc_viewdir, enc_shape, shape blocks 0..nb-1, enc_xyz (gh0).
+  bf16 *gh_tex = nullptr, *gh_encv = nullptr, *gh_encs = nullptr;
+  bf16 *gh_shape = nullptr, *gh0 = nullptr;
+  if (weight_grads) {
+    o.pe = take(P * 64);
+    o.xs = take(nb * PW);
+    o.ys_last = take(PW);
+    o.xt = take(nt * PW);
+    o.yts_last = take(PW);
+    gh_tex = take(nt * PW);
+    gh_encv = take(PW);
+    gh_encs = take(PW);
+    gh_shape = take(nb * PW);
+    gh0 = take(PW);
+  } else if (input_grads) {
+    gh0 = take(PW);
+  }
+  auto plane = [&](bf16* base, int k) {
+    return base ? base + (size_t)k * PW : nullptr;
+  };
   float* dsig = ws32;
   float* rs_s = dsig + P;             // (R, nb, W)
   float* rs_t = rs_s + (size_t)R * nb * W;
@@ -1133,60 +1786,21 @@ extern "C" int fused_step(
   CHECK((int)cudaMemsetAsync(rs_s, 0, sizeof(float) * (size_t)R * (nb + nt + 1) * W,
                              stream));
 
-  GemmArgs base = {};
-  base.M = (int)P;
-  base.S = S;
+  const bf16* fwd_w[MAX_LAYERS];
+  const bf16* dx_w[MAX_LAYERS];
+  CHECK(launch_pack(wts, W, nb, nt, true, ws, fwd_w, dx_w, stream));
 
-  // ---- forward. Each layer's epilogue also writes the next layer's
-  // input with its per-ray latent injected (a bf16 add, as on the TPU).
-  GemmArgs g = base;
-  g.K = 64; g.N = W; g.ro8 = ro8; g.vd8 = vd8; g.z = z; g.n_freq = n_freq;
-  g.B = wb(0); g.bias = bias(0); g.relu = 1;
-  g.out_inj = xs; g.inj = sproj; g.inj_ld = nb * W;
-  if (weight_grads) {
-    // The PE goes to the workspace once: enc_xyz reads it as a plain A
-    // operand here and again for its dW. y0 is kept for the last mask.
-    pe_kernel<<<4096, 256, 0, stream>>>(g, pe);
-    CHECK((int)cudaGetLastError());
-    g.A = pe; g.out = y0;
-    CHECK(launch_gemm(g, false, false, stream));
-  } else {
-    if (input_grads) g.out = y0;      // for enc_xyz's ReLU mask
-    CHECK(launch_gemm(g, true, false, stream));
-  }
-  for (int j = 0; j < nb; ++j) {
-    g = base; g.K = W; g.N = W; g.A = xs + (size_t)j * PW; g.B = wb(1 + j);
-    g.bias = bias(1 + j); g.relu = 1; g.out = ys + (size_t)j * PW;
-    if (j + 1 < nb) {
-      g.out_inj = xs + (size_t)(j + 1) * PW;
-      g.inj = sproj + (size_t)(j + 1) * W; g.inj_ld = nb * W;
-    }
-    CHECK(launch_gemm(g, false, false, stream));
-  }
-  g = base; g.K = W; g.N = W; g.A = ys + (size_t)(nb - 1) * PW;
-  g.B = wb(i_encs); g.bias = bias(i_encs); g.out = t;
-  CHECK(launch_gemm(g, false, false, stream));
-  g = base; g.K = W; g.N = W; g.A = t; g.B = wb(i_encv); g.rowvec = vcontrib;
-  g.relu = 1; g.out = yv; g.out_inj = xt; g.inj = tproj; g.inj_ld = nt * W;
-  CHECK(launch_gemm(g, false, false, stream));
-  for (int j = 0; j < nt; ++j) {
-    g = base; g.K = W; g.N = W; g.A = xt + (size_t)j * PW; g.B = wb(i_tex + j);
-    g.bias = bias(i_tex + j); g.relu = 1; g.out = yts + (size_t)j * PW;
-    if (j + 1 < nt) {
-      g.out_inj = xt + (size_t)(j + 1) * PW;
-      g.inj = tproj + (size_t)(j + 1) * W; g.inj_ld = nt * W;
-    }
-    CHECK(launch_gemm(g, false, false, stream));
-  }
-  g = base; g.K = W; g.N = W / 2; g.A = yts + (size_t)(nt - 1) * PW;
-  g.B = wb(i_rgbh); g.bias = bias(i_rgbh); g.relu = 1; g.out = r;
-  CHECK(launch_gemm(g, false, false, stream));
+  // ---- forward: the whole trunk in one launch.
+  CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, tproj, vcontrib, wts, fwd_w,
+                            R, S, W, nb, nt, n_freq, true, o),
+                   stream));
 
   // ---- heads, composite, loss, composite backward
   HeadArgs h = {};
-  h.R = R; h.S = S; h.W = W; h.t = t; h.r = r; h.z = z; h.gt8 = gt8;
+  h.R = R; h.S = S; h.W = W; h.t = o.t; h.r = o.r; h.z = z; h.gt8 = gt8;
   h.cmask = cmask; h.cdelta = cdelta;
-  h.w_sig = wf(i_sig); h.b_sig = bias(i_sig); h.w_rgb = wb(i_rgbo);
+  h.w_sig = wf(i_sig); h.b_sig = bias(i_sig);
+  h.w_rgb = static_cast<const bf16*>(wts[2 * i_rgbo]);
   h.b_rgb = bias(i_rgbo); h.two_scale = two_scale; h.white_bg = white_bg;
   h.se8 = se8; h.rgb8 = rgb8; h.dsig = dsig; h.g_r = g_r;
   h.weights = weights;
@@ -1221,66 +1835,71 @@ extern "C" int fused_step(
                         db(i_sig), stream));
   }
 
-  // ---- dx chain; in weight-gradient mode each layer's dW GEMM runs as
-  // soon as its output cotangent (the bf16 ``cur``) exists.
-  const int Pi = (int)P;
-  bf16* cur = gA;
-  bf16* nxt = gB;
-  if (weight_grads)
-    CHECK(launch_dw(yts + (size_t)(nt - 1) * PW, g_r, Pi, W, W / 2, dw_part,
-                    dw(i_rgbh), db(i_rgbh), stream));
-  g = base; g.K = W / 2; g.N = W; g.A = g_r; g.B = wb(i_rgbh);
-  g.mask = yts + (size_t)(nt - 1) * PW; g.out = cur;
-  CHECK(launch_gemm(g, false, true, stream));
-  for (int j = nt - 1; j >= 0; --j) {
-    if (weight_grads)
-      CHECK(launch_dw(xt + (size_t)j * PW, cur, Pi, W, W, dw_part,
-                      dw(i_tex + j), db(i_tex + j), stream));
-    g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(i_tex + j);
-    g.rs_pre = rs_t + (size_t)j * W; g.rs_pre_ld = nt * W;
-    g.mask = j > 0 ? yts + (size_t)(j - 1) * PW : yv;
-    if (j == 0) { g.rs_post = rs_v; g.rs_post_ld = W; }
-    g.out = nxt;
-    CHECK(launch_gemm(g, false, true, stream));
-    bf16* tmp = cur; cur = nxt; nxt = tmp;
-  }
-  if (weight_grads)
-    CHECK(launch_dw(t, cur, Pi, W, W, dw_part, dw(i_encv), db(i_encv),
-                    stream));
-  g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(i_encv);
-  g.dsig = dsig; g.wsig = wf(i_sig); g.out = nxt;
-  CHECK(launch_gemm(g, false, true, stream));
-  { bf16* tmp = cur; cur = nxt; nxt = tmp; }
-  if (weight_grads)
-    CHECK(launch_dw(ys + (size_t)(nb - 1) * PW, cur, Pi, W, W, dw_part,
-                    dw(i_encs), db(i_encs), stream));
-  g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(i_encs);
-  g.mask = ys + (size_t)(nb - 1) * PW; g.out = nxt;
-  CHECK(launch_gemm(g, false, true, stream));
-  { bf16* tmp = cur; cur = nxt; nxt = tmp; }
-  for (int j = nb - 1; j >= 0; --j) {
-    if (weight_grads)
-      CHECK(launch_dw(xs + (size_t)j * PW, cur, Pi, W, W, dw_part,
-                      dw(1 + j), db(1 + j), stream));
-    g = base; g.K = W; g.N = W; g.A = cur; g.B = wb(1 + j);
-    g.rs_pre = rs_s + (size_t)j * W; g.rs_pre_ld = nb * W;
-    if (j > 0) {
-      g.mask = ys + (size_t)(j - 1) * PW; g.out = nxt;
-    } else if (weight_grads || input_grads) {
-      g.mask = y0; g.out = nxt;       // enc_xyz's output cotangent
+  // ---- dx chain: one launch from the rgb_hidden cotangent down to shape
+  // block 0 (enc_xyz's output cotangent with weight or input gradients).
+  DxArgs d = {};
+  d.P = (int)P; d.S = S; d.g_in = g_r; d.dsig = dsig; d.wsig = wf(i_sig);
+  const int n_tr = trunk_layers(nb, nt);
+  for (int l = 0; l < n_tr - 1; ++l) {
+    DxLayer& L = d.L[d.n_layers++];
+    const int j = n_tr - 1 - l;       // the forward layer it differentiates
+    L.w = dx_w[j];
+    L.K = j == n_tr - 1 ? W / 2 : W;
+    L.N = W;
+    if (j == n_tr - 1) {                            // rgb_hidden
+      L.mask = o.mt + (size_t)(nt - 1) * P * MASK_WORDS;
+      L.out = plane(gh_tex, nt - 1);
+    } else if (j > nb + 2) {                        // texture block k
+      const int k = j - nb - 3;
+      L.rs_pre = rs_t + (size_t)k * W; L.rs_pre_ld = nt * W;
+      L.mask = k > 0 ? o.mt + (size_t)(k - 1) * P * MASK_WORDS : o.mv;
+      if (k == 0) { L.rs_post = rs_v; L.rs_post_ld = W; }
+      L.out = k > 0 ? plane(gh_tex, k - 1) : gh_encv;
+    } else if (j == nb + 2) {                       // enc_viewdir
+      L.dsig_term = 1;
+      L.out = gh_encs;
+    } else if (j == nb + 1) {                       // enc_shape
+      L.mask = o.ms + (size_t)(nb - 1) * P * MASK_WORDS;
+      L.out = plane(gh_shape, nb - 1);
+    } else {                                        // shape block j - 1
+      const int k = j - 1;
+      L.rs_pre = rs_s + (size_t)k * W; L.rs_pre_ld = nb * W;
+      if (k > 0) {
+        L.mask = o.ms + (size_t)(k - 1) * P * MASK_WORDS;
+        L.out = plane(gh_shape, k - 1);
+      } else if (weight_grads || input_grads) {
+        L.mask = o.m0;
+        L.out = gh0;
+      }
     }
-    CHECK(launch_gemm(g, false, true, stream));
-    bf16* tmp = cur; cur = nxt; nxt = tmp;
   }
-  if (weight_grads)
-    CHECK(launch_dw(pe, cur, Pi, 64, W, dw_part, dw(0), db(0), stream));
+  CHECK(launch_dx(d, stream));
+
+  // ---- dW/db of every trunk layer from its stored input and gh plane.
+  if (weight_grads) {
+    const int Pi = (int)P;
+    CHECK(launch_dw(o.yts_last, g_r, Pi, W, W / 2, dw_part,
+                    dw(i_rgbh), db(i_rgbh), stream));
+    for (int k = 0; k < nt; ++k)
+      CHECK(launch_dw(o.xt + (size_t)k * PW, gh_tex + (size_t)k * PW, Pi, W,
+                      W, dw_part, dw(i_tex + k), db(i_tex + k), stream));
+    CHECK(launch_dw(o.t, gh_encv, Pi, W, W, dw_part, dw(i_encv), db(i_encv),
+                    stream));
+    CHECK(launch_dw(o.ys_last, gh_encs, Pi, W, W, dw_part,
+                    dw(i_encs), db(i_encs), stream));
+    for (int k = 0; k < nb; ++k)
+      CHECK(launch_dw(o.xs + (size_t)k * PW, gh_shape + (size_t)k * PW, Pi, W,
+                      W, dw_part, dw(1 + k), db(1 + k), stream));
+    CHECK(launch_dw(o.pe, gh0, Pi, 64, W, dw_part, dw(0), db(0), stream));
+  }
   if (input_grads) {
     const size_t smem = input_smem_bytes(W);
     CHECK((int)cudaFuncSetAttribute(
         input_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem));
-    const InputArgs ia = {S, W, n_freq, cur, wb(0), ro8, vd8, z, d_z, d_ro8,
-                          d_vd8};
+    const InputArgs ia = {S, W, n_freq, gh0,
+                          static_cast<const bf16*>(wts[0]), ro8, vd8, z, d_z,
+                          d_ro8, d_vd8};
     input_chain_kernel<<<R, INPUT_THREADS, smem, stream>>>(ia);
     CHECK((int)cudaGetLastError());
   }
@@ -1352,45 +1971,6 @@ unsigned point_blocks(size_t P) {   // 8 warps a block, one point a warp
   return (unsigned)(blocks < 8192 ? blocks : 8192);
 }
 
-// The forward through enc_shape between the ping-pong (P, W) bf16 buffers
-// ``buf``: the enc_xyz GEMM with the PE built in its A-tile loads, each
-// shape block's injecting epilogue, enc_shape without activation; the
-// GEMMs and epilogues of fused_step's forward, so t is the same bits.
-// ``*cur`` receives the index of the buffer that holds t.
-int shape_trunk(const float* ro8, const float* vd8, const float* z,
-                const bf16* sproj, const void* const* wts, bf16* buf[2],
-                int R, int S, int W, int nb, int n_freq, int* cur,
-                cudaStream_t stream) {
-  auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
-  auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
-  GemmArgs base = {};
-  base.M = R * S;
-  base.S = S;
-  GemmArgs g = base;
-  g.K = 64; g.N = W; g.ro8 = ro8; g.vd8 = vd8; g.z = z; g.n_freq = n_freq;
-  g.B = wb(0); g.bias = bias(0); g.relu = 1;
-  g.out_inj = buf[0]; g.inj = sproj; g.inj_ld = nb * W;
-  CHECK(launch_gemm(g, true, false, stream));
-  int c = 0;
-  for (int j = 0; j < nb; ++j) {
-    g = base; g.K = W; g.N = W; g.A = buf[c]; g.B = wb(1 + j);
-    g.bias = bias(1 + j); g.relu = 1;
-    if (j + 1 < nb) {
-      g.out_inj = buf[1 - c];
-      g.inj = sproj + (size_t)(j + 1) * W; g.inj_ld = nb * W;
-    } else {
-      g.out = buf[1 - c];
-    }
-    CHECK(launch_gemm(g, false, false, stream));
-    c = 1 - c;
-  }
-  g = base; g.K = W; g.N = W; g.A = buf[c]; g.B = wb(nb + 1);
-  g.bias = bias(nb + 1); g.out = buf[1 - c];
-  CHECK(launch_gemm(g, false, false, stream));
-  *cur = 1 - c;
-  return 0;
-}
-
 // The standalone composite and its backward, one warp (block) per ray.
 struct CompositeArgs {
   int S, white_bg;
@@ -1452,39 +2032,49 @@ __global__ void __launch_bounds__(32) composite_kernel(CompositeArgs a) {
 
 }  // namespace
 
+// Workspace (bf16 elements) of sigma_step (``planes`` 0) and planes_step
+// (``planes`` 1): the packed forward weights, t, and for planes_step r.
+extern "C" size_t forward_workspace(int R, int S, int W, int nb, int nt,
+                                    int planes) {
+  const size_t PW = (size_t)R * S * W;
+  return packed_elems(W, nb, nt, false) + PW + (planes ? PW / 2 : 0);
+}
+
 // Sigma-only forward on R rays x S samples: replaces
 // codenerf_tpu/ops/fused_mlp.py::_kernel(sigma_only=True), the coarse pass
 // of hierarchical sampling, whose compositing weights need sigma alone.
-// The shape trunk (shape_trunk) between two ping-pong (P, W) bf16 buffers
-// in ``ws`` (2 * R * S * W elements: nothing is kept for a backward), then
-// sigma_head_kernel writes ``sigma`` (R, S) f32. ``wts`` as for
-// fused_step; only the enc_xyz, shape, enc_shape and sigma entries are
-// read. Bound by operations: 2 * W * (64 + W * (nb + 1)) FLOP per point.
+// trunk_fwd_kernel from the PE through enc_shape, storing t alone (in
+// ``ws``, forward_workspace(..., 0) elements: nothing is kept for a
+// backward), then sigma_head_kernel writes ``sigma`` (R, S) f32. ``wts``
+// as for fused_step; only the enc_xyz, shape, enc_shape and sigma entries
+// are read (and the packing reads the rest). Bound by operations:
+// 2 * W * (64 + W * (nb + 1)) FLOP per point.
 extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
                           const bf16* sproj, const void* const* wts, bf16* ws,
-                          float* sigma, int R, int S, int W, int nb,
+                          float* sigma, int R, int S, int W, int nb, int nt,
                           int n_freq, cudaStream_t stream) {
-  if (W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1)
-    return (int)cudaErrorInvalidValue;
+  if (!trunk_shapes_ok(W, nb, nt, n_freq)) return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S;
-  bf16* buf[2] = {ws, ws + P * W};
-  int cur = 0;
-  CHECK(shape_trunk(ro8, vd8, z, sproj, wts, buf, R, S, W, nb, n_freq, &cur,
-                    stream));
+  const bf16* fwd_w[MAX_LAYERS];
+  CHECK(launch_pack(wts, W, nb, nt, false, ws, fwd_w, nullptr, stream));
+  FwdOut o = {};
+  o.t = ws + packed_elems(W, nb, nt, false);
+  CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, nullptr, nullptr, wts, fwd_w,
+                            R, S, W, nb, nt, n_freq, false, o),
+                   stream));
   sigma_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
-      buf[cur], static_cast<const float*>(wts[2 * (nb + 2)]),
+      o.t, static_cast<const float*>(wts[2 * (nb + 2)]),
       static_cast<const float*>(wts[2 * (nb + 2) + 1]), sigma, P, W);
   return (int)cudaGetLastError();
 }
 
 // Four-plane forward on R rays x S samples: replaces
 // codenerf_tpu/ops/fused_mlp.py::_kernel (sigma_only=False), the forward
-// of the plane op. sigma_step's trunk and sigma head (so the sigma plane
-// is sigma_step's, bit for bit), then the enc_viewdir GEMM (its epilogue
-// adds the per-ray vcontrib, applies the ReLU and writes texture block
-// 0's injected input), the texture blocks and rgb_hidden on the same
-// ping-pong buffers (``ws``: 2 * R * S * W bf16), and rgb_head_kernel
-// writes the raw r, g, b planes. Outputs (R, S) f32. Bound by operations:
+// of the plane op. trunk_fwd_kernel through rgb_hidden in one launch,
+// storing t and r (``ws``: forward_workspace(..., 1) elements); t is
+// computed as sigma_step computes it, so the sigma plane from
+// sigma_head_kernel is sigma_step's, bit for bit; rgb_head_kernel writes
+// the raw r, g, b planes. Outputs (R, S) f32. Bound by operations:
 // 2 * W * (64 + W * (nb + nt + 2) + W / 2) FLOP per point.
 extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
                            const bf16* sproj, const bf16* tproj,
@@ -1492,48 +2082,40 @@ extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
                            bf16* ws, float* sigma, float* c0, float* c1,
                            float* c2, int R, int S, int W, int nb, int nt,
                            int n_freq, cudaStream_t stream) {
-  if (W % 256 != 0 || 3 + 6 * n_freq > 64 || nb < 1 || nt < 1)
-    return (int)cudaErrorInvalidValue;
-  auto wb = [&](int i) { return static_cast<const bf16*>(wts[2 * i]); };
-  auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
-  const int i_sig = nb + 2, i_encv = nb + 3, i_tex = nb + 4;
-  const int i_rgbh = nb + nt + 4, i_rgbo = nb + nt + 5;
+  if (!trunk_shapes_ok(W, nb, nt, n_freq)) return (int)cudaErrorInvalidValue;
+  const int i_sig = nb + 2, i_rgbo = nb + nt + 5;
   const size_t P = (size_t)R * S;
-  bf16* buf[2] = {ws, ws + P * W};
-  int cur = 0;
-  CHECK(shape_trunk(ro8, vd8, z, sproj, wts, buf, R, S, W, nb, n_freq, &cur,
-                    stream));
+  const bf16* fwd_w[MAX_LAYERS];
+  CHECK(launch_pack(wts, W, nb, nt, false, ws, fwd_w, nullptr, stream));
+  FwdOut o = {};
+  o.t = ws + packed_elems(W, nb, nt, false);
+  o.r = o.t + P * W;
+  CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, tproj, vcontrib, wts, fwd_w,
+                            R, S, W, nb, nt, n_freq, true, o),
+                   stream));
   sigma_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
-      buf[cur], static_cast<const float*>(wts[2 * i_sig]), bias(i_sig),
-      sigma, P, W);
+      o.t, static_cast<const float*>(wts[2 * i_sig]),
+      static_cast<const float*>(wts[2 * i_sig + 1]), sigma, P, W);
   CHECK((int)cudaGetLastError());
-  GemmArgs base = {};
-  base.M = (int)P;
-  base.S = S;
-  GemmArgs g = base;
-  g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(i_encv); g.rowvec = vcontrib;
-  g.relu = 1; g.out_inj = buf[1 - cur]; g.inj = tproj; g.inj_ld = nt * W;
-  CHECK(launch_gemm(g, false, false, stream));
-  cur = 1 - cur;
-  for (int j = 0; j < nt; ++j) {
-    g = base; g.K = W; g.N = W; g.A = buf[cur]; g.B = wb(i_tex + j);
-    g.bias = bias(i_tex + j); g.relu = 1;
-    if (j + 1 < nt) {
-      g.out_inj = buf[1 - cur];
-      g.inj = tproj + (size_t)(j + 1) * W; g.inj_ld = nt * W;
-    } else {
-      g.out = buf[1 - cur];
-    }
-    CHECK(launch_gemm(g, false, false, stream));
-    cur = 1 - cur;
-  }
-  g = base; g.K = W; g.N = W / 2; g.A = buf[cur]; g.B = wb(i_rgbh);
-  g.bias = bias(i_rgbh); g.relu = 1; g.out = buf[1 - cur];
-  CHECK(launch_gemm(g, false, false, stream));
-  cur = 1 - cur;
   rgb_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
-      buf[cur], wb(i_rgbo), bias(i_rgbo), c0, c1, c2, P, W / 2);
+      o.r, static_cast<const bf16*>(wts[2 * i_rgbo]),
+      static_cast<const float*>(wts[2 * i_rgbo + 1]), c0, c1, c2, P, W / 2);
   return (int)cudaGetLastError();
+}
+
+// The trunk weights packed as fused_step packs them (``dst``:
+// packed_elems(W, nb, nt, true) bf16): the forward operands W^T, then the
+// dx chain's W. For the check of the packing against its plain version.
+extern "C" int pack_trunk_weights(const void* const* wts, int W, int nb,
+                                  int nt, bf16* dst, cudaStream_t stream) {
+  if (!trunk_shapes_ok(W, nb, nt, 0)) return (int)cudaErrorInvalidValue;
+  const bf16* fwd_w[MAX_LAYERS];
+  const bf16* dx_w[MAX_LAYERS];
+  return launch_pack(wts, W, nb, nt, true, dst, fwd_w, dx_w, stream);
+}
+
+extern "C" size_t packed_trunk_elems(int W, int nb, int nt) {
+  return packed_elems(W, nb, nt, true);
 }
 
 // Standalone composite on R rays x S samples: replaces

@@ -23,29 +23,31 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   ``invoke_fwd``): the density of every sample, the only output the
   hierarchical coarse pass needs (its compositing weights drive
   ``sample_pdf``). On CUDA tensors it launches ``sigma_step`` of
-  ``csrc/train_fused.cu``: the single-pass kernel's own forward GEMMs
-  through the shape trunk (the PE built in the enc_xyz GEMM's loads, each
-  shape block's injecting epilogue), between two ping-pong (R·S, W) bf16
-  buffers, and a warp-per-point sigma head. Bound by operations:
+  ``csrc/train_fused.cu``: the single-pass kernel's own forward,
+  ``trunk_fwd_kernel``, from the PE through enc_shape with the
+  activations in shared memory (only t reaches device memory), and a
+  warp-per-point sigma head. Bound by operations:
   2W(64 + W(nb+1)) = 557,056 FLOP per point at W=256, nb=3 — 2.92e11 FLOP
   for a 16,384 × 32 training launch (0.30 ms at 989 TFLOP/s dense bf16),
   7.3e10 for a 4096 × 32 optimization chunk (0.074 ms); its inputs and
   output are ~35 MB. :func:`sigma_fwd_plain` is its plain version, and
-  ``sigma_fwd.launches["sigma"]`` counts its launches.
+  ``sigma_fwd.launches["sigma"]`` counts its launches
+  (``sigma_fwd.points`` their R·S).
 - :func:`planes_fwd` — the four-plane forward, replacing the same TPU
   kernel with ``sigma_only=False`` (the forward of the plane op,
   ``ops/fused_train.py``): sigma (softplus) and the raw r, g, b of every
   sample as (R, S) f32 planes, no composite. On CUDA tensors it launches
-  ``planes_step``: ``sigma_step``'s trunk and sigma head — its sigma
-  plane is ``sigma_fwd``'s, bit for bit — then the enc_viewdir, texture
-  and rgb_hidden GEMMs on the same two ping-pong buffers, their
-  epilogues adding vcontrib and injecting the texture latents, and a
-  warp-per-point rgb head. Bound by operations: 2W(64 + W(nb+nt+2) +
-  W/2) = 884,736 FLOP per point at W=256, nb=3, nt=1 — 0.94 ms for a
-  16,384 × 64 launch at 989 TFLOP/s dense bf16, 0.23 ms for 4096 × 64.
+  ``planes_step``: ``trunk_fwd_kernel`` through rgb_hidden in one launch
+  (t computed as ``sigma_step`` computes it, so the sigma plane is
+  ``sigma_fwd``'s, bit for bit; the epilogues add vcontrib and inject the
+  texture latents), the sigma head and a warp-per-point rgb head. Bound
+  by operations: 2W(64 + W(nb+nt+2) + W/2) = 884,736 FLOP per point at
+  W=256, nb=3, nt=1 — 0.94 ms for a 16,384 × 64 launch at 989 TFLOP/s
+  dense bf16, 0.23 ms for 4096 × 64.
   :func:`planes_fwd_plain` is its plain version (:func:`forward_plain`
   is the forward every plain version shares), and
-  ``planes_fwd.launches["planes"]`` counts its launches.
+  ``planes_fwd.launches["planes"]`` counts its launches
+  (``planes_fwd.points`` their R·S).
   :func:`fused_codenerf_apply` runs it from rays, depths and codes.
 """
 
@@ -270,10 +272,12 @@ def sigma_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
         raise ValueError(f"sigma_fwd: unsupported device {z.device}")
     out = _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat)
     sigma_fwd.launches["sigma"] += 1
+    sigma_fwd.points["sigma"] += R * S
     return out
 
 
 sigma_fwd.launches = {"sigma": 0}
+sigma_fwd.points = {"sigma": 0}
 
 
 def sigma_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
@@ -292,9 +296,10 @@ def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
     dev = z.device
     f32, bf16 = torch.float32, torch.bfloat16
     W, nb = cfg.W, cfg.shape_blocks
-    if not ft.single_pass_available(cfg, R):
-        raise ValueError(f"sigma_fwd: the CUDA kernel takes W % 256 == 0, "
-                         f"d_xyz <= 64 and R % 16 == 0; got W={W}, R={R}")
+    if W != ft.TRUNK_W or not ft.single_pass_available(cfg, R):
+        raise ValueError(f"sigma_fwd: the CUDA kernels take W == "
+                         f"{ft.TRUNK_W}, d_xyz <= 64 and R % 16 == 0; got "
+                         f"W={W}, R={R}")
     ins = dict(ro8=ft._aligned(ro8, f32), vd8=ft._aligned(vd8, f32),
                z=ft._aligned(z, f32), sproj=ft._aligned(sproj, bf16))
     expect = dict(ro8=(R, 8), vd8=(R, 8), z=(R, S), sproj=(R, nb, W))
@@ -303,13 +308,15 @@ def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
             raise ValueError(f"sigma_fwd: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
     wops = ft.checked_weights(cfg, wflat, dev)
-    ws = torch.empty(2 * R * S * W, dtype=bf16, device=dev)
+    nt = cfg.texture_blocks
+    ws = torch.empty(lib.forward_workspace(R, S, W, nb, nt, 0), dtype=bf16,
+                     device=dev)
     sigma = torch.empty(R, S, dtype=f32, device=dev)
     wptrs, _keep = ft._ptr_array(wops)
     rc = lib.sigma_step(
         ft._ptr(ins["ro8"]), ft._ptr(ins["vd8"]), ft._ptr(ins["z"]),
         ft._ptr(ins["sproj"]), wptrs, ft._ptr(ws), ft._ptr(sigma), R, S, W,
-        nb, cfg.num_xyz_freq,
+        nb, nt, cfg.num_xyz_freq,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"sigma_fwd CUDA kernel failed: cudaError {rc}")
@@ -336,10 +343,12 @@ def planes_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
     out = _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
                               wflat)
     planes_fwd.launches["planes"] += 1
+    planes_fwd.points["planes"] += R * S
     return out
 
 
 planes_fwd.launches = {"planes": 0}
+planes_fwd.points = {"planes": 0}
 
 
 def planes_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
@@ -360,9 +369,10 @@ def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
     dev = z.device
     f32, bf16 = torch.float32, torch.bfloat16
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
-    if not ft.single_pass_available(cfg, R):
-        raise ValueError(f"planes_fwd: the CUDA kernel takes W % 256 == 0, "
-                         f"d_xyz <= 64 and R % 16 == 0; got W={W}, R={R}")
+    if W != ft.TRUNK_W or not ft.single_pass_available(cfg, R):
+        raise ValueError(f"planes_fwd: the CUDA kernels take W == "
+                         f"{ft.TRUNK_W}, d_xyz <= 64 and R % 16 == 0; got "
+                         f"W={W}, R={R}")
     ins = dict(ro8=ft._aligned(ro8, f32), vd8=ft._aligned(vd8, f32),
                z=ft._aligned(z, f32), sproj=ft._aligned(sproj, bf16),
                tproj=ft._aligned(tproj, bf16),
@@ -374,7 +384,8 @@ def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
             raise ValueError(f"planes_fwd: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
     wops = ft.checked_weights(cfg, wflat, dev)
-    ws = torch.empty(2 * R * S * W, dtype=bf16, device=dev)
+    ws = torch.empty(lib.forward_workspace(R, S, W, nb, nt, 1), dtype=bf16,
+                     device=dev)
     planes = [torch.empty(R, S, dtype=f32, device=dev) for _ in range(4)]
     wptrs, _keep = ft._ptr_array(wops)
     rc = lib.planes_step(

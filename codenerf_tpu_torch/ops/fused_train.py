@@ -30,11 +30,14 @@ per-ray bf16 ray sums ``d_sproj``, ``d_tproj``, ``d_vcontrib``.
   coarse call). The input chain adds 2·64·W FLOP per point to the frozen
   mode's, 1,769,472 per point at W=256, nb=3, nt=1: 0.35 ms for 2048 rays
   × 96 samples, 0.12 ms for 2048 × 32, 0.23 ms for 2048 × 64.
+- the pairs no path calls, as the TPU kernel has them: ``input_grads``
+  with weight gradients (one pass gives the dW/db and the ray and depth
+  cotangents), and ``want_weights`` without ``input_grads`` (the weights
+  plane beside the code cotangents: the JAX package's former two-call
+  hierarchical training route).
 
 The dual mode excludes ``want_weights`` and ``input_grads``, as on the
-TPU. The combinations no path calls (``input_grads`` with weight
-gradients, ``want_weights`` without ``input_grads``) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+TPU.
 
 The plane op (:class:`PlaneOp`, the TPU package's ``_make_plane_op``),
 replacing ``codenerf_tpu/ops/fused_train.py::_bwd_kernel`` (launched by
@@ -68,33 +71,36 @@ The design (``csrc/train_fused.cu``). The TPU kernel keeps all weights and
 every activation of a 16-ray tile (~6 MB) resident in VMEM, and in
 training its dW/db blocks stay resident as accumulators over the
 sequential grid; an H100 block has 227 KB of shared memory and blocks run
-in no order. This design is simple and right before it is fast: (i) a
-tiled bf16 WMMA GEMM fed by a 3-stage ``cp.async`` pipeline, with
-bias/ReLU epilogues that also write the next layer's latent-injected
-input, each bf16 activation going to a device-memory workspace (~2.6 GB
-per 4096 rays; ~0.25 GB per 4096 rays more in training, for the stored PE
-and y0); (ii) a per-ray head kernel — sigma and rgb heads, the composite
-as a warp scan over the samples, the loss and the composite backward, and
-in training the per-ray sums of the sigma and rgb_out gradients; (iii)
-the same GEMM transposed for the dx chain, with the ReLU masks, the sigma
-term and the per-ray row sums fused into its epilogue; (iv) in training, a
-dW GEMM per layer whose reduction axis is the points, split across
-blocks into f32 partial tiles that a column-sum kernel then adds in a
-fixed order — so dW and db are the same bits on every run, while the
+in no order. Here the trunk runs as two chained ``wgmma`` kernels that keep
+a 128-point tile's activations in shared memory across layers and stream
+the weights from L2 through a ring filled by bulk copies (each call packs
+them first, :func:`wgmma_pack` being the layout's plain version):
+``trunk_fwd_kernel`` (the PE, every forward layer, the latent
+injections; it stores only the planes later kernels read) and
+``trunk_dx_kernel`` (the dx chain from the rgb_hidden cotangent down, the
+ReLU masks, the sigma term and the per-ray row sums in its epilogue, one
+f32 atomic per ray, column and warp). Between them a per-ray head kernel
+— sigma and rgb heads, the composite as a warp scan over the samples, the
+loss and the composite backward, and in training the per-ray sums of the
+sigma and rgb_out gradients. In training the dx kernel also stores every
+gh plane, and a dW GEMM per layer (reduction axis the points, split across
+blocks into f32 partial tiles that a column-sum kernel adds in a fixed
+order) follows — so dW and db are the same bits on every run, while the
 per-ray code cotangents, summed with f32 atomics, may differ in their last
-bits; (v) in the pose modes, the head kernel also writes the weights and
-the composite's dz, and an input-chain kernel (one block per ray, W_enc^T
-in shared memory, fixed-order sums) finishes d_ro8, d_vd8 and d_z, the
-same bits on every run. The activations' round trips through HBM put a
-floor of ~2 ms per 4096 rays under this design; keeping activations on
-chip (and ``wgmma``/TMA) is later work.
+bits; with input gradients the head kernel also writes the weights and the
+composite's dz, and an input-chain kernel (one block per ray, W_enc^T in
+shared memory, fixed-order sums) finishes d_ro8, d_vd8 and d_z, the same
+bits on every run. The CUDA kernels take W = 256.
 
 Beside the kernel: :func:`train_fused_plain`, the same function in plain
 PyTorch (the CPU tests and ``chip_smoke.py`` use it; the main path never
-does on CUDA), the launch counters ``train_fused.launches["codes"]``,
-``["train"]``, ``["dual_codes"]``, ``["dual_train"]``, ``["pose"]`` and
-``["pose_weights"]`` (one per mode), :func:`hier_fine_zvals_meta`, which
-draws the fine depths and the dual mode's planes, and the
+does on CUDA), the launch counters ``train_fused.launches`` (one per
+mode: ``codes``, ``train``, ``dual_codes``, ``dual_train``, ``pose``,
+``pose_weights``, ``train_input``, ``train_weights`` ...;
+``train_fused.points`` sums the R·S of those launches),
+:func:`hier_fine_zvals_meta`, which draws the fine depths and the dual
+mode's planes, the layout of the trunk kernels' weights
+(:func:`wgmma_pack`, :func:`pack_trunk_weights_plain`), and the
 ``autograd.Function`` s :class:`FusedCodesLoss` (codes only),
 :class:`FusedPoseLoss` (rays, depths and codes) and :class:`FusedTrainLoss`
 (codes and weights), which hand the kernel's cotangents to the prologue's
@@ -119,6 +125,7 @@ from codenerf_tpu_torch.ops import fused_mlp
 _TRAIN_TILE_RAYS = 16
 _KERNEL = "train_fused"
 _MAX_SAMPLES = 256   # the head kernel's scan holds 8 samples per lane
+TRUNK_W = 256        # the trunk kernels' width (shared-memory tiles)
 
 
 def single_pass_available(cfg: NetConfig, n_rays: int) -> bool:
@@ -180,6 +187,80 @@ def flatten_params(model, cfg: NetConfig) -> List[torch.Tensor]:
 kernel_operands = fused_mlp.kernel_operands
 
 
+def _swizzle_index(N: int, device) -> torch.Tensor:
+    """(N, 8): for row n and 16-byte chunk position p, the chunk c = p ^
+    (n % 8) that the 128-byte swizzle puts there (an involution: it also
+    maps chunks to positions)."""
+    return (torch.arange(8, device=device)[None, :]
+            ^ (torch.arange(N, device=device) % 8)[:, None])
+
+
+def wgmma_pack(b: torch.Tensor) -> torch.Tensor:
+    """A bf16 matrix ``B (N, K)`` in the trunk kernels' operand layout, flat
+    (N·K,): 64-deep K slices one after another, each N rows of 64 values
+    (128 B) with the 16-byte chunk c of row n at position c ^ (n % 8) — the
+    K-major, 128-byte-swizzled layout ``wgmma`` reads from shared memory,
+    so that a slice goes there in one bulk copy. The CUDA kernels pack
+    with ``pack_kernel``; this is its plain version."""
+    N, K = b.shape
+    if K % 64 or N % 8:
+        raise ValueError(f"wgmma_pack: B is {(N, K)}; N % 8 and K % 64 "
+                         "must be 0")
+    x = b.reshape(N, K // 64, 8, 8).permute(1, 0, 2, 3)      # (s, n, c, e)
+    idx = _swizzle_index(N, b.device)[None, :, :, None].expand(K // 64, N,
+                                                                8, 8)
+    return torch.gather(x, 2, idx).reshape(-1)
+
+
+def wgmma_unpack(flat: torch.Tensor, N: int, K: int) -> torch.Tensor:
+    """The inverse of :func:`wgmma_pack`: ``B (N, K)``."""
+    x = flat.reshape(K // 64, N, 8, 8)                         # (s, n, p, e)
+    idx = _swizzle_index(N, flat.device)[None, :, :, None].expand(K // 64,
+                                                                   N, 8, 8)
+    return torch.gather(x, 2, idx).permute(1, 0, 2, 3).reshape(N, K)
+
+
+def trunk_layer_indices(cfg: NetConfig) -> List[int]:
+    """Each trunk layer's weight index in :func:`weight_shapes` order, in
+    forward order: enc_xyz, the shape blocks, enc_shape, enc_viewdir's
+    trunk rows, the texture blocks, rgb_hidden (the sigma and rgb_out
+    heads are not GEMMs of the trunk)."""
+    nb, nt = cfg.shape_blocks, cfg.texture_blocks
+    return [0, *range(1, nb + 2), *range(nb + 3, nb + nt + 5)]
+
+
+def pack_trunk_weights_plain(cfg: NetConfig, wops) -> torch.Tensor:
+    """The packed weight operands of the trunk kernels, as ``fused_step``
+    packs them (``pack_trunk_weights`` in ``csrc/train_fused.cu``): the
+    forward's ``wgmma_pack(W^T)`` of every trunk layer, then the dx
+    chain's ``wgmma_pack(W)`` of every layer but enc_xyz, for W the bf16
+    (in, out) operands of :func:`kernel_operands`."""
+    ws = [wops[2 * i] for i in trunk_layer_indices(cfg)]
+    return torch.cat([wgmma_pack(w.T.contiguous()) for w in ws]
+                     + [wgmma_pack(w) for w in ws[1:]])
+
+
+def pack_trunk_weights(cfg: NetConfig, wflat) -> torch.Tensor:
+    """:func:`pack_trunk_weights_plain` by the CUDA packer, for a check of
+    one against the other on the card (CUDA operands only)."""
+    dev = wflat[0].device
+    if dev.type != "cuda":
+        raise ValueError("pack_trunk_weights packs CUDA operands; "
+                         "pack_trunk_weights_plain is its plain version")
+    lib = library()
+    wops = checked_weights(cfg, wflat, dev)
+    out = torch.empty(lib.packed_trunk_elems(cfg.W, cfg.shape_blocks,
+                                             cfg.texture_blocks),
+                      dtype=torch.bfloat16, device=dev)
+    wptrs, _keep = _ptr_array(wops)
+    rc = lib.pack_trunk_weights(
+        wptrs, cfg.W, cfg.shape_blocks, cfg.texture_blocks, _ptr(out),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"pack_trunk_weights failed: cudaError {rc}")
+    return out
+
+
 def hier_fine_zvals(z2d: torch.Tensor, w_coarse: torch.Tensor,
                     generator: Optional[torch.Generator], n_importance: int,
                     u: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -221,24 +302,15 @@ def _check_mode(weight_grads, want_weights, input_grads, coarse_mask,
         raise ValueError("the dual-composite mode excludes want_weights and "
                          "input_grads (its coarse weights come from the "
                          "sigma-only forward; it never differentiates z)")
-    if input_grads and weight_grads:
-        raise NotImplementedError(
-            "train_fused(input_grads=True, weight_grads=True) has no caller "
-            "in the JAX package and is not ported (ROADMAP.md Queue 2, item "
-            "11); pose optimization runs input_grads with weight_grads=False")
-    if want_weights and not input_grads:
-        raise NotImplementedError(
-            "train_fused(want_weights=True) without input_grads — the JAX "
-            "package's former two-call hierarchical training route, which "
-            "no path calls — is not ported (ROADMAP.md Queue 2, item 11); "
-            "the weights plane comes with the pose modes")
 
 
 def _mode(weight_grads: bool, dual: bool, want_weights: bool = False,
           input_grads: bool = False) -> str:
-    if input_grads:
+    if input_grads and not weight_grads:
         return "pose_weights" if want_weights else "pose"
-    return ("dual_" if dual else "") + ("train" if weight_grads else "codes")
+    return (("dual_" if dual else "") + ("train" if weight_grads else "codes")
+            + ("_input" if input_grads else "")
+            + ("_weights" if want_weights else ""))
 
 
 def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
@@ -253,11 +325,11 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
     bias gradients f32 in :func:`weight_shapes` order. Every cotangent is
     that of ``scale · se_sum`` (the kernel's cotangent is 2·scale·diff).
 
-    ``input_grads`` (with ``weight_grads=False``) selects the pose modes:
-    the exact cotangents of the rays and depths, the PE Jacobian chain
-    through enc_xyz plus the composite's own z term; ``want_weights``
-    comes with it and adds the compositing weights (the hierarchical
-    coarse call of pose optimization).
+    ``input_grads`` adds the exact cotangents of the rays and depths, the
+    PE Jacobian chain through enc_xyz plus the composite's own z term
+    (with ``weight_grads=False``: the pose modes); ``want_weights`` adds
+    the compositing weights (with ``input_grads``: the hierarchical coarse
+    call of pose optimization).
 
     ``coarse_mask`` and ``coarse_delta`` ((R, S) f32, from
     :func:`hier_fine_zvals_meta`) select the dual-composite mode: ``z`` is
@@ -267,9 +339,11 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
     ``scale · (se_fine + se_coarse)``.
 
     On CPU tensors this is :func:`train_fused_plain`; on CUDA tensors it
-    launches the CUDA kernel (and counts the launch in its mode's
-    counter: ``codes``, ``train``, ``dual_codes``, ``dual_train``,
-    ``pose``, ``pose_weights``)."""
+    launches the CUDA kernels (and counts the launch in its mode's
+    counter, ``train_fused.launches``, and its R·S points in
+    ``train_fused.points``: ``codes``, ``train``, ``dual_codes``,
+    ``dual_train``, ``pose``, ``pose_weights``, ``train_input``,
+    ``train_weights``, ``codes_weights``, ``train_input_weights``)."""
     _check_mode(weight_grads, want_weights, input_grads, coarse_mask,
                 coarse_delta)
     if z.shape != (R, S):
@@ -287,13 +361,17 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
     outs = _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
                         tproj, vcontrib, gt8, wflat, want_weights, want_rgb,
                         weight_grads, input_grads, coarse_mask, coarse_delta)
-    train_fused.launches[_mode(weight_grads, coarse_mask is not None,
-                               want_weights, input_grads)] += 1
+    mode = _mode(weight_grads, coarse_mask is not None, want_weights,
+                 input_grads)
+    train_fused.launches[mode] += 1
+    train_fused.points[mode] += R * S
     return outs
 
 
-train_fused.launches = {"codes": 0, "train": 0, "dual_codes": 0,
-                        "dual_train": 0, "pose": 0, "pose_weights": 0}
+train_fused.launches = {m: 0 for m in (
+    "codes", "train", "dual_codes", "dual_train", "pose", "pose_weights",
+    "train_input", "train_weights", "codes_weights", "train_input_weights")}
+train_fused.points = dict(train_fused.launches)
 
 
 def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
@@ -476,11 +554,11 @@ def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
 
     On CPU tensors this is :func:`plane_bwd_plain`; on CUDA tensors it
     launches ``fused_step`` of ``csrc/train_fused.cu`` with the planes
-    in place of the composite (the same workspace, GEMMs, chains and
-    input-chain kernel as :func:`train_fused`) and counts the launch in
-    ``plane_bwd.launches``: ``plane_train`` (weight gradients),
-    ``plane_codes`` (neither), ``plane_pose`` (input gradients),
-    ``plane_train_input`` (both)."""
+    in place of the composite (the same workspace, trunk kernels, chains
+    and input-chain kernel as :func:`train_fused`) and counts the launch
+    in ``plane_bwd.launches`` (its R·S in ``plane_bwd.points``):
+    ``plane_train`` (weight gradients), ``plane_codes`` (neither),
+    ``plane_pose`` (input gradients), ``plane_train_input`` (both)."""
     if z.shape != (R, S):
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
@@ -492,12 +570,15 @@ def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
     outs = _launch_cuda(cfg, S, R, True, 1.0, ro8, vd8, z, sproj, tproj,
                         vcontrib, None, wflat, False, False, weight_grads,
                         input_grads, None, None, g_planes=g_planes)
-    plane_bwd.launches[_plane_mode(weight_grads, input_grads)] += 1
+    mode = _plane_mode(weight_grads, input_grads)
+    plane_bwd.launches[mode] += 1
+    plane_bwd.points[mode] += R * S
     return outs
 
 
 plane_bwd.launches = {"plane_train": 0, "plane_codes": 0, "plane_pose": 0,
                       "plane_train_input": 0}
+plane_bwd.points = dict(plane_bwd.launches)
 
 
 def plane_bwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
@@ -547,8 +628,14 @@ def _bind(lib: ctypes.CDLL):
     lib.fused_step.restype = ci
     lib.fused_workspace.argtypes = [ci] * 7 + [vp, vp]
     lib.fused_workspace.restype = None
-    lib.sigma_step.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.sigma_step.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.sigma_step.restype = ci
+    lib.forward_workspace.argtypes = [ci] * 6
+    lib.forward_workspace.restype = ctypes.c_size_t
+    lib.pack_trunk_weights.argtypes = [vp, ci, ci, ci, vp, vp]
+    lib.pack_trunk_weights.restype = ci
+    lib.packed_trunk_elems.argtypes = [ci] * 3
+    lib.packed_trunk_elems.restype = ctypes.c_size_t
     lib.planes_step.argtypes = [vp] * 12 + [ci] * 6 + [vp]
     lib.planes_step.restype = ci
     lib.composite_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
@@ -560,8 +647,9 @@ def _bind(lib: ctypes.CDLL):
 def library() -> ctypes.CDLL:
     """``csrc/train_fused.cu`` built (at first use), loaded and bound: the
     single-pass kernel's and the plane-op backward's ``fused_step``, the
-    forwards ``sigma_step`` and ``planes_step``, and the standalone
-    composite's ``composite_fwd`` and ``composite_bwd``."""
+    forwards ``sigma_step`` and ``planes_step``, the standalone
+    composite's ``composite_fwd`` and ``composite_bwd``, and the weight
+    packer ``pack_trunk_weights``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)
@@ -595,9 +683,10 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
     dual = coarse_mask is not None
     planes = g_planes is not None
     what = "plane_bwd" if planes else "train_fused"
-    if S > _MAX_SAMPLES or not single_pass_available(cfg, R):
-        raise ValueError(f"{what}: the CUDA kernel takes S <= "
-                         f"{_MAX_SAMPLES}, W % 256 == 0, d_xyz <= 64 and "
+    if S > _MAX_SAMPLES or W != TRUNK_W or not single_pass_available(cfg,
+                                                                     R):
+        raise ValueError(f"{what}: the CUDA kernels take S <= "
+                         f"{_MAX_SAMPLES}, W == {TRUNK_W}, d_xyz <= 64 and "
                          f"R % 16 == 0; got S={S}, W={W}, R={R}")
     ins = dict(ro8=_aligned(ro8, f32), vd8=_aligned(vd8, f32),
                z=_aligned(z, f32), sproj=_aligned(sproj, bf16),

@@ -157,25 +157,21 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
     reg_coef = hp.loss_reg_coef / hp.quirks.reg_chunk_divisor
     hier = rcfg.n_importance > 0
     single_pass = uses_single_pass_loss(hp)
-    step_rays = microbatch_rays or batch_size
-    if single_pass:
-        ok = not step_rays or fused_train.single_pass_available(net_cfg,
-                                                                step_rays)
-        tile = fused_train._TRAIN_TILE_RAYS
-    else:
-        # The plane op's rule for every sample count it evaluates, as the
-        # JAX step checks it (32 * 16 rays when the batch is not known).
-        step_rays = step_rays or 32 * fused_train._TRAIN_TILE_RAYS
-        counts = [rcfg.n_samples] + ([rcfg.n_samples + rcfg.n_importance]
-                                     if hier else [])
-        ok = all(fused_train.fused_train_available(net_cfg, step_rays, n)
-                 for n in counts)
-        tile = fused_mlp._TILE_RAYS
+    # Every fused route checks the plane-op pair's rule for every sample
+    # count it evaluates, as the JAX step does (its build_train_step; 32 *
+    # 16 rays when the batch is not known).
+    step_rays = (microbatch_rays or batch_size
+                 or 32 * fused_train._TRAIN_TILE_RAYS)
+    counts = [rcfg.n_samples] + ([rcfg.n_samples + rcfg.n_importance]
+                                 if hier else [])
+    ok = all(fused_train.fused_train_available(net_cfg, step_rays, n)
+             for n in counts)
     if hp.use_fused_train and not ok:
         raise ValueError(
             "use_fused_train requires W % 256 == 0, num_xyz_freq <= 10, "
             ">= 1 shape/texture block and a ray count divisible by "
-            f"{tile} (got W={net_cfg.W}, d_xyz={net_cfg.d_xyz}, blocks="
+            f"{fused_mlp._TILE_RAYS} (got W={net_cfg.W}, d_xyz="
+            f"{net_cfg.d_xyz}, blocks="
             f"{net_cfg.shape_blocks}/{net_cfg.texture_blocks}, rays/step="
             f"{step_rays})")
     apply_fn = None

@@ -117,12 +117,12 @@ def test_plain_kernel_matches_jax_train_kernel():
 
 @pytest.mark.parametrize("mode", ["dual", "want_weights", "input_grads"])
 def test_unported_modes_raise(mode):
-    """``want_weights`` and ``input_grads`` are ported together, in the
-    pose modes (``weight_grads=False``, tests/test_torch_pose_kernel.py);
-    the combinations no path calls — ``want_weights`` without
-    ``input_grads``, ``input_grads`` with weight gradients — raise naming
-    their ROADMAP.md item. The dual mode excludes both (as
-    ``invoke_train_fused`` does)."""
+    """What still raises is what ``invoke_train_fused`` refuses: the dual
+    mode excludes ``want_weights`` and ``input_grads``, and its two planes
+    come together. The two pairs that no path calls — ``want_weights``
+    without ``input_grads``, ``input_grads`` with weight gradients — are
+    ported and pass the mode check (their outputs against JAX:
+    tests/test_torch_train_pairs.py), each with its launch counter."""
     cfg = NetConfig(**KW)
     if mode == "dual":
         plane = torch.ones(R, S)
@@ -137,8 +137,16 @@ def test_unported_modes_raise(mode):
         return
     kw = {"want_weights": mode == "want_weights",
           "input_grads": mode == "input_grads", "weight_grads": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 8), **kw)
+    fused_train._check_mode(kw["weight_grads"], kw["want_weights"],
+                            kw["input_grads"], None, None)
+    name = fused_train._mode(True, False, kw["want_weights"],
+                             kw["input_grads"])
+    assert name == ("train_weights" if mode == "want_weights"
+                    else "train_input")
+    assert name in fused_train.train_fused.launches
+    with pytest.raises(ValueError, match="expected"):   # reaches the shapes
+        fused_train.train_fused(cfg, S, R, True, 1.0, *([None] * 2),
+                                torch.zeros(R, S + 1), *([None] * 5), **kw)
 
 
 def test_other_devices_raise():

@@ -16,7 +16,8 @@ PORT = REPO / "codenerf_tpu_torch"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "trunk_ablation.py"]
 
 
 def test_every_module_imports_with_jax_blocked():

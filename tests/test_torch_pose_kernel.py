@@ -164,15 +164,21 @@ def test_pose_mode_appends_to_the_codes_mode(setup):
 
 
 def test_mode_checks():
-    cfg = NetConfig(**KW)
-    none8 = [None] * 8
+    """The pose modes' counters, and those of the input gradients with
+    weight gradients, which are ported too (their outputs against JAX:
+    tests/test_torch_train_pairs.py): every flag pair passes the check."""
     for kw in ({"want_weights": True, "input_grads": True},
                {"input_grads": True}):
-        with pytest.raises(NotImplementedError, match="Queue 2, item 11"):
-            fused_train.train_fused(cfg, S, R, True, 1.0, *none8, **kw)
+        for wg in (False, True):
+            fused_train._check_mode(wg, kw.get("want_weights", False),
+                                    kw["input_grads"], None, None)
     assert fused_train._mode(False, False, True, True) == "pose_weights"
     assert fused_train._mode(False, False, False, True) == "pose"
-    assert {"pose", "pose_weights"} <= set(fused_train.train_fused.launches)
+    assert fused_train._mode(True, False, False, True) == "train_input"
+    assert fused_train._mode(True, False, True, True) == \
+        "train_input_weights"
+    assert {"pose", "pose_weights", "train_input", "train_input_weights"} \
+        <= set(fused_train.train_fused.launches)
 
 
 def _jax_sp_grads(k, ro, vd, z, sc, tc):

@@ -294,23 +294,24 @@ def _named_grads(state):
 
 @pytest.mark.parametrize("route", ["fused", "autodiff"])
 def test_microbatched_grads_equal_whole_batch(scene, route):
-    """(d) Two microbatches of 16 rays give the gradients and metrics of
-    the whole 32-ray batch. A gradient that leaves through a bf16 cast is
-    rounded once per microbatch (as in the JAX package): on the fused
-    route the prologue's latent projections and enc_viewdir's viewdir
-    rows, on the autodiff route every model weight — those agree to one
-    bf16 ulp (relative L2 below 2^-8; measured 2.2e-3). The rest, the
-    kernel's f32 dW/db and both code tables among them, below 1e-5."""
+    """(d) Two microbatches of 32 rays give the gradients and metrics of
+    the whole 64-ray batch (32 rays is the smallest microbatch the fused
+    routes take, as in the JAX package). A gradient that leaves through a
+    bf16 cast is rounded once per microbatch (as in the JAX package): on
+    the fused route the prologue's latent projections and enc_viewdir's
+    viewdir rows, on the autodiff route every model weight — those agree
+    to one bf16 ulp (relative L2 below 2^-8). The rest, the kernel's f32
+    dW/db and both code tables among them, below 1e-5."""
     _, hp = _hparams(scene, fused=route == "fused")
     jtr = _jax_trainables()
-    batch, z = _batch(scene, seed=4)
+    batch, z = _batch(scene, seed=4, n=2 * R)
     H, W = scene["images"].shape[2:4]
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
     out = []
-    for mb in (0, R // 2):
+    for mb in (0, R):
         state = trainables_from_jax(jtr, hp, device="cpu")
         grad_fn = train_step.build_grad_fn(hp, H, W, microbatch_rays=mb,
-                                           batch_size=R)
+                                           batch_size=2 * R)
         m = grad_fn(state, tb, z=torch.from_numpy(z))
         out.append((_named_grads(state), m))
     (g_all, m_all), (g_mb, m_mb) = out
@@ -446,6 +447,32 @@ def test_mesh_raises(scene):
     _, hp = _hparams(scene)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_step.build_train_step(hp, 16, 16, batch_size=R, mesh=object())
+
+
+@pytest.mark.parametrize("rays", [16, 48, 32, 64])
+@pytest.mark.parametrize("extra", [{}, {"fused_composite": False}],
+                         ids=["single_pass", "plane_op"])
+def test_ray_count_rule_matches_jax(scene, extra, rays):
+    """Every fused route takes the ray counts the JAX package takes and
+    refuses the others with ValueError: the plane-op pair's 32-ray rule,
+    on the single pass as on the plane op (JAX
+    ``build_train_step``), as a batch and as microbatches."""
+    jhp, hp = _hparams(scene, **extra)
+    assert train_step.uses_single_pass_loss(hp) == (not extra)
+    for kw in (dict(batch_size=rays),
+               dict(batch_size=2 * rays, microbatch_rays=rays)):
+        try:
+            j_train_step.build_train_step(jhp, 16, 16, optax.adam(1e-3),
+                                          **kw)
+            jax_raises = False
+        except ValueError:
+            jax_raises = True
+        assert jax_raises == (rays % 32 != 0), (kw, jax_raises)
+        if jax_raises:
+            with pytest.raises(ValueError, match="divisible by 32"):
+                train_step.build_train_step(hp, 16, 16, **kw)
+        else:
+            train_step.build_train_step(hp, 16, 16, **kw)
 
 
 def test_fused_rejects_untileable_batch(scene):
