@@ -40,10 +40,15 @@ Phases, each printed on its own line with its seconds:
    plain version and against the weight-gradient mode on the same inputs
    (its dW/db the same bits). First the CUDA weight packing against its
    plain version (bit-equal); the weight-gradient mode's dW/db must be
-   the same bits over two calls. Timings of each kernel, its plain
+   the same bits over two calls; the weight-gradient kernel alone
+   (``fused_train.weight_grads``) on the planes of a training-shape call
+   (16,384 × 96, every trunk layer) against ``weight_grads_plain``, its
+   dW/db the same bits over two calls. Timings of each kernel, its plain
    version and its bound, a ``torch.profiler`` breakdown by kernel name,
-   and the trunk kernels' ms per launch and TFLOP/s at the training
-   shape;
+   the trunk kernels' ms per launch and TFLOP/s, the head kernel's ms and
+   GB/s and the weight-gradient kernel's ms, TFLOP/s and GB/s against its
+   byte floor, beside ``torch.matmul(X.t(), G)`` over the same planes (the
+   yardstick; the port never calls it);
 3. coarse training: ``codenerf_tpu_torch.train.main`` at
    ``jsonfiles/srncar_fused.json`` widths and the CLI's batch of 16,384
    rays on a seeded SRN-layout ``cars_train`` set (4 objects x 4 views,
@@ -371,7 +376,10 @@ def kernel_check(dev, weight_grads: bool):
         f"{nbytes} B at {PEAK_HBM_BYTES:.3e} B/s) at R={R}, S={S}")
     profile_breakdown(lambda: fused_train.train_fused(*args, **kw),
                       sequence=weight_grads)
-    trunk_rates(cfg, R, S, lambda: fused_train.train_fused(*args, **kw))
+    trunk_rates(cfg, R, S, lambda: fused_train.train_fused(*args, **kw),
+                weight_grads)
+    head_dw_rates(cfg, R, S, lambda: fused_train.train_fused(*args, **kw),
+                  weight_grads)
     mode = ("weight_grads=True" if weight_grads
             else "weight_grads=False, want_rgb")
     return {"name": f"train_fused ({mode})", "route": "cuda",
@@ -862,21 +870,140 @@ def chain_check(dev, input_grads: bool, R: int, S: int):
     _fail_on(checks, f"the plane-op chain vs the single-pass {what} mode")
 
 
-def trunk_rates(cfg, R: int, S: int, fn) -> None:
-    """One line per trunk kernel: device ms per launch (torch.profiler)
-    and TFLOP/s of its matmuls in ``fn``'s call at R × S."""
+def trunk_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
+    """One line per trunk kernel: device ms per launch (torch.profiler),
+    TFLOP/s of its matmuls in ``fn``'s call at R × S, and its bound: the
+    larger of its matmuls at the bf16 peak and the bytes a point must move
+    at the HBM rate. The forward writes t, r and the ReLU-mask bit planes
+    (32 B each), in training also every dW input (the PE, the injected
+    inputs, the last shape and texture outputs) and enc_xyz's mask; the
+    dx chain reads the rgb_hidden cotangent, dsig and the masks, and in
+    training writes every gh plane."""
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
     P = R * S
-    flops = {"trunk_fwd_kernel": 2 * P * (64 * W + W * W * (nb + nt + 2)
-                                          + W * W // 2),
-             "trunk_dx_kernel": 2 * P * (W * W * (nb + nt + 2)
-                                         + W * W // 2)}
-    for name, f in flops.items():
+    masks = (nb + nt + 1 + weight_grads) * 32
+    fwd_b = 4 + 2 * W + W + masks
+    dx_b = W + 4 + masks
+    if weight_grads:
+        fwd_b += 2 * 64 + 2 * W * (nb + nt + 2)
+        dx_b += 2 * W * (nb + nt + 3)
+    work = {"trunk_fwd_kernel": (2 * P * (64 * W + W * W * (nb + nt + 2)
+                                          + W * W // 2), P * fwd_b),
+            "trunk_dx_kernel": (2 * P * (W * W * (nb + nt + 2)
+                                         + W * W // 2), P * dx_b)}
+    for name, (f, nbytes) in work.items():
         ms = device_ms(fn, name, calls=5)
+        bnd = _bound(f, nbytes)
         rate = "not measured" if ms is None else \
             f"{ms:.4f} ms per launch, {f / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
-        log(f"  {name} at R={R}, S={S} ({f:.4e} FLOP): {rate} "
-            f"({PEAK_BF16_FLOPS / 1e12:.0f} peak)")
+        log(f"  {name} at R={R}, S={S} ({f:.4e} FLOP, {nbytes} B to move): "
+            f"{rate} ({PEAK_BF16_FLOPS / 1e12:.0f} peak); bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
+
+
+def head_dw_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
+    """One line each, from ``fn``'s call at R × S (torch.profiler): the
+    head kernel's device ms per launch and GB/s against the bytes the head
+    must move — t and r read once (768 B a point at W=256), g_r and dsig
+    written (260 B), z, gt8 and se8 (and rgb8 or the head's rows) — and
+    with weight gradients the dW kernel's ms, TFLOP/s and GB/s against the
+    planes it reads (7,552 B a point) and its fixed-order sum's ms."""
+    W, P = cfg.W, R * S
+    nbytes = P * (W * 2 + W + W + 4) + P * 4 + R * 32 * 2
+    if weight_grads:
+        nbytes += (R + 7) // 8 * (W + W // 2 * 8 + 16) * 4
+    ms = device_ms(fn, "head_kernel", calls=5)
+    rate = "not measured" if ms is None else \
+        f"{ms:.4f} ms per launch, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s"
+    log(f"  head_kernel at R={R}, S={S} ({nbytes} B to move, "
+        f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms at "
+        f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s): {rate}")
+    if not weight_grads:
+        return
+    nb, nt = cfg.shape_blocks, cfg.texture_blocks
+    flops = 2 * P * (64 * W + W * W * (nb + nt + 2) + W * W // 2)
+    planes = P * 2 * ((64 + W) + (nb + nt + 2) * 2 * W + (W + W // 2))
+    ms = device_ms(fn, "wgrad_kernel", calls=5)
+    sum_ms = device_ms(fn, "fixed_sum_kernel", calls=5)
+    rate = "not measured" if ms is None else (
+        f"{ms:.4f} ms per launch, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{planes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    log(f"  wgrad_kernel at R={R}, S={S} ({flops:.4e} FLOP, {planes} B of "
+        f"planes; byte floor {planes / PEAK_HBM_BYTES * 1e3:.4f} ms): "
+        f"{rate}; fixed_sum_kernel "
+        f"{'not measured' if sum_ms is None else f'{sum_ms:.4f} ms'}")
+
+
+def wgrad_check(dev):
+    """Phase 2: the weight-gradient kernel alone (fused_train.weight_grads:
+    one wgrad_kernel and one fixed_sum_kernel launch for every pair) on
+    the planes of one training-shape call — each trunk layer's bf16 input
+    and output cotangent at 16,384 × 96, from the plain chain on the card,
+    in fused_step's order — against weight_grads_plain, every layer, with
+    _close's bar; dW/db the same bits over two calls. Then its device ms,
+    TFLOP/s and GB/s against the byte floor, and as its yardstick
+    torch.matmul(X.t(), G) over the same pairs (never called by the
+    port). Returns the kernel's ms per launch and the yardstick's."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_mlp, fused_train
+
+    cfg, args = kernel_inputs(dev, R_TRAIN, S_FULL)
+    _, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, wops = args
+    acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
+                                   vcontrib, wops)
+    _, _, _, g_sigma, g_rgb, _ = fused_train.head_plain(
+        R, S, acts["sig_pre"], acts["rgb"], z, gt8, wbg, scale)
+    named = []
+    fused_train.backward_chain_plain(cfg, R, S, acts, sproj, tproj, wops,
+                                     g_sigma, g_rgb, True, False,
+                                     pairs=named)
+    del acts, g_sigma, g_rgb
+    by_name = {n: (x, g) for n, x, g in named}
+    names = (["rgb_hidden"]
+             + [f"texture_{k}" for k in range(cfg.texture_blocks)]
+             + ["enc_viewdir_pt", "enc_shape"]
+             + [f"shape_{k}" for k in range(cfg.shape_blocks)] + ["enc_xyz"])
+    pairs = [by_name[n] for n in names]
+    del named, by_name
+    torch.cuda.empty_cache()
+    got = fused_train.weight_grads(pairs)
+    torch.cuda.synchronize()
+    again = fused_train.weight_grads(pairs)
+    want = fused_train.weight_grads_plain(pairs)
+    checks = []
+    for n, g, w in zip(names, got, want):
+        for k in (0, 1):
+            name = f"{n}.{'wb'[k]} (wgrad_kernel)"
+            checks.append((name, *_close(name, g[k], w[k])))
+    ok = all(torch.equal(a[k], b[k]) for a, b in zip(got, again)
+             for k in (0, 1))
+    log(f"  wgrad_kernel dW/db over two calls: "
+        f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
+    checks.append(("dW/db (two calls)", 0.0, ok))
+    del got, again, want
+    _fail_on(checks, "wgrad_kernel")
+    P = R * S
+    flops = sum(2 * P * x.shape[1] * g.shape[1] for x, g in pairs)
+    nbytes = sum(2 * P * (x.shape[1] + g.shape[1]) for x, g in pairs)
+    ms = device_ms(lambda: fused_train.weight_grads(pairs), "wgrad_kernel",
+                   calls=5)
+    sum_ms = device_ms(lambda: fused_train.weight_grads(pairs),
+                       "fixed_sum_kernel", calls=5)
+    lib_ms = time_cuda(lambda: [torch.matmul(x.t(), g) for x, g in pairs],
+                       reps=5)
+    log(f"  wgrad_kernel alone at R={R}, S={S} ({len(pairs)} layers, "
+        f"{flops:.4e} FLOP, {nbytes} B of planes, byte floor "
+        f"{nbytes / PEAK_HBM_BYTES * 1e3:.4f} ms at "
+        f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s): "
+        + ("not measured" if ms is None else
+           f"{ms:.4f} ms per launch, {flops / (ms * 1e-3) / 1e12:.1f} "
+           f"TFLOP/s, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        + f"; fixed_sum_kernel "
+        + ("not measured" if sum_ms is None else f"{sum_ms:.4f} ms")
+        + f"; torch.matmul(X.t(), G) over the same pairs {lib_ms:.4f} ms "
+        f"(the yardstick; the port never calls it)")
+    return ms, lib_ms
 
 
 def pack_check(dev) -> None:
@@ -1018,7 +1145,7 @@ def _short(name: str) -> str:
 # own kernels in anonymous namespaces too, so the port's are told apart
 # by name.
 PORT_KERNELS = ("trunk_fwd_kernel", "trunk_dx_kernel", "pack_kernel",
-                "dw_kernel", "head_kernel", "colsum_kernel",
+                "wgrad_kernel", "head_kernel", "fixed_sum_kernel",
                 "f32_to_bf16_kernel", "sigma_head_kernel",
                 "input_chain_kernel", "rgb_head_kernel", "composite_kernel")
 
@@ -1027,13 +1154,13 @@ def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
                      steps: int) -> None:
     """Wall ms per step untraced and traced, device-busy ms in the traced
     window split into the port's kernels and PyTorch's, the idle share
-    against each wall, and the device ms per step of the largest kernels
-    by name (port or PyTorch). The tracer spaces kernels apart and slows
-    the host, so the idle share against the untraced wall is the step's
-    own."""
+    against each wall, the device ms per step of the largest kernels by
+    name (port or PyTorch), and the port's launches per step by name. The
+    tracer spaces kernels apart and slows the host, so the idle share
+    against the untraced wall is the step's own."""
     from torch.autograd import DeviceType
 
-    ours, other, by_name = 0.0, 0.0, {}
+    ours, other, by_name, count = 0.0, 0.0, {}, {}
     for ev in prof.events():
         # User annotations (e.g. ``Optimizer.step#AdamW.step``) are ranges
         # on the device timeline that overlap the kernels they enclose.
@@ -1045,6 +1172,7 @@ def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
         by_name[name] = by_name.get(name, 0.0) + ms
         if name.split("<")[0] in PORT_KERNELS:
             ours += ms
+            count[name] = count.get(name, 0) + 1
         else:
             other += ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -1055,7 +1183,9 @@ def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
         f"share {max(0.0, 1.0 - busy / untraced_ms):.3f} of the untraced "
         f"wall, {max(0.0, 1.0 - busy / wall_ms):.3f} of the traced; "
         f"largest kernels (ms/step): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in top))
+        + ", ".join(f"{k} {v:.3f}" for k, v in top)
+        + "; the port's launches per step: "
+        + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(count.items())))
 
 
 def write_dataset(root: str, split: str, n_objs: int, n_views: int,
@@ -1143,6 +1273,7 @@ class LaunchCounts:
             (fused_mlp, "sigma_fwd_plain"), (fused_mlp, "planes_fwd_plain"),
             (fused_train, "train_fused_plain"),
             (fused_train, "plane_bwd_plain"),
+            (fused_train, "weight_grads_plain"), (fused_train, "head_plain"),
             (composite, "composite_fwd_plain"),
             (composite, "composite_bwd_plain"))]
 
@@ -1780,6 +1911,10 @@ def main() -> int:
     entries = {"codes": kernel_check(dev, weight_grads=False)}
     log(f"phase 2: weight-gradient mode at R={R_TRAIN}")
     entries["train"] = kernel_check(dev, weight_grads=True)
+    torch.cuda.empty_cache()
+    log(f"phase 2: the weight-gradient kernel alone on the planes of a "
+        f"training call at R={R_TRAIN}, S={S_FULL}")
+    wgrad_check(dev)
     torch.cuda.empty_cache()
     log(f"phase 2: sigma-only forward at R={R_TRAIN} and R={R_CODES}, "
         f"S={S_COARSE}")

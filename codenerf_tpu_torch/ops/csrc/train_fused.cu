@@ -45,10 +45,12 @@
 //         planes (32 B a point) for the dx chain, t and r for the heads,
 //         and in weight-gradient mode each dW GEMM's bf16 input (the PE,
 //         the injected inputs, the last shape and texture blocks' outputs).
-//   (iii) head_kernel: one block per ray. Sigma head (dot with the w_sig
-//         row, softplus), rgb_out head, composite with a warp scan over the
-//         samples, MSE, composite backward; emits dsig = g_sigma *
-//         sigmoid(sig_pre) and the rgb_hidden cotangent (masked, bf16).
+//   (iii) head_kernel: one warp per ray, 8 rays a block. Sigma head (dot
+//         with the w_sig row, softplus) and rgb_out head from 16-byte rows
+//         of t and r, the composite with a warp scan over the samples,
+//         MSE, composite backward; emits dsig = g_sigma * sigmoid(sig_pre)
+//         and the rgb_hidden cotangent (masked by r's ReLU bits kept in
+//         shared memory, bf16, 16-byte stores).
 //   (iv)  trunk_dx_kernel: the dx chain gh @ W^T from the rgb_hidden
 //         cotangent down to enc_xyz's output in one launch, with the same
 //         tiles, warpgroups, ring and wgmma shapes. The epilogue
@@ -59,17 +61,17 @@
 //         three cotangent outputs. In weight-gradient mode it also stores
 //         every gh plane, 16 bytes a thread.
 // Weight-gradient mode adds:
-//   (v)   dw_kernel: dW = X^T @ GH per layer after the dx chain, a GEMM
-//         whose reduction axis is the points (WMMA tiles, cp.async). The
-//         points are split over blockIdx.z; each block reduces its slice
-//         into an f32 register tile and writes it to a partial buffer, and
-//         column sums of the GH tiles it loads give the bias partials.
-//         colsum_kernel then adds the partials in a fixed order, so dW and
-//         db are the same bits on every run (no atomics);
+//   (v)   wgrad_kernel: dW = X^T @ GH and db = sum GH of every trunk
+//         layer in one launch after the dx chain: a static list of
+//         (output tile, point split) items walked by persistent blocks,
+//         wgmma from TMA-loaded boxes of the stored planes (both operands
+//         MN-major), each item's f32 partial tile written without atomics;
 //   (vi)  head_kernel's phase 4: per ray, sum_s t*dsig (sigma dW),
-//         sum_s dsig, sum_s r*gh8 and sum_s gh8 (rgb_out dW, db) into a
-//         (R, HEAD_PART) buffer, then colsum_kernel in two fixed-order
-//         stages.
+//         sum_s dsig, sum_s r*gh8 and sum_s gh8 (rgb_out dW, db), added
+//         over the block's rays in order into one row per block;
+//         fixed_sum_kernel then adds the splits of (v) and the rows of
+//         (vi) in a fixed order in one launch, so dW and db are the same
+//         bits on every run.
 // The input gradients add:
 //   (vii) head_kernel writes the composite's z cotangent; the forward keeps
 //         y0 and the dx chain runs on through enc_xyz's ReLU mask to gh0;
@@ -89,34 +91,19 @@
 // times f32 dsig. The per-ray code cotangents are summed with f32 atomics,
 // so their last bits may differ from run to run; dW and db do not.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// dw_kernel: 128 x 128 WMMA tiles of 8 warps, a 3-stage cp.async pipeline.
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3;
-constexpr int GEMM_THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int LDA_T = BM + 8;      // A stage held (BK, BM), k-major
-constexpr int LDB_ROW = BN + 8;
-constexpr int A_STAGE = BK * LDA_T;                     // bf16 elements
-constexpr int B_STAGE = BK * LDB_ROW;
-constexpr size_t GEMM_SMEM = sizeof(bf16) * STAGES * (A_STAGE + B_STAGE);
-constexpr int HEAD_THREADS = 128;
 constexpr int MAX_PER_LANE = 8;    // samples per lane in the head scan
 constexpr int MAX_S = 32 * MAX_PER_LANE;
 constexpr unsigned FULL = 0xffffffffu;
-// dW GEMM blocks per launch: 2 blocks of GEMM_THREADS on each of the
-// H100's 132 SMs. A constant, so the split of the points (and with it the
-// order of the sums) does not depend on the card.
-constexpr int DW_BLOCKS = 264;
-constexpr int COLSUM_GROUPS = 64;  // first-stage row groups of a column sum
 
 // The trunk kernels.
 constexpr int TW = 256;            // the trunk width they take
@@ -323,6 +310,55 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[64], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256, f32) += A (64 x 16) * B (16 x 256), both bf16 MN-major in
+// shared memory (imm-trans-a = imm-trans-b = 1); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_tt_n256(float (&d)[128], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -727,8 +763,8 @@ __global__ void __launch_bounds__(TRUNK_THREADS, 1) trunk_fwd_kernel(
 // One ladder step of the warp's row reduction: the lanes whose ``mask``
 // bit is clear keep x[0, half) and those with it set x[half, 2 half), each
 // adding its partner's copy of the half it keeps.
-template <int HALF>
-__device__ __forceinline__ void reduce_step(float (&x)[16], int mask,
+template <int HALF, int N>
+__device__ __forceinline__ void reduce_step(float (&x)[N], int mask,
                                             int lane) {
   const bool hi = lane & mask;
 #pragma unroll
@@ -895,143 +931,370 @@ __global__ void __launch_bounds__(TRUNK_THREADS, 1) trunk_dx_kernel(
   }
 }
 
-struct DwArgs {
-  int P, M, N;             // dW (M x N) = X^T @ GH over P points
-  const bf16* X;           // (P, M) row-major: the layer's input
-  const bf16* G;           // (P, N) row-major: its bf16 output cotangent
-  int per_split;           // points per blockIdx.z, a multiple of BK
-  float* part_w;           // [splits][M][N] partial dW
-  float* part_b;           // [splits][N] partial db (column sums of GH)
+// ---------------------------------------------------------------- dW
+//
+// The weight gradients of every trunk layer in one launch: dW = X^T @ GH
+// and db = sum GH over all points, X (P, M) a layer's stored bf16 input
+// and GH (P, N) its bf16 output cotangent, as the dx chain wrote them.
+// Replaces the TPU kernel's dW/db accumulators (_tile_backward's ``acc``,
+// codenerf_tpu/ops/fused_train.py:297-302), which stay resident in VMEM
+// over its sequential grid. Here the reduction axis is the points: a
+// static list of (layer, point split) items, walked by persistent
+// clusters of two blocks. Each block's two consumer warpgroups hold 128
+// rows of the item's 256 x 256 f32 tile in registers, one wgmma
+// m64n256k16 a warpgroup and 16 points, both operands MN-major (X^T and
+// GH as stored: the instruction's transpose bits; one instruction shape,
+// so that the accumulators fit the 168 registers a thread of a
+// 384-thread block without spills), from a ring of 4 stages that a
+// producer thread fills by TMA: per 64 points, 64-column boxes with the
+// 128-byte swizzle of the block's rows of one plane and of the whole
+// other plane, which both blocks need: each block loads half of those
+// boxes and multicasts them to both, so every plane byte is read once
+// from HBM. Three more warps of the producer group take the column sums
+// for db from the GH boxes in shared memory. Each item writes its f32
+// partial tile without atomics and fixed_sum_kernel adds the splits in
+// a fixed order, so dW and db are the same bits on every run.
+// What bounds it: bytes. dW reads the stored planes, 7,552 B a point at
+// W=256, nb=3, nt=1 (768 for rgb_hidden, 1,024 for each square layer, 640
+// for enc_xyz) against 884,736 FLOP: 3.55 ms at 3.35 TB/s for the
+// training step's 1,572,864 points, 1.41 ms at 989 TFLOP/s.
+
+constexpr int DW_CONSUMERS = 2;
+constexpr int DW_THREADS = 128 * (DW_CONSUMERS + 1);
+constexpr int DW_RING = 4;                  // stages of 64 points
+constexpr int DW_BOX = 64 * 128;            // 64 points x 64 bf16 columns
+constexpr int DW_B0 = 2;                    // first B box of a stage
+constexpr int DW_STAGE = 6 * DW_BOX;        // 2 A boxes, 4 B boxes
+// Point splits (at most): at nb=3, nt=1 the 8 tiles make 528 items, 8
+// rounds of the 66 two-block clusters of an H100's 132 SMs.
+constexpr int DW_SPLITS = 66;
+constexpr int DW_DB_THREADS = 96;           // the producer group's warps 1-3
+constexpr int DW_RED = 12 * 256;            // db row groups x columns
+constexpr size_t DW_SMEM = 1024 + DW_RING * DW_STAGE + DW_RED * sizeof(float)
+                           + 2 * DW_RING * sizeof(uint64_t);
+
+// One item's output tile, 256 rows by up to 256 columns, computed by a
+// cluster of two blocks: block r of the pair takes rows 128 r .. 128 r +
+// 127 (two 64-column boxes of the A plane from column a0 + 128 r, a
+// warpgroup each, wgmma m64n256) and both read the same four 64-column
+// boxes of the B plane from column b0, which each block loads half of
+// and multicasts to both (boxes past the plane's columns read as
+// zeros). A is X and B is GH (dW), or with ``a_gh`` A is GH and B is X
+// (dW^T: enc_xyz, whose X has 64 columns). The partial tile is stored
+// with rows ``ld`` floats apart, its first ``nj`` column octets valid.
+// Block r sums the db columns of its share: with GH in B, columns
+// db_n r .. db_n (r + 1) - 1; with GH in A, its 128.
+struct DwTile {
+  int layer, a_gh, a0, b0, ld, nj, db_n;
 };
 
-// One stage of the dW GEMM: A is the (BK points, BM) slice of X, kept
-// k-major (the col-major A operand of WMMA); B the (BK, BN) slice of GH.
-// Points past the split's end and columns past M load as zeros.
-__device__ __forceinline__ void load_stage_dw(const DwArgs& d, bf16* As,
-                                              bf16* Bs, int m0, int n0,
-                                              int p0, int p_end, int tid) {
-#pragma unroll
-  for (int q = 0; q < (BK * BM) / (8 * GEMM_THREADS); ++q) {
-    const int idx = tid + q * GEMM_THREADS;
-    const int r = idx / (BM / 8), c8 = (idx % (BM / 8)) * 8;
-    const int p = p0 + r, m = m0 + c8;
-    const bool ok = p < p_end && m < d.M;
-    cp_async16(&As[r * LDA_T + c8], ok ? d.X + (size_t)p * d.M + m : d.X,
-               ok ? 16 : 0);
-  }
-#pragma unroll
-  for (int q = 0; q < (BK * BN) / (8 * GEMM_THREADS); ++q) {
-    const int idx = tid + q * GEMM_THREADS;
-    const int r = idx / (BN / 8), c8 = (idx % (BN / 8)) * 8;
-    const int p = p0 + r;
-    const bool ok = p < p_end;
-    cp_async16(&Bs[r * LDB_ROW + c8],
-               ok ? d.G + (size_t)p * d.N + n0 + c8 : d.G, ok ? 16 : 0);
+struct DwArgs {
+  CUtensorMap xmap[MAX_LAYERS];   // (P, M) bf16, 64 x 64 boxes, 128B swizzle
+  CUtensorMap gmap[MAX_LAYERS];   // (P, N)
+  int P, per_split, splits, ntiles;
+  size_t split_elems;             // floats of one split's partials
+  float* part;                    // [splits][split_elems]
+  size_t off[MAX_LAYERS];         // a layer's partial tile in a split's
+                                  // row: dW (M, N), dW^T for M = 64
+  size_t off_b[MAX_LAYERS];       // and its db (N,)
+  DwTile tile[2 * MAX_LAYERS];
+};
+
+// wgmma descriptor of an MN-major, 128-byte-swizzled operand at ``p``
+// (1024-byte aligned): rows of 64 bf16 along M or N (128 B), one row per
+// point; 8-point groups 1024 B apart (stride byte offset), 64-column
+// blocks one box (8 KB) apart (leading byte offset).
+__device__ __forceinline__ uint64_t mn_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4)
+         | ((uint64_t)(DW_BOX >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32)
+         | ((uint64_t)1 << 62);
+}
+
+// A (64, 64) box at column c0, row (point) p0 of the tensor map into
+// shared memory; the barrier's transaction count takes its arrival. Rows
+// past the tensor's end read as zeros.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int c0, int p0, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(p0), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// tma_box into the same offset of the shared memory of every block of
+// the cluster in ``mask``, each block's barrier at ``bar``'s offset
+// taking the bytes it receives.
+__device__ __forceinline__ void tma_box_multicast(void* dst,
+                                                  const CUtensorMap* map,
+                                                  int c0, int p0,
+                                                  uint64_t* bar,
+                                                  uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(p0), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of both blocks of the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// An arrival on the barrier at ``bar``'s offset in block ``rank`` of the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      ::"r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
+// A warp's release of a stage: its lane 0 arrives on the stage's empty
+// barrier in both blocks, which refill it together.
+__device__ __forceinline__ void release_stage(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive_at(empty, 0);
+    mbar_arrive_at(empty, 1);
   }
 }
 
-__global__ void __launch_bounds__(GEMM_THREADS) dw_kernel(DwArgs d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
+template <int NREG>
+__device__ __forceinline__ void acc_fence(float (&d)[NREG]) {
+#pragma unroll
+  for (int i = 0; i < NREG; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int split = blockIdx.z;
-  const int p_begin = split * d.per_split;
-  const int p_end = min(d.P, p_begin + d.per_split);
-  const int nk = p_end > p_begin ? (p_end - p_begin + BK - 1) / BK : 0;
-  // The blocks of the first row of M tiles also sum GH's columns: thread
-  // tid sums column tid % BN over half tid / BN of each stage's rows.
-  const bool do_b = blockIdx.y == 0;
-  const int bc = tid % BN, bh = tid / BN;
-  float bsum = 0.f;
+__device__ __forceinline__ int dw_points(const DwArgs& a, int split,
+                                         int* p0) {
+  *p0 = split * a.per_split;
+  const int p1 = min(a.P, *p0 + a.per_split);
+  return (p1 - *p0 + 63) / 64;
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+// A consumer warpgroup's share of one item: the products over the split's
+// points, then its 64 rows of the partial tile to ``part``.
+__device__ __forceinline__ void dw_item(
+    const DwArgs& a, const DwTile& T, int split, uint32_t rank,
+    unsigned char* ring, uint64_t* full, uint64_t* empty, int& stage,
+    uint32_t& phase, int wg, int warp, int lane) {
+  float acc[128];
+  int p0;
+  const int nk = dw_points(a, split, &p0);
+  int prev = -1;
+  for (int ks = 0; ks < nk; ++ks) {
+    mbar_wait(full + stage, phase);
+    __syncwarp();
+    const unsigned char* st = ring + stage * DW_STAGE;
+    acc_fence(acc);
+    wgmma_fence();
+    const uint64_t da = mn_desc(st + wg * DW_BOX);
+    const uint64_t db = mn_desc(st + DW_B0 * DW_BOX);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage_dw(d, As + s * A_STAGE, Bs + s * B_STAGE, m0, n0,
-                    p_begin + s * BK, p_end, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int pf = kt + STAGES - 1;
-    if (pf < nk)
-      load_stage_dw(d, As + (pf % STAGES) * A_STAGE,
-                    Bs + (pf % STAGES) * B_STAGE, m0, n0, p_begin + pf * BK,
-                    p_end, tid);
-    cp_async_commit();
-    const bf16* a = As + (kt % STAGES) * A_STAGE;
-    const bf16* b = Bs + (kt % STAGES) * B_STAGE;
-    if (do_b) {
-#pragma unroll
-      for (int r = 0; r < BK / 2; ++r)
-        bsum += bf(b[(bh * (BK / 2) + r) * LDB_ROW + bc]);
+    for (int k = 0; k < 4; ++k)   // +16 points (2048 B) per k16 step
+      wgmma_tt_n256(acc, da + 128 * k, db + 128 * k, ks | k);
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();            // the previous stage's group is done
+      release_stage(empty + prev, lane);
     }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], a + kk * LDA_T + wm * 32 + i * 16, LDA_T);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bfr[j], b + kk * LDB_ROW + wn * 64 + j * 16,
-                               LDB_ROW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
+    prev = stage;
+    if (++stage == DW_RING) { stage = 0; phase ^= 1; }
   }
-  cp_async_wait<0>();
-  __syncthreads();   // the pipeline buffers become the bias-sum stage
-
-  float* pw = d.part_w + (size_t)split * d.M * d.N;
+  wgmma_wait<0>();
+  acc_fence(acc);
+  if (prev >= 0) release_stage(empty + prev, lane);
+  // Element i: row 16 w + l/4 + 8 (i/2 % 2), column 8 (i/4) + 2 (l % 4) +
+  // i % 2 of the warpgroup's 64 x 256 tile.
+  const int row = T.a0 + 128 * rank + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  float* dst = a.part + (size_t)split * a.split_elems + a.off[T.layer]
+               + (size_t)row * T.ld + T.b0 + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = m0 + wm * 32 + i * 16;   // M % 16 == 0: whole fragments
-    if (row >= d.M) continue;
+  for (int h = 0; h < 2; ++h) {
+    float2* d2 = reinterpret_cast<float2*>(dst + 8 * T.ld * h);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(pw + (size_t)row * d.N + n0 + wn * 64 + j * 16,
-                              acc[i][j], d.N, wmma::mem_row_major);
-  }
-  if (do_b) {
-    float* sb = reinterpret_cast<float*>(smem);
-    sb[tid] = bsum;
-    __syncthreads();
-    if (tid < BN)
-      d.part_b[(size_t)split * d.N + n0 + tid] = sb[tid] + sb[tid + BN];
+    for (int j = 0; j < 32; ++j)
+      if (j < T.nj)
+        d2[4 * j] = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
-// out[g][c] = sum over rows [g * rows_per_group, (g + 1) * rows_per_group)
-// of x[row * ld + c], in row order: a deterministic column sum.
-__global__ void colsum_kernel(const float* x, int ld, int rows, int cols,
-                              int rows_per_group, float* out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  const int r0 = blockIdx.y * rows_per_group;
-  const int r1 = min(rows, r0 + rows_per_group);
-  float a = 0.f;
-  for (int r = r0; r < r1; ++r) a += x[(size_t)r * ld + c];
-  out[(size_t)blockIdx.y * cols + c] = a;
+// The db warps' share of one item: thread u (0..95) sums eight GH columns
+// (octet u % n8 of the block's db_n, n8 = db_n / 8) over the rows r with
+// r % g = u / n8 (g = 96 / n8 row groups) of every stage, in order, 16
+// bytes a row; then the groups' sums are added in group order through
+// ``red`` (named barrier 2) and written to ``part``.
+__device__ __forceinline__ void db_item(const DwArgs& a, const DwTile& T,
+                                        int split, uint32_t rank,
+                                        unsigned char* ring, float* red,
+                                        uint64_t* full, uint64_t* empty,
+                                        int& stage, uint32_t& phase, int u,
+                                        int lane) {
+  int p0;
+  const int nk = dw_points(a, split, &p0);
+  const int dbn = T.a_gh ? 128 : T.db_n;
+  const int n8 = dbn / 8, groups = DW_DB_THREADS / n8;
+  const int oct = u % n8, grp = u / n8;
+  // The share's first column in the stage's boxes, and its GH column.
+  const int c0 = T.a_gh ? 0 : dbn * rank;
+  const int g0 = T.a_gh ? T.a0 + 128 * rank : T.b0 + c0;
+  const int c = c0 + 8 * oct;
+  const int box = (T.a_gh ? 0 : DW_B0) + (c >> 6), chunk = (c & 63) >> 3;
+  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int ks = 0; ks < nk; ++ks) {
+    mbar_wait(full + stage, phase);
+    const unsigned char* g = ring + stage * DW_STAGE + box * DW_BOX;
+    for (int r = grp; r < 64; r += groups) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          g + r * 128 + ((chunk ^ (r & 7)) << 4));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 b2 = as_bf2(word_of(v, i));
+        s[2 * i] += __low2float(b2);
+        s[2 * i + 1] += __high2float(b2);
+      }
+    }
+    release_stage(empty + stage, lane);
+    if (++stage == DW_RING) { stage = 0; phase ^= 1; }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) red[grp * 256 + 8 * oct + i] = s[i];
+  asm volatile("bar.sync 2, %0;\n" ::"n"(DW_DB_THREADS) : "memory");
+  float* dst = a.part + (size_t)split * a.split_elems + a.off_b[T.layer] + g0;
+  for (int col = u; col < dbn; col += DW_DB_THREADS) {
+    float t = red[col];
+    for (int q = 1; q < groups; ++q) t += red[q * 256 + col];
+    dst[col] = t;
+  }
+  asm volatile("bar.sync 2, %0;\n" ::"n"(DW_DB_THREADS) : "memory");
+}
+
+// Launched in clusters of two blocks: cluster c walks items c, c + the
+// number of clusters, ... (item = split * ntiles + tile), both blocks in
+// step: a stage is refilled only when the consumers of both have released
+// it (its empty barrier counts the warps of both), because each block's
+// producer multicasts half of the B boxes into both.
+__global__ void __launch_bounds__(DW_THREADS, 1) wgrad_kernel(
+    const __grid_constant__ DwArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  float* red = reinterpret_cast<float*>(ring + DW_RING * DW_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + DW_RED);
+  uint64_t* empty = full + DW_RING;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t rank = cluster_rank();
+  const int items = a.splits * a.ntiles;
+  const int cluster = blockIdx.x / 2, clusters = gridDim.x / 2;
+  if (tid == 0) {
+    for (int s = 0; s < DW_RING; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * (4 * DW_CONSUMERS + DW_DB_THREADS / 32));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();                    // both blocks' barriers are ready
+  int stage = 0;
+  uint32_t phase = 0;
+  if (warp >= 4 * DW_CONSUMERS) {    // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int pw = warp - 4 * DW_CONSUMERS;
+    if (pw > 0) {                    // the db warps
+      for (int it = cluster; it < items; it += clusters)
+        db_item(a, a.tile[it % a.ntiles], it / a.ntiles, rank, ring, red,
+                full, empty, stage, phase, 32 * (pw - 1) + lane, lane);
+    } else if (lane == 0) {          // the TMA thread
+      for (int it = cluster; it < items; it += clusters) {
+        const int split = it / a.ntiles;
+        const DwTile& T = a.tile[it % a.ntiles];
+        int p0;
+        const int nk = dw_points(a, split, &p0);
+        const CUtensorMap* am =
+            T.a_gh ? &a.gmap[T.layer] : &a.xmap[T.layer];
+        const CUtensorMap* bm =
+            T.a_gh ? &a.xmap[T.layer] : &a.gmap[T.layer];
+        for (int ks = 0; ks < nk; ++ks) {
+          mbar_wait(empty + stage, phase ^ 1);
+          mbar_expect_tx(full + stage, 6 * DW_BOX);
+          unsigned char* st = ring + stage * DW_STAGE;
+          const int p = p0 + 64 * ks;
+          for (int b = 0; b < 2; ++b)
+            tma_box(st + b * DW_BOX, am, T.a0 + 128 * rank + 64 * b, p,
+                    full + stage);
+          for (int b = 2 * rank; b < 2 * rank + 2; ++b)
+            tma_box_multicast(st + (DW_B0 + b) * DW_BOX, bm, T.b0 + 64 * b,
+                              p, full + stage, 0x3);
+          if (++stage == DW_RING) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {                            // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    for (int it = cluster; it < items; it += clusters)
+      dw_item(a, a.tile[it % a.ntiles], it / a.ntiles, rank, ring, full,
+              empty, stage, phase, warp >> 2, warp, lane);
+  }
+  __syncwarp();
+  cluster_sync();   // no block leaves while its peer may still signal it
+}
+
+// dst[c] = sum over rows r of src[r * stride + c] (c transposed with
+// ``tr``), for every segment in one launch: a block takes 32 columns of one segment, warp g the rows of
+// its g-th eighth in order, then warp 0 adds the eight partial sums in
+// order. A fixed order: the same bits on every run.
+struct SumSeg {
+  const float* src;
+  float* dst;
+  long long stride;
+  int rows, cols;
+  int tr;   // 0, or the columns of a row-major src matrix that dst holds
+            // transposed
+};
+
+constexpr int MAX_SEGS = 2 * MAX_LAYERS + 4;
+
+struct SumArgs {
+  int n;
+  int first[MAX_SEGS + 1];   // the segment's first block; first[n] = grid
+  SumSeg s[MAX_SEGS];
+};
+
+__global__ void __launch_bounds__(256) fixed_sum_kernel(
+    const __grid_constant__ SumArgs a) {
+  __shared__ float part[8][32];
+  int i = 0;
+  while (i + 1 < a.n && a.first[i + 1] <= (int)blockIdx.x) ++i;
+  const SumSeg& g = a.s[i];
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int col = ((int)blockIdx.x - a.first[i]) * 32 + lane;
+  const int per = (g.rows + 7) / 8, r0 = grp * per;
+  const int r1 = min(g.rows, r0 + per);
+  float s = 0.f;
+  if (col < g.cols)
+    for (int r = r0; r < r1; ++r) s += g.src[(size_t)r * g.stride + col];
+  part[grp][lane] = s;
+  __syncthreads();
+  if (grp == 0 && col < g.cols) {
+    float t = part[0][lane];
+#pragma unroll
+    for (int q = 1; q < 8; ++q) t += part[q][lane];
+    g.dst[g.tr ? (col % g.tr) * (g.cols / g.tr) + col / g.tr : col] = t;
+  }
 }
 
 struct HeadArgs {
-  int R, S, W;             // W: trunk width; the rgb hidden layer is W / 2
+  int R, S;                // the trunk width is TW, rgb_hidden's TW / 2
   const bf16* t;           // (P, W) enc_shape output
   const bf16* r;           // (P, W/2) rgb_hidden output
   const float* z;          // (R, S)
@@ -1050,8 +1313,9 @@ struct HeadArgs {
   float* dz;               // (R, S) or null: the composite's own dL/dz
   float* dsig;             // (P,)
   bf16* g_r;               // (P, W/2)
-  float* part;             // (R, head_part_cols(W)) or null: per-ray sums
-                           // for the sigma and rgb_out dW/db
+  float* part;             // (head_blocks(R), head_part_cols(W)) or null:
+                           // each block's sums for the sigma and rgb_out
+                           // dW/db
   // The plane-op backward (all four or none): the outside (R, S) f32
   // cotangents of the sigma and r, g, b planes replace the composite and
   // the loss; gt8, se8, rgb8, weights and dz are then unused.
@@ -1061,7 +1325,7 @@ struct HeadArgs {
   const float* gb;
 };
 
-// A ray's row of head-kernel partial sums: [sigma dW (W) | rgb_out dW
+// A row of head-kernel partial sums: [sigma dW (W) | rgb_out dW
 // (W/2 x 8) | rgb_out db (8) | sigma db (1) | padding (7)].
 __host__ __device__ constexpr int head_part_cols(int W) {
   return W + (W / 2) * 8 + 16;
@@ -1080,7 +1344,8 @@ struct CompositeOut {
 // One composite of a ray and its backward, run by one warp; lane l owns
 // the contiguous samples [l*per, l*per + per). ``s_pre`` holds the sigma
 // pre-activations (softplus applied here) or, with ``density``, the
-// densities themselves. Sample s has the delta ``cdelta[s]`` and the
+// densities themselves; ``s_c`` the three raw rgb planes, plane k at
+// s_c[k * ld]. Sample s has the delta ``cdelta[s]`` and the
 // cumprod factor e_s + 1e-10 * cmask[s] when the dual mode's coarse planes
 // are given; else the union delta z[s+1] - z[s] (1e10 at the last sample)
 // and e_s + 1e-10. Without ``backward`` the pass stops at the composited
@@ -1088,14 +1353,15 @@ struct CompositeOut {
 // when given (the standalone composite) and otherwise forms the loss's,
 // 2 * scale * (rgb - gt) with no depth or acc term, and its squared error.
 // The composite's sigma cotangent (before the softplus derivative) goes
-// to s_gs and its rgb cotangents w_s * g_k to s_gc, in f32: stored, or
-// with ``accumulate`` added to what a previous pass stored there.
+// to s_gs and its rgb cotangents w_s * g_k to s_gc (plane k at
+// s_gc[k * ld]), in f32: stored, or with ``accumulate`` added to what a
+// previous pass stored there.
 // ``w_out`` (global or shared, or null) receives the weights w_s; ``s_dd``
 // (shared, or null) the delta cotangents dx_s * sig_s (0 at the last
 // sample), from which the caller forms the composite's z cotangent.
 __device__ __forceinline__ CompositeOut composite_pass(
     const HeadArgs& h, int ray, int lane, const float* s_pre,
-    float (*s_c)[MAX_S], float (*s_gc)[MAX_S], float* s_gs,
+    const float* s_c, float* s_gc, int ld, float* s_gs,
     const float* cmask, const float* cdelta, bool accumulate,
     float* w_out, float* s_dd, bool density = false,
     const float* g8 = nullptr, bool backward = true) {
@@ -1142,9 +1408,9 @@ __device__ __forceinline__ CompositeOut composite_pass(
       T_[q] *= excl;
       w_[q] = (1.f - e_[q]) * T_[q];
       if (w_out) w_out[s] = w_[q];
-      rs0 += w_[q] * s_c[0][s];
-      rs1 += w_[q] * s_c[1][s];
-      rs2 += w_[q] * s_c[2][s];
+      rs0 += w_[q] * s_c[s];
+      rs1 += w_[q] * s_c[ld + s];
+      rs2 += w_[q] * s_c[2 * ld + s];
       dep += w_[q] * zr[s];
       acc += w_[q];
     }
@@ -1178,7 +1444,8 @@ __device__ __forceinline__ CompositeOut composite_pass(
     const int s = lane * per + q;
     dw[q] = 0.f; wdw[q] = 0.f;
     if (q < per && s < S) {
-      dw[q] = g[0] * s_c[0][s] + g[1] * s_c[1][s] + g[2] * s_c[2][s] + resid;
+      dw[q] = g[0] * s_c[s] + g[1] * s_c[ld + s] + g[2] * s_c[2 * ld + s]
+              + resid;
       if (g8) dw[q] += gd * zr[s];
       wdw[q] = w_[q] * dw[q];
       lsum += wdw[q];
@@ -1204,54 +1471,137 @@ __device__ __forceinline__ CompositeOut composite_pass(
       if (s_dd) s_dd[s] = (s < S - 1) ? dx * sg_[q] : 0.f;
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        s_gc[k][s] = accumulate ? s_gc[k][s] + w_[q] * g[k] : w_[q] * g[k];
+        s_gc[k * ld + s] = accumulate ? s_gc[k * ld + s] + w_[q] * g[k]
+                                      : w_[q] * g[k];
     }
   }
   return out;
 }
 
-__global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
-  __shared__ float s_pre[MAX_S];
-  __shared__ float s_c[3][MAX_S];
-  __shared__ float s_gc[3][MAX_S];
-  __shared__ float s_dsig[MAX_S];
-  __shared__ float s_dd[MAX_S];
-  const int ray = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int S = h.S, W = h.W, Wh = W / 2;
-  const size_t p0 = (size_t)ray * S;
+// The head kernel: one warp per ray, HEAD_WARPS rays per block. Replaces
+// the TPU kernel's head (_train_kernel, codenerf_tpu/ops/fused_train.py:
+// 560-612: the sigma and rgb heads, fused_mlp.composite_fwd_in_kernel and
+// composite_bwd_in_kernel, and the sigma dW of _tile_backward, :331-336).
+// What bounds it: bytes. It reads t and r once (768 B a point at W=256)
+// and writes g_r and dsig (260 B): 0.48 ms at 3.35 TB/s for 16,384 x 96.
+//   1. Per group of 8 samples each lane loads its 8 columns of t and 4 of
+//      r (16 and 8 bytes) and forms its parts of the sigma and rgb dots
+//      against the w_sig and w_rgb columns it keeps in registers; a
+//      shuffle ladder leaves the warp's 32 sums one per lane. The ReLU
+//      mask of r goes to shared memory as bits (16 B a sample).
+//   2. The composite, loss and composite backward (composite_pass), then
+//      dsig = g_sigma * sigmoid(sig_pre) and the bf16-rounded rgb
+//      cotangents.
+//   3. g_r = mask * (gc . w_rgb^T), rounded to bf16: half a warp per
+//      sample, 16-byte stores.
+//   4. With ``part`` (weight gradients): the ray's sums over its samples,
+//      in sample order (the sigma dW from t and dsig, the rgb_out dW from
+//      r and the rounded rgb cotangents, both db), which take the second
+//      pass over t and r; the block adds its warps' rows in warp order
+//      into one row of ``part``.
+constexpr int HEAD_WARPS = 8;
+constexpr int HEAD_THREADS = 32 * HEAD_WARPS;
 
-  // Phase 1: sigma pre-activation and rgb per sample, one warp per sample.
-  for (int s = warp; s < S; s += HEAD_THREADS / 32) {
-    const bf16* tp = h.t + (p0 + s) * W;
-    const bf16* rp = h.r + (p0 + s) * Wh;
-    float a = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-    for (int k = lane; k < W; k += 32) a += bf(tp[k]) * h.w_sig[k];
-    for (int k = lane; k < Wh; k += 32) {
-      const float rv = bf(rp[k]);
-      c0 += rv * bf(h.w_rgb[k * 8 + 0]);
-      c1 += rv * bf(h.w_rgb[k * 8 + 1]);
-      c2 += rv * bf(h.w_rgb[k * 8 + 2]);
-    }
-    a = warp_sum(a); c0 = warp_sum(c0); c1 = warp_sum(c1); c2 = warp_sum(c2);
-    if (lane == 0) {
-      s_pre[s] = a + h.b_sig[0];
-      s_c[0][s] = c0 + h.b_rgb[0];
-      s_c[1][s] = c1 + h.b_rgb[1];
-      s_c[2][s] = c2 + h.b_rgb[2];
-    }
-  }
-  __syncthreads();
+__host__ __device__ constexpr int head_ld(int S) { return (S + 3) & ~3; }
 
-  // Phase 2 (warp 0): the composite forward, the loss and the composite
-  // backward; in the dual mode a second pass over the coarse planes, whose
-  // cotangents add to the first's. In the plane-op backward the outside
-  // plane cotangents take the composite's place. Then dsig = g_sigma *
-  // sigmoid(sig_pre) and the bf16 rgb cotangents, with the same sample
-  // ownership. With ``weights`` the pass writes w_s; with ``dz`` the
-  // composite's z cotangent dz_s = ddelta_{s-1} - ddelta_s (the loss's
-  // depth lane is masked, so the TPU kernel's gd * w_s term is 0).
-  if (warp == 0) {
+// Per warp: s_mask [S][4] words, s_pre, s_c[3], s_gc[3], s_dsig, s_dd
+// (planes head_ld(S) floats apart), or with weight gradients, after the
+// rays, the block's HEAD_WARPS partial rows.
+__host__ __device__ constexpr size_t head_smem(int S, int W, bool part) {
+  const size_t rays = sizeof(float) * HEAD_WARPS * 13 * (size_t)head_ld(S);
+  const size_t rows = sizeof(float) * HEAD_WARPS * (size_t)head_part_cols(W);
+  return part && rows > rays ? rows : rays;
+}
+
+__host__ __device__ constexpr int head_blocks(int R) {
+  return (R + HEAD_WARPS - 1) / HEAD_WARPS;
+}
+
+__global__ void __launch_bounds__(HEAD_THREADS, 2) head_kernel(HeadArgs h) {
+  extern __shared__ float4 head_smem_raw[];
+  float* hs = reinterpret_cast<float*>(head_smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int S = h.S, ld = head_ld(S);
+  constexpr int W = TW, Wh = TW / 2;
+  const int ray = blockIdx.x * HEAD_WARPS + warp;
+  uint32_t* s_mask = reinterpret_cast<uint32_t*>(hs + (size_t)warp * 13 * ld);
+  float* s_pre = hs + (size_t)warp * 13 * ld + 4 * ld;
+  float* s_c = s_pre + ld;           // 3 planes
+  float* s_gc = s_c + 3 * ld;        // 3 planes
+  float* s_dsig = s_gc + 3 * ld;
+  float* s_dd = s_dsig + ld;
+  float pt[8] = {}, pr[12] = {}, pb = 0.f;   // phase 4's sums
+  if (ray < h.R) {
+    const size_t p0 = (size_t)ray * S;
+    const bf16* tr = h.t + p0 * W + 8 * lane;
+    const bf16* rr = h.r + p0 * Wh + 4 * lane;
+
+    // Phase 1: sigma pre-activation and raw rgb of every sample.
+    float ws[8], wr[12];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ws[i] = h.w_sig[8 * lane + i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        wr[3 * i + k] = bf(h.w_rgb[(4 * lane + i) * 8 + k]);
+    for (int s0 = 0; s0 < S; s0 += 8) {
+      uint4 tv[8];
+      uint2 rv[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const bool ok = s0 + q < S;
+        const size_t s = (size_t)(s0 + q);
+        tv[q] = ok ? __ldg(reinterpret_cast<const uint4*>(tr + s * W))
+                   : make_uint4(0u, 0u, 0u, 0u);
+        rv[q] = ok ? __ldg(reinterpret_cast<const uint2*>(rr + s * Wh))
+                   : make_uint2(0u, 0u);
+      }
+      float x[32];   // x[4 q + u]: sample s0 + q; u 0 sigma, 1..3 rgb
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float a = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 t2 = as_bf2(word_of(tv[q], i));
+          a += __low2float(t2) * ws[2 * i];
+          a += __high2float(t2) * ws[2 * i + 1];
+        }
+        const __nv_bfloat162 r01 = as_bf2(rv[q].x), r23 = as_bf2(rv[q].y);
+        const float rvals[4] = {__low2float(r01), __high2float(r01),
+                                __low2float(r23), __high2float(r23)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          c0 += rvals[i] * wr[3 * i];
+          c1 += rvals[i] * wr[3 * i + 1];
+          c2 += rvals[i] * wr[3 * i + 2];
+          const uint32_t b = __ballot_sync(FULL, rvals[i] > 0.f);
+          if (lane == i && s0 + q < S) s_mask[4 * (s0 + q) + i] = b;
+        }
+        x[4 * q] = a; x[4 * q + 1] = c0; x[4 * q + 2] = c1; x[4 * q + 3] = c2;
+      }
+      reduce_step<16>(x, 16, lane);
+      reduce_step<8>(x, 8, lane);
+      reduce_step<4>(x, 4, lane);
+      reduce_step<2>(x, 2, lane);
+      reduce_step<1>(x, 1, lane);
+      const int s = s0 + (lane >> 2), u = lane & 3;
+      if (s < S) {
+        if (u == 0) s_pre[s] = x[0] + h.b_sig[0];
+        else s_c[(u - 1) * ld + s] = x[0] + h.b_rgb[u - 1];
+      }
+    }
+    __syncwarp();
+
+    // Phase 2: the composite forward, the loss and the composite
+    // backward; in the dual mode a second pass over the coarse planes,
+    // whose cotangents add to the first's. In the plane-op backward the
+    // outside plane cotangents take the composite's place. Then dsig =
+    // g_sigma * sigmoid(sig_pre) and the bf16 rgb cotangents, with the
+    // same sample ownership. With ``weights`` the pass writes w_s; with
+    // ``dz`` the composite's z cotangent dz_s = ddelta_{s-1} - ddelta_s
+    // (the loss's depth lane is masked, so the TPU kernel's gd * w_s term
+    // is 0).
     const int per = (S + 31) / 32;
     CompositeOut f = {};
     float se_c[3] = {0.f, 0.f, 0.f};
@@ -1260,18 +1610,18 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
         const int s = lane * per + q;
         if (s < S) {
           s_dsig[s] = h.gsig[p0 + s];
-          s_gc[0][s] = h.gr[p0 + s];
-          s_gc[1][s] = h.gg[p0 + s];
-          s_gc[2][s] = h.gb[p0 + s];
+          s_gc[s] = h.gr[p0 + s];
+          s_gc[ld + s] = h.gg[p0 + s];
+          s_gc[2 * ld + s] = h.gb[p0 + s];
         }
       }
     } else {
       f = composite_pass(
-          h, ray, lane, s_pre, s_c, s_gc, s_dsig, nullptr, nullptr, false,
+          h, ray, lane, s_pre, s_c, s_gc, ld, s_dsig, nullptr, nullptr, false,
           h.weights ? h.weights + p0 : nullptr, h.dz ? s_dd : nullptr);
       if (h.cmask) {
         const CompositeOut c = composite_pass(
-            h, ray, lane, s_pre, s_c, s_gc, s_dsig, h.cmask + p0,
+            h, ray, lane, s_pre, s_c, s_gc, ld, s_dsig, h.cmask + p0,
             h.cdelta + p0, true, nullptr, nullptr);
         se_c[0] = c.se[0]; se_c[1] = c.se[1]; se_c[2] = c.se[2];
       }
@@ -1286,7 +1636,8 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
         h.dsig[p0 + s] = ds;
         s_dsig[s] = ds;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) s_gc[k][s] = round_bf(s_gc[k][s]);
+        for (int k = 0; k < 3; ++k)
+          s_gc[k * ld + s] = round_bf(s_gc[k * ld + s]);
       }
     }
     if (lane == 0 && h.se8) {
@@ -1305,47 +1656,91 @@ __global__ void __launch_bounds__(HEAD_THREADS) head_kernel(HeadArgs h) {
         o[4] = f.acc; o[5] = 0.f; o[6] = 0.f; o[7] = 0.f;
       }
     }
-  }
-  __syncthreads();
+    __syncwarp();
 
-  // Phase 3: rgb_out backward and the rgb_hidden ReLU mask.
-  for (int idx = tid; idx < S * Wh; idx += HEAD_THREADS) {
-    const int s = idx / Wh, c = idx % Wh;
-    const float v = s_gc[0][s] * bf(h.w_rgb[c * 8 + 0])
-                  + s_gc[1][s] * bf(h.w_rgb[c * 8 + 1])
-                  + s_gc[2][s] * bf(h.w_rgb[c * 8 + 2]);
-    const size_t o = (p0 + s) * Wh + c;
-    h.g_r[o] = __float2bfloat16_rn(bf(h.r[o]) > 0.f ? v : 0.f);
+    // Phase 3: rgb_out backward and the rgb_hidden ReLU mask. Lane l
+    // writes columns 8 j .. 8 j + 7 (j = l % 16) of sample s: column c's
+    // mask bit is bit c / 4 of the sample's word c % 4.
+    {
+      const int j = lane & 15;
+      float w3[8][3];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) w3[e][k] = bf(h.w_rgb[(8 * j + e) * 8 + k]);
+      for (int s = lane >> 4; s < S; s += 2) {
+        const float g0 = s_gc[s], g1 = s_gc[ld + s], g2 = s_gc[2 * ld + s];
+        const uint4 m = *reinterpret_cast<const uint4*>(s_mask + 4 * s);
+        uint32_t out[4];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          float v[2];
+#pragma unroll
+          for (int d = 0; d < 2; ++d) {
+            const int c = e + d;
+            const float val = g0 * w3[c][0] + g1 * w3[c][1] + g2 * w3[c][2];
+            const uint32_t bit = (word_of(m, c & 3) >> (2 * j + (c >> 2))) & 1u;
+            v[d] = bit ? val : 0.f;
+          }
+          out[e / 2] = as_u32(__floats2bfloat162_rn(v[0], v[1]));
+        }
+        *reinterpret_cast<uint4*>(h.g_r + (p0 + s) * Wh + 8 * j) =
+            make_uint4(out[0], out[1], out[2], out[3]);
+      }
+    }
+
+    // Phase 4 (weight gradients): this ray's sums over its samples.
+    if (h.part) {
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) {
+        const uint4 tv =
+            __ldg(reinterpret_cast<const uint4*>(tr + (size_t)s * W));
+        const uint2 rv =
+            __ldg(reinterpret_cast<const uint2*>(rr + (size_t)s * Wh));
+        const float ds = s_dsig[s];
+        const float g[3] = {s_gc[s], s_gc[ld + s], s_gc[2 * ld + s]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 t2 = as_bf2(word_of(tv, i));
+          pt[2 * i] += __low2float(t2) * ds;
+          pt[2 * i + 1] += __high2float(t2) * ds;
+        }
+        const __nv_bfloat162 r01 = as_bf2(rv.x), r23 = as_bf2(rv.y);
+        const float rvals[4] = {__low2float(r01), __high2float(r01),
+                                __low2float(r23), __high2float(r23)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) pr[3 * i + k] += rvals[i] * g[k];
+      }
+      if (lane < 4)
+        for (int s = 0; s < S; ++s)
+          pb += lane < 3 ? s_gc[lane * ld + s] : s_dsig[s];
+    }
   }
   if (!h.part) return;
 
-  // Phase 4 (weight gradients): this ray's sums over its samples.
-  float* row = h.part + (size_t)ray * head_part_cols(W);
-  for (int c = tid; c < W; c += HEAD_THREADS) {
-    float a = 0.f;
-    for (int s = 0; s < S; ++s) a += bf(h.t[(p0 + s) * W + c]) * s_dsig[s];
-    row[c] = a;
-  }
-  for (int c = tid; c < Wh; c += HEAD_THREADS) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float rv = bf(h.r[(p0 + s) * Wh + c]);
-      a0 += rv * s_gc[0][s];
-      a1 += rv * s_gc[1][s];
-      a2 += rv * s_gc[2][s];
-    }
-    float* o = row + W + c * 8;
-    o[0] = a0; o[1] = a1; o[2] = a2;
+  // The block's rows: [sigma dW (W) | rgb_out dW (W/2 x 8) | rgb_out db
+  // (8) | sigma db (1) | 0 (7)], warps added in order.
+  const int HP = head_part_cols(W);
+  __syncthreads();   // every warp is done with its arrays
+  float* row = hs + (size_t)warp * HP;
 #pragma unroll
-    for (int k = 3; k < 8; ++k) o[k] = 0.f;
-  }
-  if (tid < 16) {
+  for (int i = 0; i < 8; ++i) row[8 * lane + i] = pt[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      row[W + (4 * lane + i) * 8 + k] = k < 3 ? pr[3 * i + k] : 0.f;
+  const float b = __shfl_sync(FULL, pb, lane < 3 ? lane : 3);
+  if (lane < 16)
+    row[W + Wh * 8 + lane] = (lane < 3 || lane == 8) ? b : 0.f;
+  __syncthreads();
+  for (int c = threadIdx.x; c < HP; c += HEAD_THREADS) {
     float a = 0.f;
-    if (tid < 3)
-      for (int s = 0; s < S; ++s) a += s_gc[tid][s];
-    else if (tid == 8)
-      for (int s = 0; s < S; ++s) a += s_dsig[s];
-    row[W + Wh * 8 + tid] = a;
+#pragma unroll
+    for (int w = 0; w < HEAD_WARPS; ++w) a += hs[(size_t)w * HP + c];
+    h.part[(size_t)blockIdx.x * HP + c] = a;
   }
 }
 
@@ -1366,53 +1761,6 @@ int launch_convert(const float* x, bf16* y, size_t n, cudaStream_t stream) {
     const int rc_ = (call);    \
     if (rc_ != 0) return rc_;  \
   } while (0)
-
-int launch_colsum(const float* x, int ld, int rows, int cols,
-                  int rows_per_group, float* out, cudaStream_t stream) {
-  const dim3 grid((cols + 255) / 256,
-                  (rows + rows_per_group - 1) / rows_per_group);
-  colsum_kernel<<<grid, 256, 0, stream>>>(x, ld, rows, cols, rows_per_group,
-                                          out);
-  return (int)cudaGetLastError();
-}
-
-// How the dW GEMM splits the points: about DW_BLOCKS blocks in all, each
-// split a whole number of BK-point stages.
-struct DwPlan {
-  int splits, per_split;
-};
-
-DwPlan dw_plan(int M, int N, int P) {
-  const int tiles = (N / BN) * ((M + BM - 1) / BM);
-  const int ktiles = (P + BK - 1) / BK;
-  int splits = (DW_BLOCKS + tiles - 1) / tiles;
-  if (splits > ktiles) splits = ktiles;
-  if (splits < 1) splits = 1;
-  const int per = ((ktiles + splits - 1) / splits) * BK;
-  return {(P + per - 1) / per, per};
-}
-
-size_t dw_part_elems(int M, int N, int P) {
-  return (size_t)dw_plan(M, N, P).splits * ((size_t)M * N + N);
-}
-
-// dw (M, N) = X^T @ G and db (N,) = column sums of G, f32, over P points:
-// the split GEMM into ``part``, then the fixed-order sum of the splits.
-int launch_dw(const bf16* X, const bf16* G, int P, int M, int N, float* part,
-              float* dw, float* db, cudaStream_t stream) {
-  if (N % BN != 0 || M % 16 != 0) return (int)cudaErrorInvalidValue;
-  CHECK((int)cudaFuncSetAttribute(
-      dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GEMM_SMEM));
-  const DwPlan pl = dw_plan(M, N, P);
-  DwArgs d = {P, M, N, X, G, pl.per_split, part,
-              part + (size_t)pl.splits * M * N};
-  const dim3 grid(N / BN, (M + BM - 1) / BM, pl.splits);
-  dw_kernel<<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(d);
-  CHECK((int)cudaGetLastError());
-  CHECK(launch_colsum(d.part_w, M * N, pl.splits, M * N, pl.splits, dw,
-                      stream));
-  return launch_colsum(d.part_b, N, pl.splits, N, pl.splits, db, stream);
-}
 
 struct InputArgs {
   int S, W, n_freq;
@@ -1528,6 +1876,164 @@ int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n > 0 ? n : 1;
+}
+
+// ---------------------------------------------------------------- dW host
+
+// A tensor map of a (P, C) row-major bf16 plane in 64-point x 64-column
+// boxes with the 128-byte swizzle. cuTensorMapEncodeTiled is looked up
+// through the CUDA runtime's entry-point query, so the library needs no
+// -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+int plane_map(CUtensorMap* m, const bf16* base, int P, int C) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)P};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, 64}, step[2] = {1, 1};
+  const CUresult rc = fn(
+      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// One layer's weight gradient: dw (M, N) = x^T @ g and db (N,) = column
+// sums of g over P points; x (P, M) and g (P, N) bf16.
+struct DwPair {
+  const bf16* x;
+  const bf16* g;
+  int M, N;
+  float* dw;
+  float* db;
+};
+
+// The shapes of the trunk at W = 256: square layers, rgb_hidden
+// (256, 128), enc_xyz (64, 256).
+bool dw_shape_ok(int M, int N) {
+  return (M == 256 && (N == 256 || N == 128)) || (M == 64 && N == 256);
+}
+
+// How the points split: at most DW_SPLITS splits of whole 64-point
+// slices, from P alone (never from the card), so the order of the sums
+// is fixed.
+struct DwPlan {
+  int splits, per_split;
+};
+
+DwPlan dw_plan(int P) {
+  const int slices = (P + 63) / 64;
+  const int per = (slices + DW_SPLITS - 1) / DW_SPLITS;
+  return {per > 0 ? (slices + per - 1) / per : 0, 64 * per};
+}
+
+size_t dw_row_elems(const DwPair* L, int n) {
+  size_t e = 0;
+  for (int l = 0; l < n; ++l) e += (size_t)L[l].M * L[l].N + L[l].N;
+  return e;
+}
+
+// Workspace (f32 elements) of launch_wgrad: one partial row per split.
+size_t dw_part_elems(const DwPair* L, int n, int P) {
+  return (size_t)dw_plan(P).splits * dw_row_elems(L, n);
+}
+
+// Every pair's dW and db in one wgrad_kernel launch (partials in
+// ``part``) and one fixed_sum_kernel launch, which also sums the
+// ``extra`` segments (the head kernel's rows).
+int launch_wgrad(const DwPair* L, int n, int P, float* part,
+                 const SumSeg* extra, int n_extra, cudaStream_t stream) {
+  if (n < 1 || n > MAX_LAYERS || P < 1 || n_extra < 0
+      || 2 * n + n_extra > MAX_SEGS)
+    return (int)cudaErrorInvalidValue;
+  const DwPlan pl = dw_plan(P);
+  DwArgs a = {};
+  a.P = P; a.per_split = pl.per_split; a.splits = pl.splits;
+  a.split_elems = dw_row_elems(L, n);
+  a.part = part;
+  size_t off = 0;
+  for (int l = 0; l < n; ++l) {
+    const int M = L[l].M, N = L[l].N;
+    if (!dw_shape_ok(M, N)) return (int)cudaErrorInvalidValue;
+    CHECK(plane_map(&a.xmap[l], L[l].x, P, M));
+    CHECK(plane_map(&a.gmap[l], L[l].g, P, N));
+    a.off[l] = off;
+    a.off_b[l] = off + (size_t)M * N;
+    off += (size_t)M * N + N;
+    if (M == 64)        // dW^T: GH's 256 columns by X's 64
+      a.tile[a.ntiles++] = {l, 1, 0, 0, 64, 8, 128};
+    else                // dW: X's 256 columns by GH's N
+      a.tile[a.ntiles++] = {l, 0, 0, 0, N, N / 8, N / 2};
+  }
+  CHECK((int)cudaFuncSetAttribute(wgrad_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)DW_SMEM));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute pair[1];
+  pair[0].id = cudaLaunchAttributeClusterDimension;
+  pair[0].val.clusterDim.x = 2;
+  pair[0].val.clusterDim.y = 1;
+  pair[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(DW_THREADS);
+  cfg.dynamicSmemBytes = DW_SMEM;
+  cfg.stream = stream;
+  cfg.attrs = pair;
+  cfg.numAttrs = 1;
+  // As many clusters as run at once (a persistent grid), asked of the
+  // runtime once per device; the items, and with them the order of every
+  // sum, do not depend on it.
+  static int fits[64] = {};
+  int dev = 0;
+  CHECK((int)cudaGetDevice(&dev));
+  int& fit = fits[dev & 63];
+  if (fit == 0) {
+    cfg.gridDim = dim3(2 * (sm_count() / 2));
+    CHECK((int)cudaOccupancyMaxActiveClusters(&fit, wgrad_kernel, &cfg));
+  }
+  const int items = a.splits * a.ntiles;
+  const int clusters = fit < 1 ? 1 : (fit < items ? fit : items);
+  cfg.gridDim = dim3(2 * clusters);
+  CHECK((int)cudaLaunchKernelEx(&cfg, wgrad_kernel, a));
+
+  SumArgs s = {};
+  auto add = [&](const SumSeg& g) {
+    s.first[s.n + 1] = s.first[s.n] + (g.cols + 31) / 32;
+    s.s[s.n++] = g;
+  };
+  for (int l = 0; l < n; ++l) {
+    const long long st = (long long)a.split_elems;
+    const int M = L[l].M, N = L[l].N;
+    add({part + a.off[l], L[l].dw, st, a.splits, M * N, M == 64 ? M : 0});
+    add({part + a.off_b[l], L[l].db, st, a.splits, N, 0});
+  }
+  for (int i = 0; i < n_extra; ++i) add(extra[i]);
+  fixed_sum_kernel<<<s.first[s.n], 256, 0, stream>>>(s);
+  return (int)cudaGetLastError();
 }
 
 // Trunk layer j's operand index in flatten_params order (forward order:
@@ -1666,6 +2172,41 @@ bool trunk_shapes_ok(int W, int nb, int nt, int n_freq) {
          && trunk_layers(nb, nt) <= MAX_LAYERS;
 }
 
+// The trunk's dW pairs in fused_step, in weight_shapes order reversed
+// (the order the dx chain writes them): rgb_hidden, the texture blocks,
+// enc_viewdir, enc_shape, the shape blocks, enc_xyz. With null planes
+// (sizes only) when ``o`` is null.
+int trunk_pairs(const FwdOut* o, const bf16* g_r, const bf16* gh_tex,
+                const bf16* gh_encv, const bf16* gh_encs,
+                const bf16* gh_shape, const bf16* gh0, void* const* dwb,
+                size_t PW, int W, int nb, int nt, DwPair* L) {
+  auto at = [&](const bf16* base, int k) {
+    return base ? base + (size_t)k * PW : nullptr;
+  };
+  auto dw = [&](int i) {
+    return dwb ? static_cast<float*>(dwb[2 * i]) : nullptr;
+  };
+  auto db = [&](int i) {
+    return dwb ? static_cast<float*>(dwb[2 * i + 1]) : nullptr;
+  };
+  const int i_encs = nb + 1, i_encv = nb + 3, i_tex = nb + 4;
+  const int i_rgbh = nb + nt + 4;
+  int n = 0;
+  L[n++] = {o ? o->yts_last : nullptr, g_r, W, W / 2, dw(i_rgbh),
+            db(i_rgbh)};
+  for (int k = 0; k < nt; ++k)
+    L[n++] = {o ? at(o->xt, k) : nullptr, at(gh_tex, k), W, W, dw(i_tex + k),
+              db(i_tex + k)};
+  L[n++] = {o ? o->t : nullptr, gh_encv, W, W, dw(i_encv), db(i_encv)};
+  L[n++] = {o ? o->ys_last : nullptr, gh_encs, W, W, dw(i_encs),
+            db(i_encs)};
+  for (int k = 0; k < nb; ++k)
+    L[n++] = {o ? at(o->xs, k) : nullptr, at(gh_shape, k), W, W, dw(1 + k),
+              db(1 + k)};
+  L[n++] = {o ? o->pe : nullptr, gh0, 64, W, dw(0), db(0)};
+  return n;
+}
+
 }  // namespace
 
 // Workspace sizes (elements) for one call: the packed weights; the bf16
@@ -1674,26 +2215,30 @@ bool trunk_shapes_ok(int W, int nb, int nt, int n_freq) {
 // the texture blocks, and with weight or input gradients enc_xyz); f32
 // dsig and the per-ray cotangent sums. Weight-gradient mode adds every dW
 // GEMM's bf16 input (the PE, the injected inputs, the last shape and
-// texture blocks' outputs) and gh plane (nb + nt + 3), the dW partials and
-// the head kernel's per-ray partials; input gradients alone add gh0.
+// texture blocks' outputs) and gh plane (nb + nt + 3), the dW partials (one
+// row per point split, in the place of the mask planes, which are dead by
+// then) and the head kernel's rows (one per block); input gradients alone
+// add gh0.
 extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
                                 int weight_grads, int input_grads,
                                 size_t* n_bf16, size_t* n_f32) {
   const size_t P = (size_t)R * S, PW = P * W;
   const size_t mask_planes = nb + nt + 1 + (weight_grads || input_grads);
-  *n_bf16 = packed_elems(W, nb, nt, true) + 2 * PW
-            + mask_planes * P * MASK_WORDS * 2;
+  size_t masks = mask_planes * P * MASK_WORDS * 2;
+  *n_bf16 = packed_elems(W, nb, nt, true) + 2 * PW;
   *n_f32 = P + (size_t)R * (nb + nt + 1) * W;
   if (input_grads && !weight_grads) *n_bf16 += PW;
-  if (!weight_grads) return;
-  *n_bf16 += P * 64 + (size_t)(nb + nt + 2) * PW
-             + (size_t)(nb + nt + 3) * PW;
-  size_t part = dw_part_elems(64, W, (int)P);
-  const size_t sq = dw_part_elems(W, W, (int)P);
-  const size_t half = dw_part_elems(W, W / 2, (int)P);
-  part = part > sq ? part : sq;
-  part = part > half ? part : half;
-  *n_f32 += part + (size_t)(R + COLSUM_GROUPS) * head_part_cols(W);
+  if (weight_grads) {
+    *n_bf16 += P * 64 + (size_t)(nb + nt + 2) * PW
+               + (size_t)(nb + nt + 3) * PW;
+    DwPair L[MAX_LAYERS];
+    const int n = trunk_pairs(nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, nullptr, PW, W, nb, nt, L);
+    const size_t part = 2 * dw_part_elems(L, n, (int)P);   // in bf16
+    masks = masks > part ? masks : part;
+    *n_f32 += (size_t)head_blocks(R) * head_part_cols(W);
+  }
+  *n_bf16 += masks;
 }
 
 // One call on R rays x S samples. ``cmask`` and ``cdelta`` ((R, S) f32,
@@ -1739,8 +2284,7 @@ extern "C" int fused_step(
   auto bias = [&](int i) { return static_cast<const float*>(wts[2 * i + 1]); };
   auto dw = [&](int i) { return static_cast<float*>(dwb[2 * i]); };
   auto db = [&](int i) { return static_cast<float*>(dwb[2 * i + 1]); };
-  const int i_encs = nb + 1, i_sig = nb + 2, i_encv = nb + 3;
-  const int i_tex = nb + 4, i_rgbh = nb + nt + 4, i_rgbo = nb + nt + 5;
+  const int i_sig = nb + 2, i_rgbo = nb + nt + 5;
 
   bf16* p = ws + packed_elems(W, nb, nt, true);
   auto take = [&](size_t n) { bf16* q = p; p += n; return q; };
@@ -1751,10 +2295,6 @@ extern "C" int fused_step(
   o.t = take(PW);
   o.r = take(PW / 2);
   bf16* g_r = take(PW / 2);
-  if (weight_grads || input_grads) o.m0 = take_bits(1);
-  o.ms = take_bits(nb);
-  o.mv = take_bits(1);
-  o.mt = take_bits(nt);
   // gh planes, each the cotangent of a layer's output: texture blocks
   // 0..nt-1, enc_viewdir, enc_shape, shape blocks 0..nb-1, enc_xyz (gh0).
   bf16 *gh_tex = nullptr, *gh_encv = nullptr, *gh_encs = nullptr;
@@ -1773,6 +2313,13 @@ extern "C" int fused_step(
   } else if (input_grads) {
     gh0 = take(PW);
   }
+  // The mask bit planes last: once the dx chain has read them, the dW
+  // partials take their place (and what they need beyond it).
+  float* dw_part = reinterpret_cast<float*>(p);
+  if (weight_grads || input_grads) o.m0 = take_bits(1);
+  o.ms = take_bits(nb);
+  o.mv = take_bits(1);
+  o.mt = take_bits(nt);
   auto plane = [&](bf16* base, int k) {
     return base ? base + (size_t)k * PW : nullptr;
   };
@@ -1780,9 +2327,7 @@ extern "C" int fused_step(
   float* rs_s = dsig + P;             // (R, nb, W)
   float* rs_t = rs_s + (size_t)R * nb * W;
   float* rs_v = rs_t + (size_t)R * nt * W;
-  float* head_part = rs_v + (size_t)R * W;   // weight_grads: (R, HP)
-  float* head_tmp = head_part + (size_t)R * head_part_cols(W);
-  float* dw_part = head_tmp + (size_t)COLSUM_GROUPS * head_part_cols(W);
+  float* head_part = rs_v + (size_t)R * W;   // weight_grads: (blocks, HP)
   CHECK((int)cudaMemsetAsync(rs_s, 0, sizeof(float) * (size_t)R * (nb + nt + 1) * W,
                              stream));
 
@@ -1797,7 +2342,7 @@ extern "C" int fused_step(
 
   // ---- heads, composite, loss, composite backward
   HeadArgs h = {};
-  h.R = R; h.S = S; h.W = W; h.t = o.t; h.r = o.r; h.z = z; h.gt8 = gt8;
+  h.R = R; h.S = S; h.t = o.t; h.r = o.r; h.z = z; h.gt8 = gt8;
   h.cmask = cmask; h.cdelta = cdelta;
   h.w_sig = wf(i_sig); h.b_sig = bias(i_sig);
   h.w_rgb = static_cast<const bf16*>(wts[2 * i_rgbo]);
@@ -1816,24 +2361,11 @@ extern "C" int fused_step(
     h.dz = d_z;
   }
   if (weight_grads) h.part = head_part;
-  head_kernel<<<R, HEAD_THREADS, 0, stream>>>(h);
+  const size_t hsm = head_smem(S, W, weight_grads);
+  CHECK((int)cudaFuncSetAttribute(
+      head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)hsm));
+  head_kernel<<<head_blocks(R), HEAD_THREADS, hsm, stream>>>(h);
   CHECK((int)cudaGetLastError());
-
-  // ---- the sigma and rgb_out gradients: the head's per-ray partials
-  // summed over the rays in two fixed-order stages.
-  if (weight_grads) {
-    const int HP = head_part_cols(W), Wh = W / 2;
-    const int rpg = (R + COLSUM_GROUPS - 1) / COLSUM_GROUPS;
-    const int groups = (R + rpg - 1) / rpg;
-    CHECK(launch_colsum(head_part, HP, R, HP, rpg, head_tmp, stream));
-    CHECK(launch_colsum(head_tmp, HP, groups, W, groups, dw(i_sig), stream));
-    CHECK(launch_colsum(head_tmp + W, HP, groups, Wh * 8, groups, dw(i_rgbo),
-                        stream));
-    CHECK(launch_colsum(head_tmp + W + Wh * 8, HP, groups, 8, groups,
-                        db(i_rgbo), stream));
-    CHECK(launch_colsum(head_tmp + W + Wh * 8 + 8, HP, groups, 1, groups,
-                        db(i_sig), stream));
-  }
 
   // ---- dx chain: one launch from the rgb_hidden cotangent down to shape
   // block 0 (enc_xyz's output cotangent with weight or input gradients).
@@ -1875,22 +2407,20 @@ extern "C" int fused_step(
   }
   CHECK(launch_dx(d, stream));
 
-  // ---- dW/db of every trunk layer from its stored input and gh plane.
+  // ---- dW/db of every trunk layer from its stored input and gh plane in
+  // one launch, then one fixed-order sum of its splits and of the head's
+  // rows (the sigma and rgb_out dW/db).
   if (weight_grads) {
-    const int Pi = (int)P;
-    CHECK(launch_dw(o.yts_last, g_r, Pi, W, W / 2, dw_part,
-                    dw(i_rgbh), db(i_rgbh), stream));
-    for (int k = 0; k < nt; ++k)
-      CHECK(launch_dw(o.xt + (size_t)k * PW, gh_tex + (size_t)k * PW, Pi, W,
-                      W, dw_part, dw(i_tex + k), db(i_tex + k), stream));
-    CHECK(launch_dw(o.t, gh_encv, Pi, W, W, dw_part, dw(i_encv), db(i_encv),
-                    stream));
-    CHECK(launch_dw(o.ys_last, gh_encs, Pi, W, W, dw_part,
-                    dw(i_encs), db(i_encs), stream));
-    for (int k = 0; k < nb; ++k)
-      CHECK(launch_dw(o.xs + (size_t)k * PW, gh_shape + (size_t)k * PW, Pi, W,
-                      W, dw_part, dw(1 + k), db(1 + k), stream));
-    CHECK(launch_dw(o.pe, gh0, Pi, 64, W, dw_part, dw(0), db(0), stream));
+    DwPair L[MAX_LAYERS];
+    const int n = trunk_pairs(&o, g_r, gh_tex, gh_encv, gh_encs, gh_shape,
+                              gh0, dwb, PW, W, nb, nt, L);
+    const int HP = head_part_cols(W), Wh = W / 2, rows = head_blocks(R);
+    const SumSeg head[4] = {
+        {head_part, dw(i_sig), HP, rows, W, 0},
+        {head_part + W, dw(i_rgbo), HP, rows, Wh * 8, 0},
+        {head_part + W + Wh * 8, db(i_rgbo), HP, rows, 8, 0},
+        {head_part + W + Wh * 8 + 8, db(i_sig), HP, rows, 1, 0}};
+    CHECK(launch_wgrad(L, n, (int)P, dw_part, head, 4, stream));
   }
   if (input_grads) {
     const size_t smem = input_smem_bytes(W);
@@ -2008,7 +2538,8 @@ __global__ void __launch_bounds__(32) composite_kernel(CompositeArgs a) {
   h.S = S; h.z = a.z; h.white_bg = a.white_bg;
   const bool bwd = a.g8 != nullptr;
   const CompositeOut o = composite_pass(
-      h, ray, lane, s_sig, s_c, s_gc, s_gs, nullptr, nullptr, false,
+      h, ray, lane, s_sig, &s_c[0][0], &s_gc[0][0], MAX_S, s_gs, nullptr,
+      nullptr, false,
       bwd ? s_w : nullptr, bwd ? s_dd : nullptr, true,
       bwd ? a.g8 + (size_t)ray * 8 : nullptr, bwd);
   if (!bwd) {
@@ -2116,6 +2647,50 @@ extern "C" int pack_trunk_weights(const void* const* wts, int W, int nb,
 
 extern "C" size_t packed_trunk_elems(int W, int nb, int nt) {
   return packed_elems(W, nb, nt, true);
+}
+
+namespace {
+
+int dw_pairs(const void* const* xs, const void* const* gs, const int* ms,
+             const int* ns, int n, void* const* dws, void* const* dbs,
+             DwPair* L) {
+  if (n < 1 || n > MAX_LAYERS) return -1;
+  for (int l = 0; l < n; ++l) {
+    if (!dw_shape_ok(ms[l], ns[l])) return -1;
+    L[l] = {xs ? static_cast<const bf16*>(xs[l]) : nullptr,
+            gs ? static_cast<const bf16*>(gs[l]) : nullptr, ms[l], ns[l],
+            dws ? static_cast<float*>(dws[l]) : nullptr,
+            dbs ? static_cast<float*>(dbs[l]) : nullptr};
+  }
+  return n;
+}
+
+}  // namespace
+
+// The weight-gradient kernel alone (fused_step launches it for the trunk),
+// for its check against its plain version: for each of the ``n`` pairs,
+// dws[l] (M, N) = xs[l]^T @ gs[l] and dbs[l] (N,) = the column sums of
+// gs[l], f32, over P points; xs[l] (P, M) and gs[l] (P, N) bf16, (M, N)
+// one of (256, 256), (256, 128), (64, 256) (``ms``, ``ns``). Host arrays
+// of device pointers. ``part``: weight_grads_workspace(...) f32 elements.
+// One wgrad_kernel and one fixed_sum_kernel launch.
+extern "C" size_t weight_grads_workspace(const int* ms, const int* ns, int n,
+                                         int P) {
+  DwPair L[MAX_LAYERS];
+  if (dw_pairs(nullptr, nullptr, ms, ns, n, nullptr, nullptr, L) < 0)
+    return 0;
+  return dw_part_elems(L, n, P);
+}
+
+extern "C" int weight_grads_step(const void* const* xs,
+                                 const void* const* gs, const int* ms,
+                                 const int* ns, int n, int P,
+                                 void* const* dws, void* const* dbs,
+                                 float* part, cudaStream_t stream) {
+  DwPair L[MAX_LAYERS];
+  if (dw_pairs(xs, gs, ms, ns, n, dws, dbs, L) < 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgrad(L, n, P, part, nullptr, 0, stream);
 }
 
 // Standalone composite on R rays x S samples: replaces

@@ -79,24 +79,30 @@ them first, :func:`wgmma_pack` being the layout's plain version):
 injections; it stores only the planes later kernels read) and
 ``trunk_dx_kernel`` (the dx chain from the rgb_hidden cotangent down, the
 ReLU masks, the sigma term and the per-ray row sums in its epilogue, one
-f32 atomic per ray, column and warp). Between them a per-ray head kernel
-— sigma and rgb heads, the composite as a warp scan over the samples, the
-loss and the composite backward, and in training the per-ray sums of the
-sigma and rgb_out gradients. In training the dx kernel also stores every
-gh plane, and a dW GEMM per layer (reduction axis the points, split across
-blocks into f32 partial tiles that a column-sum kernel adds in a fixed
-order) follows — so dW and db are the same bits on every run, while the
-per-ray code cotangents, summed with f32 atomics, may differ in their last
-bits; with input gradients the head kernel also writes the weights and the
+f32 atomic per ray, column and warp). Between them ``head_kernel``, a warp
+per ray — the sigma and rgb heads from 16-byte rows of t and r, the
+composite as a warp scan over the samples, the loss and the composite
+backward, and in training the per-ray sums of the sigma and rgb_out
+gradients, added over a block's rays in order. In training the dx kernel
+also stores every gh plane, and ``wgrad_kernel`` (:func:`weight_grads`)
+forms every trunk layer's dW/db in one launch: two-block clusters walk a
+fixed list of (layer, point split) items, wgmma over TMA-loaded boxes of
+the stored planes, one block's half of the shared operand multicast to
+both, each item's f32 partial written without atomics; one
+``fixed_sum_kernel`` launch adds the splits and the head's rows in a fixed
+order — so dW and db are the same bits on every run, while the per-ray
+code cotangents, summed with f32 atomics, may differ in their last bits;
+with input gradients the head kernel also writes the weights and the
 composite's dz, and an input-chain kernel (one block per ray, W_enc^T in
 shared memory, fixed-order sums) finishes d_ro8, d_vd8 and d_z, the same
 bits on every run. The CUDA kernels take W = 256.
 
 Beside the kernel: :func:`train_fused_plain`, the same function in plain
 PyTorch (the CPU tests and ``chip_smoke.py`` use it; the main path never
-does on CUDA), the launch counters ``train_fused.launches`` (one per
-mode: ``codes``, ``train``, ``dual_codes``, ``dual_train``, ``pose``,
-``pose_weights``, ``train_input``, ``train_weights`` ...;
+does on CUDA) with its parts :func:`head_plain` and
+:func:`weight_grads_plain`, the launch counters ``train_fused.launches``
+(one per mode: ``codes``, ``train``, ``dual_codes``, ``dual_train``,
+``pose``, ``pose_weights``, ``train_input``, ``train_weights`` ...;
 ``train_fused.points`` sums the R·S of those launches),
 :func:`hier_fine_zvals_meta`, which draws the fine depths and the dual
 mode's planes, the layout of the trunk kernels' weights
@@ -396,11 +402,42 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
     wops = kernel_operands(wflat)
     acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
                                    vcontrib, wops)
-    rgb = acts["rgb"].view(R, S, 8)
-    sigma = fused_mlp.softplus(acts["sig_pre"])
-    c0, c1, c2 = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    ses, out8, weights, g_sigma, (gc0, gc1, gc2), dz_comp = head_plain(
+        R, S, acts["sig_pre"], acts["rgb"], z, gt8, white_bg, scale,
+        coarse_mask, coarse_delta)
 
-    # ---- composite, loss, composite backward
+    d_sproj, d_tproj, d_vcontrib, gh0, dwb = backward_chain_plain(
+        cfg, R, S, acts, sproj, tproj, wops, g_sigma, (gc0, gc1, gc2),
+        weight_grads, input_grads, sigma_terms)
+    outs = ses + (d_sproj, d_tproj, d_vcontrib)
+    if want_weights:
+        outs += (weights,)
+    if want_rgb:
+        outs += (out8,)
+    if input_grads:
+        outs += fused_mlp.input_chain_plain(R, S, ro8, vd8, z, gh0, wops[0],
+                                            dz_comp, cfg.num_xyz_freq)
+    return outs + tuple(dwb)
+
+
+def head_plain(R: int, S: int, sig_pre, rgb, z, gt8, white_bg: bool,
+               scale: float, coarse_mask=None, coarse_delta=None):
+    """The composite part of the head kernel in plain PyTorch, from the
+    forward's sigma pre-activation ``sig_pre`` (R, S) f32 and rgb_out rows
+    ``rgb`` (R·S, 8) f32 (:func:`fused_mlp.forward_plain`): softplus, the
+    volume-rendering composite (in the dual mode both composites), the
+    squared error against ``gt8`` and its cotangent 2·scale·(rgb − gt),
+    and the composite backward — the TPU kernel's head
+    (``codenerf_tpu/ops/fused_train.py:560-612``). Returns ``(ses, out8,
+    weights, g_sigma, (gc0, gc1, gc2), dz)``: ``ses`` is ``(se,)`` or
+    ``(se_fine, se_coarse)``, ``out8`` the (fine) composited rows (R, 8),
+    ``weights`` the compositing weights (R, S) and ``dz`` the composite's
+    own z cotangent (both None in the dual mode); the cotangents of sigma
+    and of the raw rgb are (R, S) f32, those of the sum of the SEs times
+    ``scale``."""
+    rgb = rgb.view(R, S, 8)
+    sigma = fused_mlp.softplus(sig_pre)
+    c0, c1, c2 = rgb[..., 0], rgb[..., 1], rgb[..., 2]
     lane8 = torch.arange(8, device=z.device)[None, :]
 
     def loss_terms(out8):
@@ -411,36 +448,78 @@ def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
         out8, aux = fused_mlp.composite_fwd_in_kernel(sigma, c0, c1, c2, z,
                                                       white_bg)
         se, g8 = loss_terms(out8)
-        ses = (se,)
-        g_sigma, gc0, gc1, gc2, dz_comp = fused_mlp.composite_bwd_in_kernel(
+        g_sigma, gc0, gc1, gc2, dz = fused_mlp.composite_bwd_in_kernel(
             sigma, c0, c1, c2, z, g8, aux, white_bg)
-    else:
-        out8, out8_c, aux = fused_mlp.composite_fwd_dual_in_kernel(
-            sigma, c0, c1, c2, z, coarse_delta.float(), coarse_mask.float(),
-            white_bg)
-        se, g8 = loss_terms(out8)
-        se_c, g8_c = loss_terms(out8_c)
-        ses = (se, se_c)
-        g_sigma, gc0, gc1, gc2 = fused_mlp.composite_bwd_dual_in_kernel(
-            c0, c1, c2, z, g8, g8_c, aux, white_bg)
+        return (se,), out8, aux[4], g_sigma, (gc0, gc1, gc2), dz
+    out8, out8_c, aux = fused_mlp.composite_fwd_dual_in_kernel(
+        sigma, c0, c1, c2, z, coarse_delta.float(), coarse_mask.float(),
+        white_bg)
+    se, g8 = loss_terms(out8)
+    se_c, g8_c = loss_terms(out8_c)
+    g_sigma, gc0, gc1, gc2 = fused_mlp.composite_bwd_dual_in_kernel(
+        c0, c1, c2, z, g8, g8_c, aux, white_bg)
+    return (se, se_c), out8, None, g_sigma, (gc0, gc1, gc2), None
 
-    d_sproj, d_tproj, d_vcontrib, gh0, dwb = backward_chain_plain(
-        cfg, R, S, acts, sproj, tproj, wops, g_sigma, (gc0, gc1, gc2),
-        weight_grads, input_grads, sigma_terms)
-    outs = ses + (d_sproj, d_tproj, d_vcontrib)
-    if want_weights:
-        outs += (aux[4],)
-    if want_rgb:
-        outs += (out8,)
-    if input_grads:
-        outs += fused_mlp.input_chain_plain(R, S, ro8, vd8, z, gh0, wops[0],
-                                            dz_comp, cfg.num_xyz_freq)
-    return outs + tuple(dwb)
+
+def weight_grads_plain(pairs):
+    """``[(dW, db), ...]`` for ``pairs`` of a layer's bf16 input ``x``
+    (P, M) and output cotangent ``gh`` (P, N): ``dW = x^T @ gh`` (M, N) and
+    ``db = Σ gh`` (N,), f32 sums of exact bf16 products — the TPU kernel's
+    dW/db accumulators (``_tile_backward``'s ``acc``,
+    ``codenerf_tpu/ops/fused_train.py:297-302``). The plain version of
+    :func:`weight_grads`."""
+    return [(x.float().T @ gh.float(), gh.float().sum(0)) for x, gh in pairs]
+
+
+def weight_grads(pairs):
+    """:func:`weight_grads_plain` by the CUDA kernel ``fused_step`` runs for
+    the trunk in training (``wgrad_kernel``, one launch for every pair,
+    then ``fixed_sum_kernel``), for its check against the plain version on
+    the card: dW and db the same bits on every call. CUDA tensors only;
+    each (M, N) one of (256, 256), (256, 128), (64, 256), all pairs over
+    the same points. Counts its launches in ``weight_grads.launches``."""
+    dev = pairs[0][0].device
+    if dev.type != "cuda":
+        raise ValueError("weight_grads launches the CUDA kernel on CUDA "
+                         "tensors; weight_grads_plain is its plain version")
+    xs = [_aligned(x, torch.bfloat16) for x, _ in pairs]
+    gs = [_aligned(g, torch.bfloat16) for _, g in pairs]
+    P = xs[0].shape[0]
+    for x, g in zip(xs, gs):
+        if (x.dim() != 2 or g.dim() != 2 or x.shape[0] != P
+                or g.shape[0] != P or x.device != dev or g.device != dev):
+            raise ValueError(f"weight_grads: pairs must be (P, M), (P, N) on "
+                             f"{dev}; got {tuple(x.shape)}, {tuple(g.shape)}")
+    lib = library()
+    n = len(pairs)
+    ms = (ctypes.c_int * n)(*[x.shape[1] for x in xs])
+    ns = (ctypes.c_int * n)(*[g.shape[1] for g in gs])
+    elems = lib.weight_grads_workspace(ms, ns, n, P)
+    if elems == 0:
+        raise ValueError("weight_grads takes 1-16 pairs of (M, N) in "
+                         "(256, 256), (256, 128), (64, 256)")
+    part = torch.empty(elems, dtype=torch.float32, device=dev)
+    dws = [torch.empty(x.shape[1], g.shape[1], dtype=torch.float32,
+                       device=dev) for x, g in zip(xs, gs)]
+    dbs = [torch.empty(g.shape[1], dtype=torch.float32, device=dev)
+           for g in gs]
+    (xp, _kx), (gp, _kg) = _ptr_array(xs), _ptr_array(gs)
+    (wp, _kw), (bp, _kb) = _ptr_array(dws), _ptr_array(dbs)
+    rc = lib.weight_grads_step(
+        xp, gp, ms, ns, n, P, wp, bp, _ptr(part),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"weight_grads CUDA kernel failed: cudaError {rc}")
+    weight_grads.launches += 1
+    return list(zip(dws, dbs))
+
+
+weight_grads.launches = 0
 
 
 def backward_chain_plain(cfg: NetConfig, R: int, S: int, acts, sproj, tproj,
                          wops, g_sigma, g_rgb, weight_grads: bool,
-                         input_grads: bool, sigma_terms=None):
+                         input_grads: bool, sigma_terms=None, pairs=None):
     """The dx chain (and with ``weight_grads`` the dW/db of every layer)
     from the per-sample cotangents of sigma ``g_sigma`` (R, S) and of the
     raw rgb ``g_rgb`` (three (R, S) planes), over the activations of
@@ -448,7 +527,9 @@ def backward_chain_plain(cfg: NetConfig, R: int, S: int, acts, sproj, tproj,
     Returns ``(d_sproj, d_tproj, d_vcontrib, gh0, dwb)``: ``gh0`` is
     enc_xyz's bf16 output cotangent (with ``weight_grads`` or
     ``input_grads``, else None) and ``dwb`` the f32 gradients in
-    :func:`weight_shapes` order (empty without ``weight_grads``)."""
+    :func:`weight_shapes` order (empty without ``weight_grads``).
+    ``pairs``, a list, receives ``(name, x, gh)`` of every layer whose
+    dW/db :func:`weight_grads_plain` forms (with ``weight_grads``)."""
     f32, bf16 = torch.float32, torch.bfloat16
     W, nb, nt = cfg.W, cfg.shape_blocks, cfg.texture_blocks
     P, dev = R * S, g_sigma.device
@@ -467,7 +548,9 @@ def backward_chain_plain(cfg: NetConfig, R: int, S: int, acts, sproj, tproj,
 
     def acc(name, x, gh):   # dW = x^T @ gh, db = Σ gh, f32
         if weight_grads:
-            dwb[name] = (x.float().T @ gh.float(), gh.float().sum(0))
+            (dwb[name],) = weight_grads_plain([(x, gh)])
+            if pairs is not None:
+                pairs.append((name, x, gh))
 
     pe, y0, xs, ys, t = (acts[k] for k in ("pe", "y0", "xs", "ys", "t"))
     yv, xts, yts, r = (acts[k] for k in ("yv", "xts", "yts", "r"))
@@ -642,14 +725,19 @@ def _bind(lib: ctypes.CDLL):
     lib.composite_fwd.restype = ci
     lib.composite_bwd.argtypes = [vp] * 11 + [ci] * 3 + [vp]
     lib.composite_bwd.restype = ci
+    lib.weight_grads_workspace.argtypes = [vp, vp, ci, ci]
+    lib.weight_grads_workspace.restype = ctypes.c_size_t
+    lib.weight_grads_step.argtypes = [vp] * 4 + [ci] * 2 + [vp] * 4
+    lib.weight_grads_step.restype = ci
 
 
 def library() -> ctypes.CDLL:
     """``csrc/train_fused.cu`` built (at first use), loaded and bound: the
     single-pass kernel's and the plane-op backward's ``fused_step``, the
     forwards ``sigma_step`` and ``planes_step``, the standalone
-    composite's ``composite_fwd`` and ``composite_bwd``, and the weight
-    packer ``pack_trunk_weights``."""
+    composite's ``composite_fwd`` and ``composite_bwd``, the weight
+    packer ``pack_trunk_weights`` and the weight-gradient kernel alone,
+    ``weight_grads_step``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)

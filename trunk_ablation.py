@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Where the trunk kernels' time goes, on one NVIDIA GPU: each variant
-removes one part of ``trunk_fwd_kernel`` or ``trunk_dx_kernel`` from a
-copy of ``codenerf_tpu_torch/ops/csrc/train_fused.cu`` (its results are
-then wrong: only its time counts), builds it beside the others (one
-``nvcc`` each, started together) and times both kernels' device ms per
-launch (``torch.profiler``) in the frozen mode at 4096 × 96 and the
-weight-gradient mode at 16,384 × 96, W=256. The time a part removes is
-an upper bound of its cost: removing work can also let the rest overlap
-differently.
+"""Where the kernels' time goes, on one NVIDIA GPU: each variant removes
+one part of a kernel from a copy of
+``codenerf_tpu_torch/ops/csrc/train_fused.cu`` (its results are then
+wrong: only its time counts), builds it beside the others (one ``nvcc``
+each, started together) and times the kernels' device ms per launch
+(``torch.profiler``). The time a part removes is an upper bound of its
+cost: removing work can also let the rest overlap differently.
 
-    python3 trunk_ablation.py        # needs one CUDA card
+    python3 trunk_ablation.py            # the trunk kernels
+    python3 trunk_ablation.py --dw-head  # the dW kernel and the head
+
+The trunk: ``trunk_fwd_kernel`` and ``trunk_dx_kernel`` in the frozen
+mode at 4096 × 96 and the weight-gradient mode at 16,384 × 96, W=256.
+``--dw-head``: ``wgrad_kernel`` alone (``fused_train.weight_grads``) on
+seeded random planes of the training shape (16,384 × 96: the eight
+trunk layers' inputs and gh planes), and ``head_kernel`` in the
+weight-gradient mode at 16,384 × 96 and the frozen mode at 4096 × 96.
 
 Prints the card line, one line per variant, and exits non-zero without a
-card.
+card. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -53,6 +59,33 @@ VARIANTS = {
 }
 
 
+# The dW kernel and the head.
+DB_LOOP = "    for (int r = grp; r < 64; r += groups) {\n"
+DW_VARIANTS = {
+    "base": [],
+    "no_db (wgrad: no column sums)": [
+        (DB_LOOP, "    for (int r = grp; r < 0; r += groups) {\n")],
+    "no_products (wgrad: no wgmma)": [
+        ("      wgmma_tt_n256(acc, da + 128 * k, db + 128 * k, ks | k);",
+         "      if (false) wgmma_tt_n256(acc, da + 128 * k, db + 128 * k, "
+         "ks | k);")],
+    "no_multicast (wgrad: each block loads all four B boxes)": [
+        ("          for (int b = 2 * rank; b < 2 * rank + 2; ++b)\n"
+         "            tma_box_multicast(st + (DW_B0 + b) * DW_BOX, bm, "
+         "T.b0 + 64 * b,\n"
+         "                              p, full + stage, 0x3);",
+         "          for (int b = 0; b < 4; ++b)\n"
+         "            tma_box(st + (DW_B0 + b) * DW_BOX, bm, T.b0 + 64 * b, "
+         "p,\n"
+         "                    full + stage);")],
+    "splits_33 (wgrad: 33 point splits)": [
+        ("constexpr int DW_SPLITS = 66;", "constexpr int DW_SPLITS = 33;")],
+    "no_phase4 (head: no per-ray sums)": [
+        ("this ray's sums over its samples.\n    if (h.part) {",
+         "this ray's sums over its samples.\n    if (false) {")],
+}
+
+
 def variant_source(src: str, edits) -> str:
     for old, new in edits:
         if src.count(old) != 1:
@@ -62,12 +95,12 @@ def variant_source(src: str, edits) -> str:
     return src
 
 
-def build(src: str):
+def build(src: str, variants):
     from codenerf_tpu_torch.ops import _build
 
     os.makedirs(OUT, exist_ok=True)
     jobs = []
-    for k, (name, edits) in enumerate(VARIANTS.items()):
+    for k, (name, edits) in enumerate(variants.items()):
         cu = os.path.join(OUT, f"v{k}.cu")
         with open(cu, "w") as f:
             f.write(variant_source(src, edits))
@@ -85,6 +118,54 @@ def build(src: str):
     return libs
 
 
+def use(lib_path: str) -> None:
+    """Load a variant's library in the place of the kernels' own."""
+    from codenerf_tpu_torch.ops import _build, fused_train
+
+    lib = ctypes.CDLL(lib_path)
+    fused_train._bind(lib)
+    lib._bound = True
+    _build._LIBS[fused_train._KERNEL] = lib
+
+
+def dw_head(libs) -> None:
+    """The --dw-head table: wgrad_kernel alone on seeded random planes,
+    head_kernel in both modes."""
+    import torch
+
+    import chip_smoke
+    from codenerf_tpu_torch.ops import fused_train
+
+    dev = torch.device("cuda:0")
+    P, W = 16384 * 96, 256
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def plane(cols):
+        return (torch.randn(P, cols, generator=gen, device=dev)
+                .to(torch.bfloat16))
+
+    shapes = [(W, W // 2)] + [(W, W)] * 6 + [(64, W)]
+    pairs = [(plane(m), plane(n)) for m, n in shapes]
+    modes = [("training 16384x96",
+              chip_smoke.kernel_inputs(dev, 16384, 96)[1],
+              dict(weight_grads=True)),
+             ("frozen 4096x96", chip_smoke.kernel_inputs(dev, 4096, 96)[1],
+              dict(weight_grads=False))]
+    print("variant | wgrad_kernel ms (random planes) | head_kernel ms: "
+          + ", ".join(tag for tag, _, _ in modes), flush=True)
+    for name, so in libs:
+        use(so)
+        dw = chip_smoke.device_ms(lambda: fused_train.weight_grads(pairs),
+                                  "wgrad_kernel", 5)
+        heads = []
+        for _, args, kw in modes:
+            heads.append(chip_smoke.device_ms(
+                lambda: fused_train.train_fused(*args, **kw), "head_kernel",
+                5))
+        print(f"{name} | {dw:.3f} | " + ", ".join(f"{h:.3f}" for h in heads),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -94,11 +175,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import chip_smoke
-    from codenerf_tpu_torch.ops import _build, fused_train
+    from codenerf_tpu_torch.ops import fused_train
 
     print(f"card {chip_smoke.card_line()}", flush=True)
     with open(SOURCE) as f:
-        libs = build(f.read())
+        src = f.read()
+    if "--dw-head" in sys.argv[1:]:
+        dw_head(build(src, DW_VARIANTS))
+        return 0
+    libs = build(src, VARIANTS)
     dev = torch.device("cuda:0")
     shapes = [("frozen 4096x96", chip_smoke.kernel_inputs(dev, 4096, 96)[1],
                dict(weight_grads=False)),
@@ -108,10 +193,7 @@ def main() -> int:
     print("variant | " + " | ".join(f"{tag}: fwd ms, dx ms"
                                     for tag, _, _ in shapes), flush=True)
     for name, so in libs:
-        lib = ctypes.CDLL(so)
-        fused_train._bind(lib)
-        lib._bound = True
-        _build._LIBS[fused_train._KERNEL] = lib
+        use(so)
         row = []
         for _, args, kw in shapes:
             def call():
