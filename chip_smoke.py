@@ -43,7 +43,16 @@ Phases, each printed on its own line with its seconds:
    the same bits over two calls; the weight-gradient kernel alone
    (``fused_train.weight_grads``) on the planes of a training-shape call
    (16,384 × 96, every trunk layer) against ``weight_grads_plain``, its
-   dW/db the same bits over two calls. Timings of each kernel, its plain
+   dW/db the same bits over two calls; the input-chain kernel alone
+   (``fused_mlp.input_chain``) at 2048 × 96, 2048 × 64 and 2048 × 32, at
+   2047 × 40 (a ragged last chunk) and 300 × 200 (a ray longer than a ring
+   stage), and the four-plane head alone (``fused_mlp.plane_head``) on the
+   t and r of a planes call at 16,384 × 64, each against its plain version
+   and the same bits over two launches, beside its byte bound and one
+   PyTorch call for its product (``torch.matmul(gh0, w_enc.T)``,
+   ``torch.matmul(r, w_rgb[:, :3])``); the small kernels' device ms
+   (``sigma_head_kernel``, ``f32_to_bf16_kernel``, ``pack_kernel``) against
+   their byte bounds. Timings of each kernel, its plain
    version and its bound, a ``torch.profiler`` breakdown by kernel name,
    the trunk kernels' ms per launch and TFLOP/s, the head kernel's ms and
    GB/s and the weight-gradient kernel's ms, TFLOP/s and GB/s against its
@@ -98,11 +107,13 @@ Phases, each printed on its own line with its seconds:
     Phases 3-12 each start with every launch count at 0, fail if a plain
     version ran on a CUDA tensor, and print the peak device memory and
     their step profiles;
-13. the order of the next work (each mode's ms above its bound, summed
-    over the main paths' launches, each launch priced at its own R·S
-    points against the phase-2 shape's), the ``kernels`` JSON line (16
-    rows), the card line, and the last line ``{"ok": true, "device":
-    {...}}``.
+13. every CUDA kernel's launches on the main paths by name, the order of
+    the next work (each mode's ms above its bound, summed over the main
+    paths' launches, each launch priced at its own R·S points against the
+    phase-2 shape's), the ``kernels`` JSON line (18 rows: the 16 modes,
+    then ``input_chain_kernel`` and ``plane_head_kernel``, whose launches
+    are those of the modes that run them), the card line, and the last
+    line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
 or of the JAX package.
@@ -132,6 +143,8 @@ REPLACES_SIGMA = "codenerf_tpu/ops/fused_mlp.py:518"
 REPLACES_PLANES = "codenerf_tpu/ops/fused_mlp.py:518"
 REPLACES_BWD = "codenerf_tpu/ops/fused_train.py:846"
 REPLACES_COMPOSITE = "codenerf_tpu/ops/pallas_composite.py:84"
+REPLACES_INPUT = "codenerf_tpu/ops/fused_train.py:615"
+REPLACES_HEADS = "codenerf_tpu/ops/fused_mlp.py:363"
 # The points (R * S) of each mode's phase-2 check: its ms and bound_ms
 # are taken there.
 PHASE2_POINTS = {
@@ -142,7 +155,8 @@ PHASE2_POINTS = {
     "plane_train": R_TRAIN * S_UNION, "plane_codes": R_CODES * S_UNION,
     "plane_pose": R_POSE * S_UNION, "plane_train_input": R_CODES * S_COARSE,
     "composite": R_CODES * S_FULL, "composite_bwd": R_CODES * S_FULL,
-    "train_input": R_CODES * S_COARSE, "train_weights": R_TRAIN * S_COARSE}
+    "train_input": R_CODES * S_COARSE, "train_weights": R_TRAIN * S_COARSE,
+    "input_chain": R_POSE * S_FULL, "plane_head": R_TRAIN * S_UNION}
 PLANE_MODES = {   # launch counter: (weight_grads, input_grads)
     "plane_train": (True, False), "plane_codes": (False, False),
     "plane_pose": (False, True), "plane_train_input": (True, True)}
@@ -788,24 +802,41 @@ def composite_check(dev, R: int, S: int):
     return rows
 
 
-def device_ms(fn, kernel: str, calls: int = 20):
+def device_ms(fn, kernel: str, calls: int = 20, tries: int = 3):
     """Device ms per call of the CUDA kernels whose name contains
     ``kernel``, from a torch.profiler trace of ``calls`` calls (None when
-    the trace carries no device time)."""
+    ``tries`` traces in a row carry no device time for them: a trace on
+    the chip machine now and then comes back without its device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA and kernel in ev.name)
-    return us / 1e3 / calls if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA and kernel in ev.name
+                 and not getattr(ev, "is_user_annotation", False))
+        if us:
+            return us / 1e3 / calls
+    return None
+
+
+def kernel_ms(fn, kernel: str, what: str) -> float:
+    """:func:`device_ms`, or where no trace carries the kernel's device
+    time, CUDA events around 20 back-to-back calls (which then time the
+    wrapper's host work too, an upper bound), said in the log."""
+    ms = device_ms(fn, kernel)
+    if ms is None:
+        ms = time_cuda(fn, reps=20)
+        log(f"  {what}: no device time in the profiler's traces; {ms:.4f} "
+            f"ms per call by CUDA events (host work included)")
+    return ms
 
 
 def chain_check(dev, input_grads: bool, R: int, S: int):
@@ -868,6 +899,188 @@ def chain_check(dev, input_grads: bool, R: int, S: int):
             f"{'' if ok else '  <-- FAILS'}")
         checks.append((name, d, ok))
     _fail_on(checks, f"the plane-op chain vs the single-pass {what} mode")
+
+
+# The launch counters of fused_step (the single pass and the plane-op
+# backward), of those with weight gradients (one wgrad_kernel each) and
+# of those with input gradients (one input_chain_kernel each).
+STEP_MODES = ("codes", "train", "dual_codes", "dual_train", "pose",
+              "pose_weights", "train_input", "train_weights", "codes_weights",
+              "train_input_weights", "plane_train", "plane_codes",
+              "plane_pose", "plane_train_input")
+WEIGHT_MODES = tuple(m for m in STEP_MODES if "train" in m)
+INPUT_MODES = tuple(m for m in STEP_MODES if "pose" in m or "input" in m)
+# Shapes of input_chain_check: pose optimization's rays at the three
+# sample counts of the paths, then a ragged last group (3 rays of 40
+# samples a group: 2047 leaves one ray, and 120-row groups pad to 128)
+# and a ray longer than a ring stage (200 samples in two chunks).
+INPUT_CHAIN_SHAPES = ((R_POSE, S_FULL), (R_POSE, S_UNION),
+                      (R_POSE, S_COARSE), (2047, 40), (300, 200))
+
+
+def input_chain_check(dev, R: int, S: int):
+    """Phase 2: the input-chain kernel alone (fused_mlp.input_chain) vs
+    input_chain_plain on seeded inputs: the rays, depths and enc_xyz
+    weight of a kernel call at R × S (points at which the top frequency's
+    t = x·2^9 reaches the hundreds), gh0 a seeded normal plane with half
+    its entries zero (as enc_xyz's ReLU mask leaves it) and a seeded
+    composite dz; every output with _close's input-chain bar (slack 2),
+    and d_ro8, d_vd8, d_z the same bits over two launches. Then its
+    device ms against its byte bound, and torch.matmul(gh0, w_enc.T), the
+    d_pe product alone, as the yardstick (never called by the port)."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_mlp
+
+    cfg, args = kernel_inputs(dev, R, S)
+    ro8, vd8, z, wops = args[5], args[6], args[7], args[-1]
+    w_enc = wops[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    P = R * S
+    gh0 = (torch.randn(P, cfg.W, generator=gen, device=dev) * 1e-3
+           * (torch.rand(P, cfg.W, generator=gen, device=dev) < 0.5)
+           ).to(torch.bfloat16)
+    dz = torch.randn(R, S, generator=gen, device=dev) * 1e-3
+    ia = (R, S, ro8, vd8, z, gh0, w_enc, dz, cfg.num_xyz_freq)
+    got = fused_mlp.input_chain(*ia)
+    torch.cuda.synchronize()
+    want = fused_mlp.input_chain_plain(*ia)
+    checks = [(f"{n} (input_chain_kernel, R={R}, S={S})", *_close(
+        f"{n} (input_chain_kernel, R={R}, S={S})", g, w, per_ray=True,
+        slack=2.0)) for n, g, w in zip(INPUT_CHAIN, got, want)]
+    again = fused_mlp.input_chain(*ia)
+    ok = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  d_ro8, d_vd8, d_z over two launches: "
+        f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
+    checks.append(("input chain (two launches)", 0.0, ok))
+    x = (ro8[:, None, :3] + vd8[:, None, :3] * z[:, :, None]).abs().max()
+    log(f"  largest |x| {float(x):.3f}: the top frequency's t reaches "
+        f"{float(x) * 2 ** (cfg.num_xyz_freq - 1):.1f}")
+    del got, want, again
+    err = _fail_on(checks, "input_chain")
+    nbytes = (P * (cfg.W * 2 + 4 * 3) + R * 8 * 4 * 4
+              + w_enc.numel() * w_enc.element_size())
+    bnd = _bound(2 * P * 64 * cfg.W, nbytes)
+    ms = kernel_ms(lambda: fused_mlp.input_chain(*ia), "input_chain_kernel",
+                   "input_chain_kernel")
+    plain_ms = time_cuda(lambda: fused_mlp.input_chain_plain(*ia), reps=3)
+    w_t = w_enc.t()
+    lib_ms = kernel_ms(lambda: torch.matmul(gh0, w_t), "", "torch.matmul")
+    log(f"  input_chain_kernel at R={R}, S={S} ({bnd[2]:.4e} FLOP, "
+        f"{nbytes} B to move): {ms:.4f} ms per launch, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}); plain {plain_ms:.4f} ms; torch.matmul(gh0, w_enc.T) "
+        f"{lib_ms:.4f} ms (the yardstick; the port never calls it)")
+    row = _entry("input_chain_kernel (input_grads tail)", REPLACES_INPUT,
+                 err, ms, plain_ms, bnd)
+    row["library_ms"] = lib_ms
+    return row
+
+
+def plane_head_check(dev, R: int, S: int):
+    """Phase 2: the four-plane head alone (fused_mlp.plane_head) on the t
+    and r of a planes call at R × S (the plain forward's, on the card)
+    vs plane_head_plain, each plane with _close's bar, and every plane the
+    same bits over two launches. Then its device ms against its byte
+    bound (t and r read, four f32 planes written: 784 B a point), and
+    torch.matmul(r, w_rgb[:, :3]), the rgb product alone, as the
+    yardstick (never called by the port)."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_mlp
+
+    cfg, args = kernel_inputs(dev, R, S)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
+    acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
+                                   vcontrib, wops)
+    t, r = acts["t"], acts["r"]
+    del acts
+    i_sig = cfg.shape_blocks + 2
+    i_rgbo = cfg.shape_blocks + cfg.texture_blocks + 5
+    ha = (R, S, t, r, wops[2 * i_sig], wops[2 * i_sig + 1], wops[2 * i_rgbo],
+          wops[2 * i_rgbo + 1])
+    got = fused_mlp.plane_head(*ha)
+    torch.cuda.synchronize()
+    want = fused_mlp.plane_head_plain(*ha)
+    checks = [(f"{n} (plane_head_kernel)", *_close(
+        f"{n} (plane_head_kernel)", g, w, per_ray=True))
+        for n, g, w in zip(("sigma", "r", "g", "b"), got, want)]
+    again = fused_mlp.plane_head(*ha)
+    ok = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  the four planes over two launches: "
+        f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
+    checks.append(("planes (two launches)", 0.0, ok))
+    del got, want, again
+    err = _fail_on(checks, "plane_head")
+    P, W = R * S, cfg.W
+    nbytes = (P * (W * 2 + W + 16)
+              + sum(x.numel() * x.element_size() for x in ha[4:]))
+    bnd = _bound(2 * P * (W + W // 2 * 3), nbytes)
+    ms = kernel_ms(lambda: fused_mlp.plane_head(*ha), "plane_head_kernel",
+                   "plane_head_kernel")
+    plain_ms = time_cuda(lambda: fused_mlp.plane_head_plain(*ha), reps=3)
+    w_rgb3 = ha[6][:, :3]
+    lib_ms = kernel_ms(lambda: torch.matmul(r, w_rgb3), "", "torch.matmul")
+    log(f"  plane_head_kernel at R={R}, S={S} ({nbytes} B to move): "
+        f"{ms:.4f} ms per launch, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}); plain {plain_ms:.4f} ms; "
+        f"torch.matmul(r, w_rgb[:, :3]) {lib_ms:.4f} ms (the yardstick; "
+        f"the port never calls it)")
+    row = _entry("plane_head_kernel (four-plane head)", REPLACES_HEADS,
+                 err, ms, plain_ms, bnd)
+    row["library_ms"] = lib_ms
+    return row
+
+
+def small_kernel_rates(dev) -> dict:
+    """Phase 2: the device ms of the port's small kernels at the main
+    paths' shapes beside their byte bounds and, where one PyTorch call
+    computes (part of) the same function, that call's device ms (the
+    yardstick; the port never calls it): sigma_head_kernel at 16,384 × 32
+    (t read, sigma written; torch.matmul(t, w_sig) over the plain
+    forward's t), and per training call at 16,384 × 96 the three
+    f32_to_bf16_kernel launches (the per-ray cotangent sums, R × (nb + nt
+    + 1) × W f32 in, bf16 out; one x.to(torch.bfloat16) of as many values)
+    and pack_kernel (every trunk weight read once, its packed forward and
+    dx operands written). Returns {kernel: (ms, bound ms, library ms or
+    None)}; a kernel without device time in the traces reads None."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_mlp, fused_train
+
+    out = {}
+    cfg, args = kernel_inputs(dev, R_TRAIN, S_COARSE)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
+    sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops)
+    P, W = R * S, cfg.W
+    ms = device_ms(lambda: fused_mlp.sigma_fwd(*sargs), "sigma_head_kernel")
+    t = fused_mlp.shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj,
+                                    wops)["t"]
+    w_sig = wops[2 * (cfg.shape_blocks + 2)].to(torch.bfloat16)
+    lib = kernel_ms(lambda: torch.matmul(t, w_sig), "", "torch.matmul")
+    out["sigma_head_kernel"] = (ms, P * (2 * W + 4) / PEAK_HBM_BYTES * 1e3,
+                                lib)
+    del t
+    cfg, args = kernel_inputs(dev, R_TRAIN, S_FULL)
+    call = lambda: fused_train.train_fused(*args, weight_grads=True)
+    n = R_TRAIN * (cfg.shape_blocks + cfg.texture_blocks + 1) * cfg.W
+    x = torch.randn(n, device=dev)
+    out["f32_to_bf16_kernel"] = (
+        device_ms(call, "f32_to_bf16_kernel", calls=3),
+        n * 6 / PEAK_HBM_BYTES * 1e3,
+        kernel_ms(lambda: x.to(torch.bfloat16), "", "x.to(torch.bfloat16)"))
+    n_in = sum(args[-1][2 * i].numel()
+               for i in fused_train.trunk_layer_indices(cfg))
+    n_out = fused_train.library().packed_trunk_elems(
+        cfg.W, cfg.shape_blocks, cfg.texture_blocks)
+    out["pack_kernel"] = (device_ms(call, "pack_kernel", calls=3),
+                          2 * (n_in + n_out) / PEAK_HBM_BYTES * 1e3, None)
+    for k, (ms, bnd, lib) in out.items():
+        log(f"  {k}: "
+            + ("not measured" if ms is None else f"{ms:.4f} ms per call")
+            + f", byte bound {bnd:.4f} ms; library "
+            + ("none" if lib is None else f"{lib:.4f} ms"))
+    return out
 
 
 def trunk_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
@@ -1147,7 +1360,8 @@ def _short(name: str) -> str:
 PORT_KERNELS = ("trunk_fwd_kernel", "trunk_dx_kernel", "pack_kernel",
                 "wgrad_kernel", "head_kernel", "fixed_sum_kernel",
                 "f32_to_bf16_kernel", "sigma_head_kernel",
-                "input_chain_kernel", "rgb_head_kernel", "composite_kernel")
+                "input_chain_kernel", "plane_head_kernel",
+                "composite_kernel")
 
 
 def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
@@ -1268,12 +1482,20 @@ class LaunchCounts:
         for c in self._counters + self._points:
             for k in c:
                 c[k] = 0
+        # The kernels' standalone wrappers, for the phase-2 checks alone:
+        # the main paths must launch none of them.
+        self._alone = {"input_chain (alone)": fused_mlp.input_chain,
+                       "plane_head (alone)": fused_mlp.plane_head,
+                       "weight_grads (alone)": fused_train.weight_grads}
+        for fn in self._alone.values():
+            fn.launches = 0
         self.plain_on_cuda = 0
         self._orig = [(mod, name, getattr(mod, name)) for mod, name in (
             (fused_mlp, "sigma_fwd_plain"), (fused_mlp, "planes_fwd_plain"),
             (fused_train, "train_fused_plain"),
             (fused_train, "plane_bwd_plain"),
             (fused_train, "weight_grads_plain"), (fused_train, "head_plain"),
+            (fused_mlp, "input_chain_plain"), (fused_mlp, "plane_head_plain"),
             (composite, "composite_fwd_plain"),
             (composite, "composite_bwd_plain"))]
 
@@ -1291,7 +1513,9 @@ class LaunchCounts:
         return self
 
     def get(self) -> dict:
-        return {k: v for c in self._counters for k, v in c.items()}
+        counts = {k: v for c in self._counters for k, v in c.items()}
+        counts.update((k, fn.launches) for k, fn in self._alone.items())
+        return counts
 
     def __exit__(self, *exc):
         for mod, name, fn in self._orig:
@@ -1939,9 +2163,21 @@ def main() -> int:
     union = pose_check(dev, S_UNION, want_weights=False, union=True)
     entries["pose"]["max_abs_err"] = max(entries["pose"]["max_abs_err"],
                                          union["max_abs_err"])
+    for R, S in INPUT_CHAIN_SHAPES:
+        log(f"phase 2: the input-chain kernel alone at R={R}, S={S}")
+        row = input_chain_check(dev, R, S)
+        if "input_chain" in entries:
+            entries["input_chain"]["max_abs_err"] = max(
+                entries["input_chain"]["max_abs_err"], row["max_abs_err"])
+        else:
+            entries["input_chain"] = row
     torch.cuda.empty_cache()
     log(f"phase 2: four-plane forward at R={R_TRAIN}, S={S_UNION}")
     entries["planes"] = planes_check(dev, R_TRAIN, S_UNION)
+    torch.cuda.empty_cache()
+    log(f"phase 2: the four-plane head alone on the t and r of a planes "
+        f"call at R={R_TRAIN}, S={S_UNION}")
+    entries["plane_head"] = plane_head_check(dev, R_TRAIN, S_UNION)
     for mode, R, S in (("plane_train", R_TRAIN, S_UNION),
                        ("plane_codes", R_CODES, S_UNION),
                        ("plane_pose", R_POSE, S_UNION),
@@ -1962,6 +2198,9 @@ def main() -> int:
         log(f"phase 2: the pair no path calls, {mode} ({kw}) at R={R}, "
             f"S={S}")
         entries[mode] = pair_check(dev, mode)
+    torch.cuda.empty_cache()
+    log("phase 2: the small kernels against their bounds and yardsticks")
+    small_kernel_rates(dev)
     torch.cuda.empty_cache()
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     if args.check:
@@ -2005,12 +2244,41 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    # The two kernels checked alone run inside the modes' launches: one
+    # input_chain_kernel in each launch of an input-gradient mode, one
+    # plane_head_kernel in each planes launch (the step profiles count
+    # them by name).
+    for kernel, modes in (("input_chain", INPUT_MODES),
+                          ("plane_head", ("planes",))):
+        launches[kernel] = sum(launches.get(m, 0) for m in modes)
+        MAIN_POINTS[kernel] = sum(MAIN_POINTS.get(m, 0) for m in modes)
+    # Every CUDA kernel's launches on the main paths, from the modes'
+    # counts: each fused_step launch packs the weights once and converts
+    # three cotangent sums; sigma_step and planes_step pack once each.
+    def total(modes):
+        return sum(launches.get(m, 0) for m in modes)
+
+    steps = total(STEP_MODES)
+    by_kernel = {
+        "trunk_fwd_kernel": steps + total(("sigma", "planes")),
+        "trunk_dx_kernel": steps, "head_kernel": steps,
+        "wgrad_kernel": total(WEIGHT_MODES),
+        "fixed_sum_kernel": total(WEIGHT_MODES),
+        "pack_kernel": steps + total(("sigma", "planes")),
+        "f32_to_bf16_kernel": 3 * steps,
+        "sigma_head_kernel": launches.get("sigma", 0),
+        "plane_head_kernel": launches["plane_head"],
+        "input_chain_kernel": launches["input_chain"],
+        "composite_kernel": launches.get("composite", 0)
+        + launches.get("composite_bwd", 0)}
+    log("CUDA kernel launches on the main paths (phases 3-12): " + ", ".join(
+        f"{k} {v}" for k, v in by_kernel.items()))
     rows, excess = [], []
     for mode in ("codes", "train", "sigma", "dual_train", "dual_codes",
                  "pose", "pose_weights", "planes", "plane_train",
                  "plane_codes", "plane_pose", "plane_train_input",
                  "composite", "composite_bwd", "train_input",
-                 "train_weights"):
+                 "train_weights", "input_chain", "plane_head"):
         # plane_train_input, train_input and train_weights have no caller
         # on a main path
         e = entries[mode]

@@ -75,10 +75,19 @@
 // The input gradients add:
 //   (vii) head_kernel writes the composite's z cotangent; the forward keeps
 //         y0 and the dx chain runs on through enc_xyz's ReLU mask to gh0;
-//   (viii) input_chain_kernel: per point d_pe = gh0 . W_enc^T (CUDA-core
-//         f32 dots against W_enc^T in shared memory, 2 * 64 * W FLOP, ~2%
-//         of the call), the PE Jacobian, d_z += d_xyz . vd; per ray
-//         d_ro8, d_vd8 in a fixed order.
+//   (viii) input_chain_kernel: per point d_pe = gh0 . W_enc^T, the PE
+//         Jacobian, d_z += d_xyz . vd; per ray d_ro8, d_vd8 in a fixed
+//         order. Bound by gh0's bytes: persistent blocks stage W_enc once
+//         and stream a contiguous range of whole rays in 64-row chunks
+//         through a two-stage cp.async ring; mma.sync m16n8k16 bf16 on
+//         the tensor cores, the Jacobian a row per lane with one sincosf
+//         per (coordinate, frequency), a warp per ray for the sums.
+// The forwards at the end of this file reuse (i) and (ii) with one head
+// pass: sigma_step's sigma_head_kernel (a warp per point), and
+// planes_step's plane_head_kernel (sigma and the raw r, g, b in one pass
+// over t and r, 16-byte loads, 4 points a warp, the sigma lane's
+// arithmetic shared with sigma_head_kernel, so both sigma planes are the
+// same bits).
 // What bounds the trunk: at W=256 a layer is 131,072 FLOP per point
 // against 512 B per stored bf16 plane, so the chain is bound by operations
 // once activations stay on chip; the weights (0.9 MB) come from L2 once per
@@ -1763,9 +1772,9 @@ int launch_convert(const float* x, bf16* y, size_t n, cudaStream_t stream) {
   } while (0)
 
 struct InputArgs {
-  int S, W, n_freq;
-  const bf16* gh0;         // (P, W): enc_xyz's output cotangent, masked
-  const bf16* w_enc;       // (64, W): enc_xyz's weight (in, out)
+  int R, S, n_freq;
+  const bf16* gh0;         // (P, TW): enc_xyz's output cotangent, masked
+  const bf16* w_enc;       // (64, TW): enc_xyz's weight (in, out)
   const float* ro8;        // (R, 8)
   const float* vd8;        // (R, 8)
   const float* z;          // (R, S)
@@ -1774,101 +1783,233 @@ struct InputArgs {
   float* d_vd8;            // (R, 8)
 };
 
-constexpr int INPUT_THREADS = 256;
+// The input chain's tiling: 4 warps a block (a 16-row tile each), two
+// blocks an SM; W_enc (32 KB) once per block, a ring of two stages of 64
+// gh0 rows (32 KB each), and a ring of the points' (d_xyz, z) rows for
+// the per-ray sums, long enough for a chunk, the next one and a ray.
+constexpr int IC_THREADS = 128;
+constexpr int IC_BLOCKS_PER_SM = 2;
+constexpr int IC_ROWS = 64;
+constexpr int IC_ROW_BYTES = TW * 2;
+constexpr int IC_STAGE_BYTES = IC_ROWS * IC_ROW_BYTES;
+constexpr int IC_W_BYTES = 64 * IC_ROW_BYTES;
+constexpr int IC_RING = 2 * IC_ROWS + MAX_S;
+constexpr int IC_PE_LD = 72;      // floats a row of a warp's d_pe tile
+constexpr size_t IC_SMEM = IC_W_BYTES + 2 * IC_STAGE_BYTES
+                           + IC_RING * sizeof(float4);
+static_assert(16 * IC_PE_LD * 4 <= 16 * IC_ROW_BYTES,
+              "a warp's d_pe tile fits in its own gh0 rows");
 
-__host__ __device__ constexpr size_t input_smem_bytes(int W) {
-  return sizeof(bf16) * (size_t)W * 64                      // W_enc^T
-         + sizeof(float) * (size_t)(INPUT_THREADS / 32) * W  // gh0 rows
-         + sizeof(float) * (size_t)MAX_S * 3;                // d_xyz
+// Byte offset of 16-byte chunk c of row r in a staged (rows, 256) bf16
+// tile: the chunk index XOR (r mod 8), so that the 8 row addresses of
+// one ldmatrix fall in 8 different bank groups.
+__device__ __forceinline__ uint32_t ic_swz(int r, int c) {
+  return (uint32_t)(r * IC_ROW_BYTES + ((c ^ (r & 7)) << 4));
+}
+
+// cp.async of ``rows`` contiguous (TW,) bf16 rows into a swizzled tile.
+__device__ __forceinline__ void ic_stage_rows(unsigned char* dst,
+                                              const bf16* src, int rows) {
+  for (int i = threadIdx.x; i < rows * (IC_ROW_BYTES / 16);
+       i += IC_THREADS) {
+    const int r = i / (IC_ROW_BYTES / 16), c = i % (IC_ROW_BYTES / 16);
+    cp_async16(dst + ic_swz(r, c), src + (size_t)r * TW + c * 8, 16);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The input chain of the pose modes (the TPU kernel's input_grads tail,
-// fused_train.py:615-626): per point d_pe = gh0 . W_enc^T (64 lanes, f32
-// sums of bf16 products), the PE Jacobian dpe/dt (1, cos t, -sin t) with
+// codenerf_tpu/ops/fused_train.py:615-626 in _train_kernel, :434-443 in
+// _bwd_kernel): per point d_pe = gh0 . W_enc^T (64 lanes, f32 sums of
+// bf16 products), the PE Jacobian dpe/dt (1, cos t, -sin t) with
 // t = xyz * 2^i, and d_xyz = (d_pe * dpe/dt) . A^T; then d_z += d_xyz . vd
 // per point, and per ray d_ro = sum_s d_xyz and d_vd = sum_s d_xyz * z_s.
-// One block per ray; each warp takes one sample at a time, lane l the PE
-// lanes 2l and 2l + 1 against W_enc^T staged in shared memory. Every sum
-// runs in a fixed order (the dot over W, a butterfly over the lanes, the
-// ray sums over the samples), so d_ro8, d_vd8 and d_z are the same bits
-// on every launch.
-__global__ void __launch_bounds__(INPUT_THREADS) input_chain_kernel(
-    InputArgs a) {
+//
+// Bound by bytes: gh0 is 512 B a point of the ~525 B it must move (z,
+// d_z read and written, the per-ray rows), 0.031 ms at 2048 x 96 on an
+// H100 at 3.35 TB/s; the product is 32,768 FLOP a point, a fifth of that
+// time on the tensor cores. The design streams gh0 once:
+// - persistent blocks, two per SM, each staging W_enc once (32 KB,
+//   cp.async, in its stored (64, W) layout: that is the "col" B operand
+//   of d_pe = gh0 . W_enc^T as it lies, no transpose);
+// - each block owns a contiguous range of whole rays and streams their
+//   gh0 rows in 64-row chunks through a two-stage ring, the next chunk
+//   loading while this one computes (a ragged last chunk is masked);
+// - the product on tensor cores, mma.sync m16n8k16 bf16 with f32
+//   accumulators from ldmatrix of XOR-swizzled tiles: 16 rows x 64
+//   columns a warp, 32 accumulators a thread; the row's z, d_z, ro and vd
+//   load before it, so their latency hides behind the products;
+// - the PE Jacobian in registers: the warp's d_pe tile goes to shared
+//   memory (over its own dead gh0 rows), then each lane takes one row and
+//   half the frequencies, and one precise sincosf per (coordinate,
+//   frequency) serves both the sin and the cos lane (never __sinf: at
+//   t = x * 2^9 the fast versions are wrong in the leading digits); the
+//   two halves meet with one shuffle;
+// - each point's d_xyz updates d_z and goes, with its z, into the ring;
+//   a warp per ray sums d_ro8 and d_vd8 over its samples (lane-strided,
+//   then a butterfly) once the chunk that ends the ray is done.
+// Every sum runs in a fixed order and there are no atomics, so d_ro8,
+// d_vd8 and d_z are the same bits on every launch.
+__global__ void __launch_bounds__(IC_THREADS, IC_BLOCKS_PER_SM)
+    input_chain_kernel(InputArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int W = a.W, S = a.S;
-  __nv_bfloat162* s_wt = reinterpret_cast<__nv_bfloat162*>(smem);  // [W][32]
-  float* s_gh = reinterpret_cast<float*>(smem + sizeof(bf16) * W * 64);
-  float* s_dxyz = s_gh + (INPUT_THREADS / 32) * W;                  // [S][3]
-  const int ray = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  bf16* wt = reinterpret_cast<bf16*>(s_wt);
-  for (int i = tid; i < 64 * W; i += INPUT_THREADS) {
-    const int k = i % 64, c = i / 64;
-    wt[i] = a.w_enc[(size_t)k * W + c];
-  }
-  __syncthreads();
-
-  const float* ro = a.ro8 + (size_t)ray * 8;
-  const float* vd = a.vd8 + (size_t)ray * 8;
-  const PeLane l0 = pe_lane(2 * lane, a.n_freq);
-  const PeLane l1 = pe_lane(2 * lane + 1, a.n_freq);
-  float* gh = s_gh + warp * W;
-  for (int s = warp; s < S; s += INPUT_THREADS / 32) {
-    const size_t p = (size_t)ray * S + s;
-    for (int k0 = 8 * lane; k0 < W; k0 += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(a.gh0 + p * W + k0);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+  unsigned char* s_w = smem;
+  auto s_stage = [&](int q) {       // ring stage of chunk q
+    return smem + IC_W_BYTES + (q & 1) * IC_STAGE_BYTES;
+  };
+  float4* s_ring = reinterpret_cast<float4*>(smem + IC_W_BYTES
+                                             + 2 * IC_STAGE_BYTES);
+  const int S = a.S, F = a.n_freq;
+  const size_t ray_lo = (size_t)a.R * blockIdx.x / gridDim.x;
+  const size_t ray_hi = (size_t)a.R * (blockIdx.x + 1) / gridDim.x;
+  const size_t row_lo = ray_lo * S, row_hi = ray_hi * S;
+  const int nq = (int)((row_hi - row_lo + IC_ROWS - 1) / IC_ROWS);
+  if (nq == 0) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto chunk_row0 = [&](int q) { return row_lo + (size_t)q * IC_ROWS; };
+  auto chunk_rows = [&](int q) {
+    const size_t left = row_hi - chunk_row0(q);
+    return left < (size_t)IC_ROWS ? (int)left : IC_ROWS;
+  };
+  // The rays whose last sample lies in chunk q: a warp each.
+  auto ray_sums = [&](int q) {
+    const size_t a0 = chunk_row0(q), b0 = a0 + chunk_rows(q);
+    for (size_t ray = a0 / S + warp; ray < b0 / S; ray += IC_THREADS / 32) {
+      float sro[3] = {0.f, 0.f, 0.f}, svd[3] = {0.f, 0.f, 0.f};
+      for (int s = lane; s < S; s += 32) {
+        const float4 v = s_ring[(ray * S + s) % IC_RING];
+        sro[0] += v.x; sro[1] += v.y; sro[2] += v.z;
+        svd[0] += v.x * v.w; svd[1] += v.y * v.w; svd[2] += v.z * v.w;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        gh[k0 + 2 * i] = __low2float(v2[i]);
-        gh[k0 + 2 * i + 1] = __high2float(v2[i]);
+      for (int d = 0; d < 3; ++d) {
+        sro[d] = warp_sum(sro[d]);
+        svd[d] = warp_sum(svd[d]);
+      }
+      if (lane < 16) {
+        const int d = lane & 7;
+        const float v = d == 0 ? (lane < 8 ? sro[0] : svd[0])
+                      : d == 1 ? (lane < 8 ? sro[1] : svd[1])
+                      : d == 2 ? (lane < 8 ? sro[2] : svd[2]) : 0.f;
+        (lane < 8 ? a.d_ro8 : a.d_vd8)[ray * 8 + d] = v;
       }
     }
+  };
+
+  ic_stage_rows(s_w, a.w_enc, 64);
+  ic_stage_rows(s_stage(0), a.gh0 + row_lo * TW, chunk_rows(0));
+  cp_async_commit();
+  const int grp = lane >> 2, tig = lane & 3;
+  const int r = lane & 15, h = lane >> 4;     // the Jacobian's row, half
+  const int H = (F + 1) / 2;                  // frequencies a half takes
+  const uint32_t w_base = smem_u32(s_w);
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<0>();
+    __syncthreads();         // chunk q landed; chunk q - 1 fully done
+    if (q + 1 < nq) {
+      ic_stage_rows(s_stage(q + 1), a.gh0 + chunk_row0(q + 1) * TW,
+                    chunk_rows(q + 1));
+      cp_async_commit();
+    }
+    if (q > 0) ray_sums(q - 1);
+    const int rows = chunk_rows(q);
+    if (16 * warp >= rows) continue;
+    const int lr = 16 * warp + r;
+    const bool valid = lr < rows;
+    const size_t p = chunk_row0(q) + (valid ? lr : 0);
+    const size_t ray = p / S;
+    const float zs = a.z[p], dz_old = a.d_z[p];
+    float ro[3], vd[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      ro[d] = a.ro8[ray * 8 + d];
+      vd[d] = a.vd8[ray * 8 + d];
+    }
+
+    unsigned char* tile = s_stage(q) + 16 * warp * IC_ROW_BYTES;
+    const uint32_t a_base = smem_u32(tile);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    const int m = lane >> 3;
+#pragma unroll 4
+    for (int ks = 0; ks < TW / 16; ++ks) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a_base + ic_swz(r, 2 * ks + h));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int brow = 16 * np + 8 * (m >> 1) + (lane & 7);
+        uint32_t bf4[4];
+        ldmatrix_x4(bf4, w_base + ic_swz(brow, 2 * ks + (m & 1)));
+        mma_bf16_16816(acc[2 * np], af, bf4[0], bf4[1]);
+        mma_bf16_16816(acc[2 * np + 1], af, bf4[2], bf4[3]);
+      }
+    }
+    // d_pe (16, 64) f32 over the warp's own gh0 rows, which are dead now.
     __syncwarp();
-    float d0 = 0.f, d1 = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < W; ++c) {
-      const float g = gh[c];
-      const __nv_bfloat162 w2 = s_wt[c * 32 + lane];
-      d0 += g * __low2float(w2);
-      d1 += g * __high2float(w2);
+    float* pe = reinterpret_cast<float*>(tile);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(pe + grp * IC_PE_LD + col) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(pe + (grp + 8) * IC_PE_LD + col) =
+          make_float2(acc[j][2], acc[j][3]);
     }
-    __syncwarp();     // gh is rewritten by the warp's next sample
-    const float zs = a.z[p];
-    float dxyz[3] = {0.f, 0.f, 0.f};
-    const PeLane ls[2] = {l0, l1};
-    const float dpe[2] = {d0, d1};
+    __syncwarp();
+    // Row r, frequencies [h H, h H + H): the sin lane 3 + 3i + d takes
+    // dt = cos t, the cos lane 3 + 3F + 3i + d dt = -sin t; half 0 also
+    // the identity lanes.
+    const float* row = pe + r * IC_PE_LD;
+    float x[3], dxyz[3];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const PeLane& l = ls[j];
-      if (l.kind == 3) continue;
-      const float x = __fadd_rn(ro[l.d], __fmul_rn(vd[l.d], zs));
-      const float t = x * l.scale;
-      const float dt = l.kind == 0 ? 1.f : (l.kind == 1 ? cosf(t) : -sinf(t));
-      const float v = (dpe[j] * dt) * l.scale;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) dxyz[d] += l.d == d ? v : 0.f;
+    for (int d = 0; d < 3; ++d) {
+      x[d] = __fadd_rn(ro[d], __fmul_rn(vd[d], zs));
+      dxyz[d] = h == 0 ? row[d] : 0.f;
     }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) dxyz[d] = warp_sum(dxyz[d]);
-    if (lane == 0) {
-      a.d_z[p] += (dxyz[0] * vd[0] + dxyz[1] * vd[1]) + dxyz[2] * vd[2];
-      s_dxyz[s * 3 + 0] = dxyz[0];
-      s_dxyz[s * 3 + 1] = dxyz[1];
-      s_dxyz[s * 3 + 2] = dxyz[2];
+    for (int f = 0; f < 5; ++f) {
+      const int i = h * H + f;
+      if (f < H && i < F) {
+        const float scale = (float)(1 << i);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          float sn, cs;
+          sincosf(x[d] * scale, &sn, &cs);
+          dxyz[d] += (row[3 + 3 * i + d] * cs) * scale;
+          dxyz[d] += (row[3 + 3 * F + 3 * i + d] * -sn) * scale;
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      dxyz[d] += __shfl_xor_sync(FULL, dxyz[d], 16);
+    if (valid && h == 0) {
+      a.d_z[p] = dz_old
+                 + ((dxyz[0] * vd[0] + dxyz[1] * vd[1]) + dxyz[2] * vd[2]);
+      s_ring[p % IC_RING] = make_float4(dxyz[0], dxyz[1], dxyz[2], zs);
     }
   }
   __syncthreads();
-  if (tid < 16) {
-    const int d = tid % 8;
-    float acc = 0.f;
-    if (d < 3) {
-      const float* zr = a.z + (size_t)ray * S;
-      for (int s = 0; s < S; ++s)
-        acc += tid < 8 ? s_dxyz[s * 3 + d] : s_dxyz[s * 3 + d] * zr[s];
-    }
-    (tid < 8 ? a.d_ro8 : a.d_vd8)[(size_t)ray * 8 + d] = acc;
-  }
+  ray_sums(nq - 1);
 }
 
 int sm_count() {
@@ -1876,6 +2017,21 @@ int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n > 0 ? n : 1;
+}
+
+// One input_chain_kernel launch: two persistent blocks an SM (at most
+// one a ray), W_enc and the rings in dynamic shared memory.
+int launch_input_chain(const InputArgs& a, cudaStream_t stream) {
+  if (a.R < 1 || a.S < 1 || a.S > MAX_S || a.n_freq < 0
+      || 3 + 6 * a.n_freq > 64)
+    return (int)cudaErrorInvalidValue;
+  CHECK((int)cudaFuncSetAttribute(
+      input_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)IC_SMEM));
+  const int most = IC_BLOCKS_PER_SM * sm_count();
+  const int blocks = a.R < most ? a.R : most;
+  input_chain_kernel<<<blocks, IC_THREADS, IC_SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- dW host
@@ -2423,15 +2579,10 @@ extern "C" int fused_step(
     CHECK(launch_wgrad(L, n, (int)P, dw_part, head, 4, stream));
   }
   if (input_grads) {
-    const size_t smem = input_smem_bytes(W);
-    CHECK((int)cudaFuncSetAttribute(
-        input_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem));
-    const InputArgs ia = {S, W, n_freq, gh0,
+    const InputArgs ia = {R, S, n_freq, gh0,
                           static_cast<const bf16*>(wts[0]), ro8, vd8, z, d_z,
                           d_ro8, d_vd8};
-    input_chain_kernel<<<R, INPUT_THREADS, smem, stream>>>(ia);
-    CHECK((int)cudaGetLastError());
+    CHECK(launch_input_chain(ia, stream));
   }
 
   CHECK(launch_convert(rs_s, d_sproj, (size_t)R * nb * W, stream));
@@ -2441,6 +2592,25 @@ extern "C" int fused_step(
 }
 
 namespace {
+
+// The sigma head's arithmetic, shared by sigma_head_kernel and
+// plane_head_kernel so that their sigma planes are the same bits: a lane's
+// 8 contiguous bf16 values of t against its 8 f32 weights, in order, then
+// warp_sum over the lanes, the bias and softplus.
+__device__ __forceinline__ float sigma_lane_dot(const uint4& v,
+                                                const float* w, float a) {
+  const __nv_bfloat162* t2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a += __low2float(t2[i]) * w[2 * i];
+    a += __high2float(t2[i]) * w[2 * i + 1];
+  }
+  return a;
+}
+
+__device__ __forceinline__ float softplus_f(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
 
 // Sigma head of the sigma-only forward: one warp per point, each lane 8
 // contiguous lanes of t per 256, softplus(sum_k bf16 t_k * w_sig[k] +
@@ -2455,50 +2625,132 @@ __global__ void sigma_head_kernel(const bf16* t, const float* w_sig,
     float a = 0.f;
     for (int k0 = 8 * lane; k0 < W; k0 += 256) {
       const uint4 v = *reinterpret_cast<const uint4*>(t + p * W + k0);
-      const __nv_bfloat162* t2 = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a += __low2float(t2[i]) * w_sig[k0 + 2 * i];
-        a += __high2float(t2[i]) * w_sig[k0 + 2 * i + 1];
-      }
+      a = sigma_lane_dot(v, w_sig + k0, a);
     }
     a = warp_sum(a);
-    if (lane == 0) {
-      const float x = a + b_sig[0];
-      sigma[p] = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-    }
-  }
-}
-
-// Rgb head of the four-plane forward: one warp per point, the raw
-// rgb_out channels 0..2 of the bf16 rgb_hidden row (W/2 lanes; bf16
-// weights, f32 sums) plus their biases, into three (R, S) planes.
-__global__ void rgb_head_kernel(const bf16* r, const bf16* w_rgb,
-                                const float* b_rgb, float* c0, float* c1,
-                                float* c2, size_t P, int Wh) {
-  const int lane = threadIdx.x & 31;
-  const size_t warps = (size_t)gridDim.x * (blockDim.x / 32);
-  for (size_t p = blockIdx.x * (size_t)(blockDim.x / 32) + threadIdx.x / 32;
-       p < P; p += warps) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-    for (int k = lane; k < Wh; k += 32) {
-      const float rv = bf(r[p * Wh + k]);
-      a0 += rv * bf(w_rgb[k * 8 + 0]);
-      a1 += rv * bf(w_rgb[k * 8 + 1]);
-      a2 += rv * bf(w_rgb[k * 8 + 2]);
-    }
-    a0 = warp_sum(a0); a1 = warp_sum(a1); a2 = warp_sum(a2);
-    if (lane == 0) {
-      c0[p] = a0 + b_rgb[0];
-      c1[p] = a1 + b_rgb[1];
-      c2[p] = a2 + b_rgb[2];
-    }
+    if (lane == 0) sigma[p] = softplus_f(a + b_sig[0]);
   }
 }
 
 unsigned point_blocks(size_t P) {   // 8 warps a block, one point a warp
   const size_t blocks = (P + 7) / 8;
   return (unsigned)(blocks < 8192 ? blocks : 8192);
+}
+
+struct PlaneHeadArgs {
+  const bf16* t;           // (P, TW): enc_shape's output
+  const bf16* r;           // (P, TW / 2): rgb_hidden's output
+  const float* w_sig;      // (TW,)
+  const float* b_sig;      // (1,)
+  const bf16* w_rgb;       // (TW / 2, 8): rgb_out's weight, zero-padded
+  const float* b_rgb;      // (8,)
+  float* sigma;            // (P,) each
+  float* c0;
+  float* c1;
+  float* c2;
+  size_t P;
+};
+
+constexpr int PH_THREADS = 256;
+constexpr int PH_BLOCKS_PER_SM = 3;  // the launch bounds' residency
+constexpr int PH_POINTS = 4;       // points a warp takes an iteration
+
+// The four-plane head (the TPU's fused_mlp.py::_kernel heads, :363-382,
+// sigma_only=False): per point the sigma plane softplus(t . w_sig +
+// b_sig) and the raw r, g, b planes r . w_rgb[:, 0:3] + b_rgb, f32 sums
+// of bf16 values. Bound by bytes: t (512 B) and r (256 B) read once and
+// four f32 planes written, 784 B a point, 0.245 ms at 16,384 x 64 on an
+// H100 at 3.35 TB/s. The design: every load is 16 bytes a lane; a warp
+// takes 4 points an iteration (4 t rows, a lane's 8 values each, and 2
+// r rows' worth, half a warp a row), so 6 loads of 16 B a lane are in
+// flight at once; w_sig and w_rgb[:, 0:3] for the lane's columns sit in
+// registers, converted once. The sigma lane is sigma_head_kernel's
+// arithmetic exactly (sigma_lane_dot, warp_sum, softplus_f), so the
+// sigma plane is sigma_step's bit for bit; the rgb sums are 8 values in
+// order and a 16-lane butterfly.
+__global__ void __launch_bounds__(PH_THREADS, PH_BLOCKS_PER_SM)
+    plane_head_kernel(
+    PlaneHeadArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4, kr = 8 * (lane & 15);
+  float ws[8], wr[3][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ws[i] = a.w_sig[8 * lane + i];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) wr[ch][i] = bf(a.w_rgb[(kr + i) * 8 + ch]);
+  }
+  const float b_sig = a.b_sig[0];
+  const float b_rgb[3] = {a.b_rgb[0], a.b_rgb[1], a.b_rgb[2]};
+  const size_t P = a.P;
+  const size_t step = (size_t)gridDim.x * (PH_THREADS / 32) * PH_POINTS;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (size_t p0 = ((size_t)blockIdx.x * (PH_THREADS / 32)
+                    + threadIdx.x / 32) * PH_POINTS;
+       p0 < P; p0 += step) {
+    uint4 tv[PH_POINTS], rv[PH_POINTS / 2];
+#pragma unroll
+    for (int q = 0; q < PH_POINTS; ++q) {
+      const size_t p = p0 + q;
+      tv[q] = p < P ? __ldg(reinterpret_cast<const uint4*>(
+                          a.t + p * TW + 8 * lane))
+                    : zero;
+    }
+#pragma unroll
+    for (int h = 0; h < PH_POINTS / 2; ++h) {
+      const size_t p = p0 + 2 * h + half;
+      rv[h] = p < P ? __ldg(reinterpret_cast<const uint4*>(
+                          a.r + p * (TW / 2) + kr))
+                    : zero;
+    }
+    float sg[PH_POINTS];
+#pragma unroll
+    for (int q = 0; q < PH_POINTS; ++q)
+      sg[q] = warp_sum(sigma_lane_dot(tv[q], ws, 0.f));
+    float mine = sg[0];
+#pragma unroll
+    for (int q = 1; q < PH_POINTS; ++q) mine = lane == q ? sg[q] : mine;
+    if (lane < PH_POINTS && p0 + lane < P)
+      a.sigma[p0 + lane] = softplus_f(mine + b_sig);
+#pragma unroll
+    for (int h = 0; h < PH_POINTS / 2; ++h) {
+      const __nv_bfloat162* r2 =
+          reinterpret_cast<const __nv_bfloat162*>(&rv[h]);
+      float c[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lo = __low2float(r2[i]), hi = __high2float(r2[i]);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          c[ch] += lo * wr[ch][2 * i];
+          c[ch] += hi * wr[ch][2 * i + 1];
+        }
+      }
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          c[ch] += __shfl_xor_sync(FULL, c[ch], off);
+      const size_t p = p0 + 2 * h + half;
+      if ((lane & 15) == 0 && p < P) {
+        a.c0[p] = c[0] + b_rgb[0];
+        a.c1[p] = c[1] + b_rgb[1];
+        a.c2[p] = c[2] + b_rgb[2];
+      }
+    }
+  }
+}
+
+// One plane_head_kernel launch: a warp per 4 points, at most four waves
+// of resident blocks, which then stride over the rest.
+int launch_plane_head(const PlaneHeadArgs& a, cudaStream_t stream) {
+  const size_t groups = (a.P + PH_POINTS - 1) / PH_POINTS;
+  const size_t need = (groups + PH_THREADS / 32 - 1) / (PH_THREADS / 32);
+  const size_t cap = (size_t)sm_count() * PH_BLOCKS_PER_SM * 4;
+  const unsigned blocks = (unsigned)(need < cap ? need : cap);
+  if (blocks == 0) return 0;
+  plane_head_kernel<<<blocks, PH_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // The standalone composite and its backward, one warp (block) per ray.
@@ -2603,10 +2855,11 @@ extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
 // codenerf_tpu/ops/fused_mlp.py::_kernel (sigma_only=False), the forward
 // of the plane op. trunk_fwd_kernel through rgb_hidden in one launch,
 // storing t and r (``ws``: forward_workspace(..., 1) elements); t is
-// computed as sigma_step computes it, so the sigma plane from
-// sigma_head_kernel is sigma_step's, bit for bit; rgb_head_kernel writes
-// the raw r, g, b planes. Outputs (R, S) f32. Bound by operations:
-// 2 * W * (64 + W * (nb + nt + 2) + W / 2) FLOP per point.
+// computed as sigma_step computes it, and plane_head_kernel's sigma lane
+// is sigma_head_kernel's arithmetic, so the sigma plane is sigma_step's,
+// bit for bit; the same pass writes the raw r, g, b planes. Outputs
+// (R, S) f32. Bound by operations: 2 * W * (64 + W * (nb + nt + 2) +
+// W / 2) FLOP per point.
 extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
                            const bf16* sproj, const bf16* tproj,
                            const bf16* vcontrib, const void* const* wts,
@@ -2624,14 +2877,45 @@ extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
   CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, tproj, vcontrib, wts, fwd_w,
                             R, S, W, nb, nt, n_freq, true, o),
                    stream));
-  sigma_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
-      o.t, static_cast<const float*>(wts[2 * i_sig]),
-      static_cast<const float*>(wts[2 * i_sig + 1]), sigma, P, W);
-  CHECK((int)cudaGetLastError());
-  rgb_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
-      o.r, static_cast<const bf16*>(wts[2 * i_rgbo]),
-      static_cast<const float*>(wts[2 * i_rgbo + 1]), c0, c1, c2, P, W / 2);
-  return (int)cudaGetLastError();
+  const PlaneHeadArgs h = {
+      o.t, o.r, static_cast<const float*>(wts[2 * i_sig]),
+      static_cast<const float*>(wts[2 * i_sig + 1]),
+      static_cast<const bf16*>(wts[2 * i_rgbo]),
+      static_cast<const float*>(wts[2 * i_rgbo + 1]), sigma, c0, c1, c2, P};
+  return launch_plane_head(h, stream);
+}
+
+// The four-plane head alone (planes_step launches it after the trunk),
+// for its check against its plain version: from t (R*S, W) and r
+// (R*S, W/2) bf16, the sigma and raw r, g, b planes (R*S,) f32 each;
+// w_sig (W,), b_sig (1,), b_rgb (8,) f32, w_rgb (W/2, 8) bf16. W = 256.
+// One plane_head_kernel launch.
+extern "C" int plane_head_step(const bf16* t, const bf16* r,
+                               const float* w_sig, const float* b_sig,
+                               const bf16* w_rgb, const float* b_rgb,
+                               float* sigma, float* c0, float* c1, float* c2,
+                               int R, int S, int W, cudaStream_t stream) {
+  if (W != TW || R < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const PlaneHeadArgs h = {t, r, w_sig, b_sig, w_rgb, b_rgb, sigma, c0, c1,
+                           c2, (size_t)R * S};
+  return launch_plane_head(h, stream);
+}
+
+// The input chain alone (fused_step launches it after the dx chain), for
+// its check against its plain version: from gh0 (R*S, W) and w_enc
+// (64, W) bf16, ro8, vd8 (R, 8) and z (R, S) f32, adds the PE Jacobian's
+// z term to ``d_z`` (R, S) f32 in place and writes d_ro8, d_vd8 (R, 8)
+// f32. W = 256, S <= MAX_S, 3 + 6 * n_freq <= 64. One input_chain_kernel
+// launch.
+extern "C" int input_chain_step(const bf16* gh0, const bf16* w_enc,
+                                const float* ro8, const float* vd8,
+                                const float* z, float* d_z, float* d_ro8,
+                                float* d_vd8, int R, int S, int W,
+                                int n_freq, cudaStream_t stream) {
+  if (W != TW) return (int)cudaErrorInvalidValue;
+  const InputArgs ia = {R, S, n_freq, gh0, w_enc, ro8, vd8, z, d_z, d_ro8,
+                        d_vd8};
+  return launch_input_chain(ia, stream);
 }
 
 // The trunk weights packed as fused_step packs them (``dst``:

@@ -38,17 +38,24 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   ``ops/fused_train.py``): sigma (softplus) and the raw r, g, b of every
   sample as (R, S) f32 planes, no composite. On CUDA tensors it launches
   ``planes_step``: ``trunk_fwd_kernel`` through rgb_hidden in one launch
-  (t computed as ``sigma_step`` computes it, so the sigma plane is
-  ``sigma_fwd``'s, bit for bit; the epilogues add vcontrib and inject the
-  texture latents), the sigma head and a warp-per-point rgb head. Bound
+  (t computed as ``sigma_step`` computes it; the epilogues add vcontrib
+  and inject the texture latents), then ``plane_head_kernel``: sigma and
+  the raw r, g, b in one 16-byte pass over t and r, its sigma lane the
+  sigma head's arithmetic, so the sigma plane is ``sigma_fwd``'s, bit for
+  bit. Bound
   by operations: 2W(64 + W(nb+nt+2) + W/2) = 884,736 FLOP per point at
   W=256, nb=3, nt=1 — 0.94 ms for a 16,384 × 64 launch at 989 TFLOP/s
   dense bf16, 0.23 ms for 4096 × 64.
   :func:`planes_fwd_plain` is its plain version (:func:`forward_plain`
-  is the forward every plain version shares), and
+  is the forward every plain version shares, :func:`plane_head_plain`
+  the head's), and
   ``planes_fwd.launches["planes"]`` counts its launches
   (``planes_fwd.points`` their R·S).
   :func:`fused_codenerf_apply` runs it from rays, depths and codes.
+- :func:`input_chain` and :func:`plane_head` — the input-chain kernel of
+  the pose modes and the four-plane head alone, for their checks against
+  :func:`input_chain_plain` and :func:`plane_head_plain` on the card
+  (CUDA tensors only; ``input_chain.launches``, ``plane_head.launches``).
 """
 
 from __future__ import annotations
@@ -132,6 +139,111 @@ def input_chain_plain(R: int, S: int, ro8, vd8, z, gh0, w_enc, dz_comp,
     d_xyz = ((d_pe * dpe_dt) @ A.T).view(R, S, 8)
     d_z = dz_comp + torch.sum(d_xyz * vd8[:, None, :], dim=-1)
     return d_xyz.sum(dim=1), torch.sum(d_xyz * z[:, :, None], dim=1), d_z
+
+
+def _check_operands(what: str, specs) -> torch.device:
+    """Each ``(name, tensor, dtype, shape)`` of a standalone kernel's
+    operands: the dtype, the shape, contiguous and 16-byte aligned, all on
+    one CUDA device (checked last). Raises ValueError; converts nothing."""
+    for name, x, dtype, shape in specs:
+        if x.dtype != dtype:
+            raise ValueError(f"{what}: {name} has dtype {x.dtype}, expected "
+                             f"{dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and "
+                             f"16-byte aligned")
+    dev = specs[0][1].device
+    if dev.type != "cuda" or any(x.device != dev for _, x, _, _ in specs):
+        raise ValueError(f"{what} launches the CUDA kernel on CUDA tensors "
+                         f"of one device; its plain version is "
+                         f"{what}_plain")
+    return dev
+
+
+def input_chain(R: int, S: int, ro8, vd8, z, gh0, w_enc, dz_comp,
+                num_freqs: int):
+    """:func:`input_chain_plain` by the CUDA kernel that ``fused_step``
+    runs after the dx chain in every mode with input gradients
+    (``input_chain_kernel``), for its check against the plain version on
+    the card: ``d_ro8``, ``d_vd8`` and ``d_z`` the same bits on every
+    call. CUDA tensors only, contiguous and 16-byte aligned: ``gh0``
+    (R·S, 256) and ``w_enc`` (64, 256) bf16, ``ro8``, ``vd8`` (R, 8),
+    ``z`` and ``dz_comp`` (R, S) f32; 1 <= S <= 256. Counts its launches
+    in ``input_chain.launches``."""
+    from codenerf_tpu_torch.ops import fused_train as ft
+
+    if not 1 <= S <= ft._MAX_SAMPLES or R < 1:
+        raise ValueError(f"input_chain takes R >= 1 and 1 <= S <= "
+                         f"{ft._MAX_SAMPLES}; got R={R}, S={S}")
+    if 3 + 6 * num_freqs > 64:
+        raise ValueError(f"input_chain takes 3 + 6·num_freqs <= 64 PE "
+                         f"lanes; got num_freqs={num_freqs}")
+    f32, bf16, W = torch.float32, torch.bfloat16, ft.TRUNK_W
+    dev = _check_operands("input_chain", [
+        ("gh0", gh0, bf16, (R * S, W)), ("w_enc", w_enc, bf16, (64, W)),
+        ("ro8", ro8, f32, (R, 8)), ("vd8", vd8, f32, (R, 8)),
+        ("z", z, f32, (R, S)), ("dz_comp", dz_comp, f32, (R, S))])
+    lib = ft.library()
+    d_z = dz_comp.clone()
+    d_ro8 = torch.empty(R, 8, dtype=f32, device=dev)
+    d_vd8 = torch.empty(R, 8, dtype=f32, device=dev)
+    rc = lib.input_chain_step(
+        *[ft._ptr(x) for x in (gh0, w_enc, ro8, vd8, z, d_z, d_ro8, d_vd8)],
+        R, S, W, num_freqs,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"input_chain CUDA kernel failed: cudaError {rc}")
+    input_chain.launches += 1
+    return d_ro8, d_vd8, d_z
+
+
+input_chain.launches = 0
+
+
+def plane_head_plain(R: int, S: int, t, r, w_sig, b_sig, w_rgb, b_rgb):
+    """The four-plane forward's head from enc_shape's bf16 output ``t``
+    (R·S, W) and rgb_hidden's ``r`` (R·S, W/2): ``(sigma, r, g, b)``, each
+    (R, S) f32 — ``softplus(t · w_sig + b_sig)`` (the f32 sum of
+    :func:`shape_trunk_plain`'s ``sig_pre``) and the raw channels 0..2 of
+    ``r @ w_rgb + b_rgb`` (bf16 operands, f32 sums). The TPU kernel's
+    heads, ``codenerf_tpu/ops/fused_mlp.py:363-382``."""
+    sig_pre = (t.float() * w_sig[None, :]).sum(-1).view(R, S) + b_sig[0]
+    rgb = (r.float() @ w_rgb.float() + b_rgb).view(R, S, -1)
+    return (softplus(sig_pre), rgb[..., 0].contiguous(),
+            rgb[..., 1].contiguous(), rgb[..., 2].contiguous())
+
+
+def plane_head(R: int, S: int, t, r, w_sig, b_sig, w_rgb, b_rgb):
+    """:func:`plane_head_plain` by the CUDA kernel that ``planes_step``
+    runs after the trunk (``plane_head_kernel``), for its check against
+    the plain version on the card. CUDA tensors only, contiguous and
+    16-byte aligned: ``t`` (R·S, 256), ``r`` (R·S, 128) and ``w_rgb``
+    (128, 8) bf16, ``w_sig`` (256,), ``b_sig`` (1,), ``b_rgb`` (8,) f32.
+    Counts its launches in ``plane_head.launches``."""
+    from codenerf_tpu_torch.ops import fused_train as ft
+
+    f32, bf16, W = torch.float32, torch.bfloat16, ft.TRUNK_W
+    if R < 1 or S < 1:
+        raise ValueError(f"plane_head takes R, S >= 1; got R={R}, S={S}")
+    dev = _check_operands("plane_head", [
+        ("t", t, bf16, (R * S, W)), ("r", r, bf16, (R * S, W // 2)),
+        ("w_sig", w_sig, f32, (W,)), ("b_sig", b_sig, f32, (1,)),
+        ("w_rgb", w_rgb, bf16, (W // 2, 8)), ("b_rgb", b_rgb, f32, (8,))])
+    lib = ft.library()
+    planes = [torch.empty(R, S, dtype=f32, device=dev) for _ in range(4)]
+    rc = lib.plane_head_step(
+        *[ft._ptr(x) for x in (t, r, w_sig, b_sig, w_rgb, b_rgb, *planes)],
+        R, S, W, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"plane_head CUDA kernel failed: cudaError {rc}")
+    plane_head.launches += 1
+    return tuple(planes)
+
+
+plane_head.launches = 0
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -354,11 +466,14 @@ planes_fwd.points = {"planes": 0}
 def planes_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
                      tproj, vcontrib, wflat):
     """:func:`planes_fwd` in plain PyTorch."""
+    wops = kernel_operands(wflat)
     acts = forward_plain(cfg, R, S, ro8, vd8, z.float(), sproj, tproj,
-                         vcontrib, kernel_operands(wflat))
-    rgb = acts["rgb"].view(R, S, 8)
-    return (softplus(acts["sig_pre"]), rgb[..., 0].contiguous(),
-            rgb[..., 1].contiguous(), rgb[..., 2].contiguous())
+                         vcontrib, wops)
+    i_sig, i_rgbo = cfg.shape_blocks + 2, (cfg.shape_blocks
+                                           + cfg.texture_blocks + 5)
+    return plane_head_plain(R, S, acts["t"], acts["r"], wops[2 * i_sig],
+                            wops[2 * i_sig + 1], wops[2 * i_rgbo],
+                            wops[2 * i_rgbo + 1])
 
 
 def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,

@@ -729,6 +729,10 @@ def _bind(lib: ctypes.CDLL):
     lib.weight_grads_workspace.restype = ctypes.c_size_t
     lib.weight_grads_step.argtypes = [vp] * 4 + [ci] * 2 + [vp] * 4
     lib.weight_grads_step.restype = ci
+    lib.input_chain_step.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.input_chain_step.restype = ci
+    lib.plane_head_step.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+    lib.plane_head_step.restype = ci
 
 
 def library() -> ctypes.CDLL:
@@ -736,8 +740,9 @@ def library() -> ctypes.CDLL:
     single-pass kernel's and the plane-op backward's ``fused_step``, the
     forwards ``sigma_step`` and ``planes_step``, the standalone
     composite's ``composite_fwd`` and ``composite_bwd``, the weight
-    packer ``pack_trunk_weights`` and the weight-gradient kernel alone,
-    ``weight_grads_step``."""
+    packer ``pack_trunk_weights`` and, each alone for its check, the
+    weight-gradient kernel ``weight_grads_step``, the input chain
+    ``input_chain_step`` and the four-plane head ``plane_head_step``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)
