@@ -50,14 +50,25 @@ Phases, each printed on its own line with its seconds:
    t and r of a planes call at 16,384 × 64, each against its plain version
    and the same bits over two launches, beside its byte bound and one
    PyTorch call for its product (``torch.matmul(gh0, w_enc.T)``,
-   ``torch.matmul(r, w_rgb[:, :3])``); the small kernels' device ms
-   (``sigma_head_kernel``, ``f32_to_bf16_kernel``, ``pack_kernel``) against
-   their byte bounds. Timings of each kernel, its plain
+   ``torch.matmul(r, w_rgb[:, :3])``); the sigma-only head alone
+   (``fused_mlp.sigma_head``) on the t of a sigma call at 16,384 × 32 and
+   at a ragged 2047 × 39, against its plain version, bit-equal to the
+   four-plane head's sigma plane on the same t and over two launches,
+   beside its byte bound and ``torch.matmul(t, w_sig)``; the code
+   cotangents' conversion alone (``fused_train.rowsums_to_bf16``) on a
+   seeded f32 span at the training shape and at R=32 (exact ties, ±0,
+   subnormals, values near the bf16 maximum), each output bit-equal to
+   ``x.to(torch.bfloat16)``, beside its byte bound and that call; the
+   small kernels' device ms inside their callers (``sigma_head_kernel``
+   in ``sigma_fwd``, ``rowsum_bf16_kernel`` and ``pack_kernel`` in a
+   training call, the conversion one launch a call) against their byte
+   bounds. Timings of each kernel, its plain
    version and its bound, a ``torch.profiler`` breakdown by kernel name,
    the trunk kernels' ms per launch and TFLOP/s, the head kernel's ms and
    GB/s and the weight-gradient kernel's ms, TFLOP/s and GB/s against its
    byte floor, beside ``torch.matmul(X.t(), G)`` over the same planes (the
-   yardstick; the port never calls it);
+   yardstick; the port never calls it), and ``fixed_sum_kernel``'s ms
+   against its byte bound;
 3. coarse training: ``codenerf_tpu_torch.train.main`` at
    ``jsonfiles/srncar_fused.json`` widths and the CLI's batch of 16,384
    rays on a seeded SRN-layout ``cars_train`` set (4 objects x 4 views,
@@ -110,9 +121,11 @@ Phases, each printed on its own line with its seconds:
 13. every CUDA kernel's launches on the main paths by name, the order of
     the next work (each mode's ms above its bound, summed over the main
     paths' launches, each launch priced at its own R·S points against the
-    phase-2 shape's), the ``kernels`` JSON line (18 rows: the 16 modes,
-    then ``input_chain_kernel`` and ``plane_head_kernel``, whose launches
-    are those of the modes that run them), the card line, and the last
+    phase-2 shape's; the conversion's launches at their rays against the
+    phase-2 span's), the ``kernels`` JSON line (20 rows: the 16 modes,
+    then ``input_chain_kernel``, ``plane_head_kernel``,
+    ``sigma_head_kernel`` and ``rowsum_bf16_kernel``, whose launches are
+    those of the modes that run them), the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
@@ -145,6 +158,8 @@ REPLACES_BWD = "codenerf_tpu/ops/fused_train.py:846"
 REPLACES_COMPOSITE = "codenerf_tpu/ops/pallas_composite.py:84"
 REPLACES_INPUT = "codenerf_tpu/ops/fused_train.py:615"
 REPLACES_HEADS = "codenerf_tpu/ops/fused_mlp.py:363"
+REPLACES_SIGMA_HEAD = "codenerf_tpu/ops/fused_mlp.py:362"
+REPLACES_ROWSUM = "codenerf_tpu/ops/fused_train.py:321"
 # The points (R * S) of each mode's phase-2 check: its ms and bound_ms
 # are taken there.
 PHASE2_POINTS = {
@@ -156,7 +171,9 @@ PHASE2_POINTS = {
     "plane_pose": R_POSE * S_UNION, "plane_train_input": R_CODES * S_COARSE,
     "composite": R_CODES * S_FULL, "composite_bwd": R_CODES * S_FULL,
     "train_input": R_CODES * S_COARSE, "train_weights": R_TRAIN * S_COARSE,
-    "input_chain": R_POSE * S_FULL, "plane_head": R_TRAIN * S_UNION}
+    "input_chain": R_POSE * S_FULL, "plane_head": R_TRAIN * S_UNION,
+    "sigma_head": R_TRAIN * S_COARSE,
+    "rowsum_bf16": R_TRAIN}   # the conversion's work goes by rays
 PLANE_MODES = {   # launch counter: (weight_grads, input_grads)
     "plane_train": (True, False), "plane_codes": (False, False),
     "plane_pose": (False, True), "plane_train_input": (True, True)}
@@ -802,29 +819,44 @@ def composite_check(dev, R: int, S: int):
     return rows
 
 
-def device_ms(fn, kernel: str, calls: int = 20, tries: int = 3):
-    """Device ms per call of the CUDA kernels whose name contains
-    ``kernel``, from a torch.profiler trace of ``calls`` calls (None when
-    ``tries`` traces in a row carry no device time for them: a trace on
-    the chip machine now and then comes back without its device events)."""
+def _traced(fn, kernel: str, calls: int, tries: int):
+    """(device µs, launches) of the CUDA kernels whose name contains
+    ``kernel`` in a torch.profiler trace of ``calls`` calls, or None when
+    ``tries`` traces in a row carry no device time for them or another
+    number of launches than ``calls`` times a traced single call's: a
+    trace on the chip machine now and then comes back without its device
+    events, or without some of them (a kernel then reads faster than the
+    card's memory allows)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def trace(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [ev for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA and kernel in ev.name
+                and not getattr(ev, "is_user_annotation", False)]
+
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                 if ev.device_type == DeviceType.CUDA and kernel in ev.name
-                 and not getattr(ev, "is_user_annotation", False))
-        if us:
-            return us / 1e3 / calls
+        per_call = len(trace(1))
+        evs = trace(calls)
+        us = sum(ev.time_range.elapsed_us() for ev in evs)
+        if us and len(evs) == per_call * calls:
+            return us, len(evs)
     return None
+
+
+def device_ms(fn, kernel: str, calls: int = 20, tries: int = 3):
+    """Device ms per call of the CUDA kernels whose name contains
+    ``kernel`` (:func:`_traced`; None without device time)."""
+    got = _traced(fn, kernel, calls, tries)
+    return None if got is None else got[0] / 1e3 / calls
 
 
 def kernel_ms(fn, kernel: str, what: str) -> float:
@@ -1032,20 +1064,141 @@ def plane_head_check(dev, R: int, S: int):
     return row
 
 
-def small_kernel_rates(dev) -> dict:
-    """Phase 2: the device ms of the port's small kernels at the main
-    paths' shapes beside their byte bounds and, where one PyTorch call
-    computes (part of) the same function, that call's device ms (the
-    yardstick; the port never calls it): sigma_head_kernel at 16,384 × 32
-    (t read, sigma written; torch.matmul(t, w_sig) over the plain
-    forward's t), and per training call at 16,384 × 96 the three
-    f32_to_bf16_kernel launches (the per-ray cotangent sums, R × (nb + nt
-    + 1) × W f32 in, bf16 out; one x.to(torch.bfloat16) of as many values)
-    and pack_kernel (every trunk weight read once, its packed forward and
-    dx operands written). Returns {kernel: (ms, bound ms, library ms or
-    None)}; a kernel without device time in the traces reads None."""
+# Shapes of sigma_head_check: the hierarchical coarse pass at the
+# training batch, then a P that no group of 8 points divides (2047 × 39 =
+# 79,833 points: the last warp's group is ragged).
+SIGMA_HEAD_SHAPES = ((R_TRAIN, S_COARSE), (2047, 39))
+
+
+def sigma_head_check(dev, R: int, S: int):
+    """Phase 2: the sigma-only head alone (fused_mlp.sigma_head) on the t
+    of a sigma call at R × S (the plain trunk's, on the card) vs
+    sigma_head_plain with _close's bar; bit-equal to the four-plane head's
+    sigma plane on the same t (fused_mlp.plane_head, with a seeded r) and
+    over two launches. Then its device ms against its byte bound (t read,
+    sigma written: 516 B a point) and torch.matmul(t, w_sig), the product
+    alone, as the yardstick (never called by the port)."""
     import torch
 
+    from codenerf_tpu_torch.ops import fused_mlp
+
+    cfg, args = kernel_inputs(dev, R, S)
+    _, S, R, _, _, ro8, vd8, z, sproj, _, _, _, wops = args
+    t = fused_mlp.shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj,
+                                    wops)["t"]
+    i_sig = cfg.shape_blocks + 2
+    i_rgbo = cfg.shape_blocks + cfg.texture_blocks + 5
+    ha = (R, S, t, wops[2 * i_sig], wops[2 * i_sig + 1])
+    what = f"sigma (sigma_head_kernel, R={R}, S={S})"
+    got = fused_mlp.sigma_head(*ha)
+    torch.cuda.synchronize()
+    want = fused_mlp.sigma_head_plain(*ha)
+    checks = [(what, *_close(what, got, want, per_ray=True))]
+    P, W = R * S, cfg.W
+    gen = torch.Generator(device=dev).manual_seed(6)
+    r = torch.randn(P, W // 2, generator=gen, device=dev).to(torch.bfloat16)
+    planes = fused_mlp.plane_head(R, S, t, r, *ha[3:], wops[2 * i_rgbo],
+                                  wops[2 * i_rgbo + 1])
+    again = fused_mlp.sigma_head(*ha)
+    for name, other in (("the four-plane head's sigma plane", planes[0]),
+                        ("a second launch", again)):
+        ok = torch.equal(got, other)
+        log(f"  sigma vs {name} on the same t: "
+            f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
+        checks.append((f"sigma (vs {name})", 0.0, ok))
+    del got, want, planes, again, r
+    err = _fail_on(checks, "sigma_head")
+    bnd = _bound(2 * P * W, P * (2 * W + 4) + 4 * (W + 1))
+    ms = kernel_ms(lambda: fused_mlp.sigma_head(*ha), "sigma_head_kernel",
+                   "sigma_head_kernel")
+    plain_ms = time_cuda(lambda: fused_mlp.sigma_head_plain(*ha), reps=3)
+    w_sig = ha[3].to(torch.bfloat16)
+    lib_ms = kernel_ms(lambda: torch.matmul(t, w_sig), "", "torch.matmul")
+    log(f"  sigma_head_kernel at R={R}, S={S} ({bnd[3]} B to move): "
+        f"{ms:.4f} ms per launch, {bnd[3] / (ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}); plain {plain_ms:.4f} ms; "
+        f"torch.matmul(t, w_sig) {lib_ms:.4f} ms (the yardstick, no "
+        f"softplus; the port never calls it)")
+    row = _entry("sigma_head_kernel (sigma-only head)", REPLACES_SIGMA_HEAD,
+                 err, ms, plain_ms, bnd)
+    row["library_ms"] = lib_ms
+    return row
+
+
+def rowsum_check(dev, R: int):
+    """Phase 2: the code cotangents' conversion alone
+    (fused_train.rowsums_to_bf16) on a seeded f32 span of R × (nb + nt +
+    1) × W values of magnitudes e^-12 to e^12 times a normal draw, each
+    segment headed by exact
+    rounding ties (both directions), ±0, subnormals and values near and
+    past the bf16 maximum: each of the three outputs bit-equal to
+    x.to(torch.bfloat16) of its segment (compared as 16-bit integers, so
+    -0 is not 0), one launch a call. Then its device ms against its byte
+    bound (6 B a value) and one x.to(torch.bfloat16) of the span, the
+    yardstick (never called by the port)."""
+    import numpy as np
+    import torch
+
+    from codenerf_tpu_torch.config import NetConfig
+    from codenerf_tpu_torch.ops import fused_train
+
+    cfg = NetConfig()
+    nb, nt, W = cfg.shape_blocks, cfg.texture_blocks, cfg.W
+    n = R * (nb + nt + 1) * W
+    gen = torch.Generator(device=dev).manual_seed(7)
+    span = (torch.randn(n, generator=gen, device=dev) * torch.exp(
+        torch.rand(n, generator=gen, device=dev) * 24.0 - 12.0))
+    ties = np.array([0x3F808000, 0x3F818000, 0xBF808000, 0x00008000,
+                     0x00018000, 0x7F7E8000, 0x7F7F8000], np.uint32)
+    special = torch.from_numpy(np.concatenate([ties.view(np.float32), np.array(
+        [0.0, -0.0, 1e-40, -1e-40, 2.0 ** -126, 3.3895e38, -3.3895e38,
+         3.4e38, np.finfo(np.float32).max], np.float32)])).to(dev)
+    for start in (0, R * nb * W, R * (nb + nt) * W):
+        span[start:start + special.numel()] = special
+    sa = (span, R, nb, nt, W)
+    before = fused_train.rowsums_to_bf16.launches
+    got = fused_train.rowsums_to_bf16(*sa)
+    torch.cuda.synchronize()
+    want = fused_train.rowsums_to_bf16_plain(*sa)
+    checks = []
+    for name, g, w in zip(("d_sproj", "d_tproj", "d_vcontrib"), got, want):
+        ok = g.shape == w.shape and torch.equal(g.view(torch.int16),
+                                                w.view(torch.int16))
+        log(f"  {name} {tuple(g.shape)} (rowsum_bf16_kernel, R={R}) vs "
+            f"x.to(torch.bfloat16): {'bit-equal' if ok else 'DIFFER'}"
+            f"{'' if ok else '  <-- FAILS'}")
+        checks.append((name, 0.0, ok))
+    launches = fused_train.rowsums_to_bf16.launches - before
+    checks.append(("one launch a call", 0.0, launches == 1))
+    del got, want
+    err = _fail_on(checks, "rowsums_to_bf16")
+    bnd = _bound(0, 6 * n)
+    ms = kernel_ms(lambda: fused_train.rowsums_to_bf16(*sa),
+                   "rowsum_bf16_kernel", "rowsum_bf16_kernel")
+    plain_ms = time_cuda(lambda: fused_train.rowsums_to_bf16_plain(*sa),
+                         reps=3)
+    lib_ms = kernel_ms(lambda: span.to(torch.bfloat16), "",
+                       "x.to(torch.bfloat16)")
+    log(f"  rowsum_bf16_kernel at R={R} ({n} values, {6 * n} B to move): "
+        f"{ms:.4f} ms per launch, {6 * n / (ms * 1e-3) / 1e9:.1f} GB/s; "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]}); plain {plain_ms:.4f} ms; "
+        f"x.to(torch.bfloat16) {lib_ms:.4f} ms (the yardstick; the port "
+        f"never calls it)")
+    row = _entry("rowsum_bf16_kernel (code cotangents to bf16)",
+                 REPLACES_ROWSUM, err, ms, plain_ms, bnd)
+    row["library_ms"] = lib_ms
+    return row
+
+
+def small_kernel_rates(dev) -> None:
+    """Phase 2: the device ms of the port's small kernels inside their
+    callers at the main paths' shapes, beside their byte bounds:
+    sigma_head_kernel in sigma_fwd at 16,384 × 32 (t read, sigma
+    written), and per training call at 16,384 × 96 rowsum_bf16_kernel
+    (the per-ray cotangent sums, R × (nb + nt + 1) × W f32 in, bf16 out),
+    which must launch once a call, and pack_kernel (every trunk weight
+    read once, its packed forward and dx operands written). A kernel
+    without device time in the traces reads "not measured"."""
     from codenerf_tpu_torch.ops import fused_mlp, fused_train
 
     out = {}
@@ -1053,34 +1206,31 @@ def small_kernel_rates(dev) -> dict:
     _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
     sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops)
     P, W = R * S, cfg.W
-    ms = device_ms(lambda: fused_mlp.sigma_fwd(*sargs), "sigma_head_kernel")
-    t = fused_mlp.shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj,
-                                    wops)["t"]
-    w_sig = wops[2 * (cfg.shape_blocks + 2)].to(torch.bfloat16)
-    lib = kernel_ms(lambda: torch.matmul(t, w_sig), "", "torch.matmul")
-    out["sigma_head_kernel"] = (ms, P * (2 * W + 4) / PEAK_HBM_BYTES * 1e3,
-                                lib)
-    del t
+    out["sigma_head_kernel"] = (
+        device_ms(lambda: fused_mlp.sigma_fwd(*sargs), "sigma_head_kernel"),
+        P * (2 * W + 4) / PEAK_HBM_BYTES * 1e3)
     cfg, args = kernel_inputs(dev, R_TRAIN, S_FULL)
     call = lambda: fused_train.train_fused(*args, weight_grads=True)
     n = R_TRAIN * (cfg.shape_blocks + cfg.texture_blocks + 1) * cfg.W
-    x = torch.randn(n, device=dev)
-    out["f32_to_bf16_kernel"] = (
-        device_ms(call, "f32_to_bf16_kernel", calls=3),
-        n * 6 / PEAK_HBM_BYTES * 1e3,
-        kernel_ms(lambda: x.to(torch.bfloat16), "", "x.to(torch.bfloat16)"))
+    traced = _traced(call, "rowsum_bf16_kernel", calls=3, tries=3)
+    if traced is not None and traced[1] != 3:
+        raise AssertionError(f"rowsum_bf16_kernel launched {traced[1]} "
+                             f"times in 3 training calls, not once a call")
+    out["rowsum_bf16_kernel"] = (
+        None if traced is None else traced[0] / 1e3 / 3,
+        n * 6 / PEAK_HBM_BYTES * 1e3)
     n_in = sum(args[-1][2 * i].numel()
                for i in fused_train.trunk_layer_indices(cfg))
     n_out = fused_train.library().packed_trunk_elems(
         cfg.W, cfg.shape_blocks, cfg.texture_blocks)
     out["pack_kernel"] = (device_ms(call, "pack_kernel", calls=3),
-                          2 * (n_in + n_out) / PEAK_HBM_BYTES * 1e3, None)
-    for k, (ms, bnd, lib) in out.items():
-        log(f"  {k}: "
+                          2 * (n_in + n_out) / PEAK_HBM_BYTES * 1e3)
+    for k, (ms, bnd) in out.items():
+        log(f"  {k} in its caller: "
             + ("not measured" if ms is None else f"{ms:.4f} ms per call")
-            + f", byte bound {bnd:.4f} ms; library "
-            + ("none" if lib is None else f"{lib:.4f} ms"))
-    return out
+            + f", byte bound {bnd:.4f} ms"
+            + (", one launch a call" if k == "rowsum_bf16_kernel"
+               and traced is not None else ""))
 
 
 def trunk_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
@@ -1120,7 +1270,14 @@ def head_dw_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
     must move — t and r read once (768 B a point at W=256), g_r and dsig
     written (260 B), z, gt8 and se8 (and rgb8 or the head's rows) — and
     with weight gradients the dW kernel's ms, TFLOP/s and GB/s against the
-    planes it reads (7,552 B a point) and its fixed-order sum's ms."""
+    planes it reads (7,552 B a point), and its fixed-order sum's ms against
+    that sum's byte bound: every point split's f32 partials of every
+    trunk layer and the head kernel's rows read once, every dW/db written
+    once."""
+    import ctypes
+
+    from codenerf_tpu_torch.ops import fused_train
+
     W, P = cfg.W, R * S
     nbytes = P * (W * 2 + W + W + 4) + P * 4 + R * 32 * 2
     if weight_grads:
@@ -1141,10 +1298,20 @@ def head_dw_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
     rate = "not measured" if ms is None else (
         f"{ms:.4f} ms per launch, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
         f"{planes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    shapes = [fused_train.weight_shapes(cfg)[i][1]
+              for i in fused_train.trunk_layer_indices(cfg)]
+    ms_, ns_ = ((ctypes.c_int * len(shapes))(*[x[k] for x in shapes])
+                for k in (0, 1))
+    sum_bytes = 4 * (fused_train.library().weight_grads_workspace(
+        ms_, ns_, len(shapes), P) + (R + 7) // 8 * (W + W // 2 * 8 + 16)
+        + sum(math.prod(w) + math.prod(b)
+              for _, w, b in fused_train.weight_shapes(cfg)))
     log(f"  wgrad_kernel at R={R}, S={S} ({flops:.4e} FLOP, {planes} B of "
         f"planes; byte floor {planes / PEAK_HBM_BYTES * 1e3:.4f} ms): "
         f"{rate}; fixed_sum_kernel "
-        f"{'not measured' if sum_ms is None else f'{sum_ms:.4f} ms'}")
+        f"{'not measured' if sum_ms is None else f'{sum_ms:.4f} ms'} "
+        f"({sum_bytes} B to move: bound "
+        f"{sum_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms, bytes)")
 
 
 def wgrad_check(dev):
@@ -1359,7 +1526,7 @@ def _short(name: str) -> str:
 # by name.
 PORT_KERNELS = ("trunk_fwd_kernel", "trunk_dx_kernel", "pack_kernel",
                 "wgrad_kernel", "head_kernel", "fixed_sum_kernel",
-                "f32_to_bf16_kernel", "sigma_head_kernel",
+                "rowsum_bf16_kernel", "sigma_head_kernel",
                 "input_chain_kernel", "plane_head_kernel",
                 "composite_kernel")
 
@@ -1486,6 +1653,8 @@ class LaunchCounts:
         # the main paths must launch none of them.
         self._alone = {"input_chain (alone)": fused_mlp.input_chain,
                        "plane_head (alone)": fused_mlp.plane_head,
+                       "sigma_head (alone)": fused_mlp.sigma_head,
+                       "rowsums_to_bf16 (alone)": fused_train.rowsums_to_bf16,
                        "weight_grads (alone)": fused_train.weight_grads}
         for fn in self._alone.values():
             fn.launches = 0
@@ -1496,6 +1665,8 @@ class LaunchCounts:
             (fused_train, "plane_bwd_plain"),
             (fused_train, "weight_grads_plain"), (fused_train, "head_plain"),
             (fused_mlp, "input_chain_plain"), (fused_mlp, "plane_head_plain"),
+            (fused_mlp, "sigma_head_plain"),
+            (fused_train, "rowsums_to_bf16_plain"),
             (composite, "composite_fwd_plain"),
             (composite, "composite_bwd_plain"))]
 
@@ -1510,6 +1681,17 @@ class LaunchCounts:
 
         for mod, name, fn in self._orig:
             setattr(mod, name, watch(fn))
+        # Every fused_step launch converts its rays' code cotangents: their
+        # count prices the conversion's launches in the closing order.
+        self.rays = 0
+        launch = fused_train._launch_cuda
+
+        def counted(cfg, S, R, *args, **kw):
+            self.rays += R
+            return launch(cfg, S, R, *args, **kw)
+
+        self._orig.append((fused_train, "_launch_cuda", launch))
+        fused_train._launch_cuda = counted
         return self
 
     def get(self) -> dict:
@@ -1523,11 +1705,14 @@ class LaunchCounts:
         for c in self._points:
             for k, v in c.items():
                 MAIN_POINTS[k] = MAIN_POINTS.get(k, 0) + v
+        MAIN_POINTS["rowsum_bf16"] = MAIN_POINTS.get("rowsum_bf16",
+                                                     0) + self.rays
         return False
 
 
 # The points (R * S) of every launch the main paths made, per mode, summed
-# over phases 3-12 (each LaunchCounts window adds its own).
+# over phases 3-12 (each LaunchCounts window adds its own); for
+# "rowsum_bf16" the rays of every fused_step launch.
 MAIN_POINTS = {}
 
 
@@ -2199,7 +2384,22 @@ def main() -> int:
             f"S={S}")
         entries[mode] = pair_check(dev, mode)
     torch.cuda.empty_cache()
-    log("phase 2: the small kernels against their bounds and yardsticks")
+    for R, S in SIGMA_HEAD_SHAPES:
+        log(f"phase 2: the sigma-only head alone on the t of a sigma call "
+            f"at R={R}, S={S}")
+        row = sigma_head_check(dev, R, S)
+        if "sigma_head" in entries:
+            entries["sigma_head"]["max_abs_err"] = max(
+                entries["sigma_head"]["max_abs_err"], row["max_abs_err"])
+        else:
+            entries["sigma_head"] = row
+    torch.cuda.empty_cache()
+    for R in (R_TRAIN, 32):
+        log(f"phase 2: the code cotangents' conversion alone at R={R}")
+        row = rowsum_check(dev, R)
+        entries.setdefault("rowsum_bf16", row)
+    torch.cuda.empty_cache()
+    log("phase 2: the small kernels in their callers against their bounds")
     small_kernel_rates(dev)
     torch.cuda.empty_cache()
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
@@ -2244,29 +2444,32 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    # The two kernels checked alone run inside the modes' launches: one
+    # The kernels checked alone run inside the modes' launches: one
     # input_chain_kernel in each launch of an input-gradient mode, one
-    # plane_head_kernel in each planes launch (the step profiles count
-    # them by name).
-    for kernel, modes in (("input_chain", INPUT_MODES),
-                          ("plane_head", ("planes",))):
-        launches[kernel] = sum(launches.get(m, 0) for m in modes)
-        MAIN_POINTS[kernel] = sum(MAIN_POINTS.get(m, 0) for m in modes)
-    # Every CUDA kernel's launches on the main paths, from the modes'
-    # counts: each fused_step launch packs the weights once and converts
-    # three cotangent sums; sigma_step and planes_step pack once each.
+    # plane_head_kernel in each planes launch, one sigma_head_kernel in
+    # each sigma launch, one rowsum_bf16_kernel in each fused_step launch
+    # (the step profiles count them by name).
     def total(modes):
         return sum(launches.get(m, 0) for m in modes)
 
+    for kernel, modes in (("input_chain", INPUT_MODES),
+                          ("plane_head", ("planes",)),
+                          ("sigma_head", ("sigma",))):
+        launches[kernel] = total(modes)
+        MAIN_POINTS[kernel] = sum(MAIN_POINTS.get(m, 0) for m in modes)
+    # Every CUDA kernel's launches on the main paths, from the modes'
+    # counts: each fused_step launch packs the weights once and converts
+    # its cotangent sums once; sigma_step and planes_step pack once each.
     steps = total(STEP_MODES)
+    launches["rowsum_bf16"] = steps
     by_kernel = {
         "trunk_fwd_kernel": steps + total(("sigma", "planes")),
         "trunk_dx_kernel": steps, "head_kernel": steps,
         "wgrad_kernel": total(WEIGHT_MODES),
         "fixed_sum_kernel": total(WEIGHT_MODES),
         "pack_kernel": steps + total(("sigma", "planes")),
-        "f32_to_bf16_kernel": 3 * steps,
-        "sigma_head_kernel": launches.get("sigma", 0),
+        "rowsum_bf16_kernel": steps,
+        "sigma_head_kernel": launches["sigma_head"],
         "plane_head_kernel": launches["plane_head"],
         "input_chain_kernel": launches["input_chain"],
         "composite_kernel": launches.get("composite", 0)
@@ -2278,7 +2481,8 @@ def main() -> int:
                  "pose", "pose_weights", "planes", "plane_train",
                  "plane_codes", "plane_pose", "plane_train_input",
                  "composite", "composite_bwd", "train_input",
-                 "train_weights", "input_chain", "plane_head"):
+                 "train_weights", "input_chain", "plane_head", "sigma_head",
+                 "rowsum_bf16"):
         # plane_train_input, train_input and train_weights have no caller
         # on a main path
         e = entries[mode]

@@ -57,9 +57,10 @@
 //         adds the sigma term dsig * w_sig, masks with the prefetched bits,
 //         rounds gh to bf16 in place, and reduces the per-ray row sums in
 //         registers (a shuffle ladder over the warp's 16 rows) into one f32
-//         atomic per (ray, column) and warp; f32_to_bf16 then writes the
-//         three cotangent outputs. In weight-gradient mode it also stores
-//         every gh plane, 16 bytes a thread.
+//         atomic per (ray, column) and warp; one rowsum_bf16_kernel
+//         launch then rounds the three cotangent outputs to bf16. In
+//         weight-gradient mode it also stores every gh plane, 16 bytes a
+//         thread.
 // Weight-gradient mode adds:
 //   (v)   wgrad_kernel: dW = X^T @ GH and db = sum GH of every trunk
 //         layer in one launch after the dx chain: a static list of
@@ -83,11 +84,11 @@
 //         the tensor cores, the Jacobian a row per lane with one sincosf
 //         per (coordinate, frequency), a warp per ray for the sums.
 // The forwards at the end of this file reuse (i) and (ii) with one head
-// pass: sigma_step's sigma_head_kernel (a warp per point), and
-// planes_step's plane_head_kernel (sigma and the raw r, g, b in one pass
-// over t and r, 16-byte loads, 4 points a warp, the sigma lane's
-// arithmetic shared with sigma_head_kernel, so both sigma planes are the
-// same bits).
+// pass, two instances of one loop (16-byte loads, several points a warp,
+// weights in registers): sigma_step's sigma_head_kernel (sigma alone, 8
+// points a warp) and planes_step's plane_head_kernel (sigma and the raw
+// r, g, b over t and r, 4 points a warp). Their sigma lanes are the same
+// code, so both sigma planes are the same bits.
 // What bounds the trunk: at W=256 a layer is 131,072 FLOP per point
 // against 512 B per stored bf16 plane, so the chain is bound by operations
 // once activations stay on chip; the weights (0.9 MB) come from L2 once per
@@ -1753,18 +1754,6 @@ __global__ void __launch_bounds__(HEAD_THREADS, 2) head_kernel(HeadArgs h) {
   }
 }
 
-__global__ void f32_to_bf16_kernel(const float* x, bf16* y, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    y[i] = __float2bfloat16_rn(x[i]);
-}
-
-int launch_convert(const float* x, bf16* y, size_t n, cudaStream_t stream) {
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  f32_to_bf16_kernel<<<blocks, 256, 0, stream>>>(x, y, n);
-  return (int)cudaGetLastError();
-}
-
 #define CHECK(call)            \
   do {                         \
     const int rc_ = (call);    \
@@ -2017,6 +2006,59 @@ int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n > 0 ? n : 1;
+}
+
+// The code cotangents' conversion: replaces the ``.astype(bf16)`` of the
+// per-ray sums in codenerf_tpu/ops/fused_train.py::_train_kernel and
+// _bwd_kernel (:321, :323, :345). The dx chain's atomics sum the three
+// cotangents in one contiguous f32 span rs_s | rs_t | rs_v, R x (nb + nt
+// + 1) x W values; no warp knows it is the last to add into a ray, so the
+// rounding is a pass of its own, one launch for the three outputs. Bound
+// by bytes: 6 B a value (0.0376 ms for 16,384 x 5 x 256 on an H100 at
+// 3.35 TB/s). A thread takes 8 values: two 16-byte loads (the read-only
+// path; a streaming hint measured slower, trunk_ablation.py --small),
+// four round-to-nearest-even pair conversions (x.to(torch.bfloat16)'s and
+// jnp.astype's rounding), one 16-byte store into the output its offset
+// falls in; W is a multiple of 8, so no group straddles two outputs.
+constexpr int RS_THREADS = 256;
+constexpr int RS_BLOCKS_PER_SM = 8;   // 2048 threads, 32 B in flight each
+
+__global__ void __launch_bounds__(RS_THREADS, RS_BLOCKS_PER_SM)
+    rowsum_bf16_kernel(const float* __restrict__ x, bf16* d_s, bf16* d_t,
+                       bf16* d_v, size_t n_s, size_t n_st, size_t n) {
+  for (size_t i = 8 * (blockIdx.x * (size_t)RS_THREADS + threadIdx.x);
+       i < n; i += 8 * (size_t)gridDim.x * RS_THREADS) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(x + i));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+    __align__(16) __nv_bfloat162 y[4] = {
+        __float22bfloat162_rn(make_float2(lo.x, lo.y)),
+        __float22bfloat162_rn(make_float2(lo.z, lo.w)),
+        __float22bfloat162_rn(make_float2(hi.x, hi.y)),
+        __float22bfloat162_rn(make_float2(hi.z, hi.w))};
+    bf16* dst = i < n_s ? d_s + i : i < n_st ? d_t + (i - n_s)
+                                             : d_v + (i - n_st);
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(y);
+  }
+}
+
+// One rowsum_bf16_kernel launch over the span ``x`` (R x (nb + nt + 1) x
+// W f32) into d_s (R, nb, W), d_t (R, nt, W) and d_v (R, W) bf16, all 16-
+// byte aligned; at most four waves of resident blocks, which then stride.
+int launch_rowsum(const float* x, bf16* d_s, bf16* d_t, bf16* d_v, int R,
+                  int nb, int nt, int W, cudaStream_t stream) {
+  auto misaligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 != 0;
+  };
+  if (R < 1 || nb < 1 || nt < 1 || W < 8 || W % 8 || misaligned(x)
+      || misaligned(d_s) || misaligned(d_t) || misaligned(d_v))
+    return (int)cudaErrorInvalidValue;
+  const size_t n_s = (size_t)R * nb * W, n_st = n_s + (size_t)R * nt * W;
+  const size_t n = n_st + (size_t)R * W;
+  const size_t need = (n / 8 + RS_THREADS - 1) / RS_THREADS;
+  const size_t cap = (size_t)sm_count() * RS_BLOCKS_PER_SM * 4;
+  rowsum_bf16_kernel<<<(unsigned)(need < cap ? need : cap), RS_THREADS, 0,
+                       stream>>>(x, d_s, d_t, d_v, n_s, n_st, n);
+  return (int)cudaGetLastError();
 }
 
 // One input_chain_kernel launch: two persistent blocks an SM (at most
@@ -2585,18 +2627,28 @@ extern "C" int fused_step(
     CHECK(launch_input_chain(ia, stream));
   }
 
-  CHECK(launch_convert(rs_s, d_sproj, (size_t)R * nb * W, stream));
-  CHECK(launch_convert(rs_t, d_tproj, (size_t)R * nt * W, stream));
-  CHECK(launch_convert(rs_v, d_vcontrib, (size_t)R * W, stream));
-  return 0;
+  return launch_rowsum(rs_s, d_sproj, d_tproj, d_vcontrib, R, nb, nt, W,
+                       stream);
+}
+
+// The code cotangents' conversion alone (fused_step launches it last), for
+// its check against its plain version: the f32 span ``x`` (R x (nb + nt +
+// 1) x W) rounded into d_sproj (R, nb, W), d_tproj (R, nt, W) and
+// d_vcontrib (R, W) bf16, all 16-byte aligned; W a multiple of 8. One
+// rowsum_bf16_kernel launch.
+extern "C" int rowsum_bf16_step(const float* x, bf16* d_sproj, bf16* d_tproj,
+                                bf16* d_vcontrib, int R, int nb, int nt,
+                                int W, cudaStream_t stream) {
+  return launch_rowsum(x, d_sproj, d_tproj, d_vcontrib, R, nb, nt, W,
+                       stream);
 }
 
 namespace {
 
-// The sigma head's arithmetic, shared by sigma_head_kernel and
-// plane_head_kernel so that their sigma planes are the same bits: a lane's
-// 8 contiguous bf16 values of t against its 8 f32 weights, in order, then
-// warp_sum over the lanes, the bias and softplus.
+// The sigma head's arithmetic, which both instances of head_pass run so
+// that their sigma planes are the same bits: a lane's 8 contiguous bf16
+// values of t against its 8 f32 weights, in order, then warp_sum over the
+// lanes, the bias and softplus.
 __device__ __forceinline__ float sigma_lane_dot(const uint4& v,
                                                 const float* w, float a) {
   const __nv_bfloat162* t2 = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -2612,34 +2664,9 @@ __device__ __forceinline__ float softplus_f(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
 }
 
-// Sigma head of the sigma-only forward: one warp per point, each lane 8
-// contiguous lanes of t per 256, softplus(sum_k bf16 t_k * w_sig[k] +
-// b_sig) in f32.
-__global__ void sigma_head_kernel(const bf16* t, const float* w_sig,
-                                  const float* b_sig, float* sigma, size_t P,
-                                  int W) {
-  const int lane = threadIdx.x & 31;
-  const size_t warps = (size_t)gridDim.x * (blockDim.x / 32);
-  for (size_t p = blockIdx.x * (size_t)(blockDim.x / 32) + threadIdx.x / 32;
-       p < P; p += warps) {
-    float a = 0.f;
-    for (int k0 = 8 * lane; k0 < W; k0 += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(t + p * W + k0);
-      a = sigma_lane_dot(v, w_sig + k0, a);
-    }
-    a = warp_sum(a);
-    if (lane == 0) sigma[p] = softplus_f(a + b_sig[0]);
-  }
-}
-
-unsigned point_blocks(size_t P) {   // 8 warps a block, one point a warp
-  const size_t blocks = (P + 7) / 8;
-  return (unsigned)(blocks < 8192 ? blocks : 8192);
-}
-
 struct PlaneHeadArgs {
   const bf16* t;           // (P, TW): enc_shape's output
-  const bf16* r;           // (P, TW / 2): rgb_hidden's output
+  const bf16* r;           // (P, TW / 2): rgb_hidden's output, or null
   const float* w_sig;      // (TW,)
   const float* b_sig;      // (1,)
   const bf16* w_rgb;       // (TW / 2, 8): rgb_out's weight, zero-padded
@@ -2654,102 +2681,132 @@ struct PlaneHeadArgs {
 constexpr int PH_THREADS = 256;
 constexpr int PH_BLOCKS_PER_SM = 3;  // the launch bounds' residency
 constexpr int PH_POINTS = 4;       // points a warp takes an iteration
+constexpr int SH_POINTS = 8;       // the same, sigma alone
 
-// The four-plane head (the TPU's fused_mlp.py::_kernel heads, :363-382,
-// sigma_only=False): per point the sigma plane softplus(t . w_sig +
-// b_sig) and the raw r, g, b planes r . w_rgb[:, 0:3] + b_rgb, f32 sums
-// of bf16 values. Bound by bytes: t (512 B) and r (256 B) read once and
-// four f32 planes written, 784 B a point, 0.245 ms at 16,384 x 64 on an
-// H100 at 3.35 TB/s. The design: every load is 16 bytes a lane; a warp
-// takes 4 points an iteration (4 t rows, a lane's 8 values each, and 2
-// r rows' worth, half a warp a row), so 6 loads of 16 B a lane are in
-// flight at once; w_sig and w_rgb[:, 0:3] for the lane's columns sit in
-// registers, converted once. The sigma lane is sigma_head_kernel's
-// arithmetic exactly (sigma_lane_dot, warp_sum, softplus_f), so the
-// sigma plane is sigma_step's bit for bit; the rgb sums are 8 values in
-// order and a 16-lane butterfly.
-__global__ void __launch_bounds__(PH_THREADS, PH_BLOCKS_PER_SM)
-    plane_head_kernel(
-    PlaneHeadArgs a) {
+// The heads of the TPU's fused_mlp.py::_kernel (:362-382) after the
+// trunk: per point the sigma plane softplus(t . w_sig + b_sig) and, with
+// RGB, the raw r, g, b planes r . w_rgb[:, 0:3] + b_rgb, f32 sums of bf16
+// values. Bound by bytes: t (512 B) read once and sigma written, 516 B a
+// point, and with RGB r (256 B) and three more planes, 784 B; on an H100
+// at 3.35 TB/s 0.0808 ms for sigma alone at 16,384 x 32, 0.245 ms for the
+// four planes at 16,384 x 64. The design: every load is 16 bytes a lane;
+// a warp takes NP points an iteration (NP t rows, a lane's 8 values each,
+// and with RGB NP / 2 r rows' worth, half a warp a row), all issued
+// before the first shuffle; w_sig (and w_rgb[:, 0:3]) for the lane's
+// columns sit in registers, converted once; lane q writes point q's
+// sigma, so a group's stores are one coalesced NP-float row. The sigma
+// lane is sigma_lane_dot, warp_sum, + b_sig, softplus_f in both
+// instances, so sigma_step's and planes_step's sigma planes are the same
+// bits; the rgb sums are 8 values in order and a 16-lane butterfly.
+template <bool RGB, int NP>
+__device__ __forceinline__ void head_pass(const PlaneHeadArgs& a) {
+  static_assert(NP <= 32 && NP % 2 == 0, "a lane per point, r rows paired");
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4, kr = 8 * (lane & 15);
-  float ws[8], wr[3][8];
+  float ws[8], wr[3][8], b_rgb[3];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     ws[i] = a.w_sig[8 * lane + i];
+    if constexpr (RGB) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) wr[ch][i] = bf(a.w_rgb[(kr + i) * 8 + ch]);
+      for (int ch = 0; ch < 3; ++ch)
+        wr[ch][i] = bf(a.w_rgb[(kr + i) * 8 + ch]);
+    }
+  }
+  if constexpr (RGB) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) b_rgb[ch] = a.b_rgb[ch];
   }
   const float b_sig = a.b_sig[0];
-  const float b_rgb[3] = {a.b_rgb[0], a.b_rgb[1], a.b_rgb[2]};
   const size_t P = a.P;
-  const size_t step = (size_t)gridDim.x * (PH_THREADS / 32) * PH_POINTS;
+  const size_t step = (size_t)gridDim.x * (PH_THREADS / 32) * NP;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   for (size_t p0 = ((size_t)blockIdx.x * (PH_THREADS / 32)
-                    + threadIdx.x / 32) * PH_POINTS;
+                    + threadIdx.x / 32) * NP;
        p0 < P; p0 += step) {
-    uint4 tv[PH_POINTS], rv[PH_POINTS / 2];
+    uint4 tv[NP], rv[NP / 2];
 #pragma unroll
-    for (int q = 0; q < PH_POINTS; ++q) {
+    for (int q = 0; q < NP; ++q) {
       const size_t p = p0 + q;
       tv[q] = p < P ? __ldg(reinterpret_cast<const uint4*>(
                           a.t + p * TW + 8 * lane))
                     : zero;
     }
+    if constexpr (RGB) {
 #pragma unroll
-    for (int h = 0; h < PH_POINTS / 2; ++h) {
-      const size_t p = p0 + 2 * h + half;
-      rv[h] = p < P ? __ldg(reinterpret_cast<const uint4*>(
-                          a.r + p * (TW / 2) + kr))
-                    : zero;
+      for (int h = 0; h < NP / 2; ++h) {
+        const size_t p = p0 + 2 * h + half;
+        rv[h] = p < P ? __ldg(reinterpret_cast<const uint4*>(
+                            a.r + p * (TW / 2) + kr))
+                      : zero;
+      }
     }
-    float sg[PH_POINTS];
+    float sg[NP];
 #pragma unroll
-    for (int q = 0; q < PH_POINTS; ++q)
+    for (int q = 0; q < NP; ++q)
       sg[q] = warp_sum(sigma_lane_dot(tv[q], ws, 0.f));
     float mine = sg[0];
 #pragma unroll
-    for (int q = 1; q < PH_POINTS; ++q) mine = lane == q ? sg[q] : mine;
-    if (lane < PH_POINTS && p0 + lane < P)
+    for (int q = 1; q < NP; ++q) mine = lane == q ? sg[q] : mine;
+    if (lane < NP && p0 + lane < P)
       a.sigma[p0 + lane] = softplus_f(mine + b_sig);
+    if constexpr (RGB) {
 #pragma unroll
-    for (int h = 0; h < PH_POINTS / 2; ++h) {
-      const __nv_bfloat162* r2 =
-          reinterpret_cast<const __nv_bfloat162*>(&rv[h]);
-      float c[3] = {0.f, 0.f, 0.f};
+      for (int h = 0; h < NP / 2; ++h) {
+        const __nv_bfloat162* r2 =
+            reinterpret_cast<const __nv_bfloat162*>(&rv[h]);
+        float c[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float lo = __low2float(r2[i]), hi = __high2float(r2[i]);
+        for (int i = 0; i < 4; ++i) {
+          const float lo = __low2float(r2[i]), hi = __high2float(r2[i]);
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          c[ch] += lo * wr[ch][2 * i];
-          c[ch] += hi * wr[ch][2 * i + 1];
+          for (int ch = 0; ch < 3; ++ch) {
+            c[ch] += lo * wr[ch][2 * i];
+            c[ch] += hi * wr[ch][2 * i + 1];
+          }
         }
-      }
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch)
+        for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          c[ch] += __shfl_xor_sync(FULL, c[ch], off);
-      const size_t p = p0 + 2 * h + half;
-      if ((lane & 15) == 0 && p < P) {
-        a.c0[p] = c[0] + b_rgb[0];
-        a.c1[p] = c[1] + b_rgb[1];
-        a.c2[p] = c[2] + b_rgb[2];
+          for (int off = 8; off > 0; off >>= 1)
+            c[ch] += __shfl_xor_sync(FULL, c[ch], off);
+        const size_t p = p0 + 2 * h + half;
+        if ((lane & 15) == 0 && p < P) {
+          a.c0[p] = c[0] + b_rgb[0];
+          a.c1[p] = c[1] + b_rgb[1];
+          a.c2[p] = c[2] + b_rgb[2];
+        }
       }
     }
   }
 }
 
-// One plane_head_kernel launch: a warp per 4 points, at most four waves
-// of resident blocks, which then stride over the rest.
-int launch_plane_head(const PlaneHeadArgs& a, cudaStream_t stream) {
-  const size_t groups = (a.P + PH_POINTS - 1) / PH_POINTS;
+// The two instances under names of their own, which the profiles count.
+__global__ void __launch_bounds__(PH_THREADS, PH_BLOCKS_PER_SM)
+    plane_head_kernel(PlaneHeadArgs a) {
+  head_pass<true, PH_POINTS>(a);
+}
+
+__global__ void __launch_bounds__(PH_THREADS, PH_BLOCKS_PER_SM)
+    sigma_head_kernel(PlaneHeadArgs a) {
+  head_pass<false, SH_POINTS>(a);
+}
+
+// One head launch (with RGB plane_head_kernel, else sigma_head_kernel): a
+// warp per group of points, at most four waves of resident blocks, which
+// then stride over the rest.
+template <bool RGB>
+int launch_head(const PlaneHeadArgs& a, cudaStream_t stream) {
+  constexpr int NP = RGB ? PH_POINTS : SH_POINTS;
+  const size_t groups = (a.P + NP - 1) / NP;
   const size_t need = (groups + PH_THREADS / 32 - 1) / (PH_THREADS / 32);
   const size_t cap = (size_t)sm_count() * PH_BLOCKS_PER_SM * 4;
   const unsigned blocks = (unsigned)(need < cap ? need : cap);
   if (blocks == 0) return 0;
-  plane_head_kernel<<<blocks, PH_THREADS, 0, stream>>>(a);
+  if (RGB)
+    plane_head_kernel<<<blocks, PH_THREADS, 0, stream>>>(a);
+  else
+    sigma_head_kernel<<<blocks, PH_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2845,10 +2902,13 @@ extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
   CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, nullptr, nullptr, wts, fwd_w,
                             R, S, W, nb, nt, n_freq, false, o),
                    stream));
-  sigma_head_kernel<<<point_blocks(P), 256, 0, stream>>>(
-      o.t, static_cast<const float*>(wts[2 * (nb + 2)]),
-      static_cast<const float*>(wts[2 * (nb + 2) + 1]), sigma, P, W);
-  return (int)cudaGetLastError();
+  PlaneHeadArgs h = {};
+  h.t = o.t;
+  h.w_sig = static_cast<const float*>(wts[2 * (nb + 2)]);
+  h.b_sig = static_cast<const float*>(wts[2 * (nb + 2) + 1]);
+  h.sigma = sigma;
+  h.P = P;
+  return launch_head<false>(h, stream);
 }
 
 // Four-plane forward on R rays x S samples: replaces
@@ -2856,8 +2916,8 @@ extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
 // of the plane op. trunk_fwd_kernel through rgb_hidden in one launch,
 // storing t and r (``ws``: forward_workspace(..., 1) elements); t is
 // computed as sigma_step computes it, and plane_head_kernel's sigma lane
-// is sigma_head_kernel's arithmetic, so the sigma plane is sigma_step's,
-// bit for bit; the same pass writes the raw r, g, b planes. Outputs
+// is sigma_head_kernel's code, so the sigma plane is sigma_step's, bit
+// for bit; the same pass writes the raw r, g, b planes. Outputs
 // (R, S) f32. Bound by operations: 2 * W * (64 + W * (nb + nt + 2) +
 // W / 2) FLOP per point.
 extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
@@ -2882,7 +2942,7 @@ extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
       static_cast<const float*>(wts[2 * i_sig + 1]),
       static_cast<const bf16*>(wts[2 * i_rgbo]),
       static_cast<const float*>(wts[2 * i_rgbo + 1]), sigma, c0, c1, c2, P};
-  return launch_plane_head(h, stream);
+  return launch_head<true>(h, stream);
 }
 
 // The four-plane head alone (planes_step launches it after the trunk),
@@ -2898,7 +2958,21 @@ extern "C" int plane_head_step(const bf16* t, const bf16* r,
   if (W != TW || R < 1 || S < 1) return (int)cudaErrorInvalidValue;
   const PlaneHeadArgs h = {t, r, w_sig, b_sig, w_rgb, b_rgb, sigma, c0, c1,
                            c2, (size_t)R * S};
-  return launch_plane_head(h, stream);
+  return launch_head<true>(h, stream);
+}
+
+// The sigma-only forward's head alone (sigma_step launches it after the
+// trunk), for its check against its plain version: from t (R*S, W) bf16,
+// w_sig (W,) and b_sig (1,) f32, the sigma plane (R*S,) f32. W = 256. One
+// sigma_head_kernel launch.
+extern "C" int sigma_head_step(const bf16* t, const float* w_sig,
+                               const float* b_sig, float* sigma, int R,
+                               int S, int W, cudaStream_t stream) {
+  if (W != TW || R < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  PlaneHeadArgs h = {};
+  h.t = t; h.w_sig = w_sig; h.b_sig = b_sig; h.sigma = sigma;
+  h.P = (size_t)R * S;
+  return launch_head<false>(h, stream);
 }
 
 // The input chain alone (fused_step launches it after the dx chain), for

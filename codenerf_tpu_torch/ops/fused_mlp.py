@@ -25,8 +25,9 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   ``sample_pdf``). On CUDA tensors it launches ``sigma_step`` of
   ``csrc/train_fused.cu``: the single-pass kernel's own forward,
   ``trunk_fwd_kernel``, from the PE through enc_shape with the
-  activations in shared memory (only t reaches device memory), and a
-  warp-per-point sigma head. Bound by operations:
+  activations in shared memory (only t reaches device memory), and
+  ``sigma_head_kernel``, the four-plane head's loop without its rgb
+  lanes (8 points a warp). Bound by operations:
   2W(64 + W(nb+1)) = 557,056 FLOP per point at W=256, nb=3 — 2.92e11 FLOP
   for a 16,384 × 32 training launch (0.30 ms at 989 TFLOP/s dense bf16),
   7.3e10 for a 4096 × 32 optimization chunk (0.074 ms); its inputs and
@@ -52,10 +53,13 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   ``planes_fwd.launches["planes"]`` counts its launches
   (``planes_fwd.points`` their R·S).
   :func:`fused_codenerf_apply` runs it from rays, depths and codes.
-- :func:`input_chain` and :func:`plane_head` — the input-chain kernel of
-  the pose modes and the four-plane head alone, for their checks against
-  :func:`input_chain_plain` and :func:`plane_head_plain` on the card
-  (CUDA tensors only; ``input_chain.launches``, ``plane_head.launches``).
+- :func:`input_chain`, :func:`plane_head` and :func:`sigma_head` — the
+  input-chain kernel of the pose modes, the four-plane head and the
+  sigma-only head alone, for their checks against
+  :func:`input_chain_plain`, :func:`plane_head_plain` and
+  :func:`sigma_head_plain` on the card (CUDA tensors only;
+  ``input_chain.launches``, ``plane_head.launches``,
+  ``sigma_head.launches``).
 """
 
 from __future__ import annotations
@@ -210,9 +214,8 @@ def plane_head_plain(R: int, S: int, t, r, w_sig, b_sig, w_rgb, b_rgb):
     :func:`shape_trunk_plain`'s ``sig_pre``) and the raw channels 0..2 of
     ``r @ w_rgb + b_rgb`` (bf16 operands, f32 sums). The TPU kernel's
     heads, ``codenerf_tpu/ops/fused_mlp.py:363-382``."""
-    sig_pre = (t.float() * w_sig[None, :]).sum(-1).view(R, S) + b_sig[0]
     rgb = (r.float() @ w_rgb.float() + b_rgb).view(R, S, -1)
-    return (softplus(sig_pre), rgb[..., 0].contiguous(),
+    return (sigma_head_plain(R, S, t, w_sig, b_sig), rgb[..., 0].contiguous(),
             rgb[..., 1].contiguous(), rgb[..., 2].contiguous())
 
 
@@ -244,6 +247,45 @@ def plane_head(R: int, S: int, t, r, w_sig, b_sig, w_rgb, b_rgb):
 
 
 plane_head.launches = 0
+
+
+def sigma_head_plain(R: int, S: int, t, w_sig, b_sig):
+    """The sigma-only forward's head from enc_shape's bf16 output ``t``
+    (R·S, W): ``softplus(t · w_sig + b_sig)``, (R, S) f32, the f32 sum of
+    :func:`shape_trunk_plain`'s ``sig_pre`` — the TPU kernel's sigma head,
+    ``codenerf_tpu/ops/fused_mlp.py:362-368``. :func:`plane_head_plain`'s
+    sigma plane."""
+    return softplus((t.float() * w_sig[None, :]).sum(-1).view(R, S)
+                    + b_sig[0])
+
+
+def sigma_head(R: int, S: int, t, w_sig, b_sig):
+    """:func:`sigma_head_plain` by the CUDA kernel that ``sigma_step`` runs
+    after the trunk (``sigma_head_kernel``, the sigma lane of
+    ``plane_head_kernel``), for its check against the plain version on
+    the card. CUDA tensors only, contiguous and 16-byte aligned: ``t``
+    (R·S, 256) bf16, ``w_sig`` (256,), ``b_sig`` (1,) f32. Counts its
+    launches in ``sigma_head.launches``."""
+    from codenerf_tpu_torch.ops import fused_train as ft
+
+    f32, W = torch.float32, ft.TRUNK_W
+    if R < 1 or S < 1:
+        raise ValueError(f"sigma_head takes R, S >= 1; got R={R}, S={S}")
+    dev = _check_operands("sigma_head", [
+        ("t", t, torch.bfloat16, (R * S, W)), ("w_sig", w_sig, f32, (W,)),
+        ("b_sig", b_sig, f32, (1,))])
+    lib = ft.library()
+    sigma = torch.empty(R, S, dtype=f32, device=dev)
+    rc = lib.sigma_head_step(
+        *[ft._ptr(x) for x in (t, w_sig, b_sig, sigma)], R, S, W,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"sigma_head CUDA kernel failed: cudaError {rc}")
+    sigma_head.launches += 1
+    return sigma
+
+
+sigma_head.launches = 0
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -91,7 +91,9 @@ the stored planes, one block's half of the shared operand multicast to
 both, each item's f32 partial written without atomics; one
 ``fixed_sum_kernel`` launch adds the splits and the head's rows in a fixed
 order — so dW and db are the same bits on every run, while the per-ray
-code cotangents, summed with f32 atomics, may differ in their last bits;
+code cotangents, summed with f32 atomics, may differ in their last bits
+(one ``rowsum_bf16_kernel`` launch rounds all three to bf16 last,
+:func:`rowsums_to_bf16` alone);
 with input gradients the head kernel also writes the weights and the
 composite's dz, and an input-chain kernel (one block per ray, W_enc^T in
 shared memory, fixed-order sums) finishes d_ro8, d_vd8 and d_z, the same
@@ -517,6 +519,48 @@ def weight_grads(pairs):
 weight_grads.launches = 0
 
 
+def rowsums_to_bf16_plain(span, R: int, nb: int, nt: int, W: int):
+    """The per-ray code cotangent sums, one f32 span ``rs_s | rs_t | rs_v``
+    of R·(nb + nt + 1)·W values, rounded to nearest even into
+    ``(d_sproj (R, nb, W), d_tproj (R, nt, W), d_vcontrib (R, W))`` bf16
+    — the TPU kernels' ``h.ray_sum(g).astype(bf16)``
+    (``codenerf_tpu/ops/fused_train.py:321,323,345``)."""
+    n_s, n_t = R * nb * W, R * nt * W
+    y = span.to(torch.bfloat16)
+    return (y[:n_s].view(R, nb, W), y[n_s:n_s + n_t].view(R, nt, W),
+            y[n_s + n_t:].view(R, W))
+
+
+def rowsums_to_bf16(span, R: int, nb: int, nt: int, W: int):
+    """:func:`rowsums_to_bf16_plain` by the CUDA kernel that ``fused_step``
+    runs last in every mode (``rowsum_bf16_kernel``, one launch for the
+    three outputs), for its check against the plain version on the card:
+    each output the bits of ``x.to(torch.bfloat16)``. CUDA tensors only:
+    ``span`` (R·(nb + nt + 1)·W,) f32, contiguous and 16-byte aligned;
+    R, nb, nt >= 1 and W a multiple of 8. Counts its launches in
+    ``rowsums_to_bf16.launches``."""
+    if R < 1 or nb < 1 or nt < 1 or W < 8 or W % 8:
+        raise ValueError(f"rowsums_to_bf16 takes R, nb, nt >= 1 and W a "
+                         f"multiple of 8; got R={R}, nb={nb}, nt={nt}, "
+                         f"W={W}")
+    dev = fused_mlp._check_operands("rowsums_to_bf16", [
+        ("span", span, torch.float32, (R * (nb + nt + 1) * W,))])
+    outs = [torch.empty(R, k, W, dtype=torch.bfloat16, device=dev)
+            for k in (nb, nt)] + [torch.empty(R, W, dtype=torch.bfloat16,
+                                              device=dev)]
+    rc = library().rowsum_bf16_step(
+        *[_ptr(x) for x in (span, *outs)], R, nb, nt, W,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"rowsums_to_bf16 CUDA kernel failed: cudaError "
+                           f"{rc}")
+    rowsums_to_bf16.launches += 1
+    return tuple(outs)
+
+
+rowsums_to_bf16.launches = 0
+
+
 def backward_chain_plain(cfg: NetConfig, R: int, S: int, acts, sproj, tproj,
                          wops, g_sigma, g_rgb, weight_grads: bool,
                          input_grads: bool, sigma_terms=None, pairs=None):
@@ -733,6 +777,10 @@ def _bind(lib: ctypes.CDLL):
     lib.input_chain_step.restype = ci
     lib.plane_head_step.argtypes = [vp] * 10 + [ci] * 3 + [vp]
     lib.plane_head_step.restype = ci
+    lib.sigma_head_step.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.sigma_head_step.restype = ci
+    lib.rowsum_bf16_step.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    lib.rowsum_bf16_step.restype = ci
 
 
 def library() -> ctypes.CDLL:
@@ -742,7 +790,9 @@ def library() -> ctypes.CDLL:
     composite's ``composite_fwd`` and ``composite_bwd``, the weight
     packer ``pack_trunk_weights`` and, each alone for its check, the
     weight-gradient kernel ``weight_grads_step``, the input chain
-    ``input_chain_step`` and the four-plane head ``plane_head_step``."""
+    ``input_chain_step``, the four-plane head ``plane_head_step``, the
+    sigma-only head ``sigma_head_step`` and the code cotangents'
+    conversion ``rowsum_bf16_step``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)

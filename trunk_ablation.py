@@ -9,6 +9,7 @@ cost: removing work can also let the rest overlap differently.
 
     python3 trunk_ablation.py            # the trunk kernels
     python3 trunk_ablation.py --dw-head  # the dW kernel and the head
+    python3 trunk_ablation.py --small    # the sigma head, the conversion
 
 The trunk: ``trunk_fwd_kernel`` and ``trunk_dx_kernel`` in the frozen
 mode at 4096 × 96 and the weight-gradient mode at 16,384 × 96, W=256.
@@ -16,6 +17,15 @@ mode at 4096 × 96 and the weight-gradient mode at 16,384 × 96, W=256.
 seeded random planes of the training shape (16,384 × 96: the eight
 trunk layers' inputs and gh planes), and ``head_kernel`` in the
 weight-gradient mode at 16,384 × 96 and the frozen mode at 4096 × 96.
+``--small``: not parts removed but the shapes of two small kernels,
+each alone on seeded random inputs: ``sigma_head_kernel``
+(``fused_mlp.sigma_head``) at 16,384 × 32 with 4, 8 or 16 points a
+warp, 4 blocks an SM, or one or 16 waves, and ``rowsum_bf16_kernel``
+(``fused_train.rowsums_to_bf16``) on a training call's span (16,384 ×
+5 × 256 values) with one, two or four waves of resident blocks,
+streaming loads, an L2 prefetch hint or a warp's loads contiguous;
+beside them, once, ``torch.matmul(t, w_sig)`` and ``x.to(torch.bfloat16)``
+on the same inputs.
 
 Prints the card line, one line per variant, and exits non-zero without a
 card. Needs one CUDA card.
@@ -83,6 +93,80 @@ DW_VARIANTS = {
     "no_phase4 (head: no per-ray sums)": [
         ("this ray's sums over its samples.\n    if (h.part) {",
          "this ray's sums over its samples.\n    if (false) {")],
+}
+
+
+# The small kernels' shapes.
+RS_LOOP_HEAD = """\
+  for (size_t i = 8 * (blockIdx.x * (size_t)RS_THREADS + threadIdx.x);
+       i < n; i += 8 * (size_t)gridDim.x * RS_THREADS) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(x + i));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+"""
+# A float4 load that asks L2 to fetch the whole 256-byte line.
+LD_L2_256 = """\
+__device__ __forceinline__ float4 ld_l2_256(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+"""
+RS_WARP_LOOP = """\
+  const size_t lane4 = 4 * (threadIdx.x & 31);
+  for (size_t b = 256 * ((blockIdx.x * (size_t)RS_THREADS + threadIdx.x)
+                         / 32);
+       b + lane4 < n; b += 8 * (size_t)gridDim.x * RS_THREADS) {
+    const size_t i0 = b + lane4, i1 = i0 + 128;
+    const float4 v0 = __ldg(reinterpret_cast<const float4*>(x + i0));
+    const float4 v1 =
+        i1 < n ? __ldg(reinterpret_cast<const float4*>(x + i1))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+    __align__(8) __nv_bfloat162 y0[2] = {
+        __float22bfloat162_rn(make_float2(v0.x, v0.y)),
+        __float22bfloat162_rn(make_float2(v0.z, v0.w))};
+    __align__(8) __nv_bfloat162 y1[2] = {
+        __float22bfloat162_rn(make_float2(v1.x, v1.y)),
+        __float22bfloat162_rn(make_float2(v1.z, v1.w))};
+    auto out = [&](size_t i) {
+      return i < n_s ? d_s + i
+             : i < n_st ? d_t + (i - n_s) : d_v + (i - n_st);
+    };
+    *reinterpret_cast<uint2*>(out(i0)) = *reinterpret_cast<const uint2*>(y0);
+    if (i1 < n)
+      *reinterpret_cast<uint2*>(out(i1)) = *reinterpret_cast<const uint2*>(y1);
+    continue;
+    const size_t i = 0;
+    const float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+"""
+SH = "constexpr int SH_POINTS = 8;"
+SH_BOUNDS = """\
+__global__ void __launch_bounds__(PH_THREADS, PH_BLOCKS_PER_SM)
+    sigma_head_kernel("""
+PH = "cap = (size_t)sm_count() * PH_BLOCKS_PER_SM * 4;"
+RS = "cap = (size_t)sm_count() * RS_BLOCKS_PER_SM * 4;"
+SMALL_VARIANTS = {
+    "base (8 points a warp; 4 waves)": [],
+    "sigma head: 4 points a warp": [(SH, SH.replace("8", "4"))],
+    "sigma head: 16 points a warp": [(SH, SH.replace("8", "16"))],
+    "sigma head: 4 blocks an SM": [(SH_BOUNDS, SH_BOUNDS.replace(
+        "PH_BLOCKS_PER_SM", "4"))],
+    "sigma head: 1 wave": [(PH, PH.replace("* 4", "* 1"))],
+    "sigma head: 16 waves": [(PH, PH.replace("* 4", "* 16"))],
+    "conversion: 1 wave": [(RS, RS.replace("* 4", "* 1"))],
+    "conversion: 2 waves": [(RS, RS.replace("* 4", "* 2"))],
+    "conversion: streaming loads (__ldcs)": [
+        ("__ldg(reinterpret_cast<const float4*>(x + i));\n"
+         "    const float4 hi = __ldg(",
+         "__ldcs(reinterpret_cast<const float4*>(x + i));\n"
+         "    const float4 hi = __ldcs(")],
+    "conversion: loads with an L2 256-byte prefetch hint": [
+        (RS_LOOP_HEAD, RS_LOOP_HEAD.replace("__ldg(", "ld_l2_256(")),
+        ("constexpr int RS_THREADS = 256;\n",
+         LD_L2_256 + "constexpr int RS_THREADS = 256;\n")],
+    "conversion: a warp's loads contiguous, two 8-byte stores": [(
+        RS_LOOP_HEAD, RS_WARP_LOOP)],
 }
 
 
@@ -166,6 +250,39 @@ def dw_head(libs) -> None:
               flush=True)
 
 
+def small(libs) -> None:
+    """The --small table: sigma_head_kernel and rowsum_bf16_kernel alone
+    on seeded random inputs at the main paths' largest shapes."""
+    import torch
+
+    import chip_smoke
+    from codenerf_tpu_torch.ops import fused_mlp, fused_train
+
+    dev = torch.device("cuda:0")
+    P, W, n = 16384 * 32, 256, 16384 * 5 * 256
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = torch.randn(P, W, generator=gen, device=dev).to(torch.bfloat16)
+    w_sig = torch.randn(W, generator=gen, device=dev) * 0.1
+    b_sig = torch.zeros(1, device=dev)
+    span = torch.randn(n, generator=gen, device=dev)
+    w_bf16 = w_sig.to(torch.bfloat16)
+    lib = (chip_smoke.device_ms(lambda: torch.matmul(t, w_bf16), ""),
+           chip_smoke.device_ms(lambda: span.to(torch.bfloat16), ""))
+    print("variant | sigma_head_kernel ms (16384x32) | rowsum_bf16_kernel "
+          "ms (16384x5x256)", flush=True)
+    print(f"torch.matmul(t, w_sig) | x.to(torch.bfloat16) | {lib[0]:.4f} | "
+          f"{lib[1]:.4f}", flush=True)
+    for name, so in libs:
+        use(so)
+        sig = chip_smoke.device_ms(
+            lambda: fused_mlp.sigma_head(16384, 32, t, w_sig, b_sig),
+            "sigma_head_kernel")
+        conv = chip_smoke.device_ms(
+            lambda: fused_train.rowsums_to_bf16(span, 16384, 3, 1, W),
+            "rowsum_bf16_kernel")
+        print(f"{name} | {sig:.4f} | {conv:.4f}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -182,6 +299,9 @@ def main() -> int:
         src = f.read()
     if "--dw-head" in sys.argv[1:]:
         dw_head(build(src, DW_VARIANTS))
+        return 0
+    if "--small" in sys.argv[1:]:
+        small(build(src, SMALL_VARIANTS))
         return 0
     libs = build(src, VARIANTS)
     dev = torch.device("cuda:0")
