@@ -59,10 +59,16 @@ Phases, each printed on its own line with its seconds:
    seeded f32 span at the training shape and at R=32 (exact ties, ±0,
    subnormals, values near the bf16 maximum), each output bit-equal to
    ``x.to(torch.bfloat16)``, beside its byte bound and that call; the
-   small kernels' device ms inside their callers (``sigma_head_kernel``
-   in ``sigma_fwd``, ``rowsum_bf16_kernel`` and ``pack_kernel`` in a
-   training call, the conversion one launch a call) against their byte
-   bounds. Timings of each kernel, its plain
+   small kernels' device ms against their byte bounds
+   (``sigma_head_kernel`` in ``sigma_fwd``, ``rowsum_bf16_kernel`` in a
+   training call on packed operands, one launch a call, where
+   ``pack_kernel`` must not run; ``pack_kernel`` alone). After the
+   packing's check, the packed-operand cache across a fused AdamW step
+   through ``apply_update``: training and pose calls on the rebuilt
+   operands bit-equal to the same calls on a freshly packed buffer, and
+   different on the buffer from before the step. The standalone
+   composite also runs on seeded planes at ragged shapes
+   (``COMPOSITE_RAGGED``). Timings of each kernel, its plain
    version and its bound, a ``torch.profiler`` breakdown by kernel name,
    the trunk kernels' ms per launch and TFLOP/s, the head kernel's ms and
    GB/s and the weight-gradient kernel's ms, TFLOP/s and GB/s against its
@@ -76,7 +82,7 @@ Phases, each printed on its own line with its seconds:
    checkpoint at mid-run (step 5) and at the end; then a second run
    resumes (``--resume``) from a copy of the mid-run checkpoint and runs
    the last 5 steps again. Each run's launch count of the weight-gradient
-   kernel must equal its steps, every logged loss must be finite, and the
+   kernel and of the weight packing must equal its steps, every logged loss must be finite, and the
    resumed run must end at the uninterrupted run's loss. Then the step
    profile (wall ms untraced and under the profiler, device-busy ms split
    into the port's kernels and PyTorch's, idle share, the largest kernels
@@ -117,15 +123,18 @@ Phases, each printed on its own line with its seconds:
     from the same draws with the plain versions on the unpadded rays.
     Phases 3-12 each start with every launch count at 0, fail if a plain
     version ran on a CUDA tensor, and print the peak device memory and
-    their step profiles;
+    their step profiles; the weights are packed once per network and
+    training step, and once per network in a fitting or pose run (none
+    in a frozen step's profiled window);
 13. every CUDA kernel's launches on the main paths by name, the order of
     the next work (each mode's ms above its bound, summed over the main
     paths' launches, each launch priced at its own R·S points against the
     phase-2 shape's; the conversion's launches at their rays against the
-    phase-2 span's), the ``kernels`` JSON line (20 rows: the 16 modes,
+    phase-2 span's), the ``kernels`` JSON line (21 rows: the 16 modes,
     then ``input_chain_kernel``, ``plane_head_kernel``,
     ``sigma_head_kernel`` and ``rowsum_bf16_kernel``, whose launches are
-    those of the modes that run them), the card line, and the last
+    those of the modes that run them, and ``pack_kernel``, counted by
+    its own wrapper), the card line, and the last
     line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
@@ -173,7 +182,8 @@ PHASE2_POINTS = {
     "train_input": R_CODES * S_COARSE, "train_weights": R_TRAIN * S_COARSE,
     "input_chain": R_POSE * S_FULL, "plane_head": R_TRAIN * S_UNION,
     "sigma_head": R_TRAIN * S_COARSE,
-    "rowsum_bf16": R_TRAIN}   # the conversion's work goes by rays
+    "rowsum_bf16": R_TRAIN,   # the conversion's work goes by rays
+    "pack": 1}                # the packing's by launches
 PLANE_MODES = {   # launch counter: (weight_grads, input_grads)
     "plane_train": (True, False), "plane_codes": (False, False),
     "plane_pose": (False, True), "plane_train_input": (True, True)}
@@ -234,8 +244,11 @@ def _close(name, got, want, terms=None, per_ray=False, slack=1.0):
     if per_ray:
         g2, w2 = got.reshape(got.shape[0], -1), want.reshape(got.shape[0], -1)
         norms = torch.linalg.vector_norm(w2, dim=1)
+        # An all-zero reference (the sigma cotangent at S = 1) scores its
+        # rows' absolute error: 0/0 reads 0, any nonzero row fails.
+        floor = max(1e-2 * float(norms.max()), 1e-30)
         ray_err = float((torch.linalg.vector_norm(g2 - w2, dim=1)
-                         / norms.clamp_min(1e-2 * float(norms.max()))).max())
+                         / norms.clamp_min(floor)).max())
         guard += f", worst ray's relative L2 {ray_err:.2e}"
         guard_ok = ray_err < 0.25 * slack
     else:
@@ -267,7 +280,10 @@ def time_cuda(fn, reps: int, warmup: int = 1) -> float:
 
 
 def kernel_inputs(dev, R: int, S: int):
-    """Seeded full-width operands of one kernel call."""
+    """Seeded full-width operands of one kernel call, the weights last as
+    the ``TrunkOperands`` the main paths' calls read, packed here once
+    (``fused_train.fresh_trunk_operands``: one pack_kernel launch) so
+    that the timed calls run what the main paths run."""
     import torch
 
     from codenerf_tpu_torch.config import NetConfig
@@ -288,9 +304,10 @@ def kernel_inputs(dev, R: int, S: int):
     gt = torch.rand(R, 3, generator=gen, device=dev)
     ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
         model, cfg, ro, vd, z, sc, tc)
-    wops = fused_train.kernel_operands(fused_train.flatten_params(model, cfg))
+    trunk = fused_train.fresh_trunk_operands(
+        cfg, fused_train.flatten_params(model, cfg))
     return cfg, (cfg, S, R, True, 1.0 / (R * 3.0), ro8, vd8, z, sproj, tproj,
-                 vcontrib, fused_mlp.pad_lanes(gt, 8), wops)
+                 vcontrib, fused_mlp.pad_lanes(gt, 8), trunk)
 
 
 def _bound(flops: int, nbytes: int):
@@ -400,7 +417,7 @@ def kernel_check(dev, weight_grads: bool):
     ms = time_cuda(lambda: fused_train.train_fused(*args, **kw), reps=10)
     plain_ms = time_cuda(lambda: fused_train.train_fused_plain(*args, **kw),
                          reps=3)
-    bound_ms, bound_by, flops, nbytes = bound(cfg, R, S, args[-1],
+    bound_ms, bound_by, flops, nbytes = bound(cfg, R, S, args[-1].wops,
                                               weight_grads)
     log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
         f"{bound_ms:.4f} ms ({flops:.4e} FLOP at {PEAK_BF16_FLOPS:.3e}/s; "
@@ -427,8 +444,8 @@ def sigma_check(dev, R: int):
     from codenerf_tpu_torch.ops import fused_mlp
 
     cfg, args = kernel_inputs(dev, R, S_COARSE)
-    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
-    sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, trunk)
     got = fused_mlp.sigma_fwd(*sargs)
     torch.cuda.synchronize()
     want = fused_mlp.sigma_fwd_plain(*sargs)
@@ -438,7 +455,7 @@ def sigma_check(dev, R: int):
                              f"at R={R}")
     ms = time_cuda(lambda: fused_mlp.sigma_fwd(*sargs), reps=10)
     plain_ms = time_cuda(lambda: fused_mlp.sigma_fwd_plain(*sargs), reps=3)
-    bound_ms, bound_by, flops, nbytes = sigma_bound(cfg, R, S, wops)
+    bound_ms, bound_by, flops, nbytes = sigma_bound(cfg, R, S, trunk.wops)
     log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
         f"{bound_ms:.4f} ms ({flops:.4e} FLOP; {nbytes} B) at R={R}, S={S}")
     profile_breakdown(lambda: fused_mlp.sigma_fwd(*sargs), sequence=True)
@@ -458,16 +475,16 @@ def union_inputs(dev, R: int):
     from codenerf_tpu_torch.ops import fused_mlp, fused_train
 
     cfg, args = kernel_inputs(dev, R, S_COARSE)
-    _, S, R, wbg, scale, ro8, vd8, zc, sproj, tproj, vcontrib, gt8, wops = \
+    _, S, R, wbg, scale, ro8, vd8, zc, sproj, tproj, vcontrib, gt8, trunk = \
         args
     sig = fused_mlp.sigma_fwd_plain(cfg, S, R, ro8, vd8, zc, sproj, tproj,
-                                    vcontrib, wops)
+                                    vcontrib, trunk)
     gen = torch.Generator(device=dev).manual_seed(2)
     z_all, cmask, cdelta = fused_train.hier_fine_zvals_meta(
         zc, composite_weights(sig, zc), gen, S_UNION - S_COARSE)
     return cfg, (cfg, S_UNION, R, wbg, scale, ro8, vd8, z_all, sproj, tproj,
-                 vcontrib, gt8, wops), dict(coarse_mask=cmask,
-                                            coarse_delta=cdelta)
+                 vcontrib, gt8, trunk), dict(coarse_mask=cmask,
+                                             coarse_delta=cdelta)
 
 
 def dual_check(dev, weight_grads: bool):
@@ -529,7 +546,7 @@ def dual_check(dev, weight_grads: bool):
     ms = time_cuda(lambda: fused_train.train_fused(*args, **kw), reps=10)
     plain_ms = time_cuda(lambda: fused_train.train_fused_plain(*args, **kw),
                          reps=3)
-    bound_ms, bound_by, flops, nbytes = bound(cfg, R, S_UNION, args[-1],
+    bound_ms, bound_by, flops, nbytes = bound(cfg, R, S_UNION, args[-1].wops,
                                               weight_grads, dual=True)
     log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
         f"{bound_ms:.4f} ms ({flops:.4e} FLOP; {nbytes} B) at R={R}, "
@@ -597,7 +614,7 @@ def pose_check(dev, S: int, want_weights: bool, union: bool = False):
     plain_ms = time_cuda(lambda: fused_train.train_fused_plain(*args, **kw),
                          reps=3)
     bound_ms, bound_by, flops, nbytes = bound(
-        cfg, R_POSE, S, args[-1], False, input_grads=True,
+        cfg, R_POSE, S, args[-1].wops, False, input_grads=True,
         want_weights=want_weights)
     log(f"  kernel {ms:.4f} ms/call, plain {plain_ms:.4f} ms/call, bound "
         f"{bound_ms:.4f} ms ({flops:.4e} FLOP; {nbytes} B) at R={R_POSE}, "
@@ -671,8 +688,8 @@ def planes_check(dev, R: int, S: int):
     from codenerf_tpu_torch.ops import fused_mlp
 
     cfg, args = kernel_inputs(dev, R, S)
-    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
-    pargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    pargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, trunk)
     got = fused_mlp.planes_fwd(*pargs)
     torch.cuda.synchronize()
     want = fused_mlp.planes_fwd_plain(*pargs)
@@ -685,7 +702,7 @@ def planes_check(dev, R: int, S: int):
     checks.append(("sigma (vs sigma_fwd)", 0.0, ok))
     del got, want, sig
     err = _fail_on(checks, "planes_fwd")
-    bnd = plane_bound(cfg, R, S, wops, forward_only=True)
+    bnd = plane_bound(cfg, R, S, trunk.wops, forward_only=True)
     ms, plain_ms = _timings(lambda: fused_mlp.planes_fwd(*pargs),
                             lambda: fused_mlp.planes_fwd_plain(*pargs), bnd,
                             f"R={R}, S={S}")
@@ -704,10 +721,10 @@ def _cotangent_planes(args):
 
     from codenerf_tpu_torch.ops import composite, fused_mlp
 
-    cfg, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, wops = \
+    cfg, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, trunk = \
         args
     planes = fused_mlp.planes_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                        vcontrib, wops)
+                                        vcontrib, trunk)
     out8 = composite.composite_fwd_plain(*planes, z, wbg)
     lane = torch.arange(8, device=z.device)[None, :]
     g8 = torch.where(lane < 3, 2.0 * scale * (out8 - gt8),
@@ -725,8 +742,8 @@ def plane_check(dev, mode: str, R: int, S: int):
 
     weight_grads, input_grads = PLANE_MODES[mode]
     cfg, args = kernel_inputs(dev, R, S)
-    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
-    bargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops,
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    bargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, trunk,
              _cotangent_planes(args), weight_grads, input_grads)
     got = fused_train.plane_bwd(*bargs)
     torch.cuda.synchronize()
@@ -755,7 +772,7 @@ def plane_check(dev, mode: str, R: int, S: int):
         checks.append((f"{name} (two launches)", d, ok))
     del got, want, again
     err = _fail_on(checks, f"plane_bwd ({mode})")
-    bnd = plane_bound(cfg, R, S, wops, weight_grads, input_grads)
+    bnd = plane_bound(cfg, R, S, trunk.wops, weight_grads, input_grads)
     ms, plain_ms = _timings(lambda: fused_train.plane_bwd(*bargs),
                             lambda: fused_train.plane_bwd_plain(*bargs), bnd,
                             f"R={R}, S={S}")
@@ -765,37 +782,58 @@ def plane_check(dev, mode: str, R: int, S: int):
                   bnd)
 
 
-def composite_check(dev, R: int, S: int):
-    """Phase 2: the standalone composite and its backward (CUDA) vs their
-    plain versions on white and black backgrounds, with a per-ray
-    cotangent whose every lane, depth and acc included, is nonzero."""
+def _composite_checks(planes, z, g8, what: str):
+    """The standalone composite and its backward (CUDA) on ``planes`` (four
+    (R, S) f32: densities, raw r, g, b) and depths ``z`` against their
+    plain versions, white and black background, with the per-ray
+    cotangent ``g8``; each mode the same bits over two launches. Returns
+    the checks."""
     import torch
 
-    from codenerf_tpu_torch.ops import composite, fused_mlp
+    from codenerf_tpu_torch.ops import composite
 
-    cfg, args = kernel_inputs(dev, R, S)
-    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
-    planes = fused_mlp.planes_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                        vcontrib, wops)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    g8 = torch.randn(R, 8, generator=gen, device=dev) / (3.0 * R)
-    checks, timed = [], {}
+    checks = []
     for white in (True, False):
         fa = (*planes, z, white)
         ba = (*planes, z, g8, white)
         got = composite.composite_fwd(*fa)
         torch.cuda.synchronize()
-        checks.append((f"out8 (white_bg={white})", *_close(
-            f"out8 (white_bg={white})", got, composite.composite_fwd_plain(
-                *fa), per_ray=True)))
-        got = composite.composite_bwd(*ba)
+        name = f"out8 (white_bg={white}, {what})"
+        checks.append((name, *_close(name, got, composite.composite_fwd_plain(
+            *fa), per_ray=True)))
+        outs = composite.composite_bwd(*ba)
         want = composite.composite_bwd_plain(*ba)
-        for name, g, w in zip(("gsig", "gc0", "gc1", "gc2", "dz"), got, want):
-            checks.append((f"{name} (white_bg={white})", *_close(
-                f"{name} (white_bg={white})", g, w, per_ray=True)))
-        timed[white] = (fa, ba)
-    err = _fail_on(checks, "composite")
-    fa, ba = timed[True]
+        for key, g, w in zip(("gsig", "gc0", "gc1", "gc2", "dz"), outs, want):
+            name = f"{key} (white_bg={white}, {what})"
+            checks.append((name, *_close(name, g, w, per_ray=True)))
+        ok = (torch.equal(got, composite.composite_fwd(*fa))
+              and all(torch.equal(a, b) for a, b in zip(
+                  outs, composite.composite_bwd(*ba))))
+        log(f"  composite and its backward over two launches (white_bg="
+            f"{white}, {what}): {'bit-equal' if ok else 'DIFFER'}"
+            f"{'' if ok else '  <-- FAILS'}")
+        checks.append((f"two launches (white_bg={white}, {what})", 0.0, ok))
+    return checks
+
+
+def composite_check(dev, R: int, S: int):
+    """Phase 2: the standalone composite and its backward (CUDA) vs their
+    plain versions on white and black backgrounds, with a per-ray
+    cotangent whose every lane, depth and acc included, is nonzero, on
+    the planes of a four-plane forward; then timed."""
+    import torch
+
+    from codenerf_tpu_torch.ops import composite, fused_mlp
+
+    cfg, args = kernel_inputs(dev, R, S)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    planes = fused_mlp.planes_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
+                                        vcontrib, trunk)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g8 = torch.randn(R, 8, generator=gen, device=dev) / (3.0 * R)
+    err = _fail_on(_composite_checks(planes, z, g8, f"{R} x {S}"),
+                   "composite")
+    fa, ba = (*planes, z, True), (*planes, z, g8, True)
     nbytes = 5 * R * S * 4 + R * 8 * 4
     rows = {}
     for key, fn, plain, nb_ in (
@@ -813,10 +851,39 @@ def composite_check(dev, R: int, S: int):
         ms = device_ms(lambda: fn(*a), "composite_kernel")
         log(f"  {key}: {ms if ms is None else f'{ms:.4f}'} ms of device "
             f"time per launch (torch.profiler), against "
-            f"{call_ms:.4f} ms per call by events")
+            f"{call_ms:.4f} ms per call by events; "
+            + ("" if ms is None else f"{bnd[0] / ms:.0%} of its byte bound"))
         rows[key] = _entry(f"{key} (standalone)", REPLACES_COMPOSITE, err,
                            call_ms if ms is None else ms, plain_ms, bnd)
     return rows
+
+
+# Ragged shapes of the standalone composite: rays not a multiple of the
+# rays a block, S = 39 (scalar loads, rows not 16-byte aligned), S = 128
+# and S = 256 (16-byte loads; 4 and 8 samples a lane), S = 20 (twelve
+# lanes without a sample), S = 1 (the last sample alone: its delta is
+# 1e10 and its sigma cotangent exactly 0 on both sides).
+COMPOSITE_RAGGED = ((4093, 39), (4093, 128), (1027, 256), (37, 20),
+                    (37, 1))
+
+
+def composite_ragged_check(dev) -> float:
+    """Phase 2: :func:`_composite_checks` on seeded planes at the ragged
+    shapes; returns the largest error."""
+    import torch
+
+    errs = []
+    for R, S in COMPOSITE_RAGGED:
+        gen = torch.Generator(device=dev).manual_seed(R + S)
+        sig = torch.nn.functional.softplus(
+            2.0 * torch.randn(R, S, generator=gen, device=dev))
+        cs = [torch.randn(R, S, generator=gen, device=dev) for _ in range(3)]
+        z = 0.8 + torch.sort(torch.rand(R, S, generator=gen, device=dev),
+                             -1).values
+        g8 = torch.randn(R, 8, generator=gen, device=dev) / (3.0 * R)
+        errs.append(_fail_on(_composite_checks(
+            (sig, *cs), z, g8, f"{R} x {S}"), "composite (ragged)"))
+    return max(errs)
 
 
 def _traced(fn, kernel: str, calls: int, tries: int):
@@ -885,16 +952,16 @@ def chain_check(dev, input_grads: bool, R: int, S: int):
     from codenerf_tpu_torch.ops import composite, fused_mlp, fused_train
 
     cfg, args = kernel_inputs(dev, R, S)
-    _, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, wops = args
+    _, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, trunk = args
     planes = fused_mlp.planes_fwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                  vcontrib, wops)
+                                  vcontrib, trunk)
     out8 = composite.composite_fwd(*planes, z, wbg)
     lane = torch.arange(8, device=dev)[None, :]
     diff = torch.where(lane < 3, out8 - gt8, torch.zeros_like(out8))
     se = float((diff * diff).sum())
     gp = composite.composite_bwd(*planes, z, 2.0 * scale * diff, wbg)
     chain = fused_train.plane_bwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                  vcontrib, wops, gp[:4], not input_grads,
+                                  vcontrib, trunk, gp[:4], not input_grads,
                                   input_grads)
     if input_grads:
         single = fused_train.train_fused(*args, weight_grads=False,
@@ -965,8 +1032,8 @@ def input_chain_check(dev, R: int, S: int):
     from codenerf_tpu_torch.ops import fused_mlp
 
     cfg, args = kernel_inputs(dev, R, S)
-    ro8, vd8, z, wops = args[5], args[6], args[7], args[-1]
-    w_enc = wops[0]
+    ro8, vd8, z = args[5], args[6], args[7]
+    w_enc = args[-1].wops[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     P = R * S
     gh0 = (torch.randn(P, cfg.W, generator=gen, device=dev) * 1e-3
@@ -1022,7 +1089,8 @@ def plane_head_check(dev, R: int, S: int):
     from codenerf_tpu_torch.ops import fused_mlp
 
     cfg, args = kernel_inputs(dev, R, S)
-    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    wops = trunk.wops
     acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
                                    vcontrib, wops)
     t, r = acts["t"], acts["r"]
@@ -1083,7 +1151,8 @@ def sigma_head_check(dev, R: int, S: int):
     from codenerf_tpu_torch.ops import fused_mlp
 
     cfg, args = kernel_inputs(dev, R, S)
-    _, S, R, _, _, ro8, vd8, z, sproj, _, _, _, wops = args
+    _, S, R, _, _, ro8, vd8, z, sproj, _, _, _, trunk = args
+    wops = trunk.wops
     t = fused_mlp.shape_trunk_plain(cfg, R, S, ro8, vd8, z, sproj,
                                     wops)["t"]
     i_sig = cfg.shape_blocks + 2
@@ -1190,26 +1259,30 @@ def rowsum_check(dev, R: int):
     return row
 
 
-def small_kernel_rates(dev) -> None:
-    """Phase 2: the device ms of the port's small kernels inside their
-    callers at the main paths' shapes, beside their byte bounds:
-    sigma_head_kernel in sigma_fwd at 16,384 × 32 (t read, sigma
-    written), and per training call at 16,384 × 96 rowsum_bf16_kernel
-    (the per-ray cotangent sums, R × (nb + nt + 1) × W f32 in, bf16 out),
-    which must launch once a call, and pack_kernel (every trunk weight
-    read once, its packed forward and dx operands written). A kernel
-    without device time in the traces reads "not measured"."""
+def small_kernel_rates(dev) -> dict:
+    """Phase 2: the device ms of the port's small kernels at the main
+    paths' shapes, beside their byte bounds: sigma_head_kernel in
+    sigma_fwd at 16,384 × 32 (t read, sigma written), rowsum_bf16_kernel
+    per training call at 16,384 × 96 (the per-ray cotangent sums, R × (nb
+    + nt + 1) × W f32 in, bf16 out), which must launch once a call, and
+    pack_kernel alone (``fused_train.pack_trunk_weights``: every trunk
+    weight read once, its packed forward and dx operands written), which a
+    training call on packed operands, as the main paths make them, must
+    not launch. A kernel without device time in the traces reads "not
+    measured". Returns pack_kernel's row."""
     from codenerf_tpu_torch.ops import fused_mlp, fused_train
 
     out = {}
     cfg, args = kernel_inputs(dev, R_TRAIN, S_COARSE)
-    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, wops = args
-    sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, wops)
+    _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, trunk)
     P, W = R * S, cfg.W
     out["sigma_head_kernel"] = (
         device_ms(lambda: fused_mlp.sigma_fwd(*sargs), "sigma_head_kernel"),
         P * (2 * W + 4) / PEAK_HBM_BYTES * 1e3)
     cfg, args = kernel_inputs(dev, R_TRAIN, S_FULL)
+    wops = args[-1].wops
+    pack = lambda: fused_train.pack_trunk_weights(cfg, wops)
     call = lambda: fused_train.train_fused(*args, weight_grads=True)
     n = R_TRAIN * (cfg.shape_blocks + cfg.texture_blocks + 1) * cfg.W
     traced = _traced(call, "rowsum_bf16_kernel", calls=3, tries=3)
@@ -1219,18 +1292,30 @@ def small_kernel_rates(dev) -> None:
     out["rowsum_bf16_kernel"] = (
         None if traced is None else traced[0] / 1e3 / 3,
         n * 6 / PEAK_HBM_BYTES * 1e3)
-    n_in = sum(args[-1][2 * i].numel()
+    packs = _traced(call, "pack_kernel", calls=3, tries=1)
+    if packs is not None:
+        raise AssertionError(f"training calls on packed operands launched "
+                             f"pack_kernel {packs[1]} times")
+    n_in = sum(wops[2 * i].numel()
                for i in fused_train.trunk_layer_indices(cfg))
     n_out = fused_train.library().packed_trunk_elems(
         cfg.W, cfg.shape_blocks, cfg.texture_blocks)
-    out["pack_kernel"] = (device_ms(call, "pack_kernel", calls=3),
-                          2 * (n_in + n_out) / PEAK_HBM_BYTES * 1e3)
-    for k, (ms, bnd) in out.items():
-        log(f"  {k} in its caller: "
-            + ("not measured" if ms is None else f"{ms:.4f} ms per call")
-            + f", byte bound {bnd:.4f} ms"
+    bnd = _bound(0, 2 * (n_in + n_out))
+    out["pack_kernel"] = (kernel_ms(pack, "pack_kernel", "pack_kernel"),
+                          bnd[0])
+    plain_ms = time_cuda(
+        lambda: fused_train.pack_trunk_weights_plain(cfg, wops), reps=3)
+    for k, (ms, b) in out.items():
+        log(f"  {k} " + ("alone" if k == "pack_kernel" else "in its caller")
+            + ": " + ("not measured" if ms is None else f"{ms:.4f} ms per "
+                      f"call ({b / ms:.0%} of its bound)")
+            + f", byte bound {b:.4f} ms"
             + (", one launch a call" if k == "rowsum_bf16_kernel"
                and traced is not None else ""))
+    log(f"  pack_kernel: plain version (wgmma_pack per operand) "
+        f"{plain_ms:.4f} ms")
+    return _entry("pack_kernel (trunk weights, once per weight version)",
+                  REPLACES, 0.0, out["pack_kernel"][0], plain_ms, bnd)
 
 
 def trunk_rates(cfg, R: int, S: int, fn, weight_grads: bool) -> None:
@@ -1329,7 +1414,8 @@ def wgrad_check(dev):
     from codenerf_tpu_torch.ops import fused_mlp, fused_train
 
     cfg, args = kernel_inputs(dev, R_TRAIN, S_FULL)
-    _, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, wops = args
+    _, S, R, wbg, scale, ro8, vd8, z, sproj, tproj, vcontrib, gt8, trunk = args
+    wops = trunk.wops
     acts = fused_mlp.forward_plain(cfg, R, S, ro8, vd8, z, sproj, tproj,
                                    vcontrib, wops)
     _, _, _, g_sigma, g_rgb, _ = fused_train.head_plain(
@@ -1394,7 +1480,7 @@ def pack_check(dev) -> None:
     from codenerf_tpu_torch.ops import fused_train
 
     cfg, args = kernel_inputs(dev, 16, 8)
-    wops = args[-1]
+    wops = args[-1].wops
     got = fused_train.pack_trunk_weights(cfg, wops)
     want = fused_train.pack_trunk_weights_plain(cfg, wops)
     ok = torch.equal(got.view(torch.int16), want.view(torch.int16))
@@ -1402,6 +1488,117 @@ def pack_check(dev) -> None:
         f"{'bit-equal' if ok else 'DIFFER'}{'' if ok else '  <-- FAILS'}")
     if not ok:
         raise AssertionError("pack_kernel disagrees with wgmma_pack")
+
+
+def staleness_check(dev) -> None:
+    """Phase 2: the packed-operand cache across a weight update. A
+    full-width network's operands are cached (``trunk_operands``), then
+    one fused AdamW step through ``train_step.apply_update`` changes the
+    weights (a fused step leaves the parameters' versions as they were:
+    only apply_update's drop makes the next read miss). On the rebuilt
+    operands a training call (4096 × 96) must give the squared error and
+    dW/db of the same call on a buffer freshly packed from the new
+    weights, bit for bit, and its code cotangents within the order of the
+    f32 atomic ray sums; a pose call (2048 × 96) its ``d_ro8``, ``d_vd8``
+    and ``d_z`` bit for bit. The rebuilt packing must equal
+    ``pack_trunk_weights_plain`` of the new weights, and the same calls
+    on the packing from before the step must differ (the check can see a
+    stale buffer)."""
+    import torch
+    from torch import nn
+
+    from codenerf_tpu_torch.config import hparams_from_dict
+    from codenerf_tpu_torch.models.codenerf import CodeNeRF
+    from codenerf_tpu_torch.ops import fused_train
+    from codenerf_tpu_torch.training import train_step
+    from codenerf_tpu_torch.training.state import TrainState
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "jsonfiles", "srncar_fused.json")) as f:
+        hp = hparams_from_dict(json.load(f))
+    cfg = hp.net
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = CodeNeRF(cfg, generator=gen, device=dev)
+    codes = [nn.Parameter(torch.zeros(2, cfg.latent_dim, device=dev))
+             for _ in range(2)]
+    state = TrainState(model=model, shape_codes=codes[0],
+                       texture_codes=codes[1], generator=gen,
+                       optimizer=torch.optim.AdamW(model.parameters(),
+                                                   lr=1e-3, fused=True))
+    before = fused_train.trunk_operands(model, cfg)
+    old_packed = before.packed.clone()
+    for p in model.parameters():
+        p.grad = 1e-2 * torch.randn(p.shape, generator=gen, device=dev)
+    train_step.apply_update(state, hp)
+    trunk = fused_train.trunk_operands(model, cfg)
+    plain = fused_train.pack_trunk_weights_plain(cfg, trunk.wops)
+    checks = [("a rebuild after the update", 0.0, trunk is not before),
+              ("the rebuilt packing vs the plain one", 0.0, torch.equal(
+                  trunk.packed.view(torch.int16), plain.view(torch.int16)))]
+    stale = fused_train.TrunkOperands(trunk.wops, old_packed)
+    fresh_trunk = fused_train.fresh_trunk_operands(
+        cfg, fused_train.flatten_params(model, cfg))
+
+    def exact(outs):     # the SE, then dW/db or d_ro8, d_vd8, d_z
+        return [outs[0]] + list(outs[4:])
+
+    for what, (R, S), kw in (
+            ("training", (R_CODES, S_FULL), dict(weight_grads=True)),
+            ("pose", (R_POSE, S_FULL), dict(weight_grads=False,
+                                             input_grads=True))):
+        args = kernel_inputs(dev, R, S)[1][:-1]
+        cached = fused_train.train_fused(*args, trunk, **kw)
+        fresh = fused_train.train_fused(*args, fresh_trunk, **kw)
+        old = fused_train.train_fused(*args, stale, **kw)
+        torch.cuda.synchronize()
+        checks.append((f"{what}: cached vs freshly packed, bit for bit", 0.0,
+                       all(torch.equal(a, b) for a, b in zip(
+                           exact(cached), exact(fresh)))))
+        for name, a, b in zip(("d_sproj", "d_tproj", "d_vcontrib"),
+                              cached[1:4], fresh[1:4]):
+            d = float((a.float() - b.float()).abs().max())
+            checks.append((f"{what}: {name} cached vs freshly packed", d,
+                           d <= 1e-2 * float(b.float().abs().max())))
+        checks.append((f"{what}: the packing from before the update "
+                       f"differs", 0.0, not all(torch.equal(a, b) for a, b in
+                                               zip(exact(old),
+                                                   exact(fresh)))))
+        del cached, fresh, old
+    for name, d, ok in checks:
+        log(f"  staleness: {name}: {'holds' if ok else 'FAILS'}"
+            + (f" (max abs difference {d:.3e})" if d else ""))
+    _fail_on(checks, "the packed-operand cache")
+    _operand_host_cost(model, cfg, dev)
+
+
+def _operand_host_cost(model, cfg, dev, n: int = 200) -> None:
+    """Host µs per call of what a kernel call spends on its weights: a
+    cache hit (``trunk_operands``, the key walk over every parameter), the
+    CUDA calls' check of the operands (``_cuda_trunk``, made by every
+    launch), and a fresh build (``flatten_params``, the casts and one
+    pack), which each call made before the cache; host clock over ``n``
+    calls, one synchronize after."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_train
+
+    trunk = fused_train.trunk_operands(model, cfg)
+    fns = {"trunk_operands (hit)": lambda: fused_train.trunk_operands(
+               model, cfg),
+           "_cuda_trunk (the check)": lambda: fused_train._cuda_trunk(
+               cfg, trunk, dev),
+           "a fresh build (flatten, casts, pack)":
+               lambda: fused_train.fresh_trunk_operands(
+                   cfg, fused_train.flatten_params(model, cfg))}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        log(f"  host cost per call, {name}: "
+            f"{(time.perf_counter() - t0) / n * 1e6:.1f} µs")
 
 
 PAIRS = {   # launch counter: the flag pair no path calls, and its shape
@@ -1465,7 +1662,8 @@ def pair_check(dev, mode: str):
         del again
     del got, want, base
     err = _fail_on(checks, f"train_fused ({mode})")
-    bnd = bound(cfg, R, S, args[-1], True, input_grads=ig, want_weights=ww)
+    bnd = bound(cfg, R, S, args[-1].wops, True, input_grads=ig,
+                want_weights=ww)
     ms, plain_ms = _timings(lambda: fused_train.train_fused(*args, **kw),
                             lambda: fused_train.train_fused_plain(*args,
                                                                   **kw),
@@ -1532,13 +1730,16 @@ PORT_KERNELS = ("trunk_fwd_kernel", "trunk_dx_kernel", "pack_kernel",
 
 
 def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
-                     steps: int) -> None:
+                     steps: int, packs_per_step: int = 0) -> dict:
     """Wall ms per step untraced and traced, device-busy ms in the traced
     window split into the port's kernels and PyTorch's, the idle share
     against each wall, the device ms per step of the largest kernels by
     name (port or PyTorch), and the port's launches per step by name. The
     tracer spaces kernels apart and slows the host, so the idle share
-    against the untraced wall is the step's own."""
+    against the untraced wall is the step's own. The window must hold
+    ``packs_per_step`` pack_kernel launches a step: one per network and
+    training step, none in a frozen step (the weights are packed once per
+    version). Returns the port's launches in the window by name."""
     from torch.autograd import DeviceType
 
     ours, other, by_name, count = 0.0, 0.0, {}, {}
@@ -1567,6 +1768,12 @@ def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
         + ", ".join(f"{k} {v:.3f}" for k, v in top)
         + "; the port's launches per step: "
         + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(count.items())))
+    packs = count.get("pack_kernel", 0)
+    if packs != packs_per_step * steps:
+        raise AssertionError(f"{what}: {packs} pack_kernel launches in "
+                             f"{steps} profiled steps, expected "
+                             f"{packs_per_step} a step")
+    return count
 
 
 def write_dataset(root: str, split: str, n_objs: int, n_views: int,
@@ -1641,7 +1848,8 @@ class LaunchCounts:
                           fused_mlp.sigma_fwd.launches,
                           fused_mlp.planes_fwd.launches,
                           fused_train.plane_bwd.launches,
-                          composite.launches)
+                          composite.launches,
+                          fused_train.pack_trunk_weights.launches)
         self._points = (fused_train.train_fused.points,
                         fused_mlp.sigma_fwd.points,
                         fused_mlp.planes_fwd.points,
@@ -1729,6 +1937,11 @@ def _config(work: str, name: str, out=None, data: str = "data",
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
 
 
 def _expect(counts: dict, want: dict, what: str) -> None:
@@ -1829,14 +2042,17 @@ def train_path(work: str, jsonfile: str, device: str, batch: int, H: int,
         raise AssertionError(f"resumed run ends at {last_r}, the "
                              f"uninterrupted one at {last}")
     if on_card:
-        profile_training(jsonfile, run_dir, device, batch, run)
+        profile_training(jsonfile, run_dir, device, batch, run,
+                         per_step.get("pack", 0))
     return total
 
 
 def profile_training(jsonfile: str, run_dir: str, device: str,
-                     batch: int, what: str, steps: int = 10) -> None:
+                     batch: int, what: str, packs: int,
+                     steps: int = 10) -> None:
     """The training step's profile, resumed from the run's checkpoint
-    (with its occupancy grid rebuilt, as a resumed run does)."""
+    (with its occupancy grid rebuilt, as a resumed run does); ``packs``
+    pack_kernel launches a step (one per network)."""
     from codenerf_tpu_torch.config import load_hparams
     from codenerf_tpu_torch.training.trainer import Trainer
 
@@ -1851,18 +2067,20 @@ def profile_training(jsonfile: str, run_dir: str, device: str,
     out = tr.profile_steps(steps, trace_dir=os.path.join(
         os.path.dirname(run_dir), f"profile_{what}"))
     log_step_profile(f"{what} train", out["untraced_ms"], out["wall_ms"],
-                     out["profile"], steps)
+                     out["profile"], steps, packs_per_step=packs)
 
 
 def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
                   num_opts: int, per_chunk: dict, extra=(),
                   n_objs: int = 2, n_views: int = 4, data: str = "data",
-                  what: str = "optimize", chunk: int = 4096) -> dict:
+                  what: str = "optimize", chunk: int = 4096,
+                  nets: int = 1) -> dict:
     """The port's optimize CLI on the training run's ``ckpt/``, on the
     seeded ``<work>/<data>/srn_cars/cars_test`` set of H×H views (written
     if missing). ``per_chunk``: the launches of each kernel mode one chunk
-    of one step makes. Returns the CLI's output with the launch counts
-    under ``"counts"``."""
+    of one step makes; the frozen weights of each of the ``nets``
+    networks are packed once in the whole run. Returns the CLI's output
+    with the launch counts under ``"counts"``."""
     import numpy as np
     import torch
 
@@ -1889,9 +2107,11 @@ def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
     _, chunks, _ = chunk_plan(H * H, chunk)
     n = num_opts * chunks * n_objs
     log(f"  optimize: launches {counts} (expected {num_opts} steps x "
-        f"{chunks} chunks x {n_objs} objects x per chunk {per_chunk})")
-    _expect(counts, {k: v * n * (device != "cpu")
-                     for k, v in per_chunk.items()}, "optimize path")
+        f"{chunks} chunks x {n_objs} objects x per chunk {per_chunk}, and "
+        f"pack {nets})")
+    _expect(counts, {k: v * (device != "cpu") for k, v in dict(
+        {k: v * n for k, v in per_chunk.items()}, pack=nets).items()},
+            "optimize path")
     with open(os.path.join(out["save_dir"], "results.json")) as f:
         res = json.load(f)
     vals = [res["mean_psnr"], res["mean_ssim"]]
@@ -1969,10 +2189,12 @@ def profile_optimize(hp, run_dir: str, data_dir: str, device: str,
 
 def pose_path(work: str, jsonfile: str, run: str, device: str,
               num_opts: int, rays: int, per_step: dict, what: str,
-              n_objs: int = 2) -> dict:
+              n_objs: int = 2, nets: int = 1) -> dict:
     """The port's pose CLI on the training run's ``ckpt/`` and the seeded
     ``cars_test`` set that ``optimize_path`` wrote. ``per_step``: the
-    launches of each kernel mode one pose step makes."""
+    launches of each kernel mode one pose step makes; the frozen weights
+    of each of the ``nets`` networks are packed once in the whole
+    run."""
     import numpy as np
 
     from codenerf_tpu_torch import pose_opt
@@ -1990,9 +2212,10 @@ def pose_path(work: str, jsonfile: str, run: str, device: str,
                                  f"on CUDA tensors on the pose path")
     n = num_opts * n_objs
     log(f"  pose_opt: launches {counts} (expected {num_opts} steps x "
-        f"{n_objs} objects x per step {per_step})")
-    _expect(counts, {k: v * n * (device != "cpu")
-                     for k, v in per_step.items()}, "pose path")
+        f"{n_objs} objects x per step {per_step}, and pack {nets})")
+    _expect(counts, {k: v * (device != "cpu") for k, v in dict(
+        {k: v * n for k, v in per_step.items()}, pack=nets).items()},
+            "pose path")
     with open(os.path.join(out["save_dir"], "results.json")) as f:
         res = json.load(f)
     rows = res["per_object"]
@@ -2059,7 +2282,9 @@ def profile_pose(hp, run_dir: str, data_dir: str, device: str, rays: int,
     log(f"  {what} step, host ms per step by operator (traced; calls per "
         f"step): " + ", ".join(
             f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / steps:.3f} "
-            f"({e.count // steps})" for e in ops[:12]))
+            f"({e.count // steps})" for e in ops[:12])
+        + "; aten::_to_copy calls per step: " + str(sum(
+            e.count for e in ops if e.key == "aten::_to_copy") / steps))
 
 
 def _peak(device: str) -> str:
@@ -2087,7 +2312,7 @@ def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     t0 = time.perf_counter()
     _reset_peak(device)
     train = train_path(work, jsonfile, device, batch, H, iters_crop=5,
-                       iters_all=10, mid=5, per_step={"train": 1},
+                       iters_all=10, mid=5, per_step={"train": 1, "pack": 1},
                        run="smoke", hier=False)
     log(f"phase 3: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
@@ -2097,7 +2322,8 @@ def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
                           per_chunk={"codes": 1})["counts"]
     log(f"phase 4: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
-    return {"train": train["train"], "codes": codes["codes"]}
+    return {"train": train["train"], "codes": codes["codes"],
+            "pack": train["pack"] + codes["pack"]}
 
 
 def _hier_occ_config(work: str, grid_size=None, out=None, **extra) -> str:
@@ -2126,8 +2352,8 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     _reset_peak(device)
     train = train_path(work, jsonfile, device, batch, H, iters_crop=4,
                        iters_all=8, mid=4,
-                       per_step={"sigma": 1, "dual_train": 1}, run="hier",
-                       hier=True)
+                       per_step={"sigma": 1, "dual_train": 1, "pack": 1},
+                       run="hier", hier=True)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     t0 = time.perf_counter()
@@ -2140,7 +2366,8 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
         f"{_peak(device)}")
     return {"sigma": train["sigma"] + codes["sigma"],
             "dual_train": train["dual_train"],
-            "dual_codes": codes["dual_codes"]}
+            "dual_codes": codes["dual_codes"],
+            "pack": train["pack"] + codes["pack"]}
 
 
 def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
@@ -2157,7 +2384,7 @@ def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
         _reset_peak(device)
         counts = pose_path(work, os.path.join(work, name), run, device,
                            num_opts, rays, per_step, what)
-        for k in per_step:
+        for k in (*per_step, "pack"):
             out[k] = out.get(k, 0) + counts[k]
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s; peak device "
             f"memory {_peak(device)}")
@@ -2183,8 +2410,8 @@ def fine_paths(work: str, device: str = "cuda", batch: int = R_TRAIN,
     _reset_peak(device)
     train = train_path(work, jsonfile, device, batch, H, iters_crop=4,
                        iters_all=8, mid=4,
-                       per_step={"planes": 2, "plane_train": 2}, run="fine",
-                       hier=True, exact_resume=True)
+                       per_step={"planes": 2, "plane_train": 2, "pack": 2},
+                       run="fine", hier=True, exact_resume=True)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     t0 = time.perf_counter()
@@ -2192,18 +2419,17 @@ def fine_paths(work: str, device: str = "cuda", batch: int = R_TRAIN,
     codes = optimize_path(work, jsonfile, "fine", device, H, num_opts,
                           per_chunk={"planes": 2, "plane_codes": 2},
                           extra=("--opt_occ", "true"),
-                          what="fine optimize")["counts"]
+                          what="fine optimize", nets=2)["counts"]
     log(f"phase 10: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     t0 = time.perf_counter()
     _reset_peak(device)
     pose = pose_path(work, jsonfile, "fine", device, pose_steps, rays,
-                     {"planes": 2, "plane_pose": 2}, "fine pose")
+                     {"planes": 2, "plane_pose": 2}, "fine pose", nets=2)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     for counts in (train, codes, pose):
-        for k, v in counts.items():
-            out[k] = out.get(k, 0) + v
+        _add(out, counts)
     return out
 
 
@@ -2315,6 +2541,8 @@ def main() -> int:
     t0 = time.perf_counter()
     log("phase 2: the trunk weights' packing vs its plain version")
     pack_check(dev)
+    log("phase 2: the packed-operand cache across a fused AdamW update")
+    staleness_check(dev)
     log(f"phase 2: kernel vs plain version at full width (W=256, 3+1 "
         f"blocks, S={S_FULL}); frozen-model mode at R={R_CODES}")
     entries = {"codes": kernel_check(dev, weight_grads=False)}
@@ -2373,6 +2601,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 2: standalone composite at R={R_CODES}, S={S_FULL}")
     entries.update(composite_check(dev, R_CODES, S_FULL))
+    log(f"phase 2: standalone composite at ragged shapes (R x S) "
+        f"{COMPOSITE_RAGGED}")
+    err = composite_ragged_check(dev)
+    for key in ("composite", "composite_bwd"):
+        entries[key]["max_abs_err"] = max(entries[key]["max_abs_err"], err)
     log(f"phase 2: chain identity, planes + composite + plane-op backward "
         f"vs the single-pass train mode at R={R_CODES}, S={S_UNION} and "
         f"pose mode at R={R_POSE}, S={S_UNION}")
@@ -2399,8 +2632,8 @@ def main() -> int:
         row = rowsum_check(dev, R)
         entries.setdefault("rowsum_bf16", row)
     torch.cuda.empty_cache()
-    log("phase 2: the small kernels in their callers against their bounds")
-    small_kernel_rates(dev)
+    log("phase 2: the small kernels against their bounds")
+    entries["pack"] = small_kernel_rates(dev)
     torch.cuda.empty_cache()
     log(f"phase 2: {time.perf_counter() - t0:.1f} s")
     if args.check:
@@ -2421,25 +2654,22 @@ def main() -> int:
             "codenerf_tpu_torch.train then python -m "
             "codenerf_tpu_torch.optimize --opt_occ true at "
             "srncar_hier_occ.json widths")
-        launches.update(hier_path(work))
+        _add(launches, hier_path(work))
         torch.cuda.empty_cache()
         log("phases 7-8: pose optimization, python -m "
             "codenerf_tpu_torch.pose_opt on the coarse and the hierarchical "
             "run")
-        launches.update(pose_paths(work))
+        _add(launches, pose_paths(work))
         torch.cuda.empty_cache()
         log("phases 9-11: separate fine network, python -m "
             "codenerf_tpu_torch.train, .optimize --opt_occ true and "
             ".pose_opt at srncar_hier_occ.json widths with "
             "hierarchical_share_weights false")
-        fine = fine_paths(work)
+        _add(launches, fine_paths(work))
         torch.cuda.empty_cache()
         log("phase 12: padded chunks, python -m codenerf_tpu_torch.optimize "
             "on the coarse run with 127x127 views")
-        padded = padded_path(work)
-        for counts in (fine, padded):
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
+        _add(launches, padded_path(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2458,16 +2688,17 @@ def main() -> int:
         launches[kernel] = total(modes)
         MAIN_POINTS[kernel] = sum(MAIN_POINTS.get(m, 0) for m in modes)
     # Every CUDA kernel's launches on the main paths, from the modes'
-    # counts: each fused_step launch packs the weights once and converts
-    # its cotangent sums once; sigma_step and planes_step pack once each.
+    # counts: each fused_step launch converts its cotangent sums once;
+    # pack_kernel has its own counter (one launch per weight version).
     steps = total(STEP_MODES)
+    MAIN_POINTS["pack"] = launches["pack"]
     launches["rowsum_bf16"] = steps
     by_kernel = {
         "trunk_fwd_kernel": steps + total(("sigma", "planes")),
         "trunk_dx_kernel": steps, "head_kernel": steps,
         "wgrad_kernel": total(WEIGHT_MODES),
         "fixed_sum_kernel": total(WEIGHT_MODES),
-        "pack_kernel": steps + total(("sigma", "planes")),
+        "pack_kernel": launches["pack"],
         "rowsum_bf16_kernel": steps,
         "sigma_head_kernel": launches["sigma_head"],
         "plane_head_kernel": launches["plane_head"],
@@ -2482,7 +2713,7 @@ def main() -> int:
                  "plane_codes", "plane_pose", "plane_train_input",
                  "composite", "composite_bwd", "train_input",
                  "train_weights", "input_chain", "plane_head", "sigma_head",
-                 "rowsum_bf16"):
+                 "rowsum_bf16", "pack"):
         # plane_train_input, train_input and train_weights have no caller
         # on a main path
         e = entries[mode]

@@ -10,11 +10,13 @@ five plane cotangents, the depths' included (the plane op's route on
 padded code-optimization chunks, ``ops/fused_train._with_composite``).
 
 On CUDA tensors :func:`composite_fwd` and :func:`composite_bwd` launch
-``composite_fwd`` / ``composite_bwd`` of ``csrc/train_fused.cu``: one warp
-per ray, the single-pass kernel's ``composite_pass`` (an exclusive
-product scan for the transmittance, a reverse scan for the backward's
-suffix sums) on the ray's planes staged in shared memory; white or black
-background. The TPU spelled the transmittance as a log-space triangular
+``composite_fwd`` / ``composite_bwd`` of ``csrc/train_fused.cu``: eight
+rays a block, one warp per ray, the single-pass kernel's
+``composite_pass`` (an exclusive product scan for the transmittance, a
+reverse scan for the backward's suffix sums) on the ray's planes in
+registers — each lane loads its own consecutive samples, 16 bytes at a
+time where the shape allows, and the backward writes its cotangents from
+there; white or black background. The TPU spelled the transmittance as a log-space triangular
 (S, S) matmul over fat ray tiles for its matrix unit; the warp scan is
 the natural spelling here. What bounds them on an H100: the bytes —
 forward 5·R·S·4 in and 32·R out, backward 5·R·S·4 + 32·R in and 5·R·S·4

@@ -26,10 +26,13 @@
 // chained wgmma kernels that keep a 128-point tile's activations on chip
 // across layers and stream the weights from L2, and the rest as kernels on
 // one stream:
-//   (i)   pack_kernel: every trunk weight once per call into the operand
-//         layout of wgmma (K-major, 128-byte swizzled, in 64-wide K slices;
+//   (i)   pack_kernel: every trunk weight into the operand layout of
+//         wgmma (K-major, 128-byte swizzled, in 64-wide K slices;
 //         ops/fused_train.py::wgmma_pack is its plain version): W^T for the
-//         forward, W for the dx chain.
+//         forward, W for the dx chain, a 64 x 64 tile a block. Once per
+//         weight version (pack_trunk_weights, called by
+//         ops/fused_train.py::trunk_operands), not once per call: the
+//         entry points take the packed buffer.
 //   (ii)  trunk_fwd_kernel: one persistent block per SM walks 128-point
 //         tiles. Four consumer warpgroups each own a (64-point row half,
 //         128-column half) of every layer's output; a producer warp streams
@@ -83,12 +86,12 @@
 //         through a two-stage cp.async ring; mma.sync m16n8k16 bf16 on
 //         the tensor cores, the Jacobian a row per lane with one sincosf
 //         per (coordinate, frequency), a warp per ray for the sums.
-// The forwards at the end of this file reuse (i) and (ii) with one head
-// pass, two instances of one loop (16-byte loads, several points a warp,
-// weights in registers): sigma_step's sigma_head_kernel (sigma alone, 8
-// points a warp) and planes_step's plane_head_kernel (sigma and the raw
-// r, g, b over t and r, 4 points a warp). Their sigma lanes are the same
-// code, so both sigma planes are the same bits.
+// The forwards at the end of this file reuse (i)'s operands and (ii) with
+// one head pass, two instances of one loop (16-byte loads, several
+// points a warp, weights in registers): sigma_step's sigma_head_kernel
+// (sigma alone, 8 points a warp) and planes_step's plane_head_kernel
+// (sigma and the raw r, g, b over t and r, 4 points a warp). Their sigma
+// lanes are the same code, so both sigma planes are the same bits.
 // What bounds the trunk: at W=256 a layer is 131,072 FLOP per point
 // against 512 B per stored bf16 plane, so the chain is bound by operations
 // once activations stay on chip; the weights (0.9 MB) come from L2 once per
@@ -377,10 +380,12 @@ __device__ __forceinline__ void wgmma_tt_n256(float (&d)[128], uint64_t da,
 // B (N x K) = transpose ? w^T : w, for w (rows, cols) row-major bf16,
 // written to dst in 64-deep K slices of N rows x 128 B, 16-byte chunk c of
 // row n at c ^ (n % 8): the byte image each weight slice has in the ring.
+// N and K are multiples of 64; ``first`` is the job's first tile in the
+// grid.
 struct PackJob {
   const bf16* w;
   bf16* dst;
-  int rows, cols, transpose;
+  int rows, cols, transpose, first;
 };
 
 struct PackArgs {
@@ -388,21 +393,48 @@ struct PackArgs {
   PackJob j[2 * MAX_LAYERS];
 };
 
-__global__ void pack_kernel(const __grid_constant__ PackArgs a) {
-  const PackJob& J = a.j[blockIdx.y];
+constexpr int PACK_THREADS = 256;
+
+// One block per 64 (K) x 64 (N) tile of one job: the tile's 128 B rows of
+// slice s are 8 KB of dst in one piece. W is read in 16-byte chunks of
+// its rows, coalesced; for W^T the tile goes through shared memory
+// (rows padded by one word) and each thread gathers its output chunk's
+// 8 values from a column there. Every store is a whole 16-byte chunk,
+// coalesced within its 128 B row. Bound by bytes (~2 MB at W = 256, so
+// at this size by its launch).
+__global__ void __launch_bounds__(PACK_THREADS) pack_kernel(
+    const __grid_constant__ PackArgs a) {
+  __shared__ __align__(16) bf16 tile[64][64 + 2];      // [k][n]
+  int jb = 0;
+  while (jb + 1 < a.n && a.j[jb + 1].first <= (int)blockIdx.x) ++jb;
+  const PackJob& J = a.j[jb];
   const int N = J.transpose ? J.cols : J.rows;
-  const int K = J.transpose ? J.rows : J.cols;
-  const int chunks = N * K / 8;
-  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < chunks;
-       q += gridDim.x * blockDim.x) {
-    const int s = q / (N * 8), n = (q / 8) % N, p = q % 8;
-    const int k0 = s * 64 + ((p ^ (n & 7)) * 8);
+  const int t = (int)blockIdx.x - J.first, s = t / (N / 64);
+  const int n0 = t % (N / 64) * 64;
+  bf16* out = J.dst + ((size_t)s * N + n0) * 64;
+  if (!J.transpose) {                 // B = W: permute each row's chunks
+    for (int q = threadIdx.x; q < 512; q += PACK_THREADS) {
+      const int n = q >> 3, c = q & 7;
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+          J.w + (size_t)(n0 + n) * J.cols + s * 64 + c * 8));
+      *reinterpret_cast<uint4*>(out + n * 64 + (c ^ (n & 7)) * 8) = v;
+    }
+    return;
+  }
+  for (int q = threadIdx.x; q < 512; q += PACK_THREADS) {   // rows k of W
+    const int k = q >> 3, c = q & 7;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        J.w + (size_t)(s * 64 + k) * J.cols + n0 + c * 8));
+    uint32_t* d = reinterpret_cast<uint32_t*>(&tile[k][c * 8]);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < 512; q += PACK_THREADS) {   // rows n of B
+    const int n = q >> 3, p = q & 7, c = p ^ (n & 7);
     __align__(16) bf16 v[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = J.transpose ? J.w[(size_t)(k0 + e) * J.cols + n]
-                         : J.w[(size_t)n * J.cols + k0 + e];
-    *reinterpret_cast<uint4*>(J.dst + (size_t)q * 8) =
+    for (int e = 0; e < 8; ++e) v[e] = tile[c * 8 + e][n];
+    *reinterpret_cast<uint4*>(out + n * 64 + p * 8) =
         *reinterpret_cast<const uint4*>(v);
   }
 }
@@ -1351,42 +1383,110 @@ struct CompositeOut {
   float rgb[3], dep, acc, se[3];
 };
 
+// Where composite_pass reads a ray's planes and puts what its backward
+// gives, sample s being slot q of its lane. ShRay: the head kernel's
+// planes in shared memory, by s; its weights (global or shared) and delta
+// cotangents (shared) where given; with ``accumulate`` the cotangents add
+// to what a previous pass stored. RegRay<PL>: the standalone composite's,
+// in registers, by q (the loops over q are unrolled; the arrays are the
+// kernel's locals, each small enough to stay in registers).
+struct ShRay {
+  const float* pre;        // sigma pre-activations (or densities)
+  const float* c;          // the three raw rgb planes, plane k at c[k * ld]
+  float* gc;               // their cotangents, the same layout
+  float* gs;               // the sigma cotangent
+  float* w_out;            // or null
+  float* dd;               // or null
+  const float* z;          // the ray's depths (global)
+  int ld;
+  bool accumulate;
+  __device__ __forceinline__ float sig(int, int s) const {
+    return pre[s];
+  }
+  __device__ __forceinline__ float col(int k, int, int s) const {
+    return c[k * ld + s];
+  }
+  __device__ __forceinline__ float depth(int, int s) const { return z[s]; }
+  __device__ __forceinline__ float next_depth(int, int s) const {
+    return z[s + 1];
+  }
+  __device__ __forceinline__ void weight(int, int s, float w) const {
+    if (w_out) w_out[s] = w;
+  }
+  __device__ __forceinline__ void grads(int, int s, float gsig,
+                                        float ddelta, float w,
+                                        const float* g) const {
+    gs[s] = accumulate ? gs[s] + gsig : gsig;
+    if (dd) dd[s] = ddelta;
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      gc[k * ld + s] = accumulate ? gc[k * ld + s] + w * g[k] : w * g[k];
+  }
+};
+
+template <int PL>
+struct RegRay {            // references to the kernel's own arrays
+  float (&sg)[PL];
+  float (&c)[3][PL];
+  float (&z)[PL];
+  float (&w)[PL];
+  float (&gs)[PL];
+  float (&gc)[3][PL];
+  float (&dd)[PL];
+  float zn;                // the next lane's first depth
+  int per;                 // the lane's samples, (S + 31) / 32 <= PL
+  __device__ __forceinline__ float sig(int q, int) const { return sg[q]; }
+  __device__ __forceinline__ float col(int k, int q, int) const {
+    return c[k][q];
+  }
+  __device__ __forceinline__ float depth(int q, int) const { return z[q]; }
+  __device__ __forceinline__ float next_depth(int q, int) const {
+    return q + 1 < per ? z[q + 1 < PL ? q + 1 : q] : zn;
+  }
+  __device__ __forceinline__ void weight(int q, int, float v) { w[q] = v; }
+  __device__ __forceinline__ void grads(int q, int, float gsig,
+                                        float ddelta, float wq,
+                                        const float* g) {
+    gs[q] = gsig;
+    dd[q] = ddelta;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) gc[k][q] = wq * g[k];
+  }
+};
+
 // One composite of a ray and its backward, run by one warp; lane l owns
-// the contiguous samples [l*per, l*per + per). ``s_pre`` holds the sigma
+// the contiguous samples [l*per, l*per + per), per <= PL, read and written
+// through ``io`` (ShRay or RegRay). ``io.sig`` gives the sigma
 // pre-activations (softplus applied here) or, with ``density``, the
-// densities themselves; ``s_c`` the three raw rgb planes, plane k at
-// s_c[k * ld]. Sample s has the delta ``cdelta[s]`` and the
-// cumprod factor e_s + 1e-10 * cmask[s] when the dual mode's coarse planes
-// are given; else the union delta z[s+1] - z[s] (1e10 at the last sample)
-// and e_s + 1e-10. Without ``backward`` the pass stops at the composited
-// ray. The backward takes the per-ray cotangent ``g8`` [r g b depth acc]
-// when given (the standalone composite) and otherwise forms the loss's,
-// 2 * scale * (rgb - gt) with no depth or acc term, and its squared error.
-// The composite's sigma cotangent (before the softplus derivative) goes
-// to s_gs and its rgb cotangents w_s * g_k to s_gc (plane k at
-// s_gc[k * ld]), in f32: stored, or with ``accumulate`` added to what a
-// previous pass stored there.
-// ``w_out`` (global or shared, or null) receives the weights w_s; ``s_dd``
-// (shared, or null) the delta cotangents dx_s * sig_s (0 at the last
-// sample), from which the caller forms the composite's z cotangent.
+// densities themselves; ``io.col`` the three raw rgb planes. Sample s has
+// the delta ``cdelta[s]`` and the cumprod factor e_s + 1e-10 * cmask[s]
+// when the dual mode's coarse planes are given; else the union delta
+// z[s+1] - z[s] (1e10 at the last sample) and e_s + 1e-10. Without
+// ``backward`` the pass stops at the composited ray. The backward takes
+// the per-ray cotangent ``g8`` [r g b depth acc] when given (the
+// standalone composite) and otherwise forms the loss's, 2 * scale * (rgb -
+// gt) with no depth or acc term, and its squared error. It hands
+// ``io.grads`` each sample's sigma cotangent (before the softplus
+// derivative), its delta cotangent dx_s * sig_s (0 at the last sample),
+// from which the caller forms the composite's z cotangent, and its rgb
+// cotangents w_s * g_k; ``io.weight`` each weight w_s. The association
+// order (a per-lane product, the warp scan, the per-lane sums, warp_sum)
+// is the same for every ``io``, so both give the same bits.
+template <int PL, class Ray>
 __device__ __forceinline__ CompositeOut composite_pass(
-    const HeadArgs& h, int ray, int lane, const float* s_pre,
-    const float* s_c, float* s_gc, int ld, float* s_gs,
-    const float* cmask, const float* cdelta, bool accumulate,
-    float* w_out, float* s_dd, bool density = false,
-    const float* g8 = nullptr, bool backward = true) {
+    const HeadArgs& h, int ray, int lane, Ray& io, const float* cmask,
+    const float* cdelta, bool density = false, const float* g8 = nullptr,
+    bool backward = true) {
   const int S = h.S;
   const int per = (S + 31) / 32;
-  const float* zr = h.z + (size_t)ray * S;
-  float e_[MAX_PER_LANE], u_[MAX_PER_LANE], T_[MAX_PER_LANE],
-      w_[MAX_PER_LANE], dl_[MAX_PER_LANE], sg_[MAX_PER_LANE];
+  float e_[PL], u_[PL], T_[PL], w_[PL], dl_[PL], sg_[PL];
   float loc = 1.f;
 #pragma unroll
-  for (int q = 0; q < MAX_PER_LANE; ++q) {
+  for (int q = 0; q < PL; ++q) {
     const int s = lane * per + q;
     e_[q] = 1.f; u_[q] = 1.f; dl_[q] = 0.f; T_[q] = loc; sg_[q] = 0.f;
     if (q < per && s < S) {
-      const float x = s_pre[s];
+      const float x = io.sig(q, s);
       const float sig = density ? x : fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
       sg_[q] = sig;
       if (cdelta) {
@@ -1394,7 +1494,8 @@ __device__ __forceinline__ CompositeOut composite_pass(
         e_[q] = expf(-sig * dl_[q]);
         u_[q] = e_[q] + 1e-10f * cmask[s];
       } else {
-        dl_[q] = (s < S - 1) ? zr[s + 1] - zr[s] : 1e10f;
+        dl_[q] = (s < S - 1) ? io.next_depth(q, s) - io.depth(q, s)
+                             : 1e10f;
         e_[q] = expf(-sig * dl_[q]);
         u_[q] = e_[q] + 1e-10f;
       }
@@ -1411,17 +1512,17 @@ __device__ __forceinline__ CompositeOut composite_pass(
   if (lane == 0) excl = 1.f;
   float rs0 = 0.f, rs1 = 0.f, rs2 = 0.f, dep = 0.f, acc = 0.f;
 #pragma unroll
-  for (int q = 0; q < MAX_PER_LANE; ++q) {
+  for (int q = 0; q < PL; ++q) {
     const int s = lane * per + q;
     w_[q] = 0.f;
     if (q < per && s < S) {
       T_[q] *= excl;
       w_[q] = (1.f - e_[q]) * T_[q];
-      if (w_out) w_out[s] = w_[q];
-      rs0 += w_[q] * s_c[s];
-      rs1 += w_[q] * s_c[ld + s];
-      rs2 += w_[q] * s_c[2 * ld + s];
-      dep += w_[q] * zr[s];
+      io.weight(q, s, w_[q]);
+      rs0 += w_[q] * io.col(0, q, s);
+      rs1 += w_[q] * io.col(1, q, s);
+      rs2 += w_[q] * io.col(2, q, s);
+      dep += w_[q] * io.depth(q, s);
       acc += w_[q];
     }
   }
@@ -1448,15 +1549,15 @@ __device__ __forceinline__ CompositeOut composite_pass(
   const float resid = h.white_bg ? ga - ((g[0] + g[1]) + g[2]) : ga;
 
   // dL_s = sum_{i > s} w_i dw_i: a reverse exclusive scan.
-  float wdw[MAX_PER_LANE], dw[MAX_PER_LANE], lsum = 0.f;
+  float wdw[PL], dw[PL], lsum = 0.f;
 #pragma unroll
-  for (int q = 0; q < MAX_PER_LANE; ++q) {
+  for (int q = 0; q < PL; ++q) {
     const int s = lane * per + q;
     dw[q] = 0.f; wdw[q] = 0.f;
     if (q < per && s < S) {
-      dw[q] = g[0] * s_c[s] + g[1] * s_c[ld + s] + g[2] * s_c[2 * ld + s]
-              + resid;
-      if (g8) dw[q] += gd * zr[s];
+      dw[q] = g[0] * io.col(0, q, s) + g[1] * io.col(1, q, s)
+              + g[2] * io.col(2, q, s) + resid;
+      if (g8) dw[q] += gd * io.depth(q, s);
       wdw[q] = w_[q] * dw[q];
       lsum += wdw[q];
     }
@@ -1470,19 +1571,14 @@ __device__ __forceinline__ CompositeOut composite_pass(
   float run = __shfl_down_sync(FULL, suf, 1);
   if (lane == 31) run = 0.f;
 #pragma unroll
-  for (int q = MAX_PER_LANE - 1; q >= 0; --q) {
+  for (int q = PL - 1; q >= 0; --q) {
     const int s = lane * per + q;
     if (q < per && s < S) {
       const float dL = run;
       run += wdw[q];
       const float dx = e_[q] * (T_[q] * dw[q] - dL / u_[q]);
-      const float gsig = dx * dl_[q];
-      s_gs[s] = accumulate ? s_gs[s] + gsig : gsig;
-      if (s_dd) s_dd[s] = (s < S - 1) ? dx * sg_[q] : 0.f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        s_gc[k * ld + s] = accumulate ? s_gc[k * ld + s] + w_[q] * g[k]
-                                      : w_[q] * g[k];
+      io.grads(q, s, dx * dl_[q], (s < S - 1) ? dx * sg_[q] : 0.f, w_[q],
+               g);
     }
   }
   return out;
@@ -1626,13 +1722,15 @@ __global__ void __launch_bounds__(HEAD_THREADS, 2) head_kernel(HeadArgs h) {
         }
       }
     } else {
-      f = composite_pass(
-          h, ray, lane, s_pre, s_c, s_gc, ld, s_dsig, nullptr, nullptr, false,
-          h.weights ? h.weights + p0 : nullptr, h.dz ? s_dd : nullptr);
+      ShRay io = {s_pre, s_c, s_gc, s_dsig,
+                  h.weights ? h.weights + p0 : nullptr,
+                  h.dz ? s_dd : nullptr, h.z + p0, ld, false};
+      f = composite_pass<MAX_PER_LANE>(h, ray, lane, io, nullptr, nullptr);
       if (h.cmask) {
-        const CompositeOut c = composite_pass(
-            h, ray, lane, s_pre, s_c, s_gc, ld, s_dsig, h.cmask + p0,
-            h.cdelta + p0, true, nullptr, nullptr);
+        ShRay io_c = {s_pre, s_c, s_gc, s_dsig, nullptr, nullptr, h.z + p0,
+                      ld, true};
+        const CompositeOut c = composite_pass<MAX_PER_LANE>(
+            h, ray, lane, io_c, h.cmask + p0, h.cdelta + p0);
         se_c[0] = c.se[0]; se_c[1] = c.se[1]; se_c[2] = c.se[2];
       }
     }
@@ -2244,31 +2342,35 @@ int trunk_index(int j, int nb) {
 
 int trunk_layers(int nb, int nt) { return nb + nt + 4; }
 
-size_t packed_elems(int W, int nb, int nt, bool dx) {
-  const size_t body = (size_t)(nb + nt + 2) * W * W + (size_t)W * W / 2;
-  return (size_t)64 * W + body + (dx ? body : 0);
-}
-
-// Every trunk weight into ``dst`` in the wgmma operand layout: the forward
-// B operands (W^T, forward order), then with ``dx`` the dx chain's (W of
-// every layer but enc_xyz, forward order). ``fwd`` and ``dxw`` (or null)
-// receive each layer's packed pointer, in forward order.
-int launch_pack(const void* const* wts, int W, int nb, int nt, bool dx,
-                bf16* dst, const bf16** fwd, const bf16** dxw,
-                cudaStream_t stream) {
-  PackArgs a = {};
-  bf16* p = dst;
+// The packed trunk operands in one buffer, as pack_trunk_weights lays
+// them out: the forward's B operands (W^T of every trunk layer, forward
+// order), then the dx chain's (W of every layer but enc_xyz, forward
+// order). ``f(pass, j, rows, cols, offset)`` for each, pass 0 the
+// forward's; ``rows`` x ``cols`` is W's shape.
+template <class F>
+size_t packed_layout(int W, int nb, int nt, F f) {
   const int n = trunk_layers(nb, nt);
-  for (int pass = 0; pass < (dx ? 2 : 1); ++pass)
+  size_t off = 0;
+  for (int pass = 0; pass < 2; ++pass)
     for (int j = pass; j < n; ++j) {
       const int rows = j == 0 ? 64 : W, cols = j == n - 1 ? W / 2 : W;
-      a.j[a.n++] = {static_cast<const bf16*>(wts[2 * trunk_index(j, nb)]), p,
-                    rows, cols, pass == 0};
-      (pass == 0 ? fwd : dxw)[j] = p;
-      p += (size_t)rows * cols;
+      f(pass, j, rows, cols, off);
+      off += (size_t)rows * cols;
     }
-  pack_kernel<<<dim3(32, a.n), 256, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return off;
+}
+
+size_t packed_elems(int W, int nb, int nt) {
+  return packed_layout(W, nb, nt, [](int, int, int, int, size_t) {});
+}
+
+// Each trunk layer's packed forward and dx operand in ``packed``, in
+// forward order (dxw[0] is unused).
+void packed_ptrs(const bf16* packed, int W, int nb, int nt,
+                 const bf16** fwd, const bf16** dxw) {
+  packed_layout(W, nb, nt, [&](int pass, int j, int, int, size_t off) {
+    (pass == 0 ? fwd : dxw)[j] = packed + off;
+  });
 }
 
 // What the forward stores (each pointer or null): bf16 planes (P, W) for
@@ -2407,8 +2509,8 @@ int trunk_pairs(const FwdOut* o, const bf16* g_r, const bf16* gh_tex,
 
 }  // namespace
 
-// Workspace sizes (elements) for one call: the packed weights; the bf16
-// planes the heads read (t, r) and the rgb_hidden cotangent; the ReLU-mask
+// Workspace sizes (elements) for one call: the bf16 planes the heads
+// read (t, r) and the rgb_hidden cotangent; the ReLU-mask
 // bit planes of the dx chain (P x 32 B each: the shape blocks, enc_viewdir,
 // the texture blocks, and with weight or input gradients enc_xyz); f32
 // dsig and the per-ray cotangent sums. Weight-gradient mode adds every dW
@@ -2423,7 +2525,7 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
   const size_t P = (size_t)R * S, PW = P * W;
   const size_t mask_planes = nb + nt + 1 + (weight_grads || input_grads);
   size_t masks = mask_planes * P * MASK_WORDS * 2;
-  *n_bf16 = packed_elems(W, nb, nt, true) + 2 * PW;
+  *n_bf16 = 2 * PW;
   *n_f32 = P + (size_t)R * (nb + nt + 1) * W;
   if (input_grads && !weight_grads) *n_bf16 += PW;
   if (weight_grads) {
@@ -2457,7 +2559,10 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
 // chains follow by flag, any of the four flag pairs; d_z then holds the
 // input chain's xyz term alone. ``wts`` is a host array of the 2*k device
 // pointers of ops/fused_train.py::flatten_params, in its order: 2-D
-// weights bf16 (in, out), 1-D weights and biases f32. With
+// weights bf16 (in, out), 1-D weights and biases f32; ``packed`` the
+// same weights' trunk operands as pack_trunk_weights lays them out
+// (packed_trunk_elems bf16), which the caller packs once per weight
+// version. With
 // ``weight_grads``, ``dwb`` is a host array of 2*k f32 device pointers in
 // the same order, each the shape of its weight or bias, which receive the
 // gradients; else it is null. The trunk takes W = 256. Returns the first
@@ -2466,7 +2571,8 @@ extern "C" int fused_step(
     const float* ro8, const float* vd8, const float* z, const bf16* sproj,
     const bf16* tproj, const bf16* vcontrib, const float* gt8,
     const float* cmask, const float* cdelta, const void* const* gplanes,
-    const void* const* wts, bf16* ws, float* ws32, float* se8, float* rgb8,
+    const void* const* wts, const bf16* packed, bf16* ws, float* ws32,
+    float* se8, float* rgb8,
     float* weights, bf16* d_sproj, bf16* d_tproj, bf16* d_vcontrib,
     float* d_ro8, float* d_vd8, float* d_z, void* const* dwb,
     int weight_grads, int input_grads, int R, int S, int W, int nb, int nt,
@@ -2484,7 +2590,7 @@ extern "C" int fused_step(
   auto db = [&](int i) { return static_cast<float*>(dwb[2 * i + 1]); };
   const int i_sig = nb + 2, i_rgbo = nb + nt + 5;
 
-  bf16* p = ws + packed_elems(W, nb, nt, true);
+  bf16* p = ws;
   auto take = [&](size_t n) { bf16* q = p; p += n; return q; };
   auto take_bits = [&](size_t planes) {
     return reinterpret_cast<uint32_t*>(take(planes * P * MASK_WORDS * 2));
@@ -2531,7 +2637,7 @@ extern "C" int fused_step(
 
   const bf16* fwd_w[MAX_LAYERS];
   const bf16* dx_w[MAX_LAYERS];
-  CHECK(launch_pack(wts, W, nb, nt, true, ws, fwd_w, dx_w, stream));
+  packed_ptrs(packed, W, nb, nt, fwd_w, dx_w);
 
   // ---- forward: the whole trunk in one launch.
   CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, tproj, vcontrib, wts, fwd_w,
@@ -2810,9 +2916,10 @@ int launch_head(const PlaneHeadArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The standalone composite and its backward, one warp (block) per ray.
+// The standalone composite and its backward, COMP_WARPS rays a block, a
+// warp each.
 struct CompositeArgs {
-  int S, white_bg;
+  int R, S, white_bg;
   const float* sig;        // (R, S) densities (softplus applied)
   const float* c0;         // (R, S) raw rgb planes
   const float* c1;
@@ -2827,57 +2934,173 @@ struct CompositeArgs {
   float* dz;
 };
 
-__global__ void __launch_bounds__(32) composite_kernel(CompositeArgs a) {
-  __shared__ float s_sig[MAX_S];
-  __shared__ float s_c[3][MAX_S];
-  __shared__ float s_gc[3][MAX_S];
-  __shared__ float s_gs[MAX_S];
-  __shared__ float s_dd[MAX_S];
-  __shared__ float s_w[MAX_S];
-  const int ray = blockIdx.x, lane = threadIdx.x, S = a.S;
-  const size_t p0 = (size_t)ray * S;
-  for (int s = lane; s < S; s += 32) {
-    s_sig[s] = a.sig[p0 + s];
-    s_c[0][s] = a.c0[p0 + s];
-    s_c[1][s] = a.c1[p0 + s];
-    s_c[2][s] = a.c2[p0 + s];
+constexpr int COMP_WARPS = 8;
+constexpr int COMP_THREADS = 32 * COMP_WARPS;
+
+// V consecutive floats of a ray's plane at ``i`` into x[q .. q + V - 1]
+// (V = 4: one 16-byte load), and back; q a multiple of V (a constant once
+// the caller's loop is unrolled, so x stays in registers).
+template <int V, int PL>
+__device__ __forceinline__ void load_v(const float* p, size_t i,
+                                       float (&x)[PL], int q) {
+  if constexpr (V == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
+    x[q] = v.x; x[q + 1] = v.y; x[q + 2] = v.z; x[q + 3] = v.w;
+  } else {
+    x[q] = __ldg(p + i);
   }
-  __syncwarp();
-  HeadArgs h = {};
-  h.S = S; h.z = a.z; h.white_bg = a.white_bg;
-  const bool bwd = a.g8 != nullptr;
-  const CompositeOut o = composite_pass(
-      h, ray, lane, s_sig, &s_c[0][0], &s_gc[0][0], MAX_S, s_gs, nullptr,
-      nullptr, false,
-      bwd ? s_w : nullptr, bwd ? s_dd : nullptr, true,
-      bwd ? a.g8 + (size_t)ray * 8 : nullptr, bwd);
-  if (!bwd) {
-    if (lane < 8) {
-      const float v[8] = {o.rgb[0], o.rgb[1], o.rgb[2], o.dep, o.acc,
-                          0.f, 0.f, 0.f};
-      a.out8[(size_t)ray * 8 + lane] = v[lane];
+}
+
+template <int PL>
+__device__ __forceinline__ void store_v4(float* p, size_t i,
+                                         const float (&x)[PL], int q) {
+  *reinterpret_cast<float4*>(p + i) =
+      make_float4(x[q], x[q + 1], x[q + 2], x[q + 3]);
+}
+
+// A ray's plane ``row`` (S floats) from lane-blocked registers (lane l
+// holds samples l*per .. l*per + per - 1 in x[0 .. per - 1]) with
+// coalesced scalar stores: store k writes samples 32 k + lane, each
+// gathered from its owner's slot by PL shuffles. Scalar stores of the
+// blocked layout would write every 32-byte sector in per partial pieces.
+template <int PL>
+__device__ __forceinline__ void store_cyclic(float* row, const float (&x)[PL],
+                                             int per, int S, int lane) {
+#pragma unroll
+  for (int k = 0; k < PL; ++k) {
+    if (k < per) {                       // the same for the whole warp
+      const int s = 32 * k + lane, src = s / per, slot = s - src * per;
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < PL; ++q) {
+        const float t = __shfl_sync(FULL, x[q], src < 32 ? src : 31);
+        if (q == slot) v = t;
+      }
+      if (s < S) row[s] = v;
     }
+  }
+}
+
+// Lane l of a ray's warp loads its own samples [l*per, l*per + per) of the
+// five planes into registers (V at a time: 16-byte loads where per and S
+// are multiples of 4, else scalar ones, whose sectors L1 serves to the
+// per loads that share them), takes its last sample's next depth from
+// lane l + 1 by a shuffle, and runs composite_pass on them: the head
+// kernel's lane mapping and order of association. The backward keeps
+// every cotangent in registers, dz_s = gd * w_s + ddelta_{s-1} - ddelta_s
+// with the previous lane's last ddelta by a shuffle, and writes the five
+// planes with 16-byte stores (V = 4) or coalesced scalar ones through
+// shuffles (store_cyclic). No shared memory: residency is set by
+// registers (PL slots a lane; PL <= 3, S <= 96, keeps four blocks, 32
+// warps, on an SM; PL = 4 three without spilling).
+template <int PL, int V>
+__global__ void __launch_bounds__(COMP_THREADS,
+                                  PL <= 3 ? 4 : PL == 4 ? 3 : 1)
+    composite_kernel(CompositeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * COMP_WARPS + (threadIdx.x >> 5);
+  if (ray >= a.R) return;              // the whole warp: one ray each
+  const int S = a.S, per = (S + 31) / 32, s0 = lane * per;
+  const size_t p0 = (size_t)ray * S;
+  float sg[PL] = {}, c[3][PL] = {}, z[PL] = {}, w[PL] = {}, gs[PL] = {},
+      gc[3][PL] = {}, dd[PL] = {}, dz[PL];
+  RegRay<PL> io = {sg, c, z, w, gs, gc, dd, 0.f, per};
+#pragma unroll
+  for (int q = 0; q < PL; q += V) {
+    if (q < per && s0 + q < S) {
+      const size_t i = p0 + s0 + q;
+      load_v<V>(a.sig, i, sg, q);
+      load_v<V>(a.c0, i, c[0], q);
+      load_v<V>(a.c1, i, c[1], q);
+      load_v<V>(a.c2, i, c[2], q);
+      load_v<V>(a.z, i, z, q);
+    }
+  }
+  io.zn = __shfl_down_sync(FULL, z[0], 1);
+  HeadArgs h = {};
+  h.S = S; h.white_bg = a.white_bg;
+  const bool bwd = a.g8 != nullptr;
+  const float* g8 = bwd ? a.g8 + (size_t)ray * 8 : nullptr;
+  const CompositeOut o = composite_pass<PL>(h, ray, lane, io, nullptr,
+                                            nullptr, true, g8, bwd);
+  if (!bwd) {
+    if (lane < 8)
+      a.out8[(size_t)ray * 8 + lane] =
+          lane < 3 ? (lane == 0 ? o.rgb[0] : lane == 1 ? o.rgb[1] : o.rgb[2])
+                   : lane == 3 ? o.dep : lane == 4 ? o.acc : 0.f;
     return;
   }
-  __syncwarp();
-  const float gd = a.g8[(size_t)ray * 8 + 3];
-  for (int s = lane; s < S; s += 32) {
-    a.gsig[p0 + s] = s_gs[s];
-    a.gc0[p0 + s] = s_gc[0][s];
-    a.gc1[p0 + s] = s_gc[1][s];
-    a.gc2[p0 + s] = s_gc[2][s];
-    a.dz[p0 + s] = gd * s_w[s] + (s > 0 ? s_dd[s - 1] : 0.f) - s_dd[s];
+  float last = 0.f;
+#pragma unroll
+  for (int q = 0; q < PL; ++q)
+    if (q == per - 1) last = dd[q];
+  const float prev = __shfl_up_sync(FULL, last, 1);
+  const float gd = g8[3];
+#pragma unroll
+  for (int q = 0; q < PL; ++q) {
+    const int s = s0 + q;
+    dz[q] = gd * w[q] + (s > 0 ? (q > 0 ? dd[q > 0 ? q - 1 : 0] : prev)
+                               : 0.f) - dd[q];
   }
+  if constexpr (V == 4) {
+#pragma unroll
+    for (int q = 0; q < PL; q += V) {
+      if (q < per && s0 + q < S) {
+        const size_t i = p0 + s0 + q;
+        store_v4(a.gsig, i, gs, q);
+        store_v4(a.gc0, i, gc[0], q);
+        store_v4(a.gc1, i, gc[1], q);
+        store_v4(a.gc2, i, gc[2], q);
+        store_v4(a.dz, i, dz, q);
+      }
+    }
+  } else {
+    store_cyclic(a.gsig + p0, gs, per, S, lane);
+    store_cyclic(a.gc0 + p0, gc[0], per, S, lane);
+    store_cyclic(a.gc1 + p0, gc[1], per, S, lane);
+    store_cyclic(a.gc2 + p0, gc[2], per, S, lane);
+    store_cyclic(a.dz + p0, dz, per, S, lane);
+  }
+}
+
+template <int PL>
+int launch_composite(const CompositeArgs& a, cudaStream_t stream) {
+  const unsigned grid = (a.R + COMP_WARPS - 1) / COMP_WARPS;
+  const int per = (a.S + 31) / 32;
+  const void* ptrs[] = {a.sig, a.c0, a.c1, a.c2, a.z, a.gsig, a.gc0, a.gc1,
+                        a.gc2, a.dz};
+  bool vec = PL % 4 == 0 && per % 4 == 0 && a.S % 4 == 0;
+  for (const void* p : ptrs) vec = vec && (uintptr_t)p % 16 == 0;
+  if constexpr (PL % 4 == 0) {
+    if (vec) {
+      composite_kernel<PL, 4><<<grid, COMP_THREADS, 0, stream>>>(a);
+      return (int)cudaGetLastError();
+    }
+  }
+  composite_kernel<PL, 1><<<grid, COMP_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The smallest instance whose PL slots hold a lane's (S + 31) / 32
+// samples.
+int launch_composite(const CompositeArgs& a, cudaStream_t stream) {
+  if (a.R < 1 || a.S < 1 || a.S > MAX_S) return (int)cudaErrorInvalidValue;
+  const int per = (a.S + 31) / 32;
+  if (per <= 1) return launch_composite<1>(a, stream);
+  if (per <= 2) return launch_composite<2>(a, stream);
+  if (per <= 3) return launch_composite<3>(a, stream);
+  if (per <= 4) return launch_composite<4>(a, stream);
+  return launch_composite<MAX_PER_LANE>(a, stream);
 }
 
 }  // namespace
 
 // Workspace (bf16 elements) of sigma_step (``planes`` 0) and planes_step
-// (``planes`` 1): the packed forward weights, t, and for planes_step r.
+// (``planes`` 1): t, and for planes_step r.
 extern "C" size_t forward_workspace(int R, int S, int W, int nb, int nt,
                                     int planes) {
   const size_t PW = (size_t)R * S * W;
-  return packed_elems(W, nb, nt, false) + PW + (planes ? PW / 2 : 0);
+  return PW + (planes ? PW / 2 : 0);
 }
 
 // Sigma-only forward on R rays x S samples: replaces
@@ -2886,19 +3109,21 @@ extern "C" size_t forward_workspace(int R, int S, int W, int nb, int nt,
 // trunk_fwd_kernel from the PE through enc_shape, storing t alone (in
 // ``ws``, forward_workspace(..., 0) elements: nothing is kept for a
 // backward), then sigma_head_kernel writes ``sigma`` (R, S) f32. ``wts``
-// as for fused_step; only the enc_xyz, shape, enc_shape and sigma entries
-// are read (and the packing reads the rest). Bound by operations:
-// 2 * W * (64 + W * (nb + 1)) FLOP per point.
+// and ``packed`` as for fused_step; only the enc_xyz, shape, enc_shape
+// and sigma entries and the forward operands are read. Bound by
+// operations: 2 * W * (64 + W * (nb + 1)) FLOP per point.
 extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
-                          const bf16* sproj, const void* const* wts, bf16* ws,
-                          float* sigma, int R, int S, int W, int nb, int nt,
-                          int n_freq, cudaStream_t stream) {
+                          const bf16* sproj, const void* const* wts,
+                          const bf16* packed, bf16* ws, float* sigma, int R,
+                          int S, int W, int nb, int nt, int n_freq,
+                          cudaStream_t stream) {
   if (!trunk_shapes_ok(W, nb, nt, n_freq)) return (int)cudaErrorInvalidValue;
   const size_t P = (size_t)R * S;
   const bf16* fwd_w[MAX_LAYERS];
-  CHECK(launch_pack(wts, W, nb, nt, false, ws, fwd_w, nullptr, stream));
+  const bf16* dx_w[MAX_LAYERS];
+  packed_ptrs(packed, W, nb, nt, fwd_w, dx_w);
   FwdOut o = {};
-  o.t = ws + packed_elems(W, nb, nt, false);
+  o.t = ws;
   CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, nullptr, nullptr, wts, fwd_w,
                             R, S, W, nb, nt, n_freq, false, o),
                    stream));
@@ -2923,16 +3148,18 @@ extern "C" int sigma_step(const float* ro8, const float* vd8, const float* z,
 extern "C" int planes_step(const float* ro8, const float* vd8, const float* z,
                            const bf16* sproj, const bf16* tproj,
                            const bf16* vcontrib, const void* const* wts,
-                           bf16* ws, float* sigma, float* c0, float* c1,
-                           float* c2, int R, int S, int W, int nb, int nt,
-                           int n_freq, cudaStream_t stream) {
+                           const bf16* packed, bf16* ws, float* sigma,
+                           float* c0, float* c1, float* c2, int R, int S,
+                           int W, int nb, int nt, int n_freq,
+                           cudaStream_t stream) {
   if (!trunk_shapes_ok(W, nb, nt, n_freq)) return (int)cudaErrorInvalidValue;
   const int i_sig = nb + 2, i_rgbo = nb + nt + 5;
   const size_t P = (size_t)R * S;
   const bf16* fwd_w[MAX_LAYERS];
-  CHECK(launch_pack(wts, W, nb, nt, false, ws, fwd_w, nullptr, stream));
+  const bf16* dx_w[MAX_LAYERS];
+  packed_ptrs(packed, W, nb, nt, fwd_w, dx_w);
   FwdOut o = {};
-  o.t = ws + packed_elems(W, nb, nt, false);
+  o.t = ws;
   o.r = o.t + P * W;
   CHECK(launch_fwd(fwd_args(ro8, vd8, z, sproj, tproj, vcontrib, wts, fwd_w,
                             R, S, W, nb, nt, n_freq, true, o),
@@ -2992,19 +3219,29 @@ extern "C" int input_chain_step(const bf16* gh0, const bf16* w_enc,
   return launch_input_chain(ia, stream);
 }
 
-// The trunk weights packed as fused_step packs them (``dst``:
-// packed_elems(W, nb, nt, true) bf16): the forward operands W^T, then the
-// dx chain's W. For the check of the packing against its plain version.
+// The trunk weights in the wgmma operand layout that fused_step,
+// sigma_step and planes_step take as ``packed`` (``dst``:
+// packed_trunk_elems(W, nb, nt) bf16): the forward operands W^T, then the
+// dx chain's W (packed_layout). ``wts`` as for fused_step. One
+// pack_kernel launch, the only one: ops/fused_train.py::trunk_operands
+// packs once per weight version.
 extern "C" int pack_trunk_weights(const void* const* wts, int W, int nb,
                                   int nt, bf16* dst, cudaStream_t stream) {
   if (!trunk_shapes_ok(W, nb, nt, 0)) return (int)cudaErrorInvalidValue;
-  const bf16* fwd_w[MAX_LAYERS];
-  const bf16* dx_w[MAX_LAYERS];
-  return launch_pack(wts, W, nb, nt, true, dst, fwd_w, dx_w, stream);
+  PackArgs a = {};
+  int tiles = 0;
+  packed_layout(W, nb, nt, [&](int pass, int j, int rows, int cols,
+                               size_t off) {
+    a.j[a.n++] = {static_cast<const bf16*>(wts[2 * trunk_index(j, nb)]),
+                  dst + off, rows, cols, pass == 0, tiles};
+    tiles += rows / 64 * (cols / 64);
+  });
+  pack_kernel<<<tiles, PACK_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" size_t packed_trunk_elems(int W, int nb, int nt) {
-  return packed_elems(W, nb, nt, true);
+  return packed_elems(W, nb, nt);
 }
 
 namespace {
@@ -3054,19 +3291,17 @@ extern "C" int weight_grads_step(const void* const* xs,
 // Standalone composite on R rays x S samples: replaces
 // codenerf_tpu/ops/pallas_composite.py::_fwd_kernel (launched by _call).
 // Five (R, S) f32 planes in (densities, raw r, g, b, depths), ``out8``
-// (R, 8) f32 [r g b depth acc 0 0 0] out; white or black background. One
-// warp per ray runs composite_pass's scan. Bound by bytes: 5 * R * S * 4
-// in, R * 32 out.
+// (R, 8) f32 [r g b depth acc 0 0 0] out; white or black background. A
+// warp per ray runs composite_pass's scan on the planes in its registers,
+// COMP_WARPS rays a block. Bound by bytes: 5 * R * S * 4 in, R * 32 out.
 extern "C" int composite_fwd(const float* sig, const float* c0,
                              const float* c1, const float* c2,
                              const float* z, float* out8, int R, int S,
                              int white_bg, cudaStream_t stream) {
-  if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
   CompositeArgs a = {};
-  a.S = S; a.white_bg = white_bg; a.sig = sig; a.c0 = c0; a.c1 = c1;
-  a.c2 = c2; a.z = z; a.out8 = out8;
-  composite_kernel<<<R, 32, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  a.R = R; a.S = S; a.white_bg = white_bg; a.sig = sig; a.c0 = c0;
+  a.c1 = c1; a.c2 = c2; a.z = z; a.out8 = out8;
+  return launch_composite(a, stream);
 }
 
 // Its backward (pallas_composite.py::_bwd_kernel): recompute the forward,
@@ -3080,11 +3315,9 @@ extern "C" int composite_bwd(const float* sig, const float* c0,
                              float* gc0, float* gc1, float* gc2, float* dz,
                              int R, int S, int white_bg,
                              cudaStream_t stream) {
-  if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
   CompositeArgs a = {};
-  a.S = S; a.white_bg = white_bg; a.sig = sig; a.c0 = c0; a.c1 = c1;
-  a.c2 = c2; a.z = z; a.g8 = g8; a.gsig = gsig; a.gc0 = gc0; a.gc1 = gc1;
-  a.gc2 = gc2; a.dz = dz;
-  composite_kernel<<<R, 32, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  a.R = R; a.S = S; a.white_bg = white_bg; a.sig = sig; a.c0 = c0;
+  a.c1 = c1; a.c2 = c2; a.z = z; a.g8 = g8; a.gsig = gsig; a.gc0 = gc0;
+  a.gc1 = gc1; a.gc2 = gc2; a.dz = dz;
+  return launch_composite(a, stream);
 }

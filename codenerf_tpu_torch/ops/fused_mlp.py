@@ -65,7 +65,7 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -324,12 +324,28 @@ def prep_ray_operands(model, cfg: NetConfig, ray_o, viewdir, z_vals,
     return ro8, vd8, z_vals.float(), sproj, tproj, vcontrib
 
 
-def kernel_operands(wflat) -> List[torch.Tensor]:
+class TrunkOperands(NamedTuple):
+    """One network's weight operands for the kernels, as
+    ``fused_train.trunk_operands`` caches them once per weight version
+    (or ``fused_train.fresh_trunk_operands`` builds them): ``wops``, the
+    :func:`kernel_operands` of ``fused_train.flatten_params`` (16-byte
+    aligned, no gradient), and ``packed``, the trunk kernels' packed
+    weights (``fused_train.pack_trunk_weights``) on the card — None on the
+    CPU, where the plain versions never read it. Every kernel wrapper on
+    CUDA tensors takes its weights as one of these."""
+    wops: List[torch.Tensor]
+    packed: Optional[torch.Tensor]
+
+
+def kernel_operands(weights) -> List[torch.Tensor]:
     """2-D weights bf16, 1-D weights and biases f32, all contiguous — the
     dtypes the TPU kernels received (``wops`` in ``invoke_train_fused``,
-    ``wb`` in ``invoke_fwd``)."""
+    ``wb`` in ``invoke_fwd``) — of the ``flatten_params`` list
+    ``weights``; of a :class:`TrunkOperands`, its own ``wops``."""
+    if isinstance(weights, TrunkOperands):
+        return weights.wops
     return [(w.to(torch.bfloat16) if w.dim() == 2 else w.float()).contiguous()
-            for w in wflat]
+            for w in weights]
 
 
 def shape_trunk_plain(cfg: NetConfig, R: int, S: int, ro8, vd8, z, sproj,
@@ -408,11 +424,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def sigma_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
-              vcontrib, wflat) -> torch.Tensor:
+              vcontrib, weights) -> torch.Tensor:
     """Counterpart of ``invoke_fwd(..., sigma_only=True)``: the density
     ``softplus(t · w_sig + b_sig)`` of every sample, (R, S) f32. The
     operands are those of ``fused_train.train_fused`` (``tproj``,
-    ``vcontrib`` and the texture-branch weights are not read).
+    ``vcontrib`` and the texture-branch weights are not read), ``weights``
+    included: a :class:`TrunkOperands`, whose packed operands the kernel
+    reads, or on CPU tensors also a ``flatten_params`` list.
 
     On CPU tensors this is :func:`sigma_fwd_plain`; on CUDA tensors it
     launches the CUDA kernel and counts the launch in
@@ -421,10 +439,10 @@ def sigma_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
         return sigma_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                               vcontrib, wflat)
+                               vcontrib, weights)
     if z.device.type != "cuda":
         raise ValueError(f"sigma_fwd: unsupported device {z.device}")
-    out = _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat)
+    out = _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, weights)
     sigma_fwd.launches["sigma"] += 1
     sigma_fwd.points["sigma"] += R * S
     return out
@@ -435,15 +453,15 @@ sigma_fwd.points = {"sigma": 0}
 
 
 def sigma_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
-                    tproj, vcontrib, wflat) -> torch.Tensor:
+                    tproj, vcontrib, weights) -> torch.Tensor:
     """:func:`sigma_fwd` in plain PyTorch (the CPU tests and
     ``chip_smoke.py``'s comparison use it)."""
     trunk = shape_trunk_plain(cfg, R, S, ro8, vd8, z.float(), sproj,
-                              kernel_operands(wflat))
+                              kernel_operands(weights))
     return softplus(trunk["sig_pre"])
 
 
-def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
+def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, weights):
     from codenerf_tpu_torch.ops import fused_train as ft
 
     lib = ft.library()
@@ -461,7 +479,7 @@ def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
         if tuple(x.shape) != expect[name] or x.device != dev:
             raise ValueError(f"sigma_fwd: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
-    wops = ft.checked_weights(cfg, wflat, dev)
+    wops, packed = ft._cuda_trunk(cfg, weights, dev)
     nt = cfg.texture_blocks
     ws = torch.empty(lib.forward_workspace(R, S, W, nb, nt, 0), dtype=bf16,
                      device=dev)
@@ -469,8 +487,8 @@ def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
     wptrs, _keep = ft._ptr_array(wops)
     rc = lib.sigma_step(
         ft._ptr(ins["ro8"]), ft._ptr(ins["vd8"]), ft._ptr(ins["z"]),
-        ft._ptr(ins["sproj"]), wptrs, ft._ptr(ws), ft._ptr(sigma), R, S, W,
-        nb, nt, cfg.num_xyz_freq,
+        ft._ptr(ins["sproj"]), wptrs, ft._ptr(packed), ft._ptr(ws),
+        ft._ptr(sigma), R, S, W, nb, nt, cfg.num_xyz_freq,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"sigma_fwd CUDA kernel failed: cudaError {rc}")
@@ -478,11 +496,11 @@ def _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, wflat):
 
 
 def planes_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
-               vcontrib, wflat):
+               vcontrib, weights):
     """Counterpart of ``invoke_fwd`` (four planes): ``(sigma, r, g, b)``,
     each (R, S) f32 — sigma with softplus applied, the rgb raw (the
-    reference applies no sigmoid). Operands as for
-    ``fused_train.train_fused``.
+    reference applies no sigmoid). Operands, ``weights`` included, as for
+    :func:`sigma_fwd`.
 
     On CPU tensors this is :func:`planes_fwd_plain`; on CUDA tensors it
     launches the CUDA kernel and counts the launch in
@@ -491,11 +509,11 @@ def planes_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
         return planes_fwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                vcontrib, wflat)
+                                vcontrib, weights)
     if z.device.type != "cuda":
         raise ValueError(f"planes_fwd: unsupported device {z.device}")
     out = _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
-                              wflat)
+                              weights)
     planes_fwd.launches["planes"] += 1
     planes_fwd.points["planes"] += R * S
     return out
@@ -506,9 +524,9 @@ planes_fwd.points = {"planes": 0}
 
 
 def planes_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
-                     tproj, vcontrib, wflat):
+                     tproj, vcontrib, weights):
     """:func:`planes_fwd` in plain PyTorch."""
-    wops = kernel_operands(wflat)
+    wops = kernel_operands(weights)
     acts = forward_plain(cfg, R, S, ro8, vd8, z.float(), sproj, tproj,
                          vcontrib, wops)
     i_sig, i_rgbo = cfg.shape_blocks + 2, (cfg.shape_blocks
@@ -519,7 +537,7 @@ def planes_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
 
 
 def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
-                        wflat):
+                        weights):
     from codenerf_tpu_torch.ops import fused_train as ft
 
     lib = ft.library()
@@ -540,7 +558,7 @@ def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
         if tuple(x.shape) != expect[name] or x.device != dev:
             raise ValueError(f"planes_fwd: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
-    wops = ft.checked_weights(cfg, wflat, dev)
+    wops, packed = ft._cuda_trunk(cfg, weights, dev)
     ws = torch.empty(lib.forward_workspace(R, S, W, nb, nt, 1), dtype=bf16,
                      device=dev)
     planes = [torch.empty(R, S, dtype=f32, device=dev) for _ in range(4)]
@@ -548,7 +566,7 @@ def _launch_planes_cuda(cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib,
     rc = lib.planes_step(
         ft._ptr(ins["ro8"]), ft._ptr(ins["vd8"]), ft._ptr(ins["z"]),
         ft._ptr(ins["sproj"]), ft._ptr(ins["tproj"]),
-        ft._ptr(ins["vcontrib"]), wptrs, ft._ptr(ws),
+        ft._ptr(ins["vcontrib"]), wptrs, ft._ptr(packed), ft._ptr(ws),
         *[ft._ptr(x) for x in planes], R, S, W, nb, nt, cfg.num_xyz_freq,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
@@ -561,7 +579,7 @@ def fused_codenerf_apply(model, cfg: NetConfig, ray_o, viewdir, z_vals,
     """Counterpart of ``fused_mlp.fused_codenerf_apply``: the four-plane
     forward from rays, depths (R, S) and codes ((R, D) or (D,)), forward
     only. Returns ``(sigmas (R, S), (r, g, b))`` f32 planes."""
-    from codenerf_tpu_torch.ops.fused_train import flatten_params
+    from codenerf_tpu_torch.ops.fused_train import trunk_operands
 
     R, S = z_vals.shape
     if not fused_available(cfg, R, S):
@@ -571,7 +589,7 @@ def fused_codenerf_apply(model, cfg: NetConfig, ray_o, viewdir, z_vals,
         ro8, vd8, z, sproj, tproj, vcontrib = prep_ray_operands(
             model, cfg, ray_o, viewdir, z_vals, shape_code, texture_code)
         sig, r, g, b = planes_fwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                  vcontrib, flatten_params(model, cfg))
+                                  vcontrib, trunk_operands(model, cfg))
     return sig, (r, g, b)
 
 

@@ -73,8 +73,10 @@ training its dW/db blocks stay resident as accumulators over the
 sequential grid; an H100 block has 227 KB of shared memory and blocks run
 in no order. Here the trunk runs as two chained ``wgmma`` kernels that keep
 a 128-point tile's activations in shared memory across layers and stream
-the weights from L2 through a ring filled by bulk copies (each call packs
-them first, :func:`wgmma_pack` being the layout's plain version):
+the weights from L2 through a ring filled by bulk copies, from operands
+packed once per weight version (:func:`trunk_operands`, one
+``pack_kernel`` launch; :func:`wgmma_pack` is the layout's plain
+version):
 ``trunk_fwd_kernel`` (the PE, every forward layer, the latent
 injections; it stores only the planes later kernels read) and
 ``trunk_dx_kernel`` (the dx chain from the rgb_hidden cotangent down, the
@@ -108,7 +110,11 @@ does on CUDA) with its parts :func:`head_plain` and
 ``train_fused.points`` sums the R·S of those launches),
 :func:`hier_fine_zvals_meta`, which draws the fine depths and the dual
 mode's planes, the layout of the trunk kernels' weights
-(:func:`wgmma_pack`, :func:`pack_trunk_weights_plain`), and the
+(:func:`wgmma_pack`, :func:`pack_trunk_weights_plain`), the cache of
+packed operands (:func:`trunk_operands`, :func:`drop_trunk_operands`;
+every wrapper on CUDA tensors takes its weights as such a
+:class:`TrunkOperands`, :func:`fresh_trunk_operands` builds one
+uncached), and the
 ``autograd.Function`` s :class:`FusedCodesLoss` (codes only),
 :class:`FusedPoseLoss` (rays, depths and codes) and :class:`FusedTrainLoss`
 (codes and weights), which hand the kernel's cotangents to the prologue's
@@ -118,6 +124,7 @@ backward.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import List, Optional, Tuple
 
 import torch
@@ -238,8 +245,8 @@ def trunk_layer_indices(cfg: NetConfig) -> List[int]:
 
 
 def pack_trunk_weights_plain(cfg: NetConfig, wops) -> torch.Tensor:
-    """The packed weight operands of the trunk kernels, as ``fused_step``
-    packs them (``pack_trunk_weights`` in ``csrc/train_fused.cu``): the
+    """The packed weight operands of the trunk kernels, as
+    ``pack_trunk_weights`` in ``csrc/train_fused.cu`` packs them: the
     forward's ``wgmma_pack(W^T)`` of every trunk layer, then the dx
     chain's ``wgmma_pack(W)`` of every layer but enc_xyz, for W the bf16
     (in, out) operands of :func:`kernel_operands`."""
@@ -249,8 +256,11 @@ def pack_trunk_weights_plain(cfg: NetConfig, wops) -> torch.Tensor:
 
 
 def pack_trunk_weights(cfg: NetConfig, wflat) -> torch.Tensor:
-    """:func:`pack_trunk_weights_plain` by the CUDA packer, for a check of
-    one against the other on the card (CUDA operands only)."""
+    """:func:`pack_trunk_weights_plain` by the CUDA packer (CUDA operands
+    only): the ``packed`` operand of the trunk kernels, one
+    ``pack_kernel`` launch, counted in
+    ``pack_trunk_weights.launches["pack"]``. :func:`trunk_operands` calls
+    it once per weight version; no kernel call packs for itself."""
     dev = wflat[0].device
     if dev.type != "cuda":
         raise ValueError("pack_trunk_weights packs CUDA operands; "
@@ -266,7 +276,94 @@ def pack_trunk_weights(cfg: NetConfig, wflat) -> torch.Tensor:
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"pack_trunk_weights failed: cudaError {rc}")
+    pack_trunk_weights.launches["pack"] += 1
     return out
+
+
+pack_trunk_weights.launches = {"pack": 0}
+
+
+TrunkOperands = fused_mlp.TrunkOperands
+
+
+def fresh_trunk_operands(cfg: NetConfig, wflat) -> TrunkOperands:
+    """The :class:`TrunkOperands` of the weights ``wflat`` holds, built
+    now and cached nowhere: on the card packed by
+    :func:`pack_trunk_weights` (which raises on failure)."""
+    with torch.no_grad():
+        wops = [_aligned(w, w.dtype).detach() for w in kernel_operands(wflat)]
+        packed = (pack_trunk_weights(cfg, wops) if wops[0].is_cuda
+                  else None)
+    return TrunkOperands(wops, packed)
+
+
+# model -> (cfg, key, TrunkOperands); the key holds, for every parameter,
+# a weak reference, its data_ptr() and its _version (an address alone
+# could be a freed tensor's, reused by the caching allocator).
+_TRUNK_CACHE = weakref.WeakKeyDictionary()
+
+
+def _weights_key(model):
+    return [(weakref.ref(p), p.data_ptr(), p._version)
+            for p in model.parameters()]
+
+
+def _key_holds(key, model) -> bool:
+    params = list(model.parameters())
+    return len(key) == len(params) and all(
+        ref() is p and ptr == p.data_ptr() and ver == p._version
+        for (ref, ptr, ver), p in zip(key, params))
+
+
+def trunk_operands(model, cfg: NetConfig) -> TrunkOperands:
+    """``model``'s :class:`TrunkOperands`, from the cache while none of its
+    parameters changed: the same object, and no packing, as long as every
+    parameter is the same tensor at the same address and version.
+    Otherwise :func:`fresh_trunk_operands` rebuilds them (counted in
+    ``trunk_operands.builds``). An in-place update of a parameter bumps
+    its version. Two kinds of write do not, and whatever makes them calls
+    :func:`drop_trunk_operands`: ``torch.optim.AdamW(fused=True)``
+    (``training/train_step.apply_update`` drops every network it
+    updates), and an in-place write through ``.data``
+    (``p.data.copy_(w)``, ``p.data.mul_(s)``: ``.data`` has a version
+    counter of its own and keeps the address) — without the drop the
+    kernels would run on the old weights and raise nothing."""
+    hit = _TRUNK_CACHE.get(model)
+    if hit is not None and hit[0] == cfg and _key_holds(hit[1], model):
+        return hit[2]
+    trunk = fresh_trunk_operands(cfg, flatten_params(model, cfg))
+    _TRUNK_CACHE[model] = (cfg, _weights_key(model), trunk)
+    trunk_operands.builds += 1
+    return trunk
+
+
+trunk_operands.builds = 0
+
+
+def drop_trunk_operands(model) -> None:
+    """Forget ``model``'s cached :class:`TrunkOperands`: the next
+    :func:`trunk_operands` rebuilds them."""
+    _TRUNK_CACHE.pop(model, None)
+
+
+def _cuda_trunk(cfg: NetConfig, weights, dev) -> TrunkOperands:
+    """The :class:`TrunkOperands` ``weights`` of a CUDA call, checked
+    against the config and the device. A CUDA call never packs: a weight
+    list is refused."""
+    if not isinstance(weights, TrunkOperands):
+        raise TypeError("a CUDA kernel call takes its weights as "
+                        "TrunkOperands (trunk_operands or "
+                        "fresh_trunk_operands), not a weight list")
+    n = library().packed_trunk_elems(cfg.W, cfg.shape_blocks,
+                                     cfg.texture_blocks)
+    pk = weights.packed
+    if (pk is None or pk.dtype != torch.bfloat16 or pk.numel() != n
+            or pk.device != dev or not pk.is_contiguous()):
+        raise ValueError(f"trunk operands: packed weights "
+                         f"{None if pk is None else (pk.dtype, pk.shape)} "
+                         f"on {None if pk is None else pk.device}, expected "
+                         f"{n} bf16 on {dev}")
+    return TrunkOperands(checked_weights(cfg, weights.wops, dev), pk)
 
 
 def hier_fine_zvals(z2d: torch.Tensor, w_coarse: torch.Tensor,
@@ -323,7 +420,7 @@ def _mode(weight_grads: bool, dual: bool, want_weights: bool = False,
 
 def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
                 scale: float, ro8, vd8, z, sproj, tproj, vcontrib, gt8,
-                wflat, want_weights: bool = False, want_rgb: bool = False,
+                weights, want_weights: bool = False, want_rgb: bool = False,
                 weight_grads: bool = True, input_grads: bool = False,
                 coarse_mask=None, coarse_delta=None):
     """Counterpart of ``invoke_train_fused``: returns ``(se_sum () f32,
@@ -346,6 +443,10 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
     ``se_sum`` (then the fine SE), and every cotangent is that of
     ``scale · (se_fine + se_coarse)``.
 
+    ``weights``: the network's :class:`TrunkOperands`
+    (:func:`trunk_operands`), whose packed operands the CUDA kernels read;
+    on CPU tensors also the :func:`flatten_params` list.
+
     On CPU tensors this is :func:`train_fused_plain`; on CUDA tensors it
     launches the CUDA kernels (and counts the launch in its mode's
     counter, ``train_fused.launches``, and its R·S points in
@@ -358,7 +459,7 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
         return train_fused_plain(cfg, S, R, white_bg, scale, ro8, vd8, z,
-                                 sproj, tproj, vcontrib, gt8, wflat,
+                                 sproj, tproj, vcontrib, gt8, weights,
                                  want_rgb=want_rgb, weight_grads=weight_grads,
                                  coarse_mask=coarse_mask,
                                  coarse_delta=coarse_delta,
@@ -367,7 +468,7 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
     if z.device.type != "cuda":
         raise ValueError(f"train_fused: unsupported device {z.device}")
     outs = _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
-                        tproj, vcontrib, gt8, wflat, want_weights, want_rgb,
+                        tproj, vcontrib, gt8, weights, want_weights, want_rgb,
                         weight_grads, input_grads, coarse_mask, coarse_delta)
     mode = _mode(weight_grads, coarse_mask is not None, want_weights,
                  input_grads)
@@ -667,7 +768,7 @@ def _plane_mode(weight_grads: bool, input_grads: bool) -> str:
 
 
 def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
-              vcontrib, wflat, g_planes, weight_grads: bool = True,
+              vcontrib, weights, g_planes, weight_grads: bool = True,
               input_grads: bool = True):
     """Counterpart of ``_invoke_bwd``, the plane op's backward: recompute
     the forward, then chain the outside cotangents ``g_planes`` — four
@@ -677,7 +778,8 @@ def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
     ``input_grads``: the PE Jacobian chain alone; the composite's z term
     reaches z outside), ``d_sproj (R, nb, W), d_tproj (R, nt, W),
     d_vcontrib (R, W)`` bf16, ``[dW_0, db_0, ...]`` f32 (with
-    ``weight_grads``). All four flag pairs run.
+    ``weight_grads``). All four flag pairs run. ``weights`` as for
+    :func:`train_fused`.
 
     On CPU tensors this is :func:`plane_bwd_plain`; on CUDA tensors it
     launches ``fused_step`` of ``csrc/train_fused.cu`` with the planes
@@ -690,12 +792,12 @@ def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
         raise ValueError(f"z has shape {tuple(z.shape)}, expected {(R, S)}")
     if z.device.type == "cpu":
         return plane_bwd_plain(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                               vcontrib, wflat, g_planes, weight_grads,
+                               vcontrib, weights, g_planes, weight_grads,
                                input_grads)
     if z.device.type != "cuda":
         raise ValueError(f"plane_bwd: unsupported device {z.device}")
     outs = _launch_cuda(cfg, S, R, True, 1.0, ro8, vd8, z, sproj, tproj,
-                        vcontrib, None, wflat, False, False, weight_grads,
+                        vcontrib, None, weights, False, False, weight_grads,
                         input_grads, None, None, g_planes=g_planes)
     mode = _plane_mode(weight_grads, input_grads)
     plane_bwd.launches[mode] += 1
@@ -750,12 +852,12 @@ def _aligned(x: torch.Tensor, dtype) -> torch.Tensor:
 
 def _bind(lib: ctypes.CDLL):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_step.argtypes = ([vp] * 23 + [ci] * 8
+    lib.fused_step.argtypes = ([vp] * 24 + [ci] * 8
                                + [ctypes.c_float, ci, vp])
     lib.fused_step.restype = ci
     lib.fused_workspace.argtypes = [ci] * 7 + [vp, vp]
     lib.fused_workspace.restype = None
-    lib.sigma_step.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.sigma_step.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.sigma_step.restype = ci
     lib.forward_workspace.argtypes = [ci] * 6
     lib.forward_workspace.restype = ctypes.c_size_t
@@ -763,7 +865,7 @@ def _bind(lib: ctypes.CDLL):
     lib.pack_trunk_weights.restype = ci
     lib.packed_trunk_elems.argtypes = [ci] * 3
     lib.packed_trunk_elems.restype = ctypes.c_size_t
-    lib.planes_step.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+    lib.planes_step.argtypes = [vp] * 13 + [ci] * 6 + [vp]
     lib.planes_step.restype = ci
     lib.composite_fwd.argtypes = [vp] * 6 + [ci] * 3 + [vp]
     lib.composite_fwd.restype = ci
@@ -788,7 +890,8 @@ def library() -> ctypes.CDLL:
     single-pass kernel's and the plane-op backward's ``fused_step``, the
     forwards ``sigma_step`` and ``planes_step``, the standalone
     composite's ``composite_fwd`` and ``composite_bwd``, the weight
-    packer ``pack_trunk_weights`` and, each alone for its check, the
+    packer ``pack_trunk_weights`` (the only launcher of ``pack_kernel``)
+    and, each alone for its check, the
     weight-gradient kernel ``weight_grads_step``, the input chain
     ``input_chain_step``, the four-plane head ``plane_head_step``, the
     sigma-only head ``sigma_head_step`` and the code cotangents'
@@ -814,9 +917,10 @@ def checked_weights(cfg: NetConfig, wflat, dev) -> List[torch.Tensor]:
 
 
 def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
-                 vcontrib, gt8, wflat, want_weights, want_rgb, weight_grads,
+                 vcontrib, gt8, weights, want_weights, want_rgb, weight_grads,
                  input_grads, coarse_mask, coarse_delta, g_planes=None):
-    """One ``fused_step`` launch. With ``g_planes`` (the plane-op
+    """One ``fused_step`` launch on the packed operands of ``weights``,
+    a :class:`TrunkOperands`. With ``g_planes`` (the plane-op
     backward; ``gt8`` None) it returns :func:`plane_bwd`'s outputs, else
     :func:`train_fused`'s."""
     lib = library()
@@ -851,7 +955,7 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
         if tuple(x.shape) != expect[name] or x.device != dev:
             raise ValueError(f"{what}: {name} is {tuple(x.shape)} on "
                              f"{x.device}, expected {expect[name]} on {dev}")
-    wops = checked_weights(cfg, wflat, dev)
+    wops, packed = _cuda_trunk(cfg, weights, dev)
     n_bf16, n_f32 = ctypes.c_size_t(), ctypes.c_size_t()
     lib.fused_workspace(R, S, W, nb, nt, int(weight_grads), int(input_grads),
                         ctypes.addressof(n_bf16), ctypes.addressof(n_f32))
@@ -889,10 +993,11 @@ def _launch_cuda(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj, tproj,
         _ptr(ins["ro8"]), _ptr(ins["vd8"]), _ptr(ins["z"]),
         _ptr(ins["sproj"]), _ptr(ins["tproj"]), _ptr(ins["vcontrib"]),
         opt_ptr(ins.get("gt8")), opt_ptr(ins.get("cmask")),
-        opt_ptr(ins.get("cdelta")), gptrs, wptrs, _ptr(ws), _ptr(ws32),
-        opt_ptr(se8), opt_ptr(rgb8), opt_ptr(weights), _ptr(d_sproj),
-        _ptr(d_tproj), _ptr(d_vcontrib), opt_ptr(d_ro8), opt_ptr(d_vd8),
-        opt_ptr(d_z), dptrs, int(bool(weight_grads)), int(bool(input_grads)),
+        opt_ptr(ins.get("cdelta")), gptrs, wptrs, _ptr(packed), _ptr(ws),
+        _ptr(ws32), opt_ptr(se8), opt_ptr(rgb8), opt_ptr(weights),
+        _ptr(d_sproj), _ptr(d_tproj), _ptr(d_vcontrib), opt_ptr(d_ro8),
+        opt_ptr(d_vd8), opt_ptr(d_z), dptrs, int(bool(weight_grads)),
+        int(bool(input_grads)),
         R, S, W, nb, nt, cfg.num_xyz_freq, ctypes.c_float(2.0 * scale),
         int(bool(white_bg)), ctypes.c_void_p(stream))
     if rc != 0:
@@ -919,15 +1024,16 @@ class FusedCodesLoss(torch.autograd.Function):
     carry no gradient. With ``coarse_mask`` and ``coarse_delta`` (the dual
     mode) the loss is ``scale · (se_fine + se_coarse)``, ``fine`` is
     ``scale · se_fine`` (the reported MSE) and ``rgb8`` holds the fine
-    composite's rows; otherwise ``fine`` equals the loss."""
+    composite's rows; otherwise ``fine`` equals the loss. ``weights`` as
+    for :func:`train_fused`."""
 
     @staticmethod
     def forward(ctx, sproj, tproj, vcontrib, cfg, white_bg, scale, ro8,
-                vd8, z, gt8, wops, want_rgb, coarse_mask=None,
+                vd8, z, gt8, weights, want_rgb, coarse_mask=None,
                 coarse_delta=None):
         R, S = z.shape
         outs = train_fused(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
-                           tproj, vcontrib, gt8, wops, want_rgb=want_rgb,
+                           tproj, vcontrib, gt8, weights, want_rgb=want_rgb,
                            weight_grads=False, coarse_mask=coarse_mask,
                            coarse_delta=coarse_delta)
         n_se = 1 if coarse_mask is None else 2
@@ -955,14 +1061,15 @@ class FusedPoseLoss(torch.autograd.Function):
     the depth sampling and ray generation into the pose. Returns ``(loss,
     fine, weights)``: ``fine`` equals the loss and carries no gradient;
     ``weights`` (R, S), the compositing weights, only with
-    ``want_weights`` (else empty), carries none either."""
+    ``want_weights`` (else empty), carries none either. ``weights`` as
+    for :func:`train_fused`."""
 
     @staticmethod
     def forward(ctx, ro8, vd8, z, sproj, tproj, vcontrib, cfg, white_bg,
-                scale, gt8, wops, want_weights):
+                scale, gt8, weights, want_weights):
         R, S = z.shape
         outs = train_fused(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
-                           tproj, vcontrib, gt8, wops,
+                           tproj, vcontrib, gt8, weights,
                            want_weights=want_weights, weight_grads=False,
                            input_grads=True)
         d_sproj, d_tproj, d_vcontrib = outs[1:4]
@@ -984,23 +1091,24 @@ class FusedTrainLoss(torch.autograd.Function):
     """``scale · Σ squared error`` of one batch, differentiable with
     respect to the per-ray operands and every weight operand:
     ``apply(static, sproj, tproj, vcontrib, *wflat)`` with ``static =
-    (cfg, white_bg, scale, ro8, vd8, z, gt8[, coarse_mask, coarse_delta])``
-    and ``wflat`` the f32 operands of :func:`flatten_params`. The kernel
-    (``weight_grads=True``) computes the loss, the per-ray cotangents and
-    every dW/db in one pass; the backward hands them on times the incoming
-    gradient, and autograd chains them through the prologue into the model
-    and the codes. Returns ``(loss, fine)``: with the dual mode's
+    (cfg, white_bg, scale, ro8, vd8, z, gt8, coarse_mask, coarse_delta,
+    trunk)`` (the dual mode's planes None outside it) and ``wflat`` the
+    f32 operands of :func:`flatten_params`, through which the dW/db flow
+    back. The kernels read ``trunk``, the :func:`trunk_operands` of the
+    same weights, and ``wflat`` only carries the gradients. The kernel (``weight_grads=True``) computes the loss, the
+    per-ray cotangents and every dW/db in one pass; the backward hands
+    them on times the incoming gradient, and autograd chains them through
+    the prologue into the model and the codes. Returns ``(loss, fine)``: with the dual mode's
     ``coarse_mask`` and ``coarse_delta`` the loss is ``scale · (se_fine +
     se_coarse)`` and ``fine`` (no gradient) is ``scale · se_fine``, the
     logged MSE; otherwise both are ``scale · se``."""
 
     @staticmethod
     def forward(ctx, static, sproj, tproj, vcontrib, *wflat):
-        cfg, white_bg, scale, ro8, vd8, z, gt8 = static[:7]
-        cmask, cdelta = static[7:9] if len(static) > 7 else (None, None)
+        cfg, white_bg, scale, ro8, vd8, z, gt8, cmask, cdelta, trunk = static
         R, S = z.shape
         outs = train_fused(cfg, S, R, white_bg, scale, ro8, vd8, z, sproj,
-                           tproj, vcontrib, gt8, list(wflat),
+                           tproj, vcontrib, gt8, trunk,
                            weight_grads=True, coarse_mask=cmask,
                            coarse_delta=cdelta)
         n_se = 1 if cmask is None else 2
@@ -1018,28 +1126,33 @@ class PlaneOp(torch.autograd.Function):
     """The plane op (the JAX package's ``_make_plane_op`` custom VJP):
     ``apply(mode, ro8, vd8, z, sproj, tproj, vcontrib, *wflat) -> (sigma,
     r, g, b)``, four (R, S) f32 planes from :func:`fused_mlp.planes_fwd`;
-    ``mode = (cfg, weight_grads, input_grads)``. The forward keeps only
-    its operands; the backward is :func:`plane_bwd`, which recomputes the
+    ``mode = (cfg, weight_grads, input_grads, trunk)``. Both passes read
+    ``trunk``, the :func:`trunk_operands` of the network, and ``wflat``
+    (:func:`flatten_params`, none at all in a frozen mode) only carries
+    the weight gradients; with ``trunk`` None (CPU tensors only) they
+    read ``wflat``. The forward keeps only its
+    operands; the backward is :func:`plane_bwd`, which recomputes the
     forward and returns the cotangents the mode asks for — the others are
     None (zero), as the JAX op's zeros."""
 
     @staticmethod
     def forward(ctx, mode, ro8, vd8, z, sproj, tproj, vcontrib, *wflat):
-        cfg = mode[0]
+        cfg, trunk = mode[0], mode[3]
         R, S = z.shape
         ctx.mode = mode
         ctx.save_for_backward(ro8, vd8, z, sproj, tproj, vcontrib, *wflat)
         return fused_mlp.planes_fwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                                    vcontrib, list(wflat))
+                                    vcontrib,
+                                    list(wflat) if trunk is None else trunk)
 
     @staticmethod
     def backward(ctx, *g_planes):
-        cfg, weight_grads, input_grads = ctx.mode
+        cfg, weight_grads, input_grads, trunk = ctx.mode
         ro8, vd8, z, sproj, tproj, vcontrib, *wflat = ctx.saved_tensors
         R, S = z.shape
         outs = list(plane_bwd(cfg, S, R, ro8, vd8, z, sproj, tproj,
-                              vcontrib, wflat, g_planes, weight_grads,
-                              input_grads))
+                              vcontrib, wflat if trunk is None else trunk,
+                              g_planes, weight_grads, input_grads))
         d_in = [None] * 3
         if input_grads:
             d_in, outs = outs[:3], outs[3:]
@@ -1048,16 +1161,20 @@ class PlaneOp(torch.autograd.Function):
 
 
 def _make_plane_op(cfg: NetConfig, weight_grads: bool, input_grads: bool):
-    """``op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat) -> (sigma, r, g,
-    b)``: :class:`PlaneOp` in one mode. ro8/vd8 (R, 8) f32, z (R, S) f32,
-    sproj/tproj (R, blocks, W) and vcontrib (R, W) bf16, wflat the f32
-    operands of :func:`flatten_params`."""
-    mode = (cfg, weight_grads, input_grads)
+    """``op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat, trunk=None) ->
+    (sigma, r, g, b)``: :class:`PlaneOp` in one mode. ro8/vd8 (R, 8) f32,
+    z (R, S) f32, sproj/tproj (R, blocks, W) and vcontrib (R, W) bf16,
+    ``trunk`` the network's :func:`trunk_operands`, wflat the f32 operands
+    of :func:`flatten_params` that carry the weight gradients (none for a
+    mode without them; on CPU tensors, with no ``trunk``, the weights the
+    op reads). ``op.weight_grads`` tells whether the op differentiates
+    the weights."""
 
-    def op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat):
-        return PlaneOp.apply(mode, ro8, vd8, z, sproj, tproj, vcontrib,
-                             *wflat)
+    def op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat, trunk=None):
+        return PlaneOp.apply((cfg, weight_grads, input_grads, trunk), ro8,
+                             vd8, z, sproj, tproj, vcontrib, *wflat)
 
+    op.weight_grads = weight_grads
     return op
 
 
@@ -1089,10 +1206,12 @@ def _with_composite(plane_op, white_bg: bool):
     needs the weights plane."""
     from codenerf_tpu_torch.ops.composite import composite_op
 
-    def op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat):
-        sig, r, g, b = plane_op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat)
+    def op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat, trunk=None):
+        sig, r, g, b = plane_op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat,
+                                trunk=trunk)
         return composite_op(sig, r, g, b, z, white_bg)
 
+    op.weight_grads = plane_op.weight_grads
     return op
 
 
@@ -1115,14 +1234,25 @@ def fused_apply_train(model, cfg: NetConfig, ray_o, viewdir, z_vals,
     and depths (R, S) with codes (R, D) or (D,): ``(sigmas, (r, g, b))``,
     (R, S) f32 planes for ``core.render.composite``. The per-ray prologue
     is plain PyTorch, so autograd reaches the weights, codes, rays and
-    depths through it. ``op`` defaults to :func:`make_fused_train_op`."""
+    depths through it. ``op`` defaults to :func:`make_fused_train_op`.
+    Both passes read ``model``'s cached :func:`trunk_operands`."""
     ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
         model, cfg, ray_o, viewdir, z_vals, shape_code, texture_code)
     if op is None:
         op = make_fused_train_op(cfg)
-    sigmas, r, g, b = op(ro8, vd8, z, sproj, tproj, vcontrib,
-                         *flatten_params(model, cfg))
+    wflat, trunk = _op_weights(model, cfg, op)
+    sigmas, r, g, b = op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat,
+                         trunk=trunk)
     return sigmas, (r, g, b)
+
+
+def _op_weights(model, cfg: NetConfig, op):
+    """``(wflat, trunk)`` of a plane op on ``model``: its cached
+    :func:`trunk_operands`, and :func:`flatten_params` to carry the
+    weight gradients where the op differentiates the weights (else
+    none)."""
+    return (flatten_params(model, cfg) if op.weight_grads else (),
+            trunk_operands(model, cfg))
 
 
 def fused_render_train(model, cfg: NetConfig, ray_o, viewdir, z_vals,
@@ -1138,7 +1268,7 @@ def fused_render_train(model, cfg: NetConfig, ray_o, viewdir, z_vals,
         model, cfg, ray_o, viewdir, z_vals, shape_code, texture_code)
     if op is None:
         op = make_fused_train_composite_op(cfg, white_bg=white_bg)
-    out8 = op(ro8, vd8, z, sproj, tproj, vcontrib,
-              *flatten_params(model, cfg))
+    wflat, trunk = _op_weights(model, cfg, op)
+    out8 = op(ro8, vd8, z, sproj, tproj, vcontrib, *wflat, trunk=trunk)
     return RenderOutput(rgb=out8[:, :3], depth=out8[:, 3], acc=out8[:, 4],
                         weights=None)

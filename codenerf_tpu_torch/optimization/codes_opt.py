@@ -168,13 +168,14 @@ def codes_route(hp: Hparams, n_rays: int, chunk: int,
     return "plane_op" if apply_fn is not None else "autodiff"
 
 
-def _chunk_loss(model, hp: Hparams, wops, ro, vd, gt, sc, tc, scale,
+def _chunk_loss(model, hp: Hparams, trunk, ro, vd, gt, sc, tc, scale,
                 generator, want_rgb: bool, occ_grid=None, z=None, u=None):
     """``(loss, fine, rgb8)`` of one ray chunk through the frozen-model
-    kernel (:class:`ops.fused_train.FusedCodesLoss`); with hierarchical
-    sampling the sigma-only coarse pass first and the dual mode. ``z``
-    and ``u`` replace the generator's draws (the tests feed both packages
-    the same numbers)."""
+    kernel (:class:`ops.fused_train.FusedCodesLoss`) on the model's cached
+    operands ``trunk`` (``fused_train.trunk_operands``); with
+    hierarchical sampling the sigma-only coarse pass first and the dual
+    mode. ``z`` and ``u`` replace the generator's draws (the tests feed
+    both packages the same numbers)."""
     net_cfg, rcfg = hp.net, hp.render
     if z is None:
         z = coarse_zvals(rcfg, ro, vd, generator, occ_grid)
@@ -187,13 +188,13 @@ def _chunk_loss(model, hp: Hparams, wops, ro, vd, gt, sc, tc, scale,
         with torch.no_grad():
             sigma_c = fused_mlp.sigma_fwd(net_cfg, S, R, ro8, vd8, z,
                                           sproj.detach(), tproj, vcontrib,
-                                          wops)
+                                          trunk)
         z, cmask, cdelta = fused_train.hier_fine_zvals_meta(
             z, composite_weights(sigma_c, z), generator, rcfg.n_importance,
             u=u)
     return fused_train.FusedCodesLoss.apply(
         sproj, tproj, vcontrib, net_cfg, rcfg.white_bg, scale, ro8, vd8, z,
-        gt8, wops, want_rgb, cmask, cdelta)
+        gt8, trunk, want_rgb, cmask, cdelta)
 
 
 def _render_chunk_loss(model, hp: Hparams, ro, vd, gt, mask, sc, tc, scale,
@@ -237,8 +238,7 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
     progress_rays = min(int(progress_rays), n_rays)
     want_rgb = progress_rays > 0
     if route == "single_pass":
-        wops = fused_train.kernel_operands(
-            fused_train.flatten_params(model, hp.net))
+        trunk = fused_train.trunk_operands(model, hp.net)
     else:
         apply_fn, composite_fn = build_fused_codes_fns(hp, chunk,
                                                        use_fused=use_fused)
@@ -261,7 +261,7 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
             sl = slice(c * chunk, (c + 1) * chunk)
             if route == "single_pass":
                 loss_c, fine_c, rgb8 = _chunk_loss(
-                    model, hp, wops, ray_o[sl], viewdir[sl], gt_rgb[sl], sc,
+                    model, hp, trunk, ray_o[sl], viewdir[sl], gt_rgb[sl], sc,
                     tc, scale, generator, want_rgb, occ_grid)
                 rgb = rgb8[:, :3]
             else:

@@ -139,8 +139,8 @@ def build_pose_loss(model, hp: Hparams, image: torch.Tensor,
     hier = rcfg.n_importance > 0
     scale = 1.0 / (R * 3.0)
     compute_dtype = resolve_dtype(hp.compute_dtype)
-    wops = (fused_train.kernel_operands(fused_train.flatten_params(
-        model, net_cfg)) if route == "single_pass" else None)
+    trunk = (fused_train.trunk_operands(model, net_cfg)
+             if route == "single_pass" else None)
     apply_fn = (build_fused_codes_fns(hp, R, use_fused=use_fused,
                                       input_grads=True)[0]
                 if route == "plane_op" else None)
@@ -161,7 +161,7 @@ def build_pose_loss(model, hp: Hparams, image: torch.Tensor,
         ops = fused_mlp.prep_ray_operands(model, net_cfg, ro, vd, z, sc, tc)
         ro8, vd8, z, sproj, tproj, vcontrib = ops
         static = (net_cfg, rcfg.white_bg, scale, fused_mlp.pad_lanes(gt, 8),
-                  wops)
+                  trunk)
         loss, mse, w = fused_train.FusedPoseLoss.apply(*ops, *static, hier)
         if hier:
             z_all = fused_train.hier_fine_zvals(z, w, generator,

@@ -188,9 +188,14 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         sampling the sigma-only coarse pass first, then the dual mode."""
         ro8, vd8, z, sproj, tproj, vcontrib = fused_mlp.prep_ray_operands(
             model, net_cfg, ray_o, viewdir, z, sc, tc)
+        # wflat carries dW/db back to the model; the kernels read the
+        # step's cached operands (one packing per step, shared by the
+        # microbatches and the sigma pass).
         wflat = fused_train.flatten_params(model, net_cfg)
+        trunk = fused_train.trunk_operands(model, net_cfg)
+        gt8 = fused_mlp.pad_lanes(rgb.float(), 8)
         static = (net_cfg, rcfg.white_bg, 1.0 / (rgb.shape[0] * 3.0),
-                  ro8, vd8, z, fused_mlp.pad_lanes(rgb.float(), 8))
+                  ro8, vd8, z, gt8, None, None, trunk)
         if hier:
             # Forward-only coarse pass: the importance weights need sigma
             # and z alone, and the coarse loss rides the union call.
@@ -198,11 +203,11 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
             with torch.no_grad():
                 sigma_c = fused_mlp.sigma_fwd(
                     net_cfg, S, R, ro8, vd8, z, sproj.detach(), tproj,
-                    vcontrib, [w.detach() for w in wflat])
+                    vcontrib, trunk)
             z_all, cmask, cdelta = fused_train.hier_fine_zvals_meta(
                 z, composite_weights(sigma_c, z), None, rcfg.n_importance,
                 u=u)
-            static = static[:5] + (z_all, static[6], cmask, cdelta)
+            static = static[:5] + (z_all, gt8, cmask, cdelta, trunk)
         return fused_train.FusedTrainLoss.apply(static, sproj, tproj,
                                                 vcontrib, *wflat)
 
@@ -271,8 +276,10 @@ def apply_update(state: TrainState, hp: Hparams) -> None:
     """One AdamW update from the gradients in ``.grad`` at the state's
     step (each group's lr from :func:`lr_schedules`; with
     ``quirks.optimizer_reset_every``, fresh Adam moments at each window
-    start — the reference's quirk 3), then clear the gradients and count
-    the step."""
+    start — the reference's quirk 3), then clear the gradients, drop the
+    networks' cached kernel operands (``fused_train.trunk_operands``:
+    a fused AdamW step leaves the parameters' versions as they were) and
+    count the step."""
     opt = state.optimizer
     window = hp.quirks.optimizer_reset_every
     if window > 0 and state.step % window == 0:
@@ -281,6 +288,9 @@ def apply_update(state: TrainState, hp: Hparams) -> None:
         group["lr"] = sched(state.step)
     opt.step()
     opt.zero_grad(set_to_none=True)
+    for net in (state.model, state.fine_model):
+        if net is not None:
+            fused_train.drop_trunk_operands(net)
     state.step += 1
 
 

@@ -489,10 +489,9 @@ def test_hier_codes_opt_chunk_matches_jax():
     fine_w, loss_w, g_w = jax_chunk((jnp.asarray(sc), jnp.asarray(tc)))
     st = torch.tensor(sc, requires_grad=True)
     tt = torch.tensor(tc, requires_grad=True)
-    wops = fused_train.kernel_operands(fused_train.flatten_params(model,
-                                                                  hp.net))
+    trunk = fused_train.trunk_operands(model, hp.net)
     loss, fine, rgb8 = codes_opt._chunk_loss(
-        model, hp, wops, _t(ro), _t(vd), _t(gt), st, tt, scale, None, False,
+        model, hp, trunk, _t(ro), _t(vd), _t(gt), st, tt, scale, None, False,
         z=_t(z2d), u=_t(u))
     loss.backward()
     assert rgb8.numel() == 0
