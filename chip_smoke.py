@@ -135,7 +135,24 @@ Phases, each printed on its own line with its seconds:
     ``sigma_head_kernel`` and ``rowsum_bf16_kernel``, whose launches are
     those of the modes that run them, and ``pack_kernel``, counted by
     its own wrapper), the card line, and the last
-    line ``{"ok": true, "device": {...}}``.
+    line ``{"ok": true, "device": {...}}`` (after phase 14);
+14. quality, cut, printed after the ``kernels`` line: the port's quality
+    report (``codenerf_tpu_torch.quality_report``, the twin of
+    ``tools/quality_report.py``) on seed 0 of the standard protocol at
+    the flagship widths, fused single pass, 96 samples, 16 + 4 synthetic
+    objects, 24 views at 64×64, cut to 1,000 training steps of 8192
+    rays; then the 4 held-out objects fitted again on the trained
+    checkpoint sequentially, with ``--opt_group 4`` and with
+    ``--opt_rays 1024``. It prints the training PSNR at each logged step
+    and each object's fitting start -> end PSNR and held-out PSNR/SSIM,
+    and fails on a non-finite value, a training PSNR that does not rise,
+    an object whose fitting does not end above its start, or an
+    ``--opt_group`` row off the sequential rerun's (fitting start by
+    1e-4 dB, held-out PSNR by 0.05 dB, SSIM by 1e-3; ``quality_path``
+    says why). Each run counts its launches in
+    its own window (one ``train`` and one ``pack`` a training step, one
+    ``codes`` a fitting step and object, one ``pack`` a fitting run);
+    they are not in the ``kernels`` line, which phases 3-12 count.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
 or of the JAX package.
@@ -2509,6 +2526,114 @@ def padded_path(work: str, device: str = "cuda", H: int = 127,
     return out["counts"]
 
 
+# Phase 14's cuts of the standard quality protocol (docs/QUALITY_SYNTHETIC.md
+# :298-308: 16 + 4 objects, 24 views at 64x64, 10K steps of 8192 rays,
+# the fused single pass at 96 samples): one seed and a tenth of the steps.
+QUALITY_STEPS = 1000
+
+
+def _quality_spread(got: list, want: list) -> tuple:
+    """The largest differences of two runs' rows: held-out PSNR, SSIM,
+    fitting start and end PSNR."""
+    return tuple(max(abs(g[i] - w[i]) for g, w in zip(got, want))
+                 for i in (1, 2, 3, 4))
+
+
+def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
+                 n_train: int = 16, n_test: int = 4, n_views: int = 24,
+                 size: int = 64, batch: int = 8192, num_opts: int = 200,
+                 net=None, group: int = 4, opt_rays: int = 1024) -> dict:
+    """Phase 14: ``codenerf_tpu_torch.quality_report``'s path on seed 0,
+    cut to ``steps`` training steps, at the flagship widths with the
+    fused single pass at 96 samples (``net`` overrides the widths for a
+    CPU rehearsal). Then the held-out objects are fitted twice more on the
+    trained checkpoint (``--resume_train``): sequentially again, with
+    ``--opt_group`` and with ``--opt_rays``. Fails on a non-finite value,
+    a training PSNR that does not rise from the first logged step to the
+    last, an object whose fitting ends at or below its start, or a
+    batched object off the sequential rerun: its fitting start PSNR (the
+    first step's loss: the same data, draws and route) by more than 1e-4
+    dB, its held-out PSNR by more than 0.05 dB or its SSIM by more than
+    1e-3. The CPU, where two runs agree, holds the rows to 1e-3
+    (``tests/test_torch_quality_report.py``); on the card the code
+    cotangents' f32 atomic sums make two sequential fits differ in their
+    last bits, and AdamW's sign-like first steps carry that to a few
+    thousandths of a dB on this model (0.001-0.009 dB on an H100 at 700
+    W, printed here as the spread; up to 0.06 on the 10,000-step model,
+    ``docs/QUALITY_PORT.md``), while a fault of the batched loop (another
+    object's rows, draws or loss scale) moves a held-out PSNR by tenths. Each run counts its launches
+    in its own window: one ``train`` and one ``pack`` a training step, one
+    ``codes`` a fitting step and object, one ``pack`` a fitting run."""
+    import numpy as np
+
+    from codenerf_tpu_torch import quality_report
+
+    out = os.path.join(work, "quality")
+    base = ["--use_fused", "--samples", "96", "--steps", str(steps),
+            "--num_opts", str(num_opts), "--n_train_objects", str(n_train),
+            "--n_test_objects", str(n_test), "--n_views", str(n_views),
+            "--size", str(size), "--seeds", "0", "--save_images", "0",
+            "--out", out, "--device", device]
+    on_card = device != "cpu"
+    runs = {}
+    for what, extra, want in (
+            ("sequential", [], {"train": steps, "pack": steps + 1,
+                                "codes": n_test * num_opts}),
+            ("sequential rerun", ["--resume_train"],
+             {"pack": 1, "codes": n_test * num_opts}),
+            (f"--opt_group {group}", ["--resume_train", "--opt_group",
+                                      str(group)],
+             {"pack": 1, "codes": n_test * num_opts}),
+            (f"--opt_rays {opt_rays}", ["--resume_train", "--opt_rays",
+                                        str(opt_rays)],
+             {"pack": 1, "codes": n_test * num_opts})):
+        args = quality_report.build_parser().parse_args(base + extra)
+        t0 = time.perf_counter()
+        with LaunchCounts() as lc:
+            res = quality_report.run_once(args, 0, out, net=net,
+                                          batch_size=batch, device=device)
+            counts = lc.get()
+            if lc.plain_on_cuda:
+                raise AssertionError(f"{lc.plain_on_cuda} plain-version "
+                                     f"calls on CUDA tensors ({what})")
+        log(f"  quality {what}: launches "
+            f"{ {k: v for k, v in counts.items() if v} } (expected "
+            f"{ {k: v * on_card for k, v in want.items()} }); "
+            f"{time.perf_counter() - t0:.1f} s host clock; training "
+            f"{res['train_s']:.1f} s, fitting "
+            f"{[round(s, 3) for s in res['fit_s']]} s an object")
+        _expect(counts, {k: v * on_card for k, v in want.items()},
+                f"quality {what}")
+        for name, p, s, h0, h1 in res["rows"]:
+            log(f"  quality {what}: {name} fit {h0:.3f} -> {h1:.3f} dB, "
+                f"held-out PSNR {p:.4f} dB, SSIM {s:.5f}")
+            if not np.isfinite([p, s, h0, h1]).all() or not h1 > h0:
+                raise AssertionError(f"quality {what}: {name} fit {h0} -> "
+                                     f"{h1}, held-out {p} / {s}")
+        log(f"  quality {what}: mean held-out PSNR {res['psnr']:.4f} dB, "
+            f"SSIM {res['ssim']:.5f}")
+        runs[what] = res
+    seq = runs["sequential"]
+    logged = [(r["step"], r["psnr/train"]) for r in _metrics(seq["run_dir"])
+              if "psnr/train" in r]
+    log(f"  quality: training PSNR by logged step {logged} (host wall "
+        f"{seq['train_s']:.1f} s for {steps} steps of {batch} rays)")
+    if (len(logged) < 2 or not np.isfinite([v for _, v in logged]).all()
+            or not logged[-1][1] > logged[0][1]):
+        raise AssertionError(f"training PSNR does not rise: {logged}")
+    rerun = runs["sequential rerun"]["rows"]
+    for what in ("sequential", f"--opt_group {group}"):
+        d = _quality_spread(runs[what]["rows"], rerun)
+        log(f"  quality: {what} against the sequential rerun, largest "
+            f"differences: held-out PSNR {d[0]:.6f} dB, SSIM {d[1]:.7f}, "
+            f"fitting start {d[2]:.6f} dB, end {d[3]:.6f} dB")
+    d = _quality_spread(runs[f"--opt_group {group}"]["rows"], rerun)
+    if not (d[0] <= 0.05 and d[1] <= 1e-3 and d[2] <= 1e-4):
+        raise AssertionError(f"--opt_group {group}: rows off the "
+                             f"sequential rerun's by {d}")
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--check", action="store_true",
@@ -2727,6 +2852,19 @@ def main() -> int:
         "points (each launch priced at the shape it ran): " + ", ".join(
             f"{mode} {v:.1f}" for v, mode in sorted(excess, reverse=True)))
     print(json.dumps({"kernels": rows}))
+    log(f"phase 14: quality, cut: python -m codenerf_tpu_torch.quality_report"
+        f" --use_fused --samples 96 --seeds 0 at {QUALITY_STEPS} steps, then "
+        "--resume_train sequentially, with --opt_group 4 and with "
+        "--opt_rays 1024")
+    t0 = time.perf_counter()
+    _reset_peak("cuda")
+    work = tempfile.mkdtemp(prefix="chip_smoke_quality_", dir=scratch)
+    try:
+        quality_path(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{_peak('cuda')}")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,9 +41,12 @@ through the plain ``CodeNeRF`` module(s), as the JAX package renders eval
 through plain XLA, with ``eval_hp`` (the full sample budget) and without
 the grid unless ``eval_occ``.
 
-This slice ports the sequential per-object path with full-view steps;
-stochastic ``opt_rays`` and batched groups raise ``NotImplementedError``
-in the CLI, naming their ROADMAP.md item.
+A step fits the full view, or with ``rays_per_step`` (``opt_rays``) a
+minibatch drawn uniformly with replacement from the target rays, which
+has no pad rays and so takes the single pass whether or not the view
+chunks exactly (:func:`step_plan`). :func:`optimize_codes_batch` fits G
+objects together under one AdamW, each chunk one object's rays, each
+object its own generator, so row g follows object g's standalone run.
 """
 
 from __future__ import annotations
@@ -144,19 +147,52 @@ def build_fused_codes_fns(hp: Hparams, chunk: int, *,
     return apply_fn, None
 
 
+def _normalize_rays_per_step(rays_per_step, n_rays: int) -> Optional[int]:
+    """The stochastic minibatch size, rounded up to the single-pass
+    kernel's 16-ray tile (JAX ``codes_opt.py:177-197``), or None where the
+    request covers the whole pool: the exact full-view protocol."""
+    if rays_per_step is None:
+        return None
+    r = int(rays_per_step)
+    if r <= 0:
+        raise ValueError(f"rays_per_step must be positive, got {r}")
+    r = -(-r // fused_train._TRAIN_TILE_RAYS) * fused_train._TRAIN_TILE_RAYS
+    return None if r >= n_rays else r
+
+
+def step_plan(n_rays: int, chunk: int,
+              rays_per_step: Optional[int] = None) -> tuple:
+    """``(chunk, n_chunks, n_step_rays)`` of one optimization step over a
+    pool of ``n_rays`` target rays: the whole pool padded to
+    :func:`renderer.chunk_plan`'s chunks, or, with a minibatch of
+    ``rays_per_step`` rays (:func:`_normalize_rays_per_step`'s), that
+    minibatch in chunks of at most the pool's chunk, ``n_chunks · chunk``
+    rays drawn (JAX ``_build_run``, ``codes_opt.py:244-247``)."""
+    chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
+    if rays_per_step is None:
+        return chunk, n_chunks, n_padded
+    chunk = min(int(rays_per_step), chunk)
+    n_chunks = -(-int(rays_per_step) // chunk)
+    return chunk, n_chunks, chunk * n_chunks
+
+
 def codes_route(hp: Hparams, n_rays: int, chunk: int,
-                use_fused: Optional[bool] = None) -> str:
-    """The route of a full-view optimization of ``n_rays`` target rays in
-    chunks of ``chunk`` (:func:`renderer.chunk_plan`'s): ``"single_pass"``,
-    ``"plane_op"`` (``apply_fn``), ``"plane_op_composite"``
-    (``composite_fn``) or ``"autodiff"`` — JAX ``codes_opt.py:250-268``.
-    Raises where :func:`build_fused_codes_fns` does."""
+                use_fused: Optional[bool] = None,
+                rays_per_step: Optional[int] = None) -> str:
+    """The route of an optimization of ``n_rays`` target rays in chunks of
+    ``chunk`` (:func:`step_plan`'s, with a minibatch of ``rays_per_step``
+    rays a step where given): ``"single_pass"``, ``"plane_op"``
+    (``apply_fn``), ``"plane_op_composite"`` (``composite_fn``) or
+    ``"autodiff"`` — JAX ``codes_opt.py:250-268``. A minibatch has no pad
+    rays, so it takes the single pass whether or not the pool chunks
+    exactly. Raises where :func:`build_fused_codes_fns` does."""
     rcfg = hp.render
-    chunk, n_chunks, _ = chunk_plan(n_rays, chunk)
+    rays_per_step = _normalize_rays_per_step(rays_per_step, n_rays)
+    chunk, _, n_step = step_plan(n_rays, chunk, rays_per_step)
     want = hp.use_fused_train if use_fused is None else use_fused
     if (want and hp.fused_composite
             and (rcfg.n_importance == 0 or rcfg.share_fine_weights)
-            and n_chunks * chunk == n_rays
+            and (rays_per_step is not None or n_step == n_rays)
             and fused_train.single_pass_available(hp.net, chunk)):
         return "single_pass"
     if not want:
@@ -216,25 +252,47 @@ def _render_chunk_loss(model, hp: Hparams, ro, vd, gt, mask, sc, tc, scale,
     return se * scale, fine, res.final.rgb.detach()
 
 
-def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
-                   viewdir: torch.Tensor, gt_rgb: torch.Tensor,
-                   init_shape: torch.Tensor, init_texture: torch.Tensor,
-                   generator: Optional[torch.Generator],
-                   num_opts: int = 200, lr: float = 1e-2,
-                   lr_half_interval: int = 50, chunk: int = 4096,
-                   progress_rays: int = 0, occ_grid=None, fine_model=None,
-                   use_fused: Optional[bool] = None) -> OptimizationResult:
-    """Optimize one object's codes against flat target rays (all on the
-    model's device), full view every step, on :func:`codes_route`'s
-    route; ``fine_model`` is the separate fine network."""
+class BatchedOptimizationResult(NamedTuple):
+    shape_codes: torch.Tensor    # (G, D)
+    texture_codes: torch.Tensor  # (G, D)
+    psnr_history: np.ndarray     # (num_opts, G) per-object PSNR per step
+
+
+def _fit(model, hp: Hparams, ray_o: torch.Tensor, viewdir: torch.Tensor,
+         gt_rgb: torch.Tensor, init_shape: torch.Tensor,
+         init_texture: torch.Tensor, generators: Sequence, num_opts: int,
+         lr: float, lr_half_interval: int, chunk: int, progress_rays: int,
+         occ_grid, fine_model, use_fused: Optional[bool],
+         rays_per_step: Optional[int], pix: Optional[torch.Tensor]):
+    """G objects' codes, (G, D) tables under one AdamW: the body of
+    :func:`optimize_codes` (G = 1) and :func:`optimize_codes_batch`.
+
+    Each chunk holds one object's rays and that object's code rows; each
+    object draws its minibatch and depths from its own generator, in the
+    order its standalone run draws them; the loss scale is per ray and
+    the reg ``Σ_g (‖s_g‖ + ‖t_g‖)``. AdamW is elementwise, so row g follows
+    object g's standalone run (JAX ``_build_run_batch``,
+    ``codes_opt.py:557-827``). ``pix`` (G, num_opts, rays a step) replaces
+    the minibatch draws. Returns ``(shape (G, D), texture (G, D), history
+    (num_opts, G), progress rows or None)``."""
     rcfg = hp.render
-    n_rays = ray_o.shape[0]
-    route = codes_route(hp, n_rays, chunk, use_fused)
-    chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
+    G, n_rays = ray_o.shape[:2]
+    dev = ray_o.device
+    rays_per_step = _normalize_rays_per_step(rays_per_step, n_rays)
+    stochastic = rays_per_step is not None
+    if stochastic and progress_rays:
+        raise ValueError(
+            "progress renders need the full-view rays every step; "
+            "rays_per_step subsampling and progress_rays are mutually "
+            "exclusive")
     if occ_grid is not None and rcfg.shared_jitter:
         raise ValueError("occ_grid requires per-ray sampling: shared_jitter "
                          "is one global [near, far] slab")
-    scale = 1.0 / (n_rays * 3.0)
+    route = codes_route(hp, n_rays, chunk, use_fused, rays_per_step)
+    chunk, n_chunks, n_step = step_plan(n_rays, chunk, rays_per_step)
+    # The loss scale is per ray of a step: the real rays of the full view,
+    # or every drawn ray of a minibatch (JAX codes_opt.py:247, :311).
+    scale = 1.0 / ((n_step if stochastic else n_rays) * 3.0)
     progress_rays = min(int(progress_rays), n_rays)
     want_rgb = progress_rays > 0
     if route == "single_pass":
@@ -242,12 +300,18 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
     else:
         apply_fn, composite_fn = build_fused_codes_fns(hp, chunk,
                                                        use_fused=use_fused)
-        ray_o, viewdir, gt_rgb = (pad_rays(x, n_padded)
-                                  for x in (ray_o, viewdir, gt_rgb))
-        mask = torch.arange(n_padded, device=ray_o.device) < n_rays
+    if stochastic:
+        mask = torch.ones(n_step, dtype=torch.bool, device=dev)
+    else:
+        ray_o, viewdir, gt_rgb = (
+            torch.stack([pad_rays(x[g], n_step) for g in range(G)])
+            for x in (ray_o, viewdir, gt_rgb))
+        mask = torch.arange(n_step, device=dev) < n_rays
 
-    sc = init_shape.detach().float().clone().requires_grad_(True)
-    tc = init_texture.detach().float().clone().requires_grad_(True)
+    D_s, D_t = init_shape.shape[-1], init_texture.shape[-1]
+    sc = init_shape.detach().float().expand(G, D_s).clone().requires_grad_()
+    tc = init_texture.detach().float().expand(G, D_t).clone(
+        ).requires_grad_()
     opt = torch.optim.AdamW([sc, tc], lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=hp.weight_decay)
     lr_at = step_halving(lr, lr_half_interval)
@@ -256,34 +320,95 @@ def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
         for group in opt.param_groups:
             group["lr"] = lr_at(step)
         opt.zero_grad(set_to_none=True)
-        mse, rows = 0.0, []
-        for c in range(n_chunks):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            if route == "single_pass":
-                loss_c, fine_c, rgb8 = _chunk_loss(
-                    model, hp, trunk, ray_o[sl], viewdir[sl], gt_rgb[sl], sc,
-                    tc, scale, generator, want_rgb, occ_grid)
-                rgb = rgb8[:, :3]
-            else:
-                loss_c, fine_c, rgb = _render_chunk_loss(
-                    model, hp, ray_o[sl], viewdir[sl], gt_rgb[sl], mask[sl],
-                    sc, tc, scale, generator, occ_grid, fine_model, apply_fn,
-                    composite_fn)
-            # Each chunk's backward at once: memory is bounded by a chunk.
-            loss_c.backward()
-            mse = mse + fine_c
-            if want_rgb:
-                rows.append(rgb)
-        (hp.loss_reg_coef * (safe_code_norm(sc) + safe_code_norm(tc))
-         ).backward()
+        mse, rows = [], []
+        for g in range(G):
+            ro, vd, gt = ray_o[g], viewdir[g], gt_rgb[g]
+            if stochastic:
+                # Uniform with replacement from the real pool, before the
+                # route runs (JAX codes_opt.py:441-448).
+                idx = (pix[g, step].to(dev) if pix is not None else
+                       torch.randint(0, n_rays, (n_step,), device=dev,
+                                     generator=generators[g]))
+                ro, vd, gt = ro[idx], vd[idx], gt[idx]
+            mse_g = 0.0
+            for c in range(n_chunks):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                if route == "single_pass":
+                    loss_c, fine_c, rgb8 = _chunk_loss(
+                        model, hp, trunk, ro[sl], vd[sl], gt[sl], sc[g],
+                        tc[g], scale, generators[g], want_rgb, occ_grid)
+                    rgb = rgb8[:, :3]
+                else:
+                    loss_c, fine_c, rgb = _render_chunk_loss(
+                        model, hp, ro[sl], vd[sl], gt[sl], mask[sl], sc[g],
+                        tc[g], scale, generators[g], occ_grid, fine_model,
+                        apply_fn, composite_fn)
+                # Each chunk's backward at once: memory is bounded by a
+                # chunk.
+                loss_c.backward()
+                mse_g = mse_g + fine_c
+                if want_rgb:
+                    rows.append(rgb)
+            mse.append(mse_g)
+        reg = sum(safe_code_norm(sc[g]) + safe_code_norm(tc[g])
+                  for g in range(G))
+        (hp.loss_reg_coef * reg).backward()
         opt.step()
-        history.append(psnr(mse))
+        history.append(psnr(torch.stack(mse)))
         if want_rgb:
             progress.append(torch.cat(rows)[:progress_rays])
-    return OptimizationResult(
-        sc.detach(), tc.detach(),
-        torch.stack(history).cpu().numpy(),
-        torch.stack(progress) if want_rgb else None)
+    return (sc.detach(), tc.detach(), torch.stack(history).cpu().numpy(),
+            torch.stack(progress) if want_rgb else None)
+
+
+def optimize_codes(model, hp: Hparams, ray_o: torch.Tensor,
+                   viewdir: torch.Tensor, gt_rgb: torch.Tensor,
+                   init_shape: torch.Tensor, init_texture: torch.Tensor,
+                   generator: Optional[torch.Generator],
+                   num_opts: int = 200, lr: float = 1e-2,
+                   lr_half_interval: int = 50, chunk: int = 4096,
+                   progress_rays: int = 0, occ_grid=None, fine_model=None,
+                   use_fused: Optional[bool] = None,
+                   rays_per_step: Optional[int] = None,
+                   pix: Optional[torch.Tensor] = None) -> OptimizationResult:
+    """Optimize one object's codes against flat target rays (all on the
+    model's device) on :func:`codes_route`'s route; ``fine_model`` is the
+    separate fine network. The full view every step, or with
+    ``rays_per_step`` a minibatch drawn uniformly with replacement from
+    the target rays each step (``psnr_history`` is then the minibatch's;
+    ``pix`` (num_opts, rays a step) replaces the draws). A minibatch and
+    ``progress_rays`` exclude each other (``ValueError``)."""
+    s, t, hist, prog = _fit(
+        model, hp, ray_o[None], viewdir[None], gt_rgb[None], init_shape,
+        init_texture, [generator], num_opts, lr, lr_half_interval, chunk,
+        progress_rays, occ_grid, fine_model, use_fused, rays_per_step,
+        None if pix is None else pix[None])
+    return OptimizationResult(s[0], t[0], hist[:, 0], prog)
+
+
+def optimize_codes_batch(model, hp: Hparams, ray_o: torch.Tensor,
+                         viewdir: torch.Tensor, gt_rgb: torch.Tensor,
+                         init_shape: torch.Tensor,
+                         init_texture: torch.Tensor,
+                         generators: Sequence[Optional[torch.Generator]],
+                         num_opts: int = 200, lr: float = 1e-2,
+                         lr_half_interval: int = 50, chunk: int = 4096,
+                         occ_grid=None, fine_model=None,
+                         use_fused: Optional[bool] = None,
+                         rays_per_step: Optional[int] = None,
+                         pix: Optional[torch.Tensor] = None
+                         ) -> BatchedOptimizationResult:
+    """Optimize G objects' codes together (JAX ``optimize_codes_batch``,
+    ``codes_opt.py:829-932``): ``ray_o``/``viewdir``/``gt_rgb`` (G, N, 3),
+    the initial codes (D,) or (G, D), one generator per object. Row g
+    follows :func:`optimize_codes` on object g alone with
+    ``generators[g]``; ``pix`` (G, num_opts, rays a step) replaces the
+    minibatch draws. No progress renders."""
+    s, t, hist, _ = _fit(
+        model, hp, ray_o, viewdir, gt_rgb, init_shape, init_texture,
+        list(generators), num_opts, lr, lr_half_interval, chunk, 0,
+        occ_grid, fine_model, use_fused, rays_per_step, pix)
+    return BatchedOptimizationResult(s, t, hist)
 
 
 class CodeOptimizer:
@@ -297,13 +422,25 @@ class CodeOptimizer:
     the grid only with ``eval_occ``: the optimize CLI optimizes with a
     reduced budget (``--opt_samples``) and the category grid
     (``--opt_occ``) but scores held-out views with the jsonfile's full
-    budget and no grid, so metrics stay comparable."""
+    budget and no grid, so metrics stay comparable.
+
+    ``opt_rays`` fits each step on that many target rays drawn at random
+    (None: the full view, the reference protocol); eval is unaffected.
+    :meth:`optimize_objects` / :meth:`evaluate_objects` run G objects
+    together, each row as :meth:`optimize_object` / :meth:`evaluate_object`
+    would give it with that object's generator. ``mesh`` (the object axis
+    over devices) is not ported (ROADMAP.md Queue 1, item 12)."""
 
     def __init__(self, model, hp: Hparams, mean_shape: torch.Tensor,
                  mean_texture: torch.Tensor, chunk: int = 4096,
                  device="cuda", occ_grid=None,
                  eval_hp: Optional[Hparams] = None, eval_occ: bool = True,
-                 fine_model=None):
+                 fine_model=None, opt_rays: Optional[int] = None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "CodeOptimizer(mesh=...): object sharding over devices is "
+                "not ported yet (ROADMAP.md Queue 1, item 12)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).requires_grad_(False)
         self.fine_model = (None if fine_model is None else
@@ -315,6 +452,7 @@ class CodeOptimizer:
         self.occ_grid = occ_grid
         self.eval_hp = eval_hp or hp
         self.eval_occ = eval_occ
+        self.opt_rays = opt_rays
 
     def optimize_object(self, images: np.ndarray, poses: np.ndarray,
                         focal: float, tgt_views: Sequence[int],
@@ -323,7 +461,14 @@ class CodeOptimizer:
                         lr_half_interval: int = 50,
                         progress_images: bool = False) -> OptimizationResult:
         """``progress_images=True`` also returns each step's render of the
-        first target view as (num_opts, H, W, 3) in ``progress``."""
+        first target view as (num_opts, H, W, 3) in ``progress``; it needs
+        the full view every step, so ``opt_rays`` refuses it."""
+        if progress_images and self.opt_rays is not None:
+            raise ValueError(
+                "progress_images=True renders the full first target view "
+                "every step, but this CodeOptimizer was built with "
+                f"opt_rays={self.opt_rays} (stochastic ray minibatches). "
+                "Pass opt_rays=None or progress_images=False.")
         H, W = images.shape[1:3]
         ro, vd, gt = _flat_target_rays(images, poses, focal, tgt_views, H, W,
                                        self.device)
@@ -332,11 +477,63 @@ class CodeOptimizer:
             self.mean_texture, generator, num_opts=num_opts, lr=lr,
             lr_half_interval=lr_half_interval, chunk=self.chunk,
             progress_rays=H * W if progress_images else 0,
-            occ_grid=self.occ_grid, fine_model=self.fine_model)
+            occ_grid=self.occ_grid, fine_model=self.fine_model,
+            rays_per_step=self.opt_rays)
         if progress_images:
             res = res._replace(progress=res.progress.reshape(num_opts, H, W,
                                                              3))
         return res
+
+    def optimize_objects(self, images: np.ndarray, poses: np.ndarray,
+                         focals: np.ndarray, tgt_views: Sequence[int],
+                         generators: Sequence[Optional[torch.Generator]],
+                         num_opts: int = 200, lr: float = 1e-2,
+                         lr_half_interval: int = 50
+                         ) -> BatchedOptimizationResult:
+        """G objects' codes under one AdamW (:func:`optimize_codes_batch`):
+        ``images`` (G, V, H, W, 3), ``poses`` (G, V, 4, 4), ``focals``
+        (G,), one generator per object. Row g is what
+        :meth:`optimize_object` gives object g with ``generators[g]``."""
+        H, W = images.shape[2:4]
+        rays = [_flat_target_rays(images[g], poses[g], float(focals[g]),
+                                  tgt_views, H, W, self.device)
+                for g in range(len(generators))]
+        ro, vd, gt = (torch.stack(x) for x in zip(*rays))
+        return optimize_codes_batch(
+            self.model, self.hp, ro, vd, gt, self.mean_shape,
+            self.mean_texture, generators, num_opts=num_opts, lr=lr,
+            lr_half_interval=lr_half_interval, chunk=self.chunk,
+            occ_grid=self.occ_grid, fine_model=self.fine_model,
+            rays_per_step=self.opt_rays)
+
+    def evaluate_objects(self, images: np.ndarray, poses: np.ndarray,
+                         focals: np.ndarray, exclude_views: Sequence[int],
+                         shape_codes: torch.Tensor,
+                         texture_codes: torch.Tensor,
+                         generators: Sequence[Optional[torch.Generator]],
+                         return_images: bool = False,
+                         deterministic: bool = False,
+                         gt_params: Optional[Dict] = None
+                         ) -> Dict[str, np.ndarray]:
+        """:meth:`evaluate_object` over G objects, object g with its codes
+        row and ``generators[g]``: ``psnr``/``ssim`` (G, V'), ``views``
+        (V',) and with ``return_images`` ``images`` (G, V', H, W, 3).
+        Ground truth rendered on the device from generation parameters
+        (``gt_params``) is not ported (ROADMAP.md Queue 1, item 13b)."""
+        if gt_params is not None:
+            raise NotImplementedError(
+                "evaluate_objects(gt_params=...): device-rendered ground "
+                "truth is not ported yet (ROADMAP.md Queue 1, item 13b); "
+                "pass the images")
+        evs = [self.evaluate_object(
+            images[g], poses[g], float(focals[g]), exclude_views,
+            shape_codes[g], texture_codes[g], generators[g],
+            return_images=return_images, deterministic=deterministic)
+            for g in range(len(generators))]
+        out = {"views": evs[0]["views"]}
+        for k in ("psnr", "ssim") + (("images",) if return_images else ()):
+            out[k] = np.stack([ev[k] for ev in evs])
+        return out
 
     @torch.no_grad()
     def evaluate_object(self, images: np.ndarray, poses: np.ndarray,

@@ -35,9 +35,13 @@ the JAX CLI does.
 ``tools/pose_opt.py``) with the remaining flags, as the root
 ``optimize.py`` does.
 
-Flags of the JAX CLI that the port does not have yet (``--opt_group`` > 1,
-``--opt_rays``, multi-device axes) raise with the ROADMAP.md item that
-covers them.
+``--opt_rays N`` fits each step on N target rays drawn at random
+instead of the full view (no per-step progress PNGs then);
+``--opt_group G`` fits G objects together under one AdamW and evaluates
+them together, each object with the generators the sequential loop would
+give it, so ``codes.npz`` and ``results.json`` are object-for-object the
+sequential loop's. The multi-device axes (``--data_axis``,
+``--replica_axis``) raise with the ROADMAP.md item that covers them.
 """
 
 from __future__ import annotations
@@ -95,10 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run joint camera-pose + code optimization instead "
                         "(python -m codenerf_tpu_torch.pose_opt takes every "
                         "other flag; see its --help)")
+    p.add_argument("--opt_group", type=int, default=1,
+                   help="test objects fitted and evaluated together (1: "
+                        "one at a time); per-object results are the same")
+    p.add_argument("--opt_rays", type=int, default=None,
+                   help="target rays drawn per optimization step instead "
+                        "of the full view (None: the reference protocol)")
     # Flags of the JAX CLI the port does not have yet: accepted so the
     # surface matches, refused unless left at their defaults.
-    p.add_argument("--opt_group", type=int, default=1)
-    p.add_argument("--opt_rays", type=int, default=None)
     p.add_argument("--data_axis", type=int, default=-1)
     p.add_argument("--replica_axis", type=int, default=1)
     return p
@@ -106,10 +114,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.opt_group > 1, "--opt_group > 1 (batched objects)",
-         "Queue 1, item 7"),
-        (args.opt_rays is not None, "--opt_rays (stochastic ray minibatches)",
-         "Queue 1, item 7"),
         (args.replica_axis != 1 or args.data_axis not in (-1, 1),
          "--data_axis/--replica_axis (multi-device)", "Queue 1, item 12"),
     ]
@@ -174,7 +178,8 @@ def main(argv=None) -> dict:
     optimizer = CodeOptimizer(model, opt_hp, mean_code(shape_codes),
                               mean_code(texture_codes), chunk=args.batchsize,
                               device=device, occ_grid=occ, eval_hp=hp,
-                              eval_occ=False, fine_model=fine_model)
+                              eval_occ=False, fine_model=fine_model,
+                              opt_rays=args.opt_rays)
 
     with open(os.path.join(save_dir, "opt_hpams.json"), "w") as f:
         json.dump({"instance_ids": args.tgt_instances, "lr": args.lr,
@@ -190,64 +195,55 @@ def main(argv=None) -> dict:
     psnr_eval, ssim_eval, summary, histories = {}, {}, [], {}
     timing = {"opt_s": 0.0, "opt_steps": 0, "eval_s": 0.0, "eval_views": 0}
     master = torch.Generator().manual_seed(hp.seed)
+    group = max(1, args.opt_group)
+    if group > 1 and args.save_progress:
+        print("WARNING: --opt_group disables per-step progress PNGs "
+              "(batched optimization collects no per-step renders)",
+              file=sys.stderr)
+        args.save_progress = False
+    if args.opt_rays is not None and args.save_progress:
+        print("WARNING: --opt_rays disables per-step progress PNGs "
+              "(a ray minibatch is not a full view)", file=sys.stderr)
+        args.save_progress = False
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for oi in range(n):
-        print(f"num obj: {oi}/{n}")
-        imgs = ds.images[oi]
-        poses, focal = ds.poses[oi], float(ds.focals[oi])
+    def generators():
+        """One object's fitting and eval generators, drawn from the master
+        in object order whatever the loop's shape."""
         s_opt, s_eval = torch.randint(0, 2 ** 62, (2,), generator=master)
-        g_opt = torch.Generator(device=device).manual_seed(int(s_opt))
-        g_eval = torch.Generator(device=device).manual_seed(int(s_eval))
-        sync()
-        t0 = time.perf_counter()
-        res = optimizer.optimize_object(
-            imgs, poses, focal, args.tgt_instances, g_opt,
-            num_opts=args.num_opts, lr=args.lr,
-            lr_half_interval=args.lr_half_interval,
-            progress_images=args.save_progress)
-        sync()
-        t1 = time.perf_counter()
-        ev = optimizer.evaluate_object(
-            imgs, poses, focal, args.tgt_instances, res.shape_code,
-            res.texture_code, g_eval, return_images=args.save_img,
-            deterministic=args.deterministic_eval)
-        sync()
-        t2 = time.perf_counter()
-        timing["opt_s"] += t1 - t0
-        timing["opt_steps"] += args.num_opts
-        timing["eval_s"] += t2 - t1
-        timing["eval_views"] += len(ev["views"])
+        return (torch.Generator(device=device).manual_seed(int(s_opt)),
+                torch.Generator(device=device).manual_seed(int(s_eval)))
 
-        obj_dir = os.path.join(save_dir, ds.ids[oi])
-        if args.save_progress or args.save_img:
-            os.makedirs(obj_dir, exist_ok=True)
-        if args.save_progress:
-            v0 = args.tgt_instances[0]
-            prog = res.progress.cpu().numpy()
-            gt_v0 = imgs[v0].astype(np.float32) / 255.0
-            for t in range(prog.shape[0]):
-                save_png(os.path.join(obj_dir, f"opt{t:03d}_{v0}.png"),
-                         side_by_side(prog[t], gt_v0))
-        out["optimized_shapecodes"][oi] = res.shape_code.cpu().numpy()
-        out["optimized_texturecodes"][oi] = res.texture_code.cpu().numpy()
-        histories[ds.ids[oi]] = res.psnr_history.tolist()
-        psnr_eval[ds.ids[oi]] = ev["psnr"].tolist()
-        ssim_eval[ds.ids[oi]] = ev["ssim"].tolist()
-        summary.append({"id": ds.ids[oi], "psnr": float(np.mean(ev["psnr"])),
-                        "ssim": float(np.mean(ev["ssim"]))})
-        print(f"  psnr {np.mean(ev['psnr']):.3f}  ssim "
-              f"{np.mean(ev['ssim']):.4f}")
+    def emit(oi, imgs, shape_code, texture_code, hist, ev, j=None):
+        """One object's results and images; ``j`` is its row in a batched
+        ``ev``."""
+        pick = (lambda k: ev[k]) if j is None else (lambda k: ev[k][j])
+        out["optimized_shapecodes"][oi] = shape_code.cpu().numpy()
+        out["optimized_texturecodes"][oi] = texture_code.cpu().numpy()
+        histories[ds.ids[oi]] = np.asarray(hist).tolist()
+        psnr_eval[ds.ids[oi]] = pick("psnr").tolist()
+        ssim_eval[ds.ids[oi]] = pick("ssim").tolist()
+        summary.append({"id": ds.ids[oi],
+                        "psnr": float(np.mean(pick("psnr"))),
+                        "ssim": float(np.mean(pick("ssim")))})
+        print(f"  psnr {summary[-1]['psnr']:.3f}  ssim "
+              f"{summary[-1]['ssim']:.4f}")
         if args.save_img:
+            obj_dir = os.path.join(save_dir, ds.ids[oi])
+            os.makedirs(obj_dir, exist_ok=True)
             imgs_f = imgs.astype(np.float32) / 255.0
-            for j, v in enumerate(ev["views"]):
+            for k, v in enumerate(ev["views"]):
                 save_png(os.path.join(obj_dir,
                                       f"{v}_{len(args.tgt_instances)}.png"),
-                         side_by_side(ev["images"][j], imgs_f[v]))
+                         side_by_side(pick("images")[k], imgs_f[v]))
 
+    def flush(num_obj):
+        """``codes.npz``, ``results.json`` and the reference ``codes.pth``:
+        once per object on the sequential loop, once per group on the
+        batched one."""
         np.savez(os.path.join(save_dir, "codes.npz"), **out)
         with open(os.path.join(save_dir, "results.json"), "w") as f:
             json.dump({"per_object": summary,
@@ -258,13 +254,73 @@ def main(argv=None) -> dict:
                                                    for s in summary]))},
                       f, indent=2)
         save_reference_codes(
-            os.path.join(save_dir, "codes.pth"), ids=out["ids"], num_obj=oi,
-            shape_codes=out["optimized_shapecodes"],
+            os.path.join(save_dir, "codes.pth"), ids=out["ids"],
+            num_obj=num_obj, shape_codes=out["optimized_shapecodes"],
             texture_codes=out["optimized_texturecodes"],
             psnr_eval={i: psnr_eval[d] for i, d in enumerate(ds.ids)
                        if d in psnr_eval},
             ssim_eval={i: ssim_eval[d] for i, d in enumerate(ds.ids)
                        if d in ssim_eval})
+
+    for start in range(0, n, group):
+        idx = list(range(start, min(start + group, n)))
+        print(f"num obj: {idx[0]}/{n}" if group == 1 else
+              f"num obj: {idx[0]}..{idx[-1]}/{n}")
+        gens = [generators() for _ in idx]
+        sync()
+        t0 = time.perf_counter()
+        if group == 1:
+            oi = idx[0]
+            imgs = ds.images[oi]
+            poses, focal = ds.poses[oi], float(ds.focals[oi])
+            res = optimizer.optimize_object(
+                imgs, poses, focal, args.tgt_instances, gens[0][0],
+                num_opts=args.num_opts, lr=args.lr,
+                lr_half_interval=args.lr_half_interval,
+                progress_images=args.save_progress)
+            sync()
+            t1 = time.perf_counter()
+            ev = optimizer.evaluate_object(
+                imgs, poses, focal, args.tgt_instances, res.shape_code,
+                res.texture_code, gens[0][1], return_images=args.save_img,
+                deterministic=args.deterministic_eval)
+            rows = [(oi, imgs, res.shape_code, res.texture_code,
+                     res.psnr_history, None)]
+        else:
+            imgs_g = np.stack([ds.images[i] for i in idx])
+            poses_g = np.stack([ds.poses[i] for i in idx])
+            focals_g = np.asarray([ds.focals[i] for i in idx], np.float32)
+            res = optimizer.optimize_objects(
+                imgs_g, poses_g, focals_g, args.tgt_instances,
+                [g[0] for g in gens], num_opts=args.num_opts, lr=args.lr,
+                lr_half_interval=args.lr_half_interval)
+            sync()
+            t1 = time.perf_counter()
+            ev = optimizer.evaluate_objects(
+                imgs_g, poses_g, focals_g, args.tgt_instances,
+                res.shape_codes, res.texture_codes, [g[1] for g in gens],
+                return_images=args.save_img,
+                deterministic=args.deterministic_eval)
+            rows = [(oi, imgs_g[j], res.shape_codes[j], res.texture_codes[j],
+                     res.psnr_history[:, j], j) for j, oi in enumerate(idx)]
+        sync()
+        t2 = time.perf_counter()
+        timing["opt_s"] += t1 - t0
+        timing["opt_steps"] += args.num_opts * len(idx)
+        timing["eval_s"] += t2 - t1
+        timing["eval_views"] += len(ev["views"]) * len(idx)
+        if args.save_progress:      # the sequential loop's one object
+            obj_dir = os.path.join(save_dir, ds.ids[idx[0]])
+            os.makedirs(obj_dir, exist_ok=True)
+            v0 = args.tgt_instances[0]
+            prog = res.progress.cpu().numpy()
+            gt_v0 = rows[0][1][v0].astype(np.float32) / 255.0
+            for t in range(prog.shape[0]):
+                save_png(os.path.join(obj_dir, f"opt{t:03d}_{v0}.png"),
+                         side_by_side(prog[t], gt_v0))
+        for oi, imgs, shape_code, texture_code, hist, j in rows:
+            emit(oi, imgs, shape_code, texture_code, hist, ev, j)
+        flush(idx[-1])
     print("done:", json.dumps(summary[-1] if summary else {}))
     return {"save_dir": save_dir, "summary": summary, "timing": timing,
             "psnr_history": histories}

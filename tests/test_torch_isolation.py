@@ -17,7 +17,8 @@ PORT = REPO / "codenerf_tpu_torch"
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                         REPO / "trunk_ablation.py"]
+                                         REPO / "trunk_ablation.py",
+                                         REPO / "quality_probe.py"]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -30,7 +31,9 @@ def test_every_module_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "new = {'codenerf_tpu_torch.pose_opt', 'codenerf_tpu_torch.core.poses',"
         " 'codenerf_tpu_torch.optimization.pose_opt',"
-        " 'codenerf_tpu_torch.ops.composite'}\n"
+        " 'codenerf_tpu_torch.ops.composite',"
+        " 'codenerf_tpu_torch.quality_report',"
+        " 'codenerf_tpu_torch.data.synthetic'}\n"
         "assert new <= set(names), new - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'codenerf_tpu' "

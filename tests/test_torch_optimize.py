@@ -175,16 +175,14 @@ def test_outputs_have_the_jax_cli_schema(runs, setup):
         assert {"1_1.png", "2_1.png"} <= files
 
 
-@pytest.mark.parametrize("flag", [["--opt_group", "2"], ["--opt_rays", "64"],
-                                  ["--data_axis", "2"],
-                                  ["--opt_group", "4", "--opt_samples", "4"],
-                                  ["--opt_rays", "64", "--opt_group", "2"],
+@pytest.mark.parametrize("flag", [["--data_axis", "2"],
                                   ["--replica_axis", "2"]])
 def test_unported_flags_raise(flag, setup):
     """The flags of the JAX CLI the port does not have yet (``--opt_occ``
     and ``--opt_samples`` are ported: tests/test_torch_hier.py;
     ``--pose_opt`` dispatches to the pose CLI:
-    tests/test_torch_pose_opt.py)."""
+    tests/test_torch_pose_opt.py; ``--opt_rays`` and ``--opt_group``:
+    tests/test_torch_opt_rays_group.py)."""
     _, _, _, _, jsonfile = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_optimize.main(["--device", "cpu", "--jsonfile", jsonfile] + flag)
