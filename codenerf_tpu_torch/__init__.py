@@ -34,6 +34,15 @@ PyTorch composite or chained into the standalone composite kernel
 (``ops/composite.py``). Every TPU kernel of the JAX package has its CUDA
 counterpart in ``ops/csrc/train_fused.cu``.
 
+The user-facing tools: ``python -m
+codenerf_tpu_torch.export_reference_checkpoint`` (a run's checkpoint as a
+reference ``models.pth``) and, reading a trained run through
+``utils/checkpoint.load_run`` and rendering through the plain module (as
+the JAX package renders through XLA), ``.edit`` (code interpolation and
+the shape × texture swap matrix, ``optimization/editing.py``),
+``.render_orbit``, ``.serve`` (the HTTP render service,
+``serving.RenderServer``) and ``.estimate_bound_radius``.
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; requesting CUDA where there is none raises.
 """

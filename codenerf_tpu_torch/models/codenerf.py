@@ -157,6 +157,20 @@ def load_reference_state_dict(sd) -> Dict[str, torch.Tensor]:
     return out
 
 
+def state_dict_config(sd) -> NetConfig:
+    """The ``NetConfig`` of this module's state dict ``sd``, read from its
+    keys and shapes."""
+    def blocks(kind):   # "shape_{j}" and "shape_latent_{j}" both count
+        return (_count_blocks(sd, f"{kind}_")
+                - _count_blocks(sd, f"{kind}_latent_"))
+
+    W = sd["enc_shape.weight"].shape[0]
+    return NetConfig(
+        shape_blocks=blocks("shape"), texture_blocks=blocks("texture"), W=W, num_xyz_freq=(sd["enc_xyz.weight"].shape[1] - 3) // 6,
+        num_dir_freq=(sd["enc_viewdir.weight"].shape[1] - W - 3) // 6,
+        latent_dim=sd["shape_latent_0.weight"].shape[1])
+
+
 def to_reference_state_dict(model: CodeNeRF) -> Dict[str, torch.Tensor]:
     """Inverse of :func:`load_reference_state_dict`."""
     sd = model.state_dict()

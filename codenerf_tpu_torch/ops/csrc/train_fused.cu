@@ -59,9 +59,10 @@
 //         tiles, warpgroups, ring and wgmma shapes. The epilogue
 //         adds the sigma term dsig * w_sig, masks with the prefetched bits,
 //         rounds gh to bf16 in place, and reduces the per-ray row sums in
-//         registers (a shuffle ladder over the warp's 16 rows) into one f32
-//         atomic per (ray, column) and warp; one rowsum_bf16_kernel
-//         launch then rounds the three cotangent outputs to bf16. In
+//         registers (a shuffle ladder over the warp's 16 rows) into one
+//         partial row per ray and slice, without atomics (ray_sums); one
+//         ray_sum_fold_kernel launch then adds each ray's rows in a
+//         fixed order and rounds the three cotangent outputs to bf16. In
 //         weight-gradient mode it also stores every gh plane, 16 bytes a
 //         thread.
 // Weight-gradient mode adds:
@@ -101,8 +102,8 @@
 // the latent injection as a bf16 add, sig_pre in f32 from bf16 t, masks on
 // the stored bf16 activations, the composite entirely in f32; gh rounded to
 // bf16 before both its dx and its dW product, the sigma dW from bf16 t
-// times f32 dsig. The per-ray code cotangents are summed with f32 atomics,
-// so their last bits may differ from run to run; dW and db do not.
+// times f32 dsig. Every sum is taken in a fixed order, so the code
+// cotangents, dW and db are the same bits on every run.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -475,6 +476,8 @@ struct DxLayer {
   const uint32_t* mask;   // (P, 8) ReLU-mask bits, or null
   float* rs_pre;          // per ray [R][rs_pre_ld], or null
   float* rs_post;
+  float* sl_pre;          // per 16-point slice [slices][rs_pre_ld]: ray_sums
+  float* sl_post;
   bf16* out;              // (P, N) bf16 gh, or null
   int K, N, dsig_term, rs_pre_ld, rs_post_ld;
 };
@@ -817,21 +820,38 @@ __device__ __forceinline__ void reduce_step(float (&x)[N], int mask,
   }
 }
 
-// Per-ray sums of this warp's 16 rows and 128 columns (from column c0)
-// into rs [ray][ld] (+= by f32 atomics), one atomic per (ray, column): for
-// each ray the rows touch and each quarter of the columns, a reduction
-// over the 8 lanes that share lane % 4, laddered so that every lane ends
-// with 2 of the quarter's columns.
+// Per-ray sums of this warp's 16 rows (a slice, from point mw) and its
+// warpgroup's 128 columns (from column c0), without atomics: for each ray
+// the rows touch and each quarter of the columns, a reduction over the 8
+// lanes that share lane % 4 (rows k and k + 8 added first, then a
+// pairwise tree over k = 0..7), laddered so that every lane ends with 2
+// of the quarter's columns, stored as the ray's partial of this slice:
+// to rs [ray][ld] in the slice where the ray starts (its whole sum if it
+// ends there too), else to sl [mw / 16][ld], the row of the slice (one
+// ray a slice started before it). ray_sum_fold_kernel then adds a ray's
+// rows left to right, so the sum's order follows the ray's place against
+// the 16-point slices alone: the same bits on every launch of the same
+// (R, S), whatever block took which tile. With S a multiple of 16 (96,
+// 64, 32 on the main paths) every ray starts a slice, so its sums do not
+// depend on where in the launch it lies; for other S, code fitting still
+// launches one chunk of one object at a time at the standalone shape and
+// ray order, fitted alone or in a group (--opt_group). (Adding the
+// slices of a tile in the kernel, through shared memory, and leaving only
+// the rays that cross a tile edge to the last pass moved fewer bytes but
+// took longer on an H100: the extra step before each layer's products
+// delayed them.)
 __device__ __forceinline__ void ray_sums(const float (&acc)[64], float* rs,
-                                         int ld, int c0, int mw, int P,
-                                         int S, int ray0, int ray1,
+                                         float* sl, int ld, int c0, int mw,
+                                         int P, int S, int ray0, int ray1,
                                          int lane) {
   if (mw >= P) return;
   const int last = min(mw + 15, P - 1) / S;
   const int jj = 4 * ((lane >> 2) & 1) + 2 * ((lane >> 3) & 1)
                  + ((lane >> 4) & 1);
   for (int ray = mw / S; ray <= last; ++ray) {
-    float* dst = rs + (size_t)ray * ld + c0 + 2 * (lane & 3);
+    float* dst = (ray * S >= mw ? rs + (size_t)ray * ld
+                                : sl + (size_t)(mw >> 4) * ld)
+                 + c0 + 2 * (lane & 3);
 #pragma unroll
     for (int qt = 0; qt < 2; ++qt) {
       float x[16];   // x[2 i + e]: column c0 + 8 (8 qt + i) + 2 (lane % 4) + e
@@ -844,8 +864,8 @@ __device__ __forceinline__ void ray_sums(const float (&acc)[64], float* rs,
       reduce_step<8>(x, 4, lane);
       reduce_step<4>(x, 8, lane);
       reduce_step<2>(x, 16, lane);
-      atomicAdd(dst + 8 * (8 * qt + jj), x[0]);
-      atomicAdd(dst + 8 * (8 * qt + jj) + 1, x[1]);
+      *reinterpret_cast<float2*>(dst + 8 * (8 * qt + jj)) =
+          make_float2(x[0], x[1]);
     }
   }
 }
@@ -870,8 +890,8 @@ __device__ __forceinline__ void dx_epilogue(float (&acc)[64],
   }
   const int mw = m0 + wl * 16;
   if (L.rs_pre)
-    ray_sums(acc, L.rs_pre, L.rs_pre_ld, c0, mw, a.P, a.S, rays[0], rays[1],
-             lane);
+    ray_sums(acc, L.rs_pre, L.sl_pre, L.rs_pre_ld, c0, mw, a.P, a.S, rays[0],
+             rays[1], lane);
   if (L.dsig_term || L.mask) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -896,8 +916,8 @@ __device__ __forceinline__ void dx_epilogue(float (&acc)[64],
     }
   }
   if (L.rs_post)
-    ray_sums(acc, L.rs_post, L.rs_post_ld, c0, mw, a.P, a.S, rays[0],
-             rays[1], lane);
+    ray_sums(acc, L.rs_post, L.sl_post, L.rs_post_ld, c0, mw, a.P, a.S,
+             rays[0], rays[1], lane);
   if (!store) return;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -2106,56 +2126,84 @@ int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// The code cotangents' conversion: replaces the ``.astype(bf16)`` of the
+// The code cotangents' last pass: replaces the ``.astype(bf16)`` of the
 // per-ray sums in codenerf_tpu/ops/fused_train.py::_train_kernel and
-// _bwd_kernel (:321, :323, :345). The dx chain's atomics sum the three
-// cotangents in one contiguous f32 span rs_s | rs_t | rs_v, R x (nb + nt
-// + 1) x W values; no warp knows it is the last to add into a ray, so the
-// rounding is a pass of its own, one launch for the three outputs. Bound
-// by bytes: 6 B a value (0.0376 ms for 16,384 x 5 x 256 on an H100 at
-// 3.35 TB/s). A thread takes 8 values: two 16-byte loads (the read-only
-// path; a streaming hint measured slower, trunk_ablation.py --small),
-// four round-to-nearest-even pair conversions (x.to(torch.bfloat16)'s and
+// _bwd_kernel (:321, :323, :345). The dx chain's ray_sums leave the three
+// cotangents in two f32 spans, each laid out s | t | v: ``x``, R rows of
+// (nb + nt + 1) x W, each ray's partial sum over the 16-point slice where
+// it starts, and ``sl``, a row a slice, the partial of the ray that
+// started before the slice. This pass adds a ray's rows left to right
+// (its own row, then the row of each later slice it touches), so every
+// launch gives the same bits, and rounds each sum to bf16. Bound by
+// bytes: 4 B a value of each row read, 2 B a value out. A thread takes 8
+// values of one ray's row: 16-byte loads (the read-only path),
+// round-to-nearest-even pair conversions (x.to(torch.bfloat16)'s and
 // jnp.astype's rounding), one 16-byte store into the output its offset
 // falls in; W is a multiple of 8, so no group straddles two outputs.
 constexpr int RS_THREADS = 256;
 constexpr int RS_BLOCKS_PER_SM = 8;   // 2048 threads, 32 B in flight each
 
+__device__ __forceinline__ void add8(float4& lo, float4& hi, const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  lo.x += a.x; lo.y += a.y; lo.z += a.z; lo.w += a.w;
+  hi.x += b.x; hi.y += b.y; hi.z += b.z; hi.w += b.w;
+}
+
 __global__ void __launch_bounds__(RS_THREADS, RS_BLOCKS_PER_SM)
-    rowsum_bf16_kernel(const float* __restrict__ x, bf16* d_s, bf16* d_t,
-                       bf16* d_v, size_t n_s, size_t n_st, size_t n) {
-  for (size_t i = 8 * (blockIdx.x * (size_t)RS_THREADS + threadIdx.x);
-       i < n; i += 8 * (size_t)gridDim.x * RS_THREADS) {
-    const float4 lo = __ldg(reinterpret_cast<const float4*>(x + i));
-    const float4 hi = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+    ray_sum_fold_kernel(const float* __restrict__ x,
+                        const float* __restrict__ sl, bf16* d_s, bf16* d_t,
+                        bf16* d_v, int R, int S, int nb, int nt, int W) {
+  // 32-bit offsets: launch_fold checks that both spans fit.
+  const unsigned rows = ((unsigned)R * S + 15) / 16;
+  const unsigned n_s = (unsigned)R * nb * W, n_st = n_s + (unsigned)R * nt * W;
+  const unsigned n = n_st + (unsigned)R * W;
+  for (unsigned i = 8 * (blockIdx.x * RS_THREADS + threadIdx.x); i < n;
+       i += 8 * gridDim.x * RS_THREADS) {
+    unsigned k = i, row = nb * W, base_sl = 0;
+    bf16* out = d_s;
+    if (i >= n_st) {
+      k = i - n_st; row = W; base_sl = rows * (nb + nt) * W; out = d_v;
+    } else if (i >= n_s) {
+      k = i - n_s; row = nt * W; base_sl = rows * nb * W; out = d_t;
+    }
+    const unsigned ray = k / row, col = k - ray * row;
+    const unsigned s1 = (ray * S + S - 1) / 16;
+    float4 lo = __ldg(reinterpret_cast<const float4*>(x + i));
+    float4 hi = __ldg(reinterpret_cast<const float4*>(x + i + 4));
+    for (unsigned t = ray * S / 16 + 1; t <= s1; ++t)
+      add8(lo, hi, sl + base_sl + t * row + col);
     __align__(16) __nv_bfloat162 y[4] = {
         __float22bfloat162_rn(make_float2(lo.x, lo.y)),
         __float22bfloat162_rn(make_float2(lo.z, lo.w)),
         __float22bfloat162_rn(make_float2(hi.x, hi.y)),
         __float22bfloat162_rn(make_float2(hi.z, hi.w))};
-    bf16* dst = i < n_s ? d_s + i : i < n_st ? d_t + (i - n_s)
-                                             : d_v + (i - n_st);
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(y);
+    *reinterpret_cast<uint4*>(out + k) = *reinterpret_cast<const uint4*>(y);
   }
 }
 
-// One rowsum_bf16_kernel launch over the span ``x`` (R x (nb + nt + 1) x
-// W f32) into d_s (R, nb, W), d_t (R, nt, W) and d_v (R, W) bf16, all 16-
-// byte aligned; at most four waves of resident blocks, which then stride.
-int launch_rowsum(const float* x, bf16* d_s, bf16* d_t, bf16* d_v, int R,
-                  int nb, int nt, int W, cudaStream_t stream) {
+// One ray_sum_fold_kernel launch over ``x`` (R x (nb + nt + 1) x W f32)
+// and ``sl`` (slices x (nb + nt + 1) x W, slices = ceil(R S / 16))
+// into d_s (R, nb, W), d_t (R, nt, W) and d_v (R, W) bf16, all 16-byte
+// aligned; at most four waves of resident blocks, which then stride.
+int launch_fold(const float* x, const float* sl, bf16* d_s, bf16* d_t,
+                bf16* d_v, int R, int S, int nb, int nt, int W,
+                cudaStream_t stream) {
   auto misaligned = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 != 0;
   };
-  if (R < 1 || nb < 1 || nt < 1 || W < 8 || W % 8 || misaligned(x)
-      || misaligned(d_s) || misaligned(d_t) || misaligned(d_v))
+  if (R < 1 || S < 1 || nb < 1 || nt < 1 || W < 8 || W % 8
+      || misaligned(x) || misaligned(sl) || misaligned(d_s)
+      || misaligned(d_t) || misaligned(d_v))
     return (int)cudaErrorInvalidValue;
-  const size_t n_s = (size_t)R * nb * W, n_st = n_s + (size_t)R * nt * W;
-  const size_t n = n_st + (size_t)R * W;
+  const size_t n = (size_t)R * (nb + nt + 1) * W;
+  const size_t n_sl = (((size_t)R * S + 15) / 16) * (nb + nt + 1) * W;
+  if (n_sl >= (1ull << 32) || n >= (1ull << 31))
+    return (int)cudaErrorInvalidValue;
   const size_t need = (n / 8 + RS_THREADS - 1) / RS_THREADS;
   const size_t cap = (size_t)sm_count() * RS_BLOCKS_PER_SM * 4;
-  rowsum_bf16_kernel<<<(unsigned)(need < cap ? need : cap), RS_THREADS, 0,
-                       stream>>>(x, d_s, d_t, d_v, n_s, n_st, n);
+  ray_sum_fold_kernel<<<(unsigned)(need < cap ? need : cap), RS_THREADS, 0,
+                        stream>>>(x, sl, d_s, d_t, d_v, R, S, nb, nt, W);
   return (int)cudaGetLastError();
 }
 
@@ -2526,7 +2574,7 @@ extern "C" void fused_workspace(int R, int S, int W, int nb, int nt,
   const size_t mask_planes = nb + nt + 1 + (weight_grads || input_grads);
   size_t masks = mask_planes * P * MASK_WORDS * 2;
   *n_bf16 = 2 * PW;
-  *n_f32 = P + (size_t)R * (nb + nt + 1) * W;
+  *n_f32 = P + (R + (P + 15) / 16) * (nb + nt + 1) * W;
   if (input_grads && !weight_grads) *n_bf16 += PW;
   if (weight_grads) {
     *n_bf16 += P * 64 + (size_t)(nb + nt + 2) * PW
@@ -2631,9 +2679,14 @@ extern "C" int fused_step(
   float* rs_s = dsig + P;             // (R, nb, W)
   float* rs_t = rs_s + (size_t)R * nb * W;
   float* rs_v = rs_t + (size_t)R * nt * W;
-  float* head_part = rs_v + (size_t)R * W;   // weight_grads: (blocks, HP)
-  CHECK((int)cudaMemsetAsync(rs_s, 0, sizeof(float) * (size_t)R * (nb + nt + 1) * W,
-                             stream));
+  // ray_sums' slice rows, one a 16-point slice, in the same s | t | v
+  // layout; every value that ray_sum_fold_kernel reads is written first,
+  // so neither span is cleared.
+  const size_t sl_rows = (P + 15) / 16;
+  float* sl_s = rs_v + (size_t)R * W;
+  float* sl_t = sl_s + sl_rows * nb * W;
+  float* sl_v = sl_t + sl_rows * nt * W;
+  float* head_part = sl_v + sl_rows * W;   // weight_grads: (blocks, HP)
 
   const bf16* fwd_w[MAX_LAYERS];
   const bf16* dx_w[MAX_LAYERS];
@@ -2688,8 +2741,9 @@ extern "C" int fused_step(
     } else if (j > nb + 2) {                        // texture block k
       const int k = j - nb - 3;
       L.rs_pre = rs_t + (size_t)k * W; L.rs_pre_ld = nt * W;
+      L.sl_pre = sl_t + (size_t)k * W;
       L.mask = k > 0 ? o.mt + (size_t)(k - 1) * P * MASK_WORDS : o.mv;
-      if (k == 0) { L.rs_post = rs_v; L.rs_post_ld = W; }
+      if (k == 0) { L.rs_post = rs_v; L.sl_post = sl_v; L.rs_post_ld = W; }
       L.out = k > 0 ? plane(gh_tex, k - 1) : gh_encv;
     } else if (j == nb + 2) {                       // enc_viewdir
       L.dsig_term = 1;
@@ -2700,6 +2754,7 @@ extern "C" int fused_step(
     } else {                                        // shape block j - 1
       const int k = j - 1;
       L.rs_pre = rs_s + (size_t)k * W; L.rs_pre_ld = nb * W;
+      L.sl_pre = sl_s + (size_t)k * W;
       if (k > 0) {
         L.mask = o.ms + (size_t)(k - 1) * P * MASK_WORDS;
         L.out = plane(gh_shape, k - 1);
@@ -2733,20 +2788,22 @@ extern "C" int fused_step(
     CHECK(launch_input_chain(ia, stream));
   }
 
-  return launch_rowsum(rs_s, d_sproj, d_tproj, d_vcontrib, R, nb, nt, W,
-                       stream);
+  return launch_fold(rs_s, sl_s, d_sproj, d_tproj, d_vcontrib, R, S, nb, nt,
+                     W, stream);
 }
 
-// The code cotangents' conversion alone (fused_step launches it last), for
-// its check against its plain version: the f32 span ``x`` (R x (nb + nt +
-// 1) x W) rounded into d_sproj (R, nb, W), d_tproj (R, nt, W) and
-// d_vcontrib (R, W) bf16, all 16-byte aligned; W a multiple of 8. One
-// rowsum_bf16_kernel launch.
-extern "C" int rowsum_bf16_step(const float* x, bf16* d_sproj, bf16* d_tproj,
-                                bf16* d_vcontrib, int R, int nb, int nt,
-                                int W, cudaStream_t stream) {
-  return launch_rowsum(x, d_sproj, d_tproj, d_vcontrib, R, nb, nt, W,
-                       stream);
+// The code cotangents' last pass alone (fused_step launches it last), for
+// its check against its plain version: the rays' span ``x`` (R x (nb + nt
+// + 1) x W f32) and the slice rows ``sl`` (ceil(R S / 16) x (nb + nt + 1)
+// x W f32), as ray_sums leaves them, added and rounded into d_sproj
+// (R, nb, W), d_tproj (R, nt, W) and d_vcontrib (R, W) bf16, all 16-byte
+// aligned; W a multiple of 8. One ray_sum_fold_kernel launch.
+extern "C" int ray_sum_fold_step(const float* x, const float* sl,
+                                 bf16* d_sproj, bf16* d_tproj,
+                                 bf16* d_vcontrib, int R, int S, int nb,
+                                 int nt, int W, cudaStream_t stream) {
+  return launch_fold(x, sl, d_sproj, d_tproj, d_vcontrib, R, S, nb, nt, W,
+                     stream);
 }
 
 namespace {

@@ -80,9 +80,9 @@ version):
 ``trunk_fwd_kernel`` (the PE, every forward layer, the latent
 injections; it stores only the planes later kernels read) and
 ``trunk_dx_kernel`` (the dx chain from the rgb_hidden cotangent down, the
-ReLU masks, the sigma term and the per-ray row sums in its epilogue, one
-f32 atomic per ray, column and warp). Between them ``head_kernel``, a warp
-per ray — the sigma and rgb heads from 16-byte rows of t and r, the
+ReLU masks, the sigma term and the per-ray row sums in its epilogue:
+one partial row per ray and 16-point warp slice, no atomics). Between
+them ``head_kernel``, a warp per ray — the sigma and rgb heads from 16-byte rows of t and r, the
 composite as a warp scan over the samples, the loss and the composite
 backward, and in training the per-ray sums of the sigma and rgb_out
 gradients, added over a block's rays in order. In training the dx kernel
@@ -92,10 +92,11 @@ fixed list of (layer, point split) items, wgmma over TMA-loaded boxes of
 the stored planes, one block's half of the shared operand multicast to
 both, each item's f32 partial written without atomics; one
 ``fixed_sum_kernel`` launch adds the splits and the head's rows in a fixed
-order — so dW and db are the same bits on every run, while the per-ray
-code cotangents, summed with f32 atomics, may differ in their last bits
-(one ``rowsum_bf16_kernel`` launch rounds all three to bf16 last,
-:func:`rowsums_to_bf16` alone);
+order — so dW and db are the same bits on every run, and so are the
+per-ray code cotangents: one ``ray_sum_fold_kernel`` launch adds each
+ray's partial rows left to right and rounds all three to bf16 last
+(:func:`fold_ray_sums` alone; :func:`ray_sums_plain` and
+:func:`fold_ray_sums_plain` are the two stages' plain versions);
 with input gradients the head kernel also writes the weights and the
 composite's dz, and an input-chain kernel (one block per ray, W_enc^T in
 shared memory, fixed-order sums) finishes d_ro8, d_vd8 and d_z, the same
@@ -620,46 +621,133 @@ def weight_grads(pairs):
 weight_grads.launches = 0
 
 
-def rowsums_to_bf16_plain(span, R: int, nb: int, nt: int, W: int):
-    """The per-ray code cotangent sums, one f32 span ``rs_s | rs_t | rs_v``
-    of R·(nb + nt + 1)·W values, rounded to nearest even into
+# The dx kernel's warp slices, which fix the order of the per-ray
+# code-cotangent sums (``ray_sums`` in csrc/train_fused.cu).
+_SLICE_ROWS = 16
+
+
+def slice_rows(R: int, S: int) -> int:
+    """Rows of the dx kernel's slice span: one per 16-point slice."""
+    return -(-R * S // _SLICE_ROWS)
+
+
+def _ladder(v: torch.Tensor) -> torch.Tensor:
+    """A warp's shuffle ladder over its 16 rows (n, 16, C) -> (n, C): rows
+    k and k + 8 first, then a pairwise tree over k = 0..7 (f32 addition
+    commutes, so each pair's order does not matter)."""
+    u = v[:, :8] + v[:, 8:]
+    u = u[:, 0::2] + u[:, 1::2]
+    u = u[:, 0::2] + u[:, 1::2]
+    return u[:, 0] + u[:, 1]
+
+
+def ray_sums_plain(g: torch.Tensor, R: int, S: int):
+    """The first stage of the per-ray sums of ``g`` (R·S, C) f32, point
+    ``p`` of ray ``p // S``, as ``trunk_dx_kernel``'s ``ray_sums`` forms
+    them: per 16-row warp slice, the ladder sum of each ray it touches.
+    Returns ``(rays (R, C), slices (slice_rows(R, S), C))``: ``rays[r]``
+    the partial of ray ``r`` over the slice where it starts (its whole
+    sum if it ends there too), ``slices[s]`` the partial over slice ``s``
+    of the ray that started before it. Entries no ray writes are NaN, so
+    a reader of one shows."""
+    P, C = g.shape
+    dev, nan = g.device, float("nan")
+    n_sl = slice_rows(R, S)
+    rows = torch.arange(n_sl * _SLICE_ROWS, device=dev)
+    ray_of = torch.where(rows < P, rows // S, -1).view(n_sl, _SLICE_ROWS)
+    gp = torch.zeros(n_sl * _SLICE_ROWS, C, dtype=g.dtype, device=dev)
+    gp[:P] = g
+    gp = gp.view(n_sl, _SLICE_ROWS, C)
+    sl0 = torch.arange(n_sl, device=dev) * _SLICE_ROWS
+    first = sl0 // S
+    last = torch.clamp(sl0 + _SLICE_ROWS - 1, max=P - 1) // S
+    rays = torch.full((R, C), nan, dtype=g.dtype, device=dev)
+    slices = torch.full((n_sl, C), nan, dtype=g.dtype, device=dev)
+    zero = torch.zeros((), dtype=g.dtype, device=dev)
+    for k in range((_SLICE_ROWS - 1) // S + 2):     # rays a slice touches
+        ray = first + k
+        on = ray <= last
+        s = _ladder(torch.where((ray_of == ray[:, None])[..., None], gp,
+                                zero))
+        starts = on & (ray * S >= sl0)
+        rays[ray[starts]] = s[starts]
+        before = on & ~starts
+        slices[before] = s[before]
+    return rays, slices
+
+
+def fold_ray_sums_f32(rays: torch.Tensor, slices: torch.Tensor, R: int,
+                      S: int) -> torch.Tensor:
+    """The second stage, in f32: each ray's sum (R, C), ``rays[r]`` plus
+    the row of each later slice the ray touches, left to right
+    (``ray_sum_fold_kernel``'s order)."""
+    dev = rays.device
+    r0 = torch.arange(R, device=dev) * S
+    s0, s1 = r0 // _SLICE_ROWS, (r0 + S - 1) // _SLICE_ROWS
+    acc = rays
+    for d in range(1, (S - 1) // _SLICE_ROWS + 2):
+        on = (s0 + d <= s1)[:, None]
+        acc = torch.where(on, acc + slices[torch.clamp(
+            s0 + d, max=slices.shape[0] - 1)], acc)
+    return acc
+
+
+def _sections(x: torch.Tensor, rows: int, nb: int, nt: int, W: int):
+    """A flat s | t | v span of ``rows`` rows -> (rows, (nb + nt + 1)·W),
+    each row the s, t and v values of one ray or tile row."""
+    n_s, n_t = rows * nb * W, rows * nt * W
+    return torch.cat([x[:n_s].view(rows, nb * W),
+                      x[n_s:n_s + n_t].view(rows, nt * W),
+                      x[n_s + n_t:].view(rows, W)], dim=1)
+
+
+def fold_ray_sums_plain(x, sl, R: int, S: int, nb: int, nt: int, W: int):
+    """The code cotangents' last pass in plain PyTorch: ``x`` the rays'
+    f32 span (R·(nb + nt + 1)·W, laid out ``s (R, nb, W) | t (R, nt, W)
+    | v (R, W)``) and ``sl`` the slices' span (the same layout with
+    :func:`slice_rows` rows), as ``trunk_dx_kernel`` leaves them, added by
+    :func:`fold_ray_sums_f32` and rounded to nearest even into
     ``(d_sproj (R, nb, W), d_tproj (R, nt, W), d_vcontrib (R, W))`` bf16
     — the TPU kernels' ``h.ray_sum(g).astype(bf16)``
     (``codenerf_tpu/ops/fused_train.py:321,323,345``)."""
-    n_s, n_t = R * nb * W, R * nt * W
-    y = span.to(torch.bfloat16)
-    return (y[:n_s].view(R, nb, W), y[n_s:n_s + n_t].view(R, nt, W),
-            y[n_s + n_t:].view(R, W))
+    y = fold_ray_sums_f32(_sections(x, R, nb, nt, W),
+                          _sections(sl, slice_rows(R, S), nb, nt, W), R,
+                          S).to(torch.bfloat16)
+    return (y[:, :nb * W].reshape(R, nb, W),
+            y[:, nb * W:(nb + nt) * W].reshape(R, nt, W),
+            y[:, (nb + nt) * W:].contiguous())
 
 
-def rowsums_to_bf16(span, R: int, nb: int, nt: int, W: int):
-    """:func:`rowsums_to_bf16_plain` by the CUDA kernel that ``fused_step``
-    runs last in every mode (``rowsum_bf16_kernel``, one launch for the
+def fold_ray_sums(x, sl, R: int, S: int, nb: int, nt: int, W: int):
+    """:func:`fold_ray_sums_plain` by the CUDA kernel that ``fused_step``
+    runs last in every mode (``ray_sum_fold_kernel``, one launch for the
     three outputs), for its check against the plain version on the card:
-    each output the bits of ``x.to(torch.bfloat16)``. CUDA tensors only:
-    ``span`` (R·(nb + nt + 1)·W,) f32, contiguous and 16-byte aligned;
-    R, nb, nt >= 1 and W a multiple of 8. Counts its launches in
-    ``rowsums_to_bf16.launches``."""
-    if R < 1 or nb < 1 or nt < 1 or W < 8 or W % 8:
-        raise ValueError(f"rowsums_to_bf16 takes R, nb, nt >= 1 and W a "
-                         f"multiple of 8; got R={R}, nb={nb}, nt={nt}, "
-                         f"W={W}")
-    dev = fused_mlp._check_operands("rowsums_to_bf16", [
-        ("span", span, torch.float32, (R * (nb + nt + 1) * W,))])
+    the same bits. CUDA tensors only: ``x`` (R·(nb + nt + 1)·W,) and
+    ``sl`` (slice_rows(R, S)·(nb + nt + 1)·W,) f32, contiguous and 16-byte
+    aligned; R, S, nb, nt >= 1 and W a multiple of 8. Counts its launches
+    in ``fold_ray_sums.launches``."""
+    if R < 1 or S < 1 or nb < 1 or nt < 1 or W < 8 or W % 8:
+        raise ValueError(f"fold_ray_sums takes R, S, nb, nt >= 1 and W a "
+                         f"multiple of 8; got R={R}, S={S}, nb={nb}, "
+                         f"nt={nt}, W={W}")
+    C = (nb + nt + 1) * W
+    dev = fused_mlp._check_operands("fold_ray_sums", [
+        ("x", x, torch.float32, (R * C,)),
+        ("sl", sl, torch.float32, (slice_rows(R, S) * C,))])
     outs = [torch.empty(R, k, W, dtype=torch.bfloat16, device=dev)
             for k in (nb, nt)] + [torch.empty(R, W, dtype=torch.bfloat16,
                                               device=dev)]
-    rc = library().rowsum_bf16_step(
-        *[_ptr(x) for x in (span, *outs)], R, nb, nt, W,
+    rc = library().ray_sum_fold_step(
+        *[_ptr(t) for t in (x, sl, *outs)], R, S, nb, nt, W,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"rowsums_to_bf16 CUDA kernel failed: cudaError "
+        raise RuntimeError(f"fold_ray_sums CUDA kernel failed: cudaError "
                            f"{rc}")
-    rowsums_to_bf16.launches += 1
+    fold_ray_sums.launches += 1
     return tuple(outs)
 
 
-rowsums_to_bf16.launches = 0
+fold_ray_sums.launches = 0
 
 
 def backward_chain_plain(cfg: NetConfig, R: int, S: int, acts, sproj, tproj,
@@ -881,8 +969,8 @@ def _bind(lib: ctypes.CDLL):
     lib.plane_head_step.restype = ci
     lib.sigma_head_step.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     lib.sigma_head_step.restype = ci
-    lib.rowsum_bf16_step.argtypes = [vp] * 4 + [ci] * 4 + [vp]
-    lib.rowsum_bf16_step.restype = ci
+    lib.ray_sum_fold_step.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    lib.ray_sum_fold_step.restype = ci
 
 
 def library() -> ctypes.CDLL:
@@ -894,8 +982,8 @@ def library() -> ctypes.CDLL:
     and, each alone for its check, the
     weight-gradient kernel ``weight_grads_step``, the input chain
     ``input_chain_step``, the four-plane head ``plane_head_step``, the
-    sigma-only head ``sigma_head_step`` and the code cotangents'
-    conversion ``rowsum_bf16_step``."""
+    sigma-only head ``sigma_head_step`` and the code cotangents' last
+    pass ``ray_sum_fold_step``."""
     from codenerf_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)

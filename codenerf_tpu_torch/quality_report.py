@@ -252,7 +252,8 @@ def run_once(args, seed: int, out_dir: str, net=None,
     """One seed of the protocol into ``out_dir``. ``net`` (a
     ``NetConfig``), ``batch_size`` and ``device`` override the flagship
     widths, the 8192-ray batch and ``args.device`` (the CPU tests run a
-    narrow net). Returns the seed's means, the per-object rows and the
+    narrow net). Returns the seed's means, the per-object rows, the fitted
+    codes (a (shape, texture) pair of f32 arrays per object) and the
     host-clock seconds of training and of each object's fitting."""
     import torch
 
@@ -313,7 +314,7 @@ def run_once(args, seed: int, out_dir: str, net=None,
         eval_hp=hp, eval_occ=False, fine_model=st.fine_model,
         opt_rays=args.opt_rays)
 
-    rows, fit_s = [], []
+    rows, fit_s, codes = [], [], []
     t_test0 = time.time()
     master = torch.Generator().manual_seed(seed)
     group = max(1, args.opt_group)
@@ -338,6 +339,8 @@ def run_once(args, seed: int, out_dir: str, net=None,
             imgs_g, poses_g, focals_g, tgt, [g[0] for g in gens],
             num_opts=args.num_opts, lr=1e-2, lr_half_interval=50)
         hist = res.psnr_history
+        codes += [(s.cpu().numpy(), t.cpu().numpy()) for s, t in zip(
+            res.shape_codes, res.texture_codes)]
         sync()
         fit_s += [(time.time() - t_fit) / len(idx)] * len(idx)
         ev = optimizer.evaluate_objects(
@@ -366,7 +369,7 @@ def run_once(args, seed: int, out_dir: str, net=None,
     return {"seed": seed, "psnr": mean_psnr, "ssim": mean_ssim,
             "train_psnr": train_psnr, "train_s": train_time,
             "test_s": test_time, "per_object_psnr": [r[1] for r in rows],
-            "rows": rows, "fit_s": fit_s,
+            "rows": rows, "fit_s": fit_s, "codes": codes,
             "run_dir": trainer.save_dir}
 
 

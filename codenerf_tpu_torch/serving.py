@@ -1,0 +1,265 @@
+"""Rendering service: an HTTP server over a trained model (counterpart of
+``codenerf_tpu/serving.py``).
+
+The networks and code tables stay on the device; each request renders one
+image through the eval path (``renderer.render_image``, the plain
+module(s)) and returns it as a PNG. Stdlib HTTP only:
+
+  GET  /healthz  -> {"status": "ok", "device": "...", "n_objects": N}
+  GET  /stats    -> request count, latency quantiles (p50, p95, max over
+                    the last 1,000 requests), the (H, W, deterministic)
+                    keys rendered so far
+  POST /render   -> image/png (400 on a bad request, 404 on another path)
+     JSON body:
+       camera: either {"c2w": 4x4 nested list}
+               or     {"azimuth": rad, "elevation": rad, "radius": float}
+       codes:  either {"obj": int}  (a training object's codes)
+               or     {"shape_code": [D], "texture_code": [D]}
+       optional: "H", "W" (default 128), "focal" (default 1.1*W),
+                 "deterministic" (default true), "seed" (default 0)
+
+Requests are serialized onto the one device through a lock. ``deterministic:
+false`` draws the depths from a ``torch.Generator`` on the device seeded
+with ``seed`` (the JAX package draws from its own PRNG, so only
+deterministic renders agree across the packages). There is nothing to
+compile: ``compiled_sizes`` lists the sizes rendered, which keeps the JAX
+server's ``/stats`` fields.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+# Raw-code occupancy grids cached at most (object grids are bounded by the
+# table size already).
+_DIGEST_GRIDS = 32
+
+
+class RenderServer:
+    def __init__(self, trainables: Dict[str, Any], hp,
+                 host: str = "127.0.0.1", port: int = 0,
+                 use_occupancy: bool = False, occ_grid_size: int = 64,
+                 occ_radius: Optional[float] = None):
+        """``trainables``: ``model`` (a ``CodeNeRF`` on the serving
+        device), ``shape_codes`` and ``texture_codes`` (N, D), and
+        ``fine_model`` (the separate fine network, or None), as
+        ``utils/checkpoint.load_run`` returns them. ``use_occupancy=True``
+        builds a per-object occupancy grid from the trained density
+        (lazily, cached per object) and renders with empty-space skipping.
+        Needs a grid extent: ``occ_radius`` or
+        ``hp.render.bound_sphere_radius``."""
+        self.model = trainables["model"]
+        self.fine_model = trainables.get("fine_model")
+        self.device = next(self.model.parameters()).device
+        self.shape_codes = trainables["shape_codes"].to(self.device)
+        self.texture_codes = trainables["texture_codes"].to(self.device)
+        self.hp = hp
+        self.n_objects = int(self.shape_codes.shape[0])
+        self.use_occupancy = use_occupancy
+        self._occ_grid_size = occ_grid_size
+        self._occ_radius = (occ_radius if occ_radius is not None
+                            else hp.render.bound_sphere_radius)
+        if use_occupancy and self._occ_radius is None:
+            raise ValueError(
+                "use_occupancy needs a grid extent: pass occ_radius or set "
+                "bound_sphere_radius in the config")
+        if use_occupancy and hp.render.shared_jitter:
+            # the shared-jitter quirk is one global z slab, so per-ray
+            # bounds (and hence the grid) would be silently dropped by the
+            # sampler
+            raise ValueError(
+                "use_occupancy requires per-ray sampling: shared_jitter "
+                "cannot carry per-ray occupancy bounds")
+        self._occ_grids: Dict[Any, Any] = {}
+        self._sizes: Dict[tuple, None] = {}
+        self._lock = threading.Lock()
+        self._latencies = []
+        self._count = 0
+        self._device = str(self.device)
+        self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
+        self.host, self.port = self._httpd.server_address[:2]
+
+    @classmethod
+    def from_checkpoint(cls, run_dir: str, hp, device="cuda",
+                        **kw) -> "RenderServer":
+        """A server over the run directory's networks and code tables
+        (``utils/checkpoint.load_run``: the latest ``ckpt/step_*.pt``,
+        else ``models.pth``), on ``device``."""
+        from codenerf_tpu_torch import resolve_device
+        from codenerf_tpu_torch.utils.checkpoint import load_run
+
+        model, fine_model, sc, tc = load_run(run_dir, hp,
+                                             resolve_device(device))
+        return cls({"model": model, "fine_model": fine_model,
+                    "shape_codes": sc, "texture_codes": tc}, hp, **kw)
+
+    # ------------------------------------------------------------ rendering
+    def _get_occ_grid(self, obj: int, shape_code, texture_code):
+        """Per-object grid, built from the trained density on first use.
+        Custom-code requests (obj == -1) are cached by a digest of the
+        code bytes, so repeated renders of the same edit don't rebuild."""
+        if obj >= 0 and obj in self._occ_grids:
+            return self._occ_grids[obj]
+        if obj < 0:
+            digest = hashlib.sha1(
+                shape_code.cpu().numpy().astype(np.float32).tobytes()
+                + texture_code.cpu().numpy().astype(np.float32).tobytes()
+            ).hexdigest()
+            if digest in self._occ_grids:
+                return self._occ_grids[digest]
+        from codenerf_tpu_torch.config import resolve_dtype
+        from codenerf_tpu_torch.core.occupancy import build_occupancy_grid
+
+        grid = build_occupancy_grid(
+            self.model, shape_code, texture_code, G=self._occ_grid_size,
+            radius=float(self._occ_radius),
+            compute_dtype=resolve_dtype(self.hp.compute_dtype))
+        if obj < 0:
+            digests = [k for k in self._occ_grids if isinstance(k, str)]
+            if len(digests) >= _DIGEST_GRIDS:
+                del self._occ_grids[digests[0]]
+        self._occ_grids[obj if obj >= 0 else digest] = grid
+        return grid
+
+    def _codes(self, req: Dict[str, Any]):
+        """``(obj, shape_code, texture_code)`` of a request; obj -1 for raw
+        codes."""
+        if "obj" in req:
+            obj = int(req["obj"])
+            if not 0 <= obj < self.n_objects:
+                raise ValueError(f"obj must be in [0, {self.n_objects})")
+            return obj, self.shape_codes[obj], self.texture_codes[obj]
+        if "shape_code" in req and "texture_code" in req:
+            D = self.shape_codes.shape[1]
+            codes = [torch.tensor(req[k], dtype=torch.float32)
+                     for k in ("shape_code", "texture_code")]
+            if any(tuple(c.shape) != (D,) for c in codes):
+                raise ValueError(f"shape_code and texture_code must hold "
+                                 f"{D} values each")
+            return -1, codes[0].to(self.device), codes[1].to(self.device)
+        raise ValueError("provide 'obj' or 'shape_code'+'texture_code'")
+
+    def render(self, req: Dict[str, Any]) -> np.ndarray:
+        """One request's image, (H, W, 3) uint8: the render clipped ×255."""
+        from codenerf_tpu_torch.config import resolve_dtype
+        from codenerf_tpu_torch.render_orbit import orbit_pose
+        from codenerf_tpu_torch.renderer import render_image
+
+        H = int(req.get("H", 128))
+        W = int(req.get("W", 128))
+        focal = float(req.get("focal", 1.1 * W))
+        deterministic = bool(req.get("deterministic", True))
+        if "c2w" in req:
+            c2w = np.asarray(req["c2w"], dtype=np.float32)
+            if c2w.shape != (4, 4):
+                raise ValueError("c2w must be 4x4")
+        else:
+            c2w = orbit_pose(float(req.get("azimuth", 0.0)),
+                             float(req.get("elevation", 0.3)),
+                             float(req.get("radius", 1.3)))
+        obj, shape_code, texture_code = self._codes(req)
+        seed = int(req.get("seed", 0))
+        with self._lock:
+            t0 = time.perf_counter()
+            gen = None
+            if not deterministic:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+            occ = (self._get_occ_grid(obj, shape_code, texture_code)
+                   if self.use_occupancy else None)
+            img = render_image(
+                self.model, self.hp.render, H, W, focal,
+                torch.from_numpy(c2w).to(self.device), shape_code,
+                texture_code, gen, chunk=4096,
+                compute_dtype=resolve_dtype(self.hp.compute_dtype),
+                occ_grid=occ, fine_model=self.fine_model).cpu().numpy()
+            self._sizes[(H, W, deterministic)] = None
+            self._latencies.append(time.perf_counter() - t0)
+            self._count += 1
+        return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+    def stats(self) -> Dict[str, Any]:
+        lat = (np.asarray(self._latencies[-1000:]) if self._latencies
+               else np.zeros(1))
+        return {
+            "requests": self._count,
+            "latency_ms": {
+                "p50": float(np.quantile(lat, 0.5) * 1e3),
+                "p95": float(np.quantile(lat, 0.95) * 1e3),
+                "max": float(lat.max() * 1e3),
+            },
+            "compiled_sizes": [list(k) for k in self._sizes],
+        }
+
+    # ------------------------------------------------------------------ http
+    def _handler_class(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # quiet
+                pass
+
+            def _json(self, code: int, payload: Dict[str, Any]):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._json(200, {"status": "ok", "device": server._device,
+                                     "n_objects": server.n_objects})
+                elif self.path == "/stats":
+                    self._json(200, server.stats())
+                else:
+                    self._json(404, {"error": "unknown path"})
+
+            def do_POST(self):
+                if self.path != "/render":
+                    self._json(404, {"error": "unknown path"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    img = server.render(req)
+                    from PIL import Image
+
+                    buf = io.BytesIO()
+                    Image.fromarray(img).save(buf, format="PNG")
+                    data = buf.getvalue()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "image/png")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                except (ValueError, KeyError, json.JSONDecodeError) as e:
+                    self._json(400, {"error": str(e)})
+
+        return Handler
+
+    # -------------------------------------------------------------- control
+    def serve_forever(self):
+        self._serving = True
+        self._httpd.serve_forever()
+
+    def start_background(self) -> threading.Thread:
+        t = threading.Thread(target=self.serve_forever, daemon=True)
+        t.start()
+        return t
+
+    def shutdown(self):
+        # HTTPServer.shutdown() blocks forever unless serve_forever is
+        # running — guard so shutting down a never-started server works.
+        if getattr(self, "_serving", False):
+            self._httpd.shutdown()
+        self._httpd.server_close()

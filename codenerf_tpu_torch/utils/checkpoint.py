@@ -18,7 +18,9 @@ Reference formats:
 - ``models.pth`` (``src/trainer.py:165-174``): ``{model_params,
   shape_code_params: {weight}, texture_code_params: {weight}, niter,
   nepoch}`` with the reference layer names — what
-  ``tools/export_reference_checkpoint.py`` writes from a JAX run.
+  ``tools/export_reference_checkpoint.py`` writes from a JAX run and
+  ``python -m codenerf_tpu_torch.export_reference_checkpoint`` from a
+  port run.
 - ``codes.pth`` (``src/optimizer.py:137-147``): the optimized codes and
   per-object-index PSNR/SSIM lists.
 """
@@ -77,6 +79,12 @@ def _load(ckpt_dir: str, step: Optional[int], map_location) -> dict:
             raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
     return torch.load(step_path(ckpt_dir, step), map_location=map_location,
                       weights_only=True)
+
+
+def read_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """The payload of a training checkpoint (the latest when ``step`` is
+    None) as :func:`save_checkpoint` wrote it, read on the CPU."""
+    return _load(ckpt_dir, step, "cpu")
 
 
 def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):

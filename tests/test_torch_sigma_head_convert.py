@@ -9,11 +9,12 @@ kernels' standalone CUDA wrappers refusing what the kernels do not take.
   forward then that head, bit for bit.
 - ``sigma_head_plain`` bit-equal to ``plane_head_plain``'s sigma plane on
   the same t (the CUDA kernels share that lane too).
-- ``rowsums_to_bf16_plain`` bit-equal to ``jnp.asarray(x).astype(
-  jnp.bfloat16)`` of each segment of the span, on seeded f32 values with
-  exact rounding ties (both directions), ±0, subnormals and values near
-  the bf16 maximum (and past it, which round to infinity) at the head of
-  every segment.
+- ``fold_ray_sums_plain`` (the code cotangents' last pass) bit-equal to
+  ``jnp.asarray(x).astype(jnp.bfloat16)`` of each segment of the rays'
+  span where every ray lies within one 16-point slice (S = 16: the pass
+  only rounds), on seeded f32 values with exact rounding ties (both
+  directions), ±0, subnormals and values near the bf16 maximum (and past
+  it, which round to infinity) at the head of every segment.
 
 Tolerances, each with its reason. The sigma head: the port's t differs
 from the JAX kernel's by f32 summation order, which flips an occasional
@@ -174,12 +175,16 @@ def _span_values(R_, nb, nt, W, seed):
 
 @pytest.mark.parametrize("nb,nt", [(2, 1), (3, 2)])
 def test_rowsums_to_bf16_plain_matches_jax_astype(nb, nt):
-    """Each output of ``rowsums_to_bf16_plain`` is the bits of
-    ``jnp.astype(bf16)`` of its segment of the span, in its shape."""
-    W = 256
+    """Each output of ``fold_ray_sums_plain`` is the bits of
+    ``jnp.astype(bf16)`` of its segment of the rays' span, in its shape,
+    when every ray lies within one slice (the slice rows, all NaN, are not
+    read)."""
+    W, S = 256, 16
     x = _span_values(R, nb, nt, W, seed=nb)
-    got = fused_train.rowsums_to_bf16_plain(torch.from_numpy(x), R, nb, nt,
-                                            W)
+    slices = torch.full((fused_train.slice_rows(R, S) * (nb + nt + 1) * W,),
+                       float("nan"))
+    got = fused_train.fold_ray_sums_plain(torch.from_numpy(x), slices, R, S,
+                                          nb, nt, W)
     n_s, n_t = R * nb * W, R * nt * W
     segs = (x[:n_s].reshape(R, nb, W), x[n_s:n_s + n_t].reshape(R, nt, W),
             x[n_s + n_t:].reshape(R, W))
@@ -232,19 +237,20 @@ def test_sigma_head_wrapper_refuses(case):
 
 
 def _span_operands():
-    return dict(span=torch.from_numpy(_span_values(4, 2, 1, 256, seed=9)),
-                R=4, nb=2, nt=1, W=256)
+    return dict(x=torch.from_numpy(_span_values(4, 2, 1, 256, seed=9)),
+                sl=torch.zeros(fused_train.slice_rows(4, 96) * 4 * 256),
+                R=4, S=96, nb=2, nt=1, W=256)
 
 
 ROWSUM_REFUSALS = {
     "cpu": ({}, "CUDA tensors"),
-    "dtype": ({"span": lambda o: o["span"].double()}, "dtype"),
-    "bf16": ({"span": lambda o: o["span"].to(torch.bfloat16)}, "dtype"),
-    "shape": ({"span": lambda o: o["span"][:-256].contiguous()}, "shape"),
-    "layout": ({"span": lambda o: o["span"].view(4, -1)}, "shape"),
-    "contiguity": ({"span": lambda o: torch.stack(
-        [o["span"], o["span"]], 1)[:, 0]}, "contiguous"),
-    "W": ({"W": lambda o: 252, "span": lambda o: torch.zeros(4 * 4 * 252)},
+    "dtype": ({"x": lambda o: o["x"].double()}, "dtype"),
+    "bf16": ({"sl": lambda o: o["sl"].to(torch.bfloat16)}, "dtype"),
+    "shape": ({"x": lambda o: o["x"][:-256].contiguous()}, "shape"),
+    "layout": ({"sl": lambda o: o["sl"].view(4, -1)}, "shape"),
+    "contiguity": ({"x": lambda o: torch.stack(
+        [o["x"], o["x"]], 1)[:, 0]}, "contiguous"),
+    "W": ({"W": lambda o: 252, "x": lambda o: torch.zeros(4 * 4 * 252)},
           "multiple of 8"),
     "nt": ({"nt": lambda o: 0}, "nt"),
 }
@@ -252,13 +258,13 @@ ROWSUM_REFUSALS = {
 
 @pytest.mark.parametrize("case", list(ROWSUM_REFUSALS))
 def test_rowsums_to_bf16_wrapper_refuses(case):
-    """``fused_train.rowsums_to_bf16`` likewise: CUDA tensors only; a wrong
-    dtype, shape, layout, W or block count raises before the device is
-    looked at."""
+    """``fused_train.fold_ray_sums`` likewise: CUDA tensors only; a wrong
+    dtype, shape, layout, W or block count in either span raises before
+    the device is looked at."""
     ops = _span_operands()
     changes, words = ROWSUM_REFUSALS[case]
     ops.update({k: f(ops) for k, f in changes.items()})
-    before = fused_train.rowsums_to_bf16.launches
+    before = fused_train.fold_ray_sums.launches
     with pytest.raises(ValueError, match=words):
-        fused_train.rowsums_to_bf16(**ops)
-    assert fused_train.rowsums_to_bf16.launches == before
+        fused_train.fold_ray_sums(**ops)
+    assert fused_train.fold_ray_sums.launches == before

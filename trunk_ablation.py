@@ -9,7 +9,7 @@ cost: removing work can also let the rest overlap differently.
 
     python3 trunk_ablation.py            # the trunk kernels
     python3 trunk_ablation.py --dw-head  # the dW kernel and the head
-    python3 trunk_ablation.py --small    # the sigma head, the conversion
+    python3 trunk_ablation.py --small    # the sigma head, the last pass
 
 The trunk: ``trunk_fwd_kernel`` and ``trunk_dx_kernel`` in the frozen
 mode at 4096 × 96 and the weight-gradient mode at 16,384 × 96, W=256.
@@ -20,12 +20,12 @@ weight-gradient mode at 16,384 × 96 and the frozen mode at 4096 × 96.
 ``--small``: not parts removed but the shapes of two small kernels,
 each alone on seeded random inputs: ``sigma_head_kernel``
 (``fused_mlp.sigma_head``) at 16,384 × 32 with 4, 8 or 16 points a
-warp, 4 blocks an SM, or one or 16 waves, and ``rowsum_bf16_kernel``
-(``fused_train.rowsums_to_bf16``) on a training call's span (16,384 ×
-5 × 256 values) with one, two or four waves of resident blocks,
-streaming loads, an L2 prefetch hint or a warp's loads contiguous;
-beside them, once, ``torch.matmul(t, w_sig)`` and ``x.to(torch.bfloat16)``
-on the same inputs.
+warp, 4 blocks an SM, or one or 16 waves, and ``ray_sum_fold_kernel``
+(``fused_train.fold_ray_sums``) on a training call's spans (16,384 ×
+96: the rays' and the slices' rows, 5 × 256 values a row) with one, two or
+four waves of resident blocks; beside them, once, ``torch.matmul(t,
+w_sig)`` and ``x.to(torch.bfloat16)`` of the rays' span. The trunk list
+also times the dx kernel without its per-ray sums (``no_ray_sums``).
 
 Prints the card line, one line per variant, and exits non-zero without a
 card. Needs one CUDA card.
@@ -46,8 +46,10 @@ OUT = os.path.join(HERE, "build", "trunk_ablation")
 # variant: [(text in the source, its replacement), ...]
 VARIANTS = {
     "base": [],
-    "no_pe (fwd: PE not built)": [
-        ("      build_pe(a, A, rays, m0, t2);\n", "")],
+    "no_pe (fwd: PE not built; the rows' rays kept)": [
+        ("      build_pe(a, A, rays, m0, t2);\n",
+         "      if ((t2 & 3) == 0)\n"
+         "        rays[t2 >> 2] = min(m0 + (t2 >> 2), a.P - 1) / a.S;\n")],
     "no_epilogue (fwd: register epilogue)": [
         ("        fwd_epilogue(acc, L, biases + l * TW, A, nh, m0, a.P, a.S, "
          "wl, lane);\n", "")],
@@ -61,6 +63,9 @@ VARIANTS = {
     "no_dx_epilogue (dx)": [
         ("        dx_epilogue(acc, L, a, A, mk, to_smem || L.out, nh, m0, wl, "
          "lane);\n", "")],
+    "no_ray_sums (dx: no per-ray code-cotangent sums)": [
+        ("  if (L.rs_pre)\n    ray_sums(", "  if (false)\n    ray_sums("),
+        ("  if (L.rs_post)\n    ray_sums(", "  if (false)\n    ray_sums(")],
     "no_gh_stores (dx)": [
         ("        if (L.out) {\n          pair_sync(rh);\n"
          "          store_tile(L.out, A, TW, m0, a.P, t2);",
@@ -97,49 +102,6 @@ DW_VARIANTS = {
 
 
 # The small kernels' shapes.
-RS_LOOP_HEAD = """\
-  for (size_t i = 8 * (blockIdx.x * (size_t)RS_THREADS + threadIdx.x);
-       i < n; i += 8 * (size_t)gridDim.x * RS_THREADS) {
-    const float4 lo = __ldg(reinterpret_cast<const float4*>(x + i));
-    const float4 hi = __ldg(reinterpret_cast<const float4*>(x + i + 4));
-"""
-# A float4 load that asks L2 to fetch the whole 256-byte line.
-LD_L2_256 = """\
-__device__ __forceinline__ float4 ld_l2_256(const float4* p) {
-  float4 v;
-  asm volatile("ld.global.nc.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
-  return v;
-}
-
-"""
-RS_WARP_LOOP = """\
-  const size_t lane4 = 4 * (threadIdx.x & 31);
-  for (size_t b = 256 * ((blockIdx.x * (size_t)RS_THREADS + threadIdx.x)
-                         / 32);
-       b + lane4 < n; b += 8 * (size_t)gridDim.x * RS_THREADS) {
-    const size_t i0 = b + lane4, i1 = i0 + 128;
-    const float4 v0 = __ldg(reinterpret_cast<const float4*>(x + i0));
-    const float4 v1 =
-        i1 < n ? __ldg(reinterpret_cast<const float4*>(x + i1))
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-    __align__(8) __nv_bfloat162 y0[2] = {
-        __float22bfloat162_rn(make_float2(v0.x, v0.y)),
-        __float22bfloat162_rn(make_float2(v0.z, v0.w))};
-    __align__(8) __nv_bfloat162 y1[2] = {
-        __float22bfloat162_rn(make_float2(v1.x, v1.y)),
-        __float22bfloat162_rn(make_float2(v1.z, v1.w))};
-    auto out = [&](size_t i) {
-      return i < n_s ? d_s + i
-             : i < n_st ? d_t + (i - n_s) : d_v + (i - n_st);
-    };
-    *reinterpret_cast<uint2*>(out(i0)) = *reinterpret_cast<const uint2*>(y0);
-    if (i1 < n)
-      *reinterpret_cast<uint2*>(out(i1)) = *reinterpret_cast<const uint2*>(y1);
-    continue;
-    const size_t i = 0;
-    const float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-"""
 SH = "constexpr int SH_POINTS = 8;"
 SH_BOUNDS = """\
 __global__ void __launch_bounds__(PH_THREADS, PH_BLOCKS_PER_SM)
@@ -154,19 +116,8 @@ SMALL_VARIANTS = {
         "PH_BLOCKS_PER_SM", "4"))],
     "sigma head: 1 wave": [(PH, PH.replace("* 4", "* 1"))],
     "sigma head: 16 waves": [(PH, PH.replace("* 4", "* 16"))],
-    "conversion: 1 wave": [(RS, RS.replace("* 4", "* 1"))],
-    "conversion: 2 waves": [(RS, RS.replace("* 4", "* 2"))],
-    "conversion: streaming loads (__ldcs)": [
-        ("__ldg(reinterpret_cast<const float4*>(x + i));\n"
-         "    const float4 hi = __ldg(",
-         "__ldcs(reinterpret_cast<const float4*>(x + i));\n"
-         "    const float4 hi = __ldcs(")],
-    "conversion: loads with an L2 256-byte prefetch hint": [
-        (RS_LOOP_HEAD, RS_LOOP_HEAD.replace("__ldg(", "ld_l2_256(")),
-        ("constexpr int RS_THREADS = 256;\n",
-         LD_L2_256 + "constexpr int RS_THREADS = 256;\n")],
-    "conversion: a warp's loads contiguous, two 8-byte stores": [(
-        RS_LOOP_HEAD, RS_WARP_LOOP)],
+    "last pass: 1 wave": [(RS, RS.replace("* 4", "* 1"))],
+    "last pass: 2 waves": [(RS, RS.replace("* 4", "* 2"))],
 }
 
 
@@ -251,7 +202,7 @@ def dw_head(libs) -> None:
 
 
 def small(libs) -> None:
-    """The --small table: sigma_head_kernel and rowsum_bf16_kernel alone
+    """The --small table: sigma_head_kernel and ray_sum_fold_kernel alone
     on seeded random inputs at the main paths' largest shapes."""
     import torch
 
@@ -265,11 +216,13 @@ def small(libs) -> None:
     w_sig = torch.randn(W, generator=gen, device=dev) * 0.1
     b_sig = torch.zeros(1, device=dev)
     span = torch.randn(n, generator=gen, device=dev)
+    tiles = torch.randn(fused_train.slice_rows(16384, 96) * 5 * 256,
+                        generator=gen, device=dev)
     w_bf16 = w_sig.to(torch.bfloat16)
     lib = (chip_smoke.device_ms(lambda: torch.matmul(t, w_bf16), ""),
            chip_smoke.device_ms(lambda: span.to(torch.bfloat16), ""))
-    print("variant | sigma_head_kernel ms (16384x32) | rowsum_bf16_kernel "
-          "ms (16384x5x256)", flush=True)
+    print("variant | sigma_head_kernel ms (16384x32) | ray_sum_fold_kernel "
+          "ms (16384x96)", flush=True)
     print(f"torch.matmul(t, w_sig) | x.to(torch.bfloat16) | {lib[0]:.4f} | "
           f"{lib[1]:.4f}", flush=True)
     for name, so in libs:
@@ -278,8 +231,9 @@ def small(libs) -> None:
             lambda: fused_mlp.sigma_head(16384, 32, t, w_sig, b_sig),
             "sigma_head_kernel")
         conv = chip_smoke.device_ms(
-            lambda: fused_train.rowsums_to_bf16(span, 16384, 3, 1, W),
-            "rowsum_bf16_kernel")
+            lambda: fused_train.fold_ray_sums(span, tiles, 16384, 96, 3, 1,
+                                              W),
+            "ray_sum_fold_kernel")
         print(f"{name} | {sig:.4f} | {conv:.4f}", flush=True)
 
 
