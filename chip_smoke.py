@@ -138,21 +138,27 @@ Phases, each printed on its own line with its seconds:
     ``sigma_head_kernel`` and ``ray_sum_fold_kernel``, whose launches are
     those of the modes that run them, and ``pack_kernel``, counted by
     its own wrapper), the card line, and the last
-    line ``{"ok": true, "device": {...}}`` (after phase 14);
+    line ``{"ok": true, "device": {...}}`` (after phases 14 and 16);
 14. quality, cut, printed after the ``kernels`` line: the port's quality
     report (``codenerf_tpu_torch.quality_report``, the twin of
     ``tools/quality_report.py``) on seed 0 of the standard protocol at
     the flagship widths, fused single pass, 96 samples, 16 + 4 synthetic
     objects, 24 views at 64×64, cut to 1,000 training steps of 8192
     rays; then the 4 held-out objects fitted again on the trained
-    checkpoint sequentially, with ``--opt_group 4`` and with
-    ``--opt_rays 1024``. It prints the training PSNR at each logged step
-    and each object's fitting start -> end PSNR and held-out PSNR/SSIM,
-    and fails on a non-finite value, a training PSNR that does not rise,
-    an object whose fitting does not end above its start, two sequential
-    fits whose codes are not the same bits, or an ``--opt_group`` row off
-    the sequential rerun's (fitting start by 1e-4 dB, held-out PSNR by
-    0.01 dB, SSIM by 1e-3; ``quality_path`` says why). Each run counts its launches in
+    checkpoint sequentially, with ``--opt_group 4``, with
+    ``--opt_rays 1024``, and with ``--opt_group 4`` on scenes rendered on
+    the card (``--scene_backend device``), its eval scored on the scene's
+    pixels and then on ground truth rendered on the card
+    (``--device_gt``). It prints the training PSNR at each logged step,
+    each object's fitting start -> end PSNR and held-out PSNR/SSIM, and
+    each run's fitting and eval seconds an object, and fails on a
+    non-finite value, a training PSNR that does not rise, an object whose
+    fitting does not end above its start, two sequential fits whose codes
+    are not the same bits, an ``--opt_group`` row off the sequential
+    rerun's (fitting start by 1e-4 dB, held-out PSNR by 0.01 dB, SSIM by
+    1e-3; ``quality_path`` says why), or a ``--device_gt`` row off the
+    device-scene arm's (other codes, or held-out PSNR by 0.02 dB or SSIM
+    by 1e-3; ``device_gt_check``). Each run counts its launches in
     its own window (one ``train`` and one ``pack`` a training step, one
     ``codes`` a fitting step and object, one ``pack`` a fitting run);
     they are not in the ``kernels`` line, which phases 3-12 count;
@@ -171,6 +177,22 @@ Phases, each printed on its own line with its seconds:
     ``estimate_bound_radius``. No port kernel launches in it: these tools
     render through the plain module, as the JAX package renders through
     XLA.
+16. after phase 14, before the card line: the device scene renderers
+    at full scale and the native ray sampler (``scene_path``). The test
+    split of the full-scale chair protocol (704 objects × 250 views at
+    128×128, 8,650,752,000 B of uint8 on the host, after ``free -g``) is
+    rendered with ``synthetic_scene(backend="device")``: its wall, the
+    render alone, the copy rates and the peak device memory; 64 seeded
+    pairs must be within one level of the numpy path's bytes with under
+    0.5% of pixels differing, ``params_only`` must draw the same poses
+    and parameters, and ``make_gt_view_renderer`` must give 8 of the
+    pairs' bytes to 1/255. Then ``native/ray_sampler.cpp`` is built on the
+    card's host (``data/native.py``), ``RayBatchPipeline(backend="auto")``
+    must take it, and 200 batches of 16,384 rays through each backend and
+    layout on that split are timed (rays/s); every native batch must
+    gather ``images[obj, view, v, u]`` and a crop batch stay in the crop.
+    No port kernel launches in it: the renderers are plain PyTorch, as
+    the JAX package's are XLA.
 
 Any failure exits non-zero without the last line. Imports nothing of JAX
 or of the JAX package.
@@ -2857,6 +2879,14 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
              {"pack": 1, "codes": n_test * num_opts}),
             (f"--opt_rays {opt_rays}", ["--resume_train", "--opt_rays",
                                         str(opt_rays)],
+             {"pack": 1, "codes": n_test * num_opts}),
+            (_device_arms(group)[0], ["--resume_train", "--opt_group",
+                                      str(group), "--scene_backend",
+                                      "device"],
+             {"pack": 1, "codes": n_test * num_opts}),
+            (_device_arms(group)[1], ["--resume_train", "--opt_group",
+                                      str(group), "--scene_backend",
+                                      "device", "--device_gt"],
              {"pack": 1, "codes": n_test * num_opts})):
         args = quality_report.build_parser().parse_args(base + extra)
         t0 = time.perf_counter()
@@ -2872,7 +2902,8 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
             f"{ {k: v * on_card for k, v in want.items()} }); "
             f"{time.perf_counter() - t0:.1f} s host clock; training "
             f"{res['train_s']:.1f} s, fitting "
-            f"{[round(s, 3) for s in res['fit_s']]} s an object")
+            f"{[round(s, 3) for s in res['fit_s']]} s an object, eval "
+            f"{[round(s, 3) for s in res['eval_s']]} s an object")
         _expect(counts, {k: v * on_card for k, v in want.items()},
                 f"quality {what}")
         for name, p, s, h0, h1 in res["rows"]:
@@ -2913,7 +2944,328 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
     if not (d[0] <= 0.01 and d[1] <= 1e-3 and d[2] <= 1e-4):
         raise AssertionError(f"--opt_group {group}: rows off the "
                              f"sequential rerun's by {d}")
+    device_gt_check(runs, group)
     return runs
+
+
+def _device_arms(group: int) -> tuple:
+    """The names of phase 14's device-scene arms."""
+    scene = f"--opt_group {group} --scene_backend device"
+    return scene, f"{scene} --device_gt"
+
+
+def device_gt_check(runs: dict, group: int) -> None:
+    """Phase 14's device-scene arms: the fits of ``--device_gt`` are
+    those of the device-scene arm, the same codes bit for bit (fitting
+    repeats on the card, and both fit the same device-rendered target
+    views), so only the eval's ground truth differs: rendered on the card
+    from the generation parameters, or the scene's stored pixels. Every
+    object's held-out PSNR must be within 0.02 dB and its SSIM within
+    1e-3 of the pixel truth's (JAX's bar,
+    ``tests/test_optimization.py:557-558``)."""
+    import numpy as np
+
+    arms = _device_arms(group)
+    a, b = (runs[k] for k in arms)
+    for what in (f"--opt_group {group}",) + arms:
+        r = runs[what]
+        log(f"  quality {what}: mean held-out PSNR {r['psnr']:.4f} dB, "
+            f"SSIM {r['ssim']:.5f}; eval {np.mean(r['eval_s']):.3f} s an "
+            "object (host clock)")
+    d = _quality_spread(b["rows"], a["rows"])
+    same = all(np.array_equal(x, y) for p in zip(a["codes"], b["codes"])
+               for x, y in zip(*p))
+    log(f"  quality: device ground truth against the device scene's "
+        f"pixels, largest differences: held-out PSNR {d[0]:.6f} dB, SSIM "
+        f"{d[1]:.7f}, fitting start {d[2]:.6f} dB, end {d[3]:.6f} dB; "
+        f"fitted codes {'bit-equal' if same else 'differ'}")
+    if not (same and d[0] <= 0.02 and d[1] <= 1e-3 and d[2] == d[3] == 0):
+        raise AssertionError(f"--device_gt off the device scene's pixel "
+                             f"truth by {d} (codes bit-equal: {same})")
+
+
+# Phase 16: the test split of the full-scale chair protocol, seed 0
+# (docs/QUALITY_SYNTHETIC.md:447-457: 704 test chairs x 250 views at
+# 128x128, patterned, the quality report's --cam_distance; its test draw
+# is scene seed 11 + 100 * 0 + 57).
+FULL_SPLIT = dict(n_objects=704, n_views=250, H=128, W=128, seed=68,
+                  pattern=True, geometry="chair", cam_distance=4.0)
+SAMPLER_BATCHES = 200
+
+
+def _host_memory() -> str:
+    try:
+        return subprocess.run(["free", "-g"], capture_output=True,
+                              text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"free -g did not run: {e}"
+
+
+def _copy_rates(dev, H: int, W: int, chunk: int = 2048,
+                reps: int = 8) -> dict:
+    """GB/s of a (chunk, H, W, 3) uint8 copy from the card into a host
+    array over ``reps`` chunks (host clock): pageable (``copy_`` into the
+    array) and staged (into pinned memory, then into the array), each into
+    a fresh array (first-touch page faults included, as the renderer's
+    result takes them) and into one already written; and the card to
+    pinned memory alone (CUDA events)."""
+    import numpy as np
+    import torch
+
+    src = torch.randint(0, 255, (chunk, H, W, 3), dtype=torch.uint8,
+                        device=dev)
+    pinned = torch.empty(src.shape, dtype=torch.uint8, pin_memory=True)
+    rates = {}
+    for touched in (False, True):
+        for staged in (False, True):
+            out = np.empty((reps * chunk, H, W, 3), np.uint8)
+            if touched:
+                out.fill(1)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for k in range(reps):
+                dst = out[k * chunk:(k + 1) * chunk]
+                if staged:
+                    pinned.copy_(src)
+                    dst[:] = pinned.numpy()
+                else:
+                    torch.from_numpy(dst).copy_(src)
+            rates[("written " if touched else "fresh ")
+                  + ("staged" if staged else "pageable")] = (
+                out.nbytes / (time.perf_counter() - t0) / 1e9)
+            if not np.array_equal(out[-chunk:], src.cpu().numpy()):
+                raise AssertionError("copy check failed")
+    begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    begin.record()
+    for _ in range(reps):
+        pinned.copy_(src, non_blocking=True)
+    end.record()
+    end.synchronize()
+    rates["card to pinned"] = (reps * src.numel()
+                               / (begin.elapsed_time(end) / 1e3) / 1e9)
+    return rates
+
+
+def _staging_ab(dev, split: dict, n_obj: int = 100) -> None:
+    """The renderer's copy through its two pinned staging buffers against
+    a plain pageable copy of each chunk into the result, on the first
+    ``n_obj`` objects' draws at the split's widths, in turns (staged,
+    pageable, pageable, staged), each into a fresh array; the results must
+    be the same bytes."""
+    import numpy as np
+    import torch
+
+    from codenerf_tpu_torch.data import synthetic as syn
+
+    H, W, n_views = split["H"], split["W"], split["n_views"]
+    d = syn._draws(n_obj, n_views, W, None, split["cam_distance"],
+                   split["seed"], split["geometry"])
+    c2w, albedo, geom = syn._pair_operands(d, n_obj, n_views,
+                                           split["geometry"])
+    args = (H, W, d["focal"], c2w, albedo, split["pattern"],
+            split["geometry"])
+    walls, outs = {"staged": [], "pageable": []}, []
+    for staged in (True, False, False, True):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if staged:
+            out = syn._render_pairs(*args, device=dev, **geom)
+        else:
+            out = np.empty((c2w.shape[0], H, W, 3), np.uint8)
+            for s, e, images in syn._pair_chunks(*args, device=dev, **geom):
+                torch.from_numpy(out[s:e]).copy_(images)
+        walls["staged" if staged else "pageable"].append(
+            time.perf_counter() - t0)
+        outs.append(out)
+    if not all(np.array_equal(o, outs[0]) for o in outs[1:]):
+        raise AssertionError("staged and pageable copies differ")
+    log(f"phase 16: {c2w.shape[0]} views rendered and copied to a fresh "
+        f"host array, through the pinned staging buffers "
+        f"{[round(w, 3) for w in walls['staged']]} s, pageable copies "
+        f"{[round(w, 3) for w in walls['pageable']]} s")
+
+
+def scene_path(device: str = "cuda", split: dict = FULL_SPLIT,
+               samples: int = 64, gt_checks: int = 8,
+               batches: int = SAMPLER_BATCHES, rays: int = R_TRAIN) -> None:
+    """Phase 16. First the device scenes at full scale: ``split`` rendered
+    with ``synthetic_scene(backend="device")``, its wall, the share of it
+    that is not rendering (the copy to the host, through pinned staging,
+    and the host's writes: 1 - the render alone over the wall), the copy
+    rates pageable and staged, the peak device memory. Checks: ``samples``
+    seeded (object, view) pairs against the numpy path's bytes
+    (``numpy_pairs``; JAX's bar: at most one level anywhere, under 0.5%
+    of pixels differ), ``params_only`` drawing the same poses and
+    parameters, and ``make_gt_view_renderer`` on ``gt_checks`` of the
+    pairs within 1/255 of the scene's bytes. On the card also the copy's
+    rates (``_copy_rates``) and the staging against plain pageable copies
+    (``_staging_ab``). Then the native sampler:
+    built on this host, ``auto`` must resolve to it; ``batches`` batches
+    of ``rays`` through each backend and layout on the split, rays/s,
+    and the library's two calls at 1, 2, 4 and 8 threads;
+    every native batch's rgb must be ``images[obj, view, v, u]`` (the
+    expanded layout against the compact one of the same step, which
+    draws the same picks), its pose and focal the tables' rows, and a
+    crop batch's pixels inside the crop. No port kernel launches."""
+    import numpy as np
+    import torch
+
+    from codenerf_tpu_torch.data import native
+    from codenerf_tpu_torch.data import synthetic as syn
+    from codenerf_tpu_torch.data.pipeline import RayBatchPipeline
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    H, W = split["H"], split["W"]
+    n_obj, n_views = split["n_objects"], split["n_views"]
+    nbytes = n_obj * n_views * H * W * 3
+    log(f"phase 16: host memory before the split (free -g):\n"
+        f"{_host_memory()}")
+    avail = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    log(f"phase 16: the split takes {nbytes} B ({nbytes / 2 ** 30:.2f} "
+        f"GiB) of uint8 on the host; {avail / 2 ** 30:.1f} GiB free")
+    if avail < 2 * nbytes:
+        raise AssertionError(f"phase 16 needs {2 * nbytes} B of free host "
+                             f"memory, {avail} free")
+    _reset_peak(device)
+    with LaunchCounts() as lc:
+        t0 = time.perf_counter()
+        scene = syn.synthetic_scene(backend="device", device=dev, **split)
+        wall = time.perf_counter() - t0
+        peak = _peak(device)
+        d = syn._draws(n_obj, n_views, W, None, split["cam_distance"],
+                       split["seed"], split["geometry"])
+        c2w, albedo, geom = syn._pair_operands(d, n_obj, n_views,
+                                               split["geometry"])
+        sync()
+        t0 = time.perf_counter()
+        for _ in syn._pair_chunks(H, W, d["focal"], c2w, albedo,
+                                  split["pattern"], split["geometry"],
+                                  device=dev, **geom):
+            pass
+        sync()
+        render = time.perf_counter() - t0
+        counts = lc.get()
+    _expect(counts, {}, "phase 16 (device scenes)")
+    images = scene["images"]
+    if images.shape != (n_obj, n_views, H, W, 3) or images.nbytes != nbytes:
+        raise AssertionError(f"phase 16: images {images.shape}")
+    log(f"phase 16: {n_obj * n_views} views rendered on the card and "
+        f"copied to the host in {wall:.3f} s ({n_obj * n_views / wall:.0f} "
+        f"views/s); the render alone {render:.3f} s, so the rest (the "
+        f"copy to the host, its writes there, the draws) is "
+        f"{1 - render / wall:.3f} of the wall; peak device memory {peak}; "
+        f"{card_line() if on_card else 'CPU'}")
+    if on_card:
+        rates = _copy_rates(dev, H, W)
+        log("phase 16: a 2048-view chunk from the card: " + ", ".join(
+            f"{k} {v:.2f} GB/s" for k, v in rates.items()))
+        _staging_ab(dev, split)
+
+    rng = np.random.default_rng(16)
+    pairs = list(zip(rng.integers(0, n_obj, samples).tolist(),
+                     rng.integers(0, n_views, samples).tolist()))
+    t0 = time.perf_counter()
+    want = syn.numpy_pairs(pairs, **split)
+    numpy_s = time.perf_counter() - t0
+    got = images[[p[0] for p in pairs], [p[1] for p in pairs]]
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    log(f"phase 16: {samples} seeded pairs against the numpy path "
+        f"({numpy_s / samples * 1e3:.1f} ms a view on the host): largest "
+        f"difference {diff.max()} level(s), {(diff > 0).mean():.6f} of "
+        f"pixels differ")
+    if diff.max() > 1 or (diff > 0).mean() >= 5e-3:
+        raise AssertionError(f"phase 16: the device scene is off the "
+                             f"numpy path by {diff.max()} levels on "
+                             f"{(diff > 0).mean()} of pixels")
+    params = syn.synthetic_scene(params_only=True, **split)
+    for k, v in params.items():
+        if isinstance(v, np.ndarray) and not np.array_equal(v, scene[k]):
+            raise AssertionError(f"phase 16: params_only draws other {k}")
+    gt_view = syn.make_gt_view_renderer(H, W, split["pattern"],
+                                        split["geometry"], dev)
+    names = (("albedo", "albedos"),) + (
+        (("radius", "radii"),) if split["geometry"] == "sphere"
+        else (("boxes", "boxes"), ("yaw", "yaws")))
+    leaves = {k: torch.from_numpy(np.asarray(params[src], np.float32)).to(dev)
+              for k, src in names}
+    worst = 0.0
+    for o, v in pairs[:gt_checks]:
+        gt = gt_view(torch.from_numpy(params["poses"][o, v]).to(dev),
+                     torch.tensor(params["focals"][o]).to(dev),
+                     {k: x[o] for k, x in leaves.items()}).cpu().numpy()
+        worst = max(worst, float(np.abs(
+            gt - images[o, v].astype(np.float32) / 255.0).max()))
+    log(f"phase 16: params_only draws the same poses and parameters; "
+        f"make_gt_view_renderer on {gt_checks} pairs within {worst:.7f} "
+        f"of the scene's bytes / 255")
+    if worst > 1.0 / 255.0 + 1e-6:
+        raise AssertionError(f"phase 16: device ground truth off by {worst}")
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError(f"the native sampler did not build: "
+                             f"{native.build_error()}")
+    log(f"phase 16: native sampler {native.library_path().name} built and "
+        f"loaded on this host in {time.perf_counter() - t0:.2f} s")
+    poses, focals = scene["poses"], scene["focals"]
+    backend = RayBatchPipeline(images, poses, focals, backend="auto").backend
+    if backend != "native":
+        raise AssertionError(f"backend='auto' resolved to {backend!r}")
+    got = {}
+    for name in ("numpy", "native"):
+        for compact in (False, True):
+            pipe = RayBatchPipeline(images, poses, focals, seed=0,
+                                    backend=name)
+            t0 = time.perf_counter()
+            out = [pipe.sample(rays, compact=compact) for _ in range(batches)]
+            s = time.perf_counter() - t0
+            layout = "compact" if compact else "expanded"
+            log(f"phase 16: sampler {name}, {layout} layout: {batches} "
+                f"batches of {rays} rays in {s:.3f} s, "
+                f"{batches * rays / s:.0f} rays/s (host, {os.cpu_count()} "
+                "CPUs)")
+            got[name, compact] = out
+    for threads in (1, 2, 4, 8):
+        for fn in (native.sample_batch, native.sample_batch_compact):
+            t0 = time.perf_counter()
+            for step in range(batches // 4):
+                fn(images, poses, focals, rays, 0, step, 0, H, 0, W,
+                   n_threads=threads)
+            s = time.perf_counter() - t0
+            log(f"phase 16: native.{fn.__name__} at n_threads={threads}: "
+                f"{batches // 4 * rays / s:.0f} rays/s")
+    tables = {"c2w": poses[:, :, :3], "focal": focals}
+    for k, (full, comp) in enumerate(zip(got["native", False],
+                                         got["native", True])):
+        o, v = comp["obj"], comp["view"]
+        u, w = comp["uv"][:, 0], comp["uv"][:, 1]
+        px = images[o, v, w, u]
+        if not (np.array_equal(comp["rgb"], px)
+                and np.array_equal(full["obj"], o)
+                and np.array_equal(full["uv"], comp["uv"].astype(np.float32))
+                and np.array_equal(full["rgb"],
+                                   px.astype(np.float32)
+                                   * np.float32(1.0 / 255.0))
+                and np.array_equal(full["c2w"], tables["c2w"][o, v])
+                and np.array_equal(full["focal"], tables["focal"][o])):
+            raise AssertionError(f"phase 16: native batch {k} does not "
+                                 "gather images[obj, view, v, u]")
+    pipe = RayBatchPipeline(images, poses, focals, seed=1, backend="native")
+    v0, v1, u0, u1 = pipe._pixel_bounds(True)
+    for _ in range(8):
+        uv = pipe.sample(rays, crop=True, compact=True)["uv"]
+        if not (uv[:, 0].min() >= u0 and uv[:, 0].max() < u1
+                and uv[:, 1].min() >= v0 and uv[:, 1].max() < v1):
+            raise AssertionError("phase 16: a crop batch left the crop")
+    log(f"phase 16: every native batch gathers images[obj, view, v, u] and "
+        f"the pose and focal tables; crop batches stay in [{v0}, {v1}) x "
+        f"[{u0}, {u1})")
 
 
 def main() -> int:
@@ -3156,6 +3508,11 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak('cuda')}")
+    log(f"phase 16: the device scenes at full scale (synthetic_scene "
+        f"backend='device', {FULL_SPLIT}), then the native ray sampler")
+    t0 = time.perf_counter()
+    scene_path()
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

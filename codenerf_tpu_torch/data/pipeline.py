@@ -1,13 +1,16 @@
 """Host-side ray-batch pipeline; the port's own copy of
-``codenerf_tpu/data/pipeline.py`` (numpy backend).
+``codenerf_tpu/data/pipeline.py``.
 
 Every train step consumes ONE batch of rays sampled i.i.d. across all
 objects, views and pixels; the host does only integer sampling and gathers
 (the split is resident as uint8), and rays are built on the device from
 (pixel, pose, focal) — ``core/rays.pixel_rays``. Crop mode is the
 reference's first stage (center 64×64 of 128×128, ``src/data.py:76-78``)
-as a restriction of the sampled pixel range. The same seed and stream give
-the same batches as the JAX package, bit for bit.
+as a restriction of the sampled pixel range. Two backends draw the
+batches: ``numpy`` (the default) and ``native``, the C++ sampler of
+``data/native.py``; they draw from different (each deterministic) streams.
+The same backend, seed and stream give the same batches as the JAX
+package, bit for bit.
 
 :meth:`RayBatchPipeline.prefetch` keeps a small queue of ready batches on
 a background thread, so sampling (and, through ``transform``, the copy to
@@ -35,14 +38,22 @@ class RayBatchPipeline:
     def __init__(self, images: np.ndarray, poses: np.ndarray,
                  focals: np.ndarray, seed: int = 0, backend: str = "numpy"):
         """``images`` (N, V, H, W, 3) uint8, ``poses`` (N, V, 4, 4),
-        ``focals`` (N,). ``backend`` "numpy"; the JAX package's C++
-        sampler ("native") is not ported."""
-        if backend == "native":
-            raise NotImplementedError(
-                "the native (C++) pipeline backend is not ported yet "
-                "(ROADMAP.md Queue 1, item 14)")
-        if backend != "numpy":
+        ``focals`` (N,). ``backend``: "numpy", "native" (the C++ sampler;
+        raises if it cannot be built) or "auto" (native where it builds,
+        else numpy); :attr:`backend` says which."""
+        if backend not in ("numpy", "native", "auto"):
             raise ValueError(f"unknown pipeline backend {backend!r}")
+        if backend != "numpy":
+            from codenerf_tpu_torch.data import native
+
+            if native.native_available():
+                backend = "native"
+            elif backend == "native":
+                raise RuntimeError("native pipeline backend unavailable: "
+                                   f"{native.build_error()}")
+            else:
+                backend = "numpy"
+        self.backend = backend
         assert images.dtype == np.uint8, "pipeline stores images as uint8"
         self.images = np.ascontiguousarray(images)
         self.poses = np.ascontiguousarray(poses.astype(np.float32))
@@ -50,6 +61,7 @@ class RayBatchPipeline:
         self.n_objects, self.n_views, self.H, self.W = images.shape[:4]
         self._rng = np.random.default_rng(seed)
         self._seed = seed
+        self._step = 0
         self._stream_count = 0
 
     def _pixel_bounds(self, crop: bool):
@@ -69,15 +81,28 @@ class RayBatchPipeline:
 
     def sample(self, batch_size: int, crop: bool = False,
                rng: Optional[np.random.Generator] = None,
-               compact: bool = False) -> Dict[str, np.ndarray]:
+               compact: bool = False,
+               native_step: Optional[int] = None) -> Dict[str, np.ndarray]:
         """One training batch of host numpy arrays, from ``rng`` or the
-        pipeline's own stream. Expanded layout: ``obj`` (B,) int32, ``uv``
-        (B, 2) float32 full-image pixel coords (u = column, v = row),
-        ``c2w`` (B, 3, 4) float32, ``focal`` (B,) float32, ``rgb`` (B, 3)
-        float32 in [0, 1]. ``compact=True``: ``obj``, ``view`` (B,) int32,
-        ``uv`` (B, 2) int16, ``rgb`` (B, 3) uint8 (15 B/ray; the step
-        gathers pose and focal from :meth:`tables`). Both layouts draw the
-        same (object, view, pixel) triples from a given stream state."""
+        pipeline's own stream (numpy), or from the native stream's
+        ``native_step`` (by default the pipeline's next step). Expanded
+        layout: ``obj`` (B,) int32, ``uv`` (B, 2) float32 full-image pixel
+        coords (u = column, v = row), ``c2w`` (B, 3, 4) float32, ``focal``
+        (B,) float32, ``rgb`` (B, 3) float32 in [0, 1]. ``compact=True``:
+        ``obj``, ``view`` (B,) int32, ``uv`` (B, 2) int16, ``rgb`` (B, 3)
+        uint8 (15 B/ray; the step gathers pose and focal from
+        :meth:`tables`). Both layouts draw the same (object, view, pixel)
+        triples from a given stream state."""
+        if self.backend == "native":
+            from codenerf_tpu_torch.data import native
+
+            if native_step is None:
+                self._step += 1
+                native_step = self._step
+            fn = native.sample_batch_compact if compact else \
+                native.sample_batch
+            return fn(self.images, self.poses, self.focals, batch_size,
+                      self._seed, native_step, *self._pixel_bounds(crop))
         obj, view, pu, pv = self._draw(self._rng if rng is None else rng,
                                        batch_size, crop)
         if compact:
@@ -96,6 +121,25 @@ class RayBatchPipeline:
             "rgb": rgb,
         }
 
+    def rays_of_view(self, obj: int, view: int,
+                     crop: bool = False) -> Dict[str, np.ndarray]:
+        """Every pixel of one (object, view), row-major, in the expanded
+        layout: the eval layout (``src/utils.py:18``)."""
+        v0, v1, u0, u1 = self._pixel_bounds(crop)
+        vv, uu = np.meshgrid(np.arange(v0, v1), np.arange(u0, u1),
+                             indexing="ij")
+        n = vv.size
+        rgb = self.images[obj, view, vv.ravel(), uu.ravel()].astype(
+            np.float32) / 255.0
+        return {
+            "obj": np.full((n,), obj, dtype=np.int32),
+            "uv": np.stack([uu.ravel(), vv.ravel()], -1).astype(np.float32),
+            "c2w": np.broadcast_to(self.poses[obj, view, :3, :],
+                                   (n, 3, 4)).copy(),
+            "focal": np.full((n,), self.focals[obj], dtype=np.float32),
+            "rgb": rgb,
+        }
+
     def tables(self) -> Dict[str, np.ndarray]:
         """The full pose (N, V, 3, 4) and focal (N,) tables, put on the
         device once so each step gathers them for the compact layout."""
@@ -111,10 +155,11 @@ class RayBatchPipeline:
         """Endless iterator of batches made on a background thread.
 
         Each call draws from its own deterministic stream,
-        ``default_rng([seed, stream_id])`` — by default the next stream
-        index, as in the JAX package — so the batches do not depend on
-        thread timing. ``skip`` draws and drops that many batches first
-        (a resumed run continues its stream). ``transform`` (the copy to
+        ``default_rng([seed, stream_id])`` or, native, the steps
+        ``(stream_id << 32) | i`` — by default the next stream index, as
+        in the JAX package — so the batches do not depend on thread
+        timing. ``skip`` passes over that many batches first (a resumed
+        run continues its stream). ``transform`` (the copy to
         the card) runs on the worker thread. Close the iterator
         (``.close()``) to stop its worker; closing waits for it to end, so
         no worker is left inside a native call when the process exits."""
@@ -122,8 +167,9 @@ class RayBatchPipeline:
             stream_id = self._stream_count
             self._stream_count += 1
         rng = np.random.default_rng([self._seed, stream_id])
-        for _ in range(skip):
-            self._draw(rng, batch_size, crop)
+        if self.backend == "numpy":
+            for _ in range(skip):
+                self._draw(rng, batch_size, crop)
         q: "queue.Queue" = queue.Queue(maxsize=depth)
         stop = threading.Event()
 
@@ -140,9 +186,12 @@ class RayBatchPipeline:
             # consumer's thread: a silently dead worker would leave
             # training blocked on q.get() forever.
             try:
+                i = skip
                 while not stop.is_set():
                     batch = self.sample(batch_size, crop=crop, rng=rng,
-                                        compact=compact)
+                                        compact=compact,
+                                        native_step=(stream_id << 32) | i)
+                    i += 1
                     if transform is not None:
                         batch = transform(batch)
                     put(batch)

@@ -1,6 +1,5 @@
 """Synthetic multi-view datasets for tests, the quality report and the
-smoke run; the port's own copy of ``codenerf_tpu/data/synthetic.py``'s
-numpy path.
+smoke run; the port's own copy of ``codenerf_tpu/data/synthetic.py``.
 
 Small, multi-view-consistent scenes rendered analytically with the
 renderer's pinhole camera: one shaded sphere per object (per-object radius
@@ -12,9 +11,13 @@ step, so a seed gives the same bytes in both packages; the disk cache
 written by either package loads in the other. :func:`write_srn_layout`
 writes a scene in the SRN directory layout (``src/data.py:10-37``).
 
-The JAX package's device renderers (``backend="jax"``, ``make_view_fn``,
-``make_gt_view_renderer``) have no port yet (ROADMAP.md Queue 1, item
-13b): any backend but ``"numpy"`` raises.
+The device renderers are the f32 transcription of the numpy ones in
+PyTorch (:func:`make_view_fn`, JAX ``make_view_fn``): they render every
+(object, view) pair of a full-scale split on the card
+(``synthetic_scene(backend="device")``, :func:`_render_pairs`) and eval
+ground truth from the generation parameters
+(:func:`make_gt_view_renderer`). Their bytes differ from the numpy path's
+only where f32 and f64 round to different sides of a uint8 level.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 _SRN_FLIP = np.diag(np.array([1.0, -1.0, -1.0, 1.0]))
 
@@ -167,6 +171,259 @@ def _chair_boxes(rng: np.random.Generator) -> np.ndarray:
                      for c, h in boxes])
 
 
+def make_view_fn(H: int, W: int, pattern: bool, geometry: str,
+                 device="cuda"):
+    """The f32 transcription of :func:`_render_sphere` /
+    :func:`_render_boxes` in PyTorch (JAX ``make_view_fn``,
+    ``codenerf_tpu/data/synthetic.py:136-219``), batched over a leading
+    pair axis.
+
+    Returns ``fn(c2w, focal, albedo, *geom)``: ``c2w`` (P, 4, 4),
+    ``focal`` (P,) or one value, ``albedo`` (P, 3) and ``geom`` ``(radius
+    (P,),)`` for spheres or ``(boxes (P, B, 2, 3), yaw (P,))`` for chairs,
+    all f32 tensors on ``device``; gives (P, H*W, 3) f32 in [0, 1] before
+    quantization. Without the pair axis (``c2w`` (4, 4)) it gives (H*W,
+    3). The 3×3 rotations are spelled as elementwise sums, so no matmul
+    runs in TF32 wherever a caller enables it (TF32 flips pixels at hit
+    edges)."""
+    if geometry not in ("sphere", "chair"):
+        raise ValueError(f"unknown geometry {geometry!r}")
+    dev = torch.device(device)
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                          torch.arange(W, dtype=torch.float32, device=dev),
+                          indexing="ij")
+    u = u.reshape(-1) - W * 0.5
+    v = -(v.reshape(-1) - H * 0.5)
+
+    def rays(c2w, focal):
+        """(P, HW, 3) unit world directions: ``dirs_cam @ c2w[:3, :3].T``
+        with ``dirs_cam = (u/f, v/f, -1)``."""
+        x = u / focal[:, None]
+        y = v / focal[:, None]
+        r = c2w[:, :3, :3]
+        rd = torch.stack([x * r[:, j, 0, None] + y * r[:, j, 1, None]
+                          - r[:, j, 2, None] for j in range(3)], -1)
+        return rd / torch.sqrt((rd * rd).sum(-1, keepdim=True))
+
+    def compose(hit, shade_raw, point, albedo):
+        shade = shade_raw.clamp(0.2, 1.0)
+        if pattern:
+            s = torch.sin(5.0 * torch.where(hit[..., None], point, 0.0))
+            shade = shade * (0.75 + 0.25 * s[..., 0] * s[..., 1] * s[..., 2])
+        return torch.where(hit[..., None],
+                           albedo[:, None, :] * shade[..., None], 1.0)
+
+    def sphere(c2w, focal, albedo, radius):
+        rd = rays(c2w, focal)
+        ro = c2w[:, :3, 3]
+        b = (ro[:, None, :] * rd).sum(-1)
+        c = (ro * ro).sum(-1) - radius * radius
+        disc = b * b - c[:, None]
+        t = -b - torch.sqrt(disc.clamp(min=0.0))
+        hit = (disc > 0) & (t > 0)
+        point = ro[:, None, :] + t[..., None] * rd
+        normal = point / radius.clamp(min=1e-8)[:, None, None]
+        return compose(hit, (normal * -rd).sum(-1), point, albedo)
+
+    def chair(c2w, focal, albedo, boxes, yaw):
+        rd_w = rays(c2w, focal)
+        ro_w = c2w[:, :3, 3]
+        # Into the object frame: ``@ rot.T`` with rot the yaw about +z.
+        cz, sz = torch.cos(-yaw), torch.sin(-yaw)
+        ro = torch.stack([ro_w[:, 0] * cz - ro_w[:, 1] * sz,
+                          ro_w[:, 0] * sz + ro_w[:, 1] * cz, ro_w[:, 2]], -1)
+        cz, sz = cz[:, None], sz[:, None]
+        rd = torch.stack([rd_w[..., 0] * cz - rd_w[..., 1] * sz,
+                          rd_w[..., 0] * sz + rd_w[..., 1] * cz,
+                          rd_w[..., 2]], -1)
+        tiny = torch.full_like(rd, 1e-12).copysign(rd)
+        inv = 1.0 / torch.where(rd.abs() < 1e-12, tiny, rd)
+        lo = boxes[:, :, 0] - boxes[:, :, 1]                 # (P, B, 3)
+        hi = boxes[:, :, 0] + boxes[:, :, 1]
+        a = (lo - ro[:, None])[:, None] * inv[:, :, None]    # (P, HW, B, 3)
+        b2 = (hi - ro[:, None])[:, None] * inv[:, :, None]
+        tmin = torch.minimum(a, b2)
+        t0 = tmin.amax(-1)                                   # (P, HW, B)
+        t1 = torch.maximum(a, b2).amin(-1)
+        valid = (t1 >= t0) & (t1 > 0.0) & (t0 > 1e-6)
+        t0v = torch.where(valid, t0, torch.inf)
+        bi = t0v.argmin(-1, keepdim=True)     # the first box wins ties
+        best_t = t0v.gather(-1, bi)[..., 0]
+        hit = torch.isfinite(best_t)
+        axis = tmin.argmax(-1).gather(-1, bi)                # (P, HW, 1)
+        ax_dir = rd.gather(-1, axis)
+        normal = (torch.nn.functional.one_hot(axis[..., 0], 3).to(rd.dtype)
+                  * -torch.sign(ax_dir))
+        tb = torch.where(hit, best_t, 0.0)    # no inf * 0 off the boxes
+        point = ro[:, None, :] + tb[..., None] * rd
+        return compose(hit, (normal * -rd).sum(-1), point, albedo)
+
+    body = sphere if geometry == "sphere" else chair
+
+    def view_fn(c2w, focal, albedo, *geom):
+        if c2w.dim() == 2:
+            return view_fn(c2w[None], focal.reshape(1), albedo[None],
+                           *(g[None] for g in geom))[0]
+        return body(c2w, focal.reshape(-1).expand(c2w.shape[0]), albedo,
+                    *geom)
+
+    return view_fn
+
+
+def make_gt_view_renderer(H: int, W: int, pattern: bool, geometry: str,
+                          device="cuda"):
+    """Eval ground truth rendered on the device (JAX
+    ``make_gt_view_renderer``, :222-244): ``fn(c2w, focal, params)`` with
+    ``params`` a dict of ``albedo`` plus ``radius`` (sphere) or
+    ``boxes``/``yaw`` (chair), the leaves of one object (or of P pairs,
+    with the pair axis of :func:`make_view_fn`). Gives (H, W, 3) (or (P,
+    H, W, 3)) f32 quantized as the stored images are, ``round(x · 255) /
+    255``, so it equals what the uint8 image decodes to."""
+    view_fn = make_view_fn(H, W, pattern, geometry, device)
+    names = ("radius",) if geometry == "sphere" else ("boxes", "yaw")
+
+    def gt_view(c2w, focal, params):
+        rgb = view_fn(c2w, focal, params["albedo"],
+                      *(params[k] for k in names))
+        return (torch.round(rgb * 255.0) / 255.0).reshape(
+            *rgb.shape[:-2], H, W, 3)
+
+    return gt_view
+
+
+def _pair_chunks(H: int, W: int, focal: float, c2w: np.ndarray,
+                 albedo: np.ndarray, pattern: bool, geometry: str,
+                 radius: Optional[np.ndarray] = None,
+                 boxes: Optional[np.ndarray] = None,
+                 yaw: Optional[np.ndarray] = None,
+                 chunk_pairs: int = 2048, device="cuda"):
+    """Yields ``(s, e, images)``: pairs ``s:e`` (at most ``chunk_pairs``)
+    rendered and quantized on ``device``, (e - s, H, W, 3) uint8. Inner
+    batches of at most 256 pairs (4M pixels) bound the device memory, as
+    the JAX package's ``lax.map`` batches do."""
+    dev = torch.device(device)
+    view_fn = make_view_fn(H, W, pattern, geometry, dev)
+    geom = (radius,) if geometry == "sphere" else (boxes, yaw)
+    ops = [torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+           for x in (c2w, albedo) + geom]
+    focal_t = torch.full((1,), float(np.float32(focal)), device=dev)
+    inner = max(16, min(256, (1 << 22) // (H * W)))
+    P = c2w.shape[0]
+    for s in range(0, P, chunk_pairs):
+        e = min(s + chunk_pairs, P)
+        out = torch.empty((e - s, H * W, 3), dtype=torch.uint8, device=dev)
+        for i in range(s, e, inner):
+            j = min(i + inner, e)
+            c, a, *g = (x[i:j] for x in ops)
+            out[i - s:j - s] = torch.round(view_fn(c, focal_t, a, *g) * 255.0)
+        yield s, e, out.reshape(e - s, H, W, 3)
+
+
+def _render_pairs(H: int, W: int, focal: float, c2w: np.ndarray,
+                  albedo: np.ndarray, pattern: bool, geometry: str,
+                  radius: Optional[np.ndarray] = None,
+                  boxes: Optional[np.ndarray] = None,
+                  yaw: Optional[np.ndarray] = None,
+                  chunk_pairs: int = 2048, device="cuda") -> np.ndarray:
+    """Every (object, view) pair rendered on ``device`` (JAX
+    ``_render_pairs_jax``, :247-300): ``c2w`` (P, 4, 4), ``albedo`` (P,
+    3), ``radius`` (P,) or ``boxes`` (P, B, 2, 3) and ``yaw`` (P,), in one
+    f32 pass per inner batch; gives (P, H, W, 3) uint8 on the host, copied
+    in chunks of at most ``chunk_pairs`` pairs. From the card each chunk
+    goes through one of two pinned staging buffers: its copy runs on the
+    card while the host moves the previous chunk into the result."""
+    P = c2w.shape[0]
+    out = np.empty((P, H, W, 3), dtype=np.uint8)
+    chunks = _pair_chunks(H, W, focal, c2w, albedo, pattern, geometry,
+                          radius, boxes, yaw, chunk_pairs, device)
+    if torch.device(device).type != "cuda":
+        for s, e, images in chunks:
+            out[s:e] = images.numpy()
+        return out
+    n = min(chunk_pairs, P) * H * W * 3
+    stage = [torch.empty(n, dtype=torch.uint8, pin_memory=True)
+             for _ in range(2)]
+    pending = None
+
+    def drain(s, e, buf, copied):
+        copied.synchronize()
+        out[s:e] = buf.numpy().reshape(e - s, H, W, 3)
+
+    for k, (s, e, images) in enumerate(chunks):
+        buf = stage[k % 2][:images.numel()]
+        buf.copy_(images.reshape(-1), non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        if pending is not None:
+            drain(*pending)
+        pending = (s, e, buf, copied)
+    if pending is not None:
+        drain(*pending)
+    return out
+
+
+def _draws(n_objects: int, n_views: int, W: int, focal: Optional[float],
+           cam_distance: float, seed: int, geometry: str) -> dict:
+    """The scene's random draws in the JAX package's order: focal, radii,
+    albedos, chairs (f64 boxes) and yaws, and each view's f64 ``c2w``."""
+    rng = np.random.default_rng(seed)
+    d = {"focal": focal if focal is not None else 1.2 * W,
+         "radii": rng.uniform(0.7, 1.3, size=n_objects),
+         "albedos": rng.uniform(0.1, 0.9, size=(n_objects, 3))}
+    if geometry == "chair":
+        d["chairs"] = np.stack([_chair_boxes(rng) for _ in range(n_objects)])
+        d["yaws"] = rng.uniform(0.0, 2.0 * np.pi, size=n_objects)
+
+    # Views on a tilted circle around the origin.
+    azimuths = np.linspace(0, 2 * np.pi, n_views, endpoint=False)
+    elevations = rng.uniform(0.15, 0.55, size=n_views)
+    d["c2ws"] = np.zeros((n_views, 4, 4), dtype=np.float64)
+    for vi, (az, el) in enumerate(zip(azimuths, elevations)):
+        cam = cam_distance * np.array(
+            [np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)]
+        )
+        d["c2ws"][vi] = _look_at(cam, np.zeros(3), np.array([0.0, 0.0, 1.0]))
+    return d
+
+
+def _pair_operands(d: dict, n_objects: int, n_views: int, geometry: str):
+    """``(c2w, albedo, geom)`` of :func:`_render_pairs` for every pair of
+    the draws ``d`` on one (object, view) axis: camera vi repeats per
+    object and each object's parameters per view, the numpy loop's (oi,
+    vi) at ``oi * n_views + vi``."""
+    geom = ({"radius": np.repeat(d["radii"], n_views)}
+            if geometry == "sphere" else
+            {"boxes": np.repeat(d["chairs"], n_views, axis=0),
+             "yaw": np.repeat(d["yaws"], n_views)})
+    return (np.tile(d["c2ws"], (n_objects, 1, 1)),
+            np.repeat(d["albedos"], n_views, axis=0), geom)
+
+
+def _render_numpy(d: dict, H: int, W: int, pattern: bool, geometry: str,
+                  oi: int, vi: int) -> np.ndarray:
+    """Pair (oi, vi) of the draws ``d`` by the f64 numpy path, as uint8."""
+    if geometry == "chair":
+        img = _render_boxes(H, W, d["focal"], d["c2ws"][vi], d["chairs"][oi],
+                            d["albedos"][oi], d["yaws"][oi], pattern=pattern)
+    else:
+        img = _render_sphere(H, W, d["focal"], d["c2ws"][vi], d["radii"][oi],
+                             d["albedos"][oi], pattern=pattern)
+    return np.round(img * 255.0).astype(np.uint8)
+
+
+def numpy_pairs(pairs, n_objects: int = 3, n_views: int = 8, H: int = 32,
+                W: int = 32, focal: Optional[float] = None,
+                cam_distance: float = 4.0, seed: int = 0,
+                pattern: bool = False, geometry: str = "sphere") -> np.ndarray:
+    """The numpy backend's bytes of the (object, view) ``pairs`` of the
+    scene that :func:`synthetic_scene` draws with these arguments, (len,
+    H, W, 3) uint8, without rendering the other pairs: the reference a
+    device-rendered full-scale split is sampled against."""
+    d = _draws(n_objects, n_views, W, focal, cam_distance, seed, geometry)
+    return np.stack([_render_numpy(d, H, W, pattern, geometry, oi, vi)
+                     for oi, vi in pairs])
+
+
 def synthetic_scene(
     n_objects: int = 3,
     n_views: int = 8,
@@ -179,6 +436,7 @@ def synthetic_scene(
     geometry: str = "sphere",
     backend: str = "numpy",
     params_only: bool = False,
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """An in-memory multi-object scene: ``images`` (N, V, H, W, 3) uint8,
     ``poses`` (N, V, 4, 4) f32, ``focals`` (N,) f32 (the fields
@@ -186,38 +444,22 @@ def synthetic_scene(
     the generation parameters (``radii``/``albedos``, plus
     ``boxes``/``yaws`` for chairs, ``pattern``, ``geometry``).
 
-    ``params_only=True`` skips rendering and returns poses and parameters
-    alone (the draws are the same, in the same order). Only
-    ``backend="numpy"`` is ported: the JAX package's device backend
-    raises here (ROADMAP.md Queue 1, item 13b) rather than quietly
-    rendering something else."""
+    ``backend="numpy"`` renders each view in f64 on the host;
+    ``backend="device"`` renders every (object, view) pair on ``device``
+    (:func:`_render_pairs`; the JAX package's ``backend="jax"``) from the
+    same draws, in f32, so a pixel may differ by one uint8 level at a
+    quantization edge. ``params_only=True`` skips rendering and returns
+    poses and parameters alone (the same draws, in the same order)."""
     if geometry not in ("sphere", "chair"):
         raise ValueError(f"unknown geometry {geometry!r}")
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"synthetic_scene backend={backend!r}: the device renderers are "
-            "not ported yet (ROADMAP.md Queue 1, item 13b); use "
-            "backend='numpy'")
-    rng = np.random.default_rng(seed)
-    focal = focal if focal is not None else 1.2 * W
-    radii = rng.uniform(0.7, 1.3, size=n_objects)
-    albedos = rng.uniform(0.1, 0.9, size=(n_objects, 3))
-    if geometry == "chair":
-        chairs = [_chair_boxes(rng) for _ in range(n_objects)]
-        yaws = rng.uniform(0.0, 2.0 * np.pi, size=n_objects)
-
-    # Views on a tilted circle around the origin.
-    azimuths = np.linspace(0, 2 * np.pi, n_views, endpoint=False)
-    elevations = rng.uniform(0.15, 0.55, size=n_views)
-
+    if backend not in ("numpy", "device"):
+        raise ValueError(
+            f"unknown backend {backend!r}: the port renders with 'numpy' "
+            "or on the card with 'device' (the JAX package's 'jax')")
+    d = _draws(n_objects, n_views, W, focal, cam_distance, seed, geometry)
+    focal = d["focal"]
     poses = np.zeros((n_objects, n_views, 4, 4), dtype=np.float32)
-    c2ws = np.zeros((n_views, 4, 4), dtype=np.float64)
-    for vi, (az, el) in enumerate(zip(azimuths, elevations)):
-        cam = cam_distance * np.array(
-            [np.cos(az) * np.cos(el), np.sin(az) * np.cos(el), np.sin(el)]
-        )
-        c2ws[vi] = _look_at(cam, np.zeros(3), np.array([0.0, 0.0, 1.0]))
-        poses[:, vi] = c2ws[vi].astype(np.float32)
+    poses[:] = d["c2ws"].astype(np.float32)[None]
 
     out = {
         "poses": poses,
@@ -226,27 +468,29 @@ def synthetic_scene(
         "W": W,
         "near": float(cam_distance - 1.8),
         "far": float(cam_distance + 1.8),
-        "radii": radii,
-        "albedos": albedos,
+        "radii": d["radii"],
+        "albedos": d["albedos"],
         "pattern": pattern,
         "geometry": geometry,
     }
     if geometry == "chair":
-        out["boxes"] = np.stack(chairs).astype(np.float32)  # (N, B, 2, 3)
-        out["yaws"] = yaws.astype(np.float32)
+        out["boxes"] = d["chairs"].astype(np.float32)  # (N, B, 2, 3)
+        out["yaws"] = d["yaws"].astype(np.float32)
     if params_only:
         return out
+    if backend == "device":
+        from codenerf_tpu_torch import resolve_device
+
+        c2w, albedo, geom = _pair_operands(d, n_objects, n_views, geometry)
+        images = _render_pairs(
+            H, W, focal, c2w, albedo, pattern, geometry,
+            device=resolve_device(device), **geom,
+        ).reshape(n_objects, n_views, H, W, 3)
+        return {"images": images, **out}
     images = np.zeros((n_objects, n_views, H, W, 3), dtype=np.uint8)
     for vi in range(n_views):
-        c2w = c2ws[vi]
         for oi in range(n_objects):
-            if geometry == "chair":
-                img = _render_boxes(H, W, focal, c2w, chairs[oi],
-                                    albedos[oi], yaws[oi], pattern=pattern)
-            else:
-                img = _render_sphere(H, W, focal, c2w, radii[oi],
-                                     albedos[oi], pattern=pattern)
-            images[oi, vi] = np.round(img * 255.0).astype(np.uint8)
+            images[oi, vi] = _render_numpy(d, H, W, pattern, geometry, oi, vi)
     return {"images": images, **out}
 
 

@@ -506,8 +506,9 @@ class CodeOptimizer:
             occ_grid=self.occ_grid, fine_model=self.fine_model,
             rays_per_step=self.opt_rays)
 
-    def evaluate_objects(self, images: np.ndarray, poses: np.ndarray,
-                         focals: np.ndarray, exclude_views: Sequence[int],
+    def evaluate_objects(self, images: Optional[np.ndarray],
+                         poses: np.ndarray, focals: np.ndarray,
+                         exclude_views: Sequence[int],
                          shape_codes: torch.Tensor,
                          texture_codes: torch.Tensor,
                          generators: Sequence[Optional[torch.Generator]],
@@ -518,24 +519,55 @@ class CodeOptimizer:
         """:meth:`evaluate_object` over G objects, object g with its codes
         row and ``generators[g]``: ``psnr``/``ssim`` (G, V'), ``views``
         (V',) and with ``return_images`` ``images`` (G, V', H, W, 3).
-        Ground truth rendered on the device from generation parameters
-        (``gt_params``) is not ported (ROADMAP.md Queue 1, item 13b)."""
-        if gt_params is not None:
-            raise NotImplementedError(
-                "evaluate_objects(gt_params=...): device-rendered ground "
-                "truth is not ported yet (ROADMAP.md Queue 1, item 13b); "
-                "pass the images")
-        evs = [self.evaluate_object(
-            images[g], poses[g], float(focals[g]), exclude_views,
-            shape_codes[g], texture_codes[g], generators[g],
-            return_images=return_images, deterministic=deterministic)
-            for g in range(len(generators))]
+
+        ``gt_params`` (synthetic scenes; JAX ``codes_opt.py:1214-1300``)
+        renders each eval view's ground truth on the device instead of
+        taking pixels, and ``images`` may be ``None``: a dict with
+        ``geometry``, ``pattern`` and ``hw`` (H, W) plus the per-object
+        leaves ``albedo`` (G, 3) and ``radius`` (G,) or ``boxes`` (G, B, 2,
+        3) and ``yaw`` (G,), the fields ``data/synthetic.synthetic_scene``
+        returns. The rendered truth is quantized as the stored images are
+        (``make_gt_view_renderer``), so the metrics match the pixel path's
+        but where f32 and f64 round a pixel to different levels."""
+        if gt_params is None:
+            return self._stack([self.evaluate_object(
+                images[g], poses[g], float(focals[g]), exclude_views,
+                shape_codes[g], texture_codes[g], generators[g],
+                return_images=return_images, deterministic=deterministic)
+                for g in range(len(generators))], return_images)
+        from codenerf_tpu_torch.data.synthetic import make_gt_view_renderer
+
+        geometry = gt_params["geometry"]
+        names = ("albedo",) + (("radius",) if geometry == "sphere"
+                               else ("boxes", "yaw"))
+        missing = [k for k in names if k not in gt_params]
+        if missing:
+            raise ValueError(f"gt_params for geometry {geometry!r} lacks "
+                             f"{missing}")
+        H, W = gt_params["hw"]
+        gt_view = make_gt_view_renderer(H, W, bool(gt_params["pattern"]),
+                                        geometry, self.device)
+        leaves = {k: torch.from_numpy(np.asarray(gt_params[k], np.float32))
+                  .to(self.device) for k in names}
+        cams = torch.from_numpy(np.asarray(poses, np.float32)).to(self.device)
+        fs = torch.from_numpy(np.asarray(focals, np.float32)).to(self.device)
+        evs = []
+        for g in range(len(generators)):
+            obj = {k: v[g] for k, v in leaves.items()}
+            evs.append(self._evaluate(
+                lambda v, g=g, obj=obj: gt_view(cams[g, v], fs[g], obj),
+                poses[g], float(focals[g]), poses.shape[1], H, W,
+                exclude_views, shape_codes[g], texture_codes[g],
+                generators[g], return_images, deterministic))
+        return self._stack(evs, return_images)
+
+    @staticmethod
+    def _stack(evs, return_images: bool) -> Dict[str, np.ndarray]:
         out = {"views": evs[0]["views"]}
         for k in ("psnr", "ssim") + (("images",) if return_images else ()):
             out[k] = np.stack([ev[k] for ev in evs])
         return out
 
-    @torch.no_grad()
     def evaluate_object(self, images: np.ndarray, poses: np.ndarray,
                         focal: float, exclude_views: Sequence[int],
                         shape_code: torch.Tensor, texture_code: torch.Tensor,
@@ -545,15 +577,32 @@ class CodeOptimizer:
         """PSNR/SSIM on every view not in ``exclude_views``, rendered with
         jittered z (the reference protocol) or, with ``deterministic``,
         linspace z."""
-        H, W = images.shape[1:3]
+        def gt_of(v):
+            gt = torch.from_numpy(np.asarray(images[v])).to(self.device)
+            return gt.float() / 255.0 if gt.dtype == torch.uint8 \
+                else gt.float()
+
+        return self._evaluate(gt_of, poses, focal, images.shape[0],
+                              *images.shape[1:3], exclude_views, shape_code,
+                              texture_code, generator, return_images,
+                              deterministic)
+
+    @torch.no_grad()
+    def _evaluate(self, gt_of, poses: np.ndarray, focal: float,
+                  n_views: int, H: int, W: int,
+                  exclude_views: Sequence[int], shape_code: torch.Tensor,
+                  texture_code: torch.Tensor,
+                  generator: Optional[torch.Generator], return_images: bool,
+                  deterministic: bool) -> Dict[str, np.ndarray]:
+        """The eval loop of one object; ``gt_of(v)`` is view v's ground
+        truth, (H, W, 3) f32 on the device."""
         hp = self.eval_hp
         cd = resolve_dtype(hp.compute_dtype)
         excl = {int(i) for i in exclude_views}
-        idxs = [v for v in range(images.shape[0]) if v not in excl]
+        idxs = [v for v in range(n_views) if v not in excl]
         ps, ss, imgs = [], [], []
         for v in idxs:
-            gt = torch.from_numpy(np.asarray(images[v])).to(self.device)
-            gt = gt.float() / 255.0 if gt.dtype == torch.uint8 else gt.float()
+            gt = gt_of(v)
             rgb = render_image(
                 self.model, hp.render, H, W, focal, poses[v],
                 shape_code, texture_code,

@@ -27,8 +27,11 @@ master generator of the seed, two per object in object order, whatever
 ``--opt_group`` is, so the per-object results are comparable across
 settings. The flags and defaults are the JAX tool's, with ``--device``
 (``cuda``, the default, or ``cpu``) added and the output under
-``exps/`` by default. ``--scene_backend jax`` and ``--device_gt`` need the
-device renderers, which are not ported (ROADMAP.md Queue 1, item 13b).
+``exps/`` by default. ``--scene_backend device`` (the JAX tool's
+``jax``) renders the scenes on the device, for the full-scale splits;
+``--device_gt`` (with ``--opt_group`` > 1) renders each eval view's
+ground truth on the device from the test scene's generation parameters
+instead of copying its pixels there.
 """
 
 from __future__ import annotations
@@ -101,42 +104,46 @@ def build_parser() -> argparse.ArgumentParser:
                     help="directory caching generated scenes (entries "
                          "interchange with the JAX tool's)")
     ap.add_argument("--device_gt", action="store_true",
-                    help="eval ground truth rendered on the device (not "
-                         "ported: ROADMAP.md Queue 1, item 13b)")
+                    help="eval ground truth rendered on the device from "
+                         "the test scene's generation parameters (needs "
+                         "--opt_group > 1)")
     ap.add_argument("--scene_backend", type=str, default="numpy",
-                    choices=("numpy", "jax"),
-                    help="synthetic render backend (only numpy is ported: "
-                         "ROADMAP.md Queue 1, item 13b)")
+                    choices=("numpy", "device"),
+                    help="synthetic render backend: numpy (f64, host) or "
+                         "device (f32 on --device; the JAX tool's jax)")
     ap.add_argument("--codes_per_update", type=int, default=None)
     return ap
 
 
-def _refuse_unported(args) -> None:
-    for hit, what in ((args.scene_backend != "numpy",
-                       f"--scene_backend {args.scene_backend}"),
-                      (args.device_gt, "--device_gt")):
-        if hit:
-            raise NotImplementedError(
-                f"{what}: the device scene renderers are not ported yet "
-                "(ROADMAP.md Queue 1, item 13b)")
+def check_args(args) -> None:
+    """The JAX tool's refusal, made before any work: device ground truth
+    is the batched eval's."""
+    if args.device_gt and args.opt_group <= 1:
+        raise ValueError("--device_gt needs --opt_group > 1 (the batched "
+                         "eval renders the ground truth on the device)")
 
 
-def load_scenes(args, seed: int):
+def load_scenes(args, seed: int, device=None):
     """``(scene, train_scene, test_scene, test_base)``: one category draw
     sliced into train and held-out objects, or with ``--n_test_views``
-    two draws (the held-out one at scene seed ``+ 57``)."""
+    two draws (the held-out one at scene seed ``+ 57``). The device
+    backend renders on ``device`` (default ``args.device``)."""
     from codenerf_tpu_torch.data.synthetic import (synthetic_scene,
                                                    synthetic_scene_cached)
 
     def draw(**kw):
-        # The numpy backend, the only one ported, stays out of the cache
-        # key as in the JAX tool, so entries resolve across both packages.
+        # The numpy backend stays out of the cache key, as in the JAX
+        # tool, so its entries resolve across both packages; a device
+        # entry is keyed by its backend and device.
         if args.scene_cache:
             return synthetic_scene_cached(args.scene_cache, **kw)
         return synthetic_scene(**kw)
 
     common = dict(H=args.size, W=args.size, pattern=True,
                   geometry=args.geometry, cam_distance=args.cam_distance)
+    if args.scene_backend != "numpy":
+        common.update(backend=args.scene_backend,
+                      device=str(device or args.device))
     if args.n_test_views is None:
         n_total = args.n_train_objects + args.n_test_objects
         scene = draw(n_objects=n_total, n_views=args.n_views,
@@ -153,6 +160,28 @@ def load_scenes(args, seed: int):
                       n_views=args.n_test_views, seed=11 + 100 * seed + 57,
                       **common)
     return scene, scene, test_scene, 0
+
+
+def device_gt_leaves(args, seed: int, test_scene) -> dict:
+    """The test scene's per-object generation parameters, drawn again
+    with ``params_only`` and its exact arguments (the JAX tool's
+    ``--device_gt``): ``albedo`` plus ``radius`` or ``boxes``/``yaw``.
+    Fails if the draw's poses are not the scene's."""
+    from codenerf_tpu_torch.data.synthetic import synthetic_scene
+
+    n_objects, n_views = test_scene["poses"].shape[:2]
+    tp = synthetic_scene(
+        n_objects=n_objects, n_views=n_views, H=args.size, W=args.size,
+        seed=(11 + 100 * seed) if args.n_test_views is None
+        else (11 + 100 * seed + 57),
+        pattern=True, geometry=args.geometry,
+        cam_distance=args.cam_distance, params_only=True)
+    if not np.array_equal(tp["poses"], test_scene["poses"]):
+        raise AssertionError("the params-only draw diverged from the test "
+                             "scene")
+    if args.geometry == "chair":
+        return dict(albedo=tp["albedos"], boxes=tp["boxes"], yaw=tp["yaws"])
+    return dict(albedo=tp["albedos"], radius=tp["radii"])
 
 
 def flagship_hparams(args, seed: int, scene, net=None):
@@ -254,7 +283,8 @@ def run_once(args, seed: int, out_dir: str, net=None,
     widths, the 8192-ray batch and ``args.device`` (the CPU tests run a
     narrow net). Returns the seed's means, the per-object rows, the fitted
     codes (a (shape, texture) pair of f32 arrays per object) and the
-    host-clock seconds of training and of each object's fitting."""
+    host-clock seconds of training and of each object's fitting and eval
+    (a group's share; ``fit_s``, ``eval_s``)."""
     import torch
 
     from codenerf_tpu_torch import resolve_device
@@ -263,7 +293,7 @@ def run_once(args, seed: int, out_dir: str, net=None,
     from codenerf_tpu_torch.training.trainer import Trainer
     from codenerf_tpu_torch.utils.images import save_png, side_by_side
 
-    _refuse_unported(args)
+    check_args(args)
     dev = resolve_device(device or args.device)
 
     def sync():
@@ -272,7 +302,7 @@ def run_once(args, seed: int, out_dir: str, net=None,
 
     os.makedirs(out_dir, exist_ok=True)
     t0g = time.time()
-    scene, train_scene, test_scene, test_base = load_scenes(args, seed)
+    scene, train_scene, test_scene, test_base = load_scenes(args, seed, dev)
     if args.n_test_views is not None:
         print(f"[seed {seed}] scene gen: {args.n_train_objects}x"
               f"{args.n_views} train + {args.n_test_objects}x"
@@ -314,7 +344,10 @@ def run_once(args, seed: int, out_dir: str, net=None,
         eval_hp=hp, eval_occ=False, fine_model=st.fine_model,
         opt_rays=args.opt_rays)
 
-    rows, fit_s, codes = [], [], []
+    gt_leaves = None
+    if args.device_gt:
+        gt_leaves = device_gt_leaves(args, seed, test_scene)
+    rows, fit_s, eval_s, codes = [], [], [], []
     t_test0 = time.time()
     master = torch.Generator().manual_seed(seed)
     group = max(1, args.opt_group)
@@ -343,9 +376,18 @@ def run_once(args, seed: int, out_dir: str, net=None,
             res.shape_codes, res.texture_codes)]
         sync()
         fit_s += [(time.time() - t_fit) / len(idx)] * len(idx)
+        gt_params = None
+        if gt_leaves is not None:
+            gt_params = dict(geometry=args.geometry, pattern=True,
+                             hw=(args.size, args.size),
+                             **{k: v[ois] for k, v in gt_leaves.items()})
+        t_eval = time.time()
         ev = optimizer.evaluate_objects(
-            imgs_g, poses_g, focals_g, tgt, res.shape_codes,
-            res.texture_codes, [g[1] for g in gens], return_images=want_img)
+            None if gt_params is not None else imgs_g, poses_g, focals_g,
+            tgt, res.shape_codes, res.texture_codes, [g[1] for g in gens],
+            return_images=want_img, gt_params=gt_params)
+        sync()
+        eval_s += [(time.time() - t_eval) / len(idx)] * len(idx)
         for j, i in enumerate(idx):
             rows.append((f"heldout_{i}", float(ev["psnr"][j].mean()),
                          float(ev["ssim"][j].mean()), float(hist[0, j]),
@@ -357,7 +399,8 @@ def run_once(args, seed: int, out_dir: str, net=None,
                 save_png(os.path.join(out_dir, f"heldout_{i}.png"), strip)
             print(f"[seed {seed}] object {i}: eval psnr {rows[-1][1]:.4f} "
                   f"dB, ssim {rows[-1][2]:.5f}; fit {rows[-1][3]:.4f} -> "
-                  f"{rows[-1][4]:.4f} dB in {fit_s[-1]:.3f}s", flush=True)
+                  f"{rows[-1][4]:.4f} dB in {fit_s[-1]:.3f}s, eval "
+                  f"{eval_s[-1]:.3f}s", flush=True)
 
     test_time = time.time() - t_test0
     mean_psnr = float(np.mean([r[1] for r in rows]))
@@ -369,13 +412,13 @@ def run_once(args, seed: int, out_dir: str, net=None,
     return {"seed": seed, "psnr": mean_psnr, "ssim": mean_ssim,
             "train_psnr": train_psnr, "train_s": train_time,
             "test_s": test_time, "per_object_psnr": [r[1] for r in rows],
-            "rows": rows, "fit_s": fit_s, "codes": codes,
+            "rows": rows, "fit_s": fit_s, "eval_s": eval_s, "codes": codes,
             "run_dir": trainer.save_dir}
 
 
 def main(argv=None) -> list:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    check_args(args)
     os.makedirs(args.out, exist_ok=True)
     seeds = [int(s) for s in args.seeds.split(",") if s != ""]
     results = []

@@ -33,7 +33,8 @@ def test_every_module_imports_with_jax_blocked():
         " 'codenerf_tpu_torch.optimization.pose_opt',"
         " 'codenerf_tpu_torch.ops.composite',"
         " 'codenerf_tpu_torch.quality_report',"
-        " 'codenerf_tpu_torch.data.synthetic'}\n"
+        " 'codenerf_tpu_torch.data.synthetic',"
+        " 'codenerf_tpu_torch.data.native'}\n"
         "assert new <= set(names), new - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'codenerf_tpu' "

@@ -21,7 +21,7 @@ shape blocks, latent size 32, 8 samples and 16×16 views.
 - The optimize CLI with ``--opt_group 2`` against the sequential CLI,
   object for object; the progress-PNG warning of ``--opt_rays``.
 - Refusals: a minibatch with progress renders, the object mesh, device
-  ground truth.
+  ground truth without its geometry's leaves.
 """
 
 import dataclasses
@@ -270,8 +270,10 @@ def test_minibatch_refuses_progress(nets):
 
 
 def test_unported_batch_options_raise(nets):
-    """The object mesh (ROADMAP.md item 12) and ground truth rendered on
-    the device (item 13b) raise instead of running something else."""
+    """The object mesh (ROADMAP.md item 12) raises instead of running
+    something else; ground truth rendered on the device from parameters
+    that lack a leaf of their geometry (a sphere without ``radius``)
+    raises and names it."""
     _, _, hp, model, _, init_s, init_t = nets
     s0, t0 = torch.from_numpy(init_s), torch.from_numpy(init_t)
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -280,10 +282,12 @@ def test_unported_batch_options_raise(nets):
     opt = codes_opt.CodeOptimizer(model, hp, s0, t0, device="cpu")
     scene = synthetic_scene(n_objects=1, n_views=2, H=16, W=16, seed=3,
                             params_only=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(ValueError, match="radius"):
         opt.evaluate_objects(None, scene["poses"], scene["focals"], [0],
                              s0[None], t0[None], [None],
-                             gt_params={"albedo": scene["albedos"]})
+                             gt_params={"albedo": scene["albedos"],
+                                        "geometry": "sphere",
+                                        "pattern": False, "hw": (16, 16)})
 
 
 def test_padded_pool_minibatch_takes_the_single_pass(nets):

@@ -12,7 +12,8 @@ rays, 2 training objects and 1 held-out object, two seeds.
 - Reruns on the trained checkpoint (``--resume_train``) with
   ``--opt_group 2`` give the sequential rows; with ``--opt_rays`` they
   run the stochastic fit.
-- ``--scene_backend jax`` and ``--device_gt`` raise.
+- ``--scene_backend jax`` (the port's ``device``) and ``--device_gt``
+  without ``--opt_group`` > 1 raise.
 """
 
 import os
@@ -175,6 +176,18 @@ def test_reruns_on_the_trained_checkpoint(port_runs):
 
 @pytest.mark.parametrize("flag", [["--scene_backend", "jax"],
                                   ["--device_gt"]])
-def test_device_renderer_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        t_tool.main(["--device", "cpu", "--out", str(tmp_path)] + flag)
+def test_device_renderer_flags_raise(flag, tmp_path, capsys):
+    """The JAX tool's ``--scene_backend jax`` is spelled ``device`` here
+    (argparse refuses it and names the choices), and ``--device_gt``
+    without ``--opt_group`` > 1 raises before any work, as the JAX tool
+    refuses it."""
+    argv = ["--device", "cpu", "--out", str(tmp_path)] + flag
+    if flag == ["--device_gt"]:
+        with pytest.raises(ValueError, match="opt_group"):
+            t_tool.main(argv)
+    else:
+        with pytest.raises(SystemExit):
+            t_tool.main(argv)
+        err = capsys.readouterr().err
+        assert "invalid choice: 'jax'" in err and "device" in err
+    assert not os.listdir(tmp_path)

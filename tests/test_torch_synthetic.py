@@ -62,8 +62,10 @@ def test_params_only_bit_equal(geometry):
 
 
 def test_other_backends_raise():
-    """The device renderers are not ported: no quiet numpy fallback."""
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    """The port spells its device backend ``device``: the JAX package's
+    ``jax`` raises a ``ValueError`` that names it, with no quiet
+    fallback to another backend."""
+    with pytest.raises(ValueError, match="'device'"):
         t_syn.synthetic_scene(n_objects=1, n_views=1, backend="jax")
     with pytest.raises(ValueError, match="geometry"):
         t_syn.synthetic_scene(geometry="torus")
