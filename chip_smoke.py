@@ -259,7 +259,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _close(name, got, want, terms=None, per_ray=False, slack=1.0):
+def _close(name, got, want, terms=None, per_ray=False, slack=1.0,
+           quiet=False):
     """Kernel vs plain version. Both round to bf16 at the same points, so
     they differ by f32 summation order, which flips an occasional bf16
     rounding. The bar: relative L2 error below 5e-3 (the bar of
@@ -288,7 +289,7 @@ def _close(name, got, want, terms=None, per_ray=False, slack=1.0):
     bf16 rounding of the chain weighs up to about twice as much: on the
     card they measure 1.4-2.1 times the relative L2 error of d_sproj, the
     same chain's sum one layer earlier, on the same call (PERF.md, PR 4).
-    Returns (max abs error, passed)."""
+    ``quiet`` logs a failure only. Returns (max abs error, passed)."""
     import torch
 
     got, want = got.float(), want.float()
@@ -314,6 +315,8 @@ def _close(name, got, want, terms=None, per_ray=False, slack=1.0):
     ok = (bool(torch.isfinite(got).all())
           and (terms is not None or rel_l2 < 5e-3 * slack)
           and guard_ok and outside < 1e-3)
+    if ok and quiet:
+        return float(err.max()), ok
     log(f"  {name}: max_abs_err {float(err.max()):.3e} (scale {top:.3e}) "
         f"rel_l2 {rel_l2:.3e}, share outside the elementwise bar "
         f"{outside:.2e}; {guard}{'' if ok else '  <-- FAILS'}")
@@ -3268,6 +3271,404 @@ def scene_path(device: str = "cuda", split: dict = FULL_SPLIT,
         f"[{u0}, {u1})")
 
 
+MESH_STEPS = 3        # phase 17(b): data-parallel steps on two ranks
+MESH_OBJS = 4         # phase 17(b): objects fitted on two ranks
+MESH_TIMED = 5        # phase 17(a): steps a timing window
+
+
+class _Env:
+    """``os.environ`` with ``values`` set inside the block and as it was
+    after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def _mesh_inputs(jsonfile: str, dev):
+    """The flagship config's training state from its seed, two pipelines
+    of one seed (each rank's rows and the whole batch), the pose tables
+    on ``dev``, and the 4-object test set."""
+    import torch
+
+    from codenerf_tpu_torch.config import load_hparams
+    from codenerf_tpu_torch.data.pipeline import RayBatchPipeline
+    from codenerf_tpu_torch.data.srn import SRNDataset
+    from codenerf_tpu_torch.training.state import create_train_state
+
+    hp = load_hparams(jsonfile)
+    ds = SRNDataset(cat=hp.data.cat, splits=hp.data.splits,
+                    data_dir=hp.data.data_dir)
+    test = SRNDataset(cat=hp.data.cat, splits="cars_test",
+                      data_dir=hp.data.data_dir)
+    pipes = [RayBatchPipeline(ds.images, ds.poses, ds.focals, seed=hp.seed)
+             for _ in range(2)]
+    tables = {k: torch.from_numpy(v).to(dev)
+              for k, v in pipes[0].tables().items()}
+    return hp, create_train_state(hp, ds.n_objects, dev), pipes, tables, test
+
+
+def _staged_batch(pipe, batch: int, tables, dev, shard=None):
+    """The pipeline's next compact batch on ``dev``, expanded."""
+    import torch
+
+    from codenerf_tpu_torch.training.train_step import expand_compact_batch
+
+    b = pipe.sample(batch, compact=True, shard=shard)
+    return expand_compact_batch({k: torch.from_numpy(v).to(dev)
+                                 for k, v in b.items()}, tables)
+
+
+def _whole_z(hp, batch: int, dev, seed: int):
+    """Sorted depths for a whole batch from a seeded generator on ``dev``:
+    the same numbers on every rank."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = hp.render
+    z = torch.rand((batch, r.n_samples), generator=g, device=dev)
+    return torch.sort(r.near + (r.far - r.near) * z, dim=-1).values
+
+
+def _grad_step(fn, state, batch, z):
+    """One ``grad_fn`` pass from zeroed gradients: (loss, every
+    trainable's gradient, cloned)."""
+    from codenerf_tpu_torch.training.train_step import trainable_params
+
+    state.optimizer.zero_grad(set_to_none=True)
+    m = fn(state, batch, z=z)
+    return m["loss"].detach().clone(), [p.grad.detach().clone()
+                                        for p in trainable_params(state)]
+
+
+def _same_step(what: str, got, want) -> None:
+    """A meshed step's loss and every gradient against one process's at
+    ``_close``'s bars (a miss is logged and fails); logs the loss's
+    relative difference and the largest relative L2 error of a
+    gradient."""
+    import torch
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got[1], want[1])):
+        if not _close(f"{what} gradient {i}", g.reshape(-1), w.reshape(-1),
+                      quiet=True)[1]:
+            raise AssertionError(f"{what}: gradient {i} off the one-process "
+                                 "step")
+        worst = max(worst, float(torch.linalg.vector_norm(g - w)
+                                 / torch.linalg.vector_norm(w).clamp_min(
+                                     1e-30)))
+    rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    log(f"  {what}: loss {float(got[0]):.7f} against {float(want[0]):.7f} "
+        f"(relative {rel:.2e}); {len(got[1])} gradients within _close's "
+        f"bars, the largest relative L2 error {worst:.3e}")
+    if not rel < 1e-4:
+        raise AssertionError(f"{what}: loss off the one-process step")
+
+
+def _weights_sum(state):
+    """A checksum of every trainable's bits (int64, position-weighted)."""
+    import torch
+
+    from codenerf_tpu_torch.training.train_step import trainable_params
+
+    bits = torch.cat([p.detach().reshape(-1)
+                      for p in trainable_params(state)]).view(torch.int32)
+    bits = bits.long()
+    return (bits * torch.arange(1, bits.numel() + 1,
+                                device=bits.device)).sum()
+
+
+def _fit(hp, state, test, dev, mesh, num_opts: int, seed: int):
+    """``MESH_OBJS`` test objects fitted together (``num_opts`` steps,
+    chunks of 4096) and scored on their other views, on ``mesh`` or on one
+    process, from the state's model and mean codes."""
+    import copy
+
+    import torch
+
+    from codenerf_tpu_torch.optimization.codes_opt import CodeOptimizer
+
+    opt = CodeOptimizer(copy.deepcopy(state.model), hp,
+                        state.shape_codes.detach().mean(0),
+                        state.texture_codes.detach().mean(0), chunk=4096,
+                        device=dev, mesh=mesh)
+    args = (test.images[:MESH_OBJS], test.poses[:MESH_OBJS],
+            test.focals[:MESH_OBJS])
+
+    def gens(base):
+        return [torch.Generator(device=dev).manual_seed(base + g)
+                for g in range(MESH_OBJS)]
+
+    res = opt.optimize_objects(*args, [0], gens(seed), num_opts=num_opts)
+    ev = opt.evaluate_objects(*args, [0], res.shape_codes,
+                              res.texture_codes, gens(seed + 100))
+    return res, ev
+
+
+def _same_fit(what: str, got, want) -> None:
+    import numpy as np
+    import torch
+
+    (res, ev), (res1, ev1) = got, want
+    same = (torch.equal(res.shape_codes, res1.shape_codes)
+            and torch.equal(res.texture_codes, res1.texture_codes)
+            and np.array_equal(res.psnr_history, res1.psnr_history)
+            and np.array_equal(ev["psnr"], ev1["psnr"])
+            and np.array_equal(ev["ssim"], ev1["ssim"]))
+    log(f"  {what}: codes, PSNR history and eval PSNR/SSIM of "
+        f"{res.shape_codes.shape[0]} objects "
+        f"{'the same bits as' if same else 'OFF'} the unsharded run's; "
+        f"eval PSNR {np.round(ev['psnr'].mean(1), 4).tolist()}")
+    if not same:
+        raise AssertionError(f"{what}: the sharded fit is not the "
+                             "unsharded one")
+
+
+def mesh_nccl(work: str, jsonfile: str, device: str, batch: int, H: int,
+              num_opts: int) -> None:
+    """Phase 17(a): world size 1 through ``init_from_env`` (nccl on the
+    card, gloo on the CPU) and ``make_mesh(data=1)``."""
+    import torch
+    import torch.distributed as dist
+
+    from codenerf_tpu_torch.parallel import mesh as pm
+    from codenerf_tpu_torch.training import train_step as ts
+
+    with _Env(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0"):
+        dev = pm.init_from_env(device,
+                               init_method=f"file://{work}/pg_world1")
+    try:
+        mesh = pm.make_mesh(data=1)
+        group = pm.batch_group(mesh)
+        hp, state, pipes, tables, test = _mesh_inputs(jsonfile, dev)
+        b = _staged_batch(pipes[0], batch, tables, dev)
+        z = _whole_z(hp, batch, dev, seed=17)
+        want = _grad_step(ts.build_grad_fn(hp, H, H, batch_size=batch),
+                          state, b, z)
+        with LaunchCounts() as lc:
+            got = _grad_step(ts.build_grad_fn(hp, H, H, batch_size=batch,
+                                              mesh=mesh), state, b, z)
+            counts = lc.get()
+        _same_step(f"17(a) {dist.get_backend()} world 1 vs no mesh", got,
+                   want)
+        _expect(counts, {"train": 1} if dev.type == "cuda" else {},
+                "17(a) meshed step")
+        floats = sum(g.numel() for g in want[1]) + 3
+        log(f"  17(a): {floats * 4} B all-reduced a step ({floats - 3} "
+            f"gradient and 3 metric f32)")
+        steps = {False: ts.build_train_step(hp, H, H, batch_size=batch),
+                 True: ts.build_train_step(hp, H, H, batch_size=batch,
+                                           mesh=mesh)}
+        staged = {k: v for k, v in pipes[0].sample(batch,
+                                                   compact=True).items()}
+        staged = {k: torch.from_numpy(v).to(dev) for k, v in staged.items()}
+        if dev.type == "cuda":
+            ms = {False: [], True: []}
+            for meshed in (False, True, True, False):
+                fn = steps[meshed]
+                fn(state, staged, tables)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(MESH_TIMED):
+                    fn(state, staged, tables)
+                torch.cuda.synchronize()
+                ms[meshed].append((time.perf_counter() - t0) * 1e3
+                                  / MESH_TIMED)
+            buf = torch.zeros(floats, device=dev)
+            ar = time_cuda(lambda: dist.all_reduce(buf, group=group), 50, 5)
+            parts = [torch.zeros_like(g) for g in want[1]] + [
+                torch.zeros(3, device=dev)]
+            mean_ms = time_cuda(lambda: pm.all_reduce_mean_(parts, group),
+                                50, 5)
+            log(f"  17(a): nccl all_reduce of the {floats * 4} B bucket "
+                f"{ar:.4f} ms, all_reduce_mean_ (flatten, reduce, divide, "
+                f"copy back) {mean_ms:.4f} ms, each back to back by CUDA "
+                f"events; training step ms (host clock, {MESH_TIMED} "
+                f"steps a window, in turns no mesh, mesh, mesh, no mesh): "
+                f"no mesh {ms[False]}, mesh {ms[True]}; {card_line()}")
+            from torch.profiler import ProfilerActivity, profile
+
+            for meshed in (False, True):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(MESH_TIMED):
+                        steps[meshed](state, staged, tables)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / MESH_TIMED
+                log_step_profile(
+                    f"17(a) {'mesh' if meshed else 'no mesh'} train",
+                    sum(ms[meshed]) / 2, wall, prof, MESH_TIMED,
+                    packs_per_step=1)
+        else:
+            for meshed in (False, True):
+                steps[meshed](state, staged, tables)
+            log("  17(a): all_reduce and step ms not measured (CPU)")
+        with LaunchCounts() as lc:
+            got = _fit(hp, state, test, dev, mesh, num_opts, seed=300)
+            counts = lc.get()
+        _same_fit("17(a) world-1 mesh", got,
+                  _fit(hp, state, test, dev, None, num_opts, seed=300))
+        log(f"  17(a): fitting launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cli(work: str, jsonfile: str, device: str, batch: int) -> None:
+    """Phase 17(a)'s CLI: ``torchrun --standalone --nproc_per_node 1 -m
+    codenerf_tpu_torch.train ... --data_axis 1`` for 2 steps."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    exps = os.path.join(work, "exps")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "codenerf_tpu_torch.train",
+           "--jsonfile", jsonfile, "--exps_root", exps, "--save_dir",
+           "torchrun", "--batchsize", str(batch), "--iters_crop", "1",
+           "--iters_all", "2", "--log_every", "1", "--check_iter", "0",
+           "--data_axis", "1", "--device", device]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"torchrun train failed ({out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    run = os.path.join(exps, "torchrun")
+    losses = _losses(run)
+    if [s_ for s_, _ in losses] != [1, 2] or not np.isfinite(
+            [v for _, v in losses]).all():
+        raise AssertionError(f"torchrun train logged {losses}")
+    if "step_00000002.pt" not in os.listdir(os.path.join(run, "ckpt")):
+        raise AssertionError("torchrun train wrote no step-2 checkpoint")
+    log(f"  17(a): torchrun --nproc_per_node 1 train --data_axis 1: 2 "
+        f"steps, losses {losses}, {wall:.1f} s of command incl. start-up")
+
+
+def _gloo_rank(rank: int, work: str, jsonfile: str, device: str, batch: int,
+               H: int, num_opts: int, steps: int) -> None:
+    """One of phase 17(b)'s two ranks, both on ``device`` (the card's
+    cuda:0), joined over gloo; writes ``<work>/mesh_rank<r>.json``."""
+    import torch
+
+    from codenerf_tpu_torch.ops import fused_train
+    from codenerf_tpu_torch.parallel import mesh as pm
+    from codenerf_tpu_torch.training import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    dev = pm.init_from_env(device, backend="gloo",
+                           init_method=f"file://{work}/pg_gloo")
+    try:
+        mesh = pm.make_mesh()
+        group = pm.batch_group(mesh)
+        shard = pm.batch_shard(mesh)
+        hp, state, pipes, tables, test = _mesh_inputs(jsonfile, dev)
+        meshed = ts.build_grad_fn(hp, H, H, batch_size=batch, mesh=mesh)
+        plain = ts.build_grad_fn(hp, H, H, batch_size=batch)
+        report = {"rank": rank, "shard": shard, "counts": {}, "points": 0,
+                  "step_s": []}
+        for step in range(steps):
+            local = _staged_batch(pipes[0], batch, tables, dev, shard)
+            whole = _staged_batch(pipes[1], batch, tables, dev)
+            z = _whole_z(hp, batch, dev, seed=100 + step)
+            want = _grad_step(plain, state, whole, z) if rank == 0 else None
+            with LaunchCounts() as lc:
+                t0 = time.perf_counter()
+                got = _grad_step(meshed, state, local, z)
+                ts.apply_update(state, hp)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                report["step_s"].append(time.perf_counter() - t0)
+                _add(report["counts"], lc.get())
+                report["points"] += fused_train.train_fused.points["train"]
+            if rank == 0:
+                _same_step(f"17(b) step {step} rank 0 (whole batch "
+                           f"{batch}, {batch // 2} a rank) vs one process",
+                           got, want)
+            sums = pm.all_gather_cat(_weights_sum(state)[None], group)
+            if not bool((sums == sums[0]).all()):
+                raise AssertionError(f"17(b) step {step}: the ranks' "
+                                     f"weights differ: {sums.tolist()}")
+        with LaunchCounts() as lc:
+            got = _fit(hp, state, test, dev, mesh, num_opts, seed=400)
+            report["fit_counts"] = lc.get()
+        if rank == 0:
+            _same_fit("17(b) 2 gloo ranks", got,
+                      _fit(hp, state, test, dev, None, num_opts, seed=400))
+        with open(os.path.join(work, f"mesh_rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def mesh_gloo(work: str, jsonfile: str, device: str, batch: int, H: int,
+              num_opts: int, steps: int = MESH_STEPS) -> None:
+    """Phase 17(b): two spawned ranks on one card over gloo."""
+    import torch.multiprocessing as mp
+
+    from codenerf_tpu_torch.renderer import chunk_plan
+
+    mp.spawn(_gloo_rank, args=(work, jsonfile, device, batch, H, num_opts,
+                               steps), nprocs=2, join=True)
+    on_card = device != "cpu"
+    _, chunks, _ = chunk_plan(H * H, 4096)
+    for rank in range(2):
+        with open(os.path.join(work, f"mesh_rank{rank}.json")) as f:
+            r = json.load(f)
+        ran = {k: v for k, v in r["counts"].items() if v}
+        fit = {k: v for k, v in r["fit_counts"].items() if v}
+        log(f"  17(b) rank {rank} (batch shard {r['shard']}): launches "
+            f"{ran} in {steps} data-parallel steps at "
+            f"{r['points']} points ({batch // 2} rays x "
+            f"{r['points'] // max(1, batch // 2 * steps)} samples a step); "
+            f"fitting launches {fit}; step s (host clock, a "
+            f"correctness run: two ranks share one card) "
+            f"{[round(x, 4) for x in r['step_s']]}")
+        _expect({"train": r["counts"].get("train", 0)},
+                {"train": steps * on_card}, f"17(b) rank {rank} training")
+        n = MESH_OBJS // 2 * num_opts * chunks
+        _expect({"codes": r["fit_counts"].get("codes", 0)},
+                {"codes": n * on_card}, f"17(b) rank {rank} fitting")
+
+
+def mesh_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
+              H: int = 128, num_opts: int = 4) -> None:
+    """Phase 17: data-parallel training and object-sharded fitting over a
+    torch process mesh at ``srncar_fused.json`` widths, on phase 3's
+    seeded training set and a 4-object test set; (a) world size 1 and the
+    torchrun CLI, (b) two ranks sharing the card over gloo."""
+    data = os.path.join(work, "data")
+    write_dataset(data, "cars_train", 4, 4, H, seed=1)
+    write_dataset(data, "cars_test", MESH_OBJS, 4, H)
+    jsonfile = _config(work, "srncar_fused.json", check_points=2)
+    t0 = time.perf_counter()
+    mesh_nccl(work, jsonfile, device, batch, H, num_opts)
+    mesh_cli(work, jsonfile, device, batch)
+    log(f"phase 17(a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_gloo(work, jsonfile, device, batch, H, num_opts)
+    log(f"phase 17(b): {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--check", action="store_true",
@@ -3513,6 +3914,14 @@ def main() -> int:
     t0 = time.perf_counter()
     scene_path()
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    log("phase 17: multi-GPU, the process mesh at srncar_fused.json "
+        "widths: (a) nccl at world size 1 and torchrun --nproc_per_node 1 "
+        "train --data_axis 1, (b) two gloo ranks sharing the card")
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=scratch)
+    try:
+        mesh_path(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +32,17 @@ class _WorkerFailure:
 
     def __init__(self, exc: BaseException):
         self.exc = exc
+
+
+def shard_rows(batch_size: int, shard: Tuple[int, int]) -> slice:
+    """Rows ``[i·B/n, (i+1)·B/n)`` of a batch of ``B`` for ``shard=(i,
+    n)``; the JAX step's ``ValueError`` when ``n`` does not divide ``B``."""
+    i, n = shard
+    if batch_size % n:
+        raise ValueError(f"batch {batch_size} not divisible by the {n}-way "
+                         "batch sharding")
+    b = batch_size // n
+    return slice(i * b, (i + 1) * b)
 
 
 class RayBatchPipeline:
@@ -82,7 +93,9 @@ class RayBatchPipeline:
     def sample(self, batch_size: int, crop: bool = False,
                rng: Optional[np.random.Generator] = None,
                compact: bool = False,
-               native_step: Optional[int] = None) -> Dict[str, np.ndarray]:
+               native_step: Optional[int] = None,
+               shard: Optional[Tuple[int, int]] = None
+               ) -> Dict[str, np.ndarray]:
         """One training batch of host numpy arrays, from ``rng`` or the
         pipeline's own stream (numpy), or from the native stream's
         ``native_step`` (by default the pipeline's next step). Expanded
@@ -92,7 +105,13 @@ class RayBatchPipeline:
         ``obj``, ``view`` (B,) int32, ``uv`` (B, 2) int16, ``rgb`` (B, 3)
         uint8 (15 B/ray; the step gathers pose and focal from
         :meth:`tables`). Both layouts draw the same (object, view, pixel)
-        triples from a given stream state."""
+        triples from a given stream state.
+
+        ``shard=(i, n)``: the global batch's draws advance the stream as
+        without it, and rows ``[i·B/n, (i+1)·B/n)`` of it come back (rank
+        i of an n-way data-parallel step), the same rows bit for bit."""
+        rows = slice(None) if shard is None else shard_rows(batch_size,
+                                                            shard)
         if self.backend == "native":
             from codenerf_tpu_torch.data import native
 
@@ -101,10 +120,12 @@ class RayBatchPipeline:
                 native_step = self._step
             fn = native.sample_batch_compact if compact else \
                 native.sample_batch
-            return fn(self.images, self.poses, self.focals, batch_size,
-                      self._seed, native_step, *self._pixel_bounds(crop))
-        obj, view, pu, pv = self._draw(self._rng if rng is None else rng,
-                                       batch_size, crop)
+            # The sampler draws and gathers in one call: slice its output.
+            out = fn(self.images, self.poses, self.focals, batch_size,
+                     self._seed, native_step, *self._pixel_bounds(crop))
+            return {k: v[rows] for k, v in out.items()}
+        obj, view, pu, pv = (x[rows] for x in self._draw(
+            self._rng if rng is None else rng, batch_size, crop))
         if compact:
             return {
                 "obj": obj.astype(np.int32),
@@ -151,7 +172,8 @@ class RayBatchPipeline:
     def prefetch(self, batch_size: int, crop: bool = False,
                  depth: int = 2, transform=None, compact: bool = False,
                  stream_id: Optional[int] = None,
-                 skip: int = 0) -> Iterator:
+                 skip: int = 0,
+                 shard: Optional[Tuple[int, int]] = None) -> Iterator:
         """Endless iterator of batches made on a background thread.
 
         Each call draws from its own deterministic stream,
@@ -159,7 +181,8 @@ class RayBatchPipeline:
         ``(stream_id << 32) | i`` — by default the next stream index, as
         in the JAX package — so the batches do not depend on thread
         timing. ``skip`` passes over that many batches first (a resumed
-        run continues its stream). ``transform`` (the copy to
+        run continues its stream). ``shard`` as in :meth:`sample`.
+        ``transform`` (the copy to
         the card) runs on the worker thread. Close the iterator
         (``.close()``) to stop its worker; closing waits for it to end, so
         no worker is left inside a native call when the process exits."""
@@ -190,7 +213,8 @@ class RayBatchPipeline:
                 while not stop.is_set():
                     batch = self.sample(batch_size, crop=crop, rng=rng,
                                         compact=compact,
-                                        native_step=(stream_id << 32) | i)
+                                        native_step=(stream_id << 32) | i,
+                                        shard=shard)
                     i += 1
                     if transform is not None:
                         batch = transform(batch)

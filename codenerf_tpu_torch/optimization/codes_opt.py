@@ -47,6 +47,16 @@ has no pad rays and so takes the single pass whether or not the view
 chunks exactly (:func:`step_plan`). :func:`optimize_codes_batch` fits G
 objects together under one AdamW, each chunk one object's rays, each
 object its own generator, so row g follows object g's standalone run.
+
+With a ``mesh`` (``parallel/mesh.py``) the object axis of batched fitting
+and eval is split over the mesh's n batch shards, as in the JAX package
+(``codes_opt.py:562-594``, ``:847-918``, ``:1158-1211``): padded to
+``n·⌈G/n⌉`` objects by repeating the last one, rank i fits and scores
+its contiguous block with each object's own generator and no collective
+in the loop (a padded row takes a copy of the last object's generator),
+and one ``all_gather`` a result gives every rank all G rows, each what
+the unsharded run gives it. The caller's generators of the objects
+another rank ran are not advanced.
 """
 
 from __future__ import annotations
@@ -63,6 +73,8 @@ from codenerf_tpu_torch.core.render import composite_weights
 from codenerf_tpu_torch.evaluation.metrics import (psnr, reference_psnr_mse,
                                                    ssim)
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
+from codenerf_tpu_torch.parallel.mesh import (all_gather_cat, batch_group,
+                                              batch_shard)
 from codenerf_tpu_torch.renderer import (chunk_plan, coarse_zvals, pad_rays,
                                          render_image, render_rays)
 from codenerf_tpu_torch.training.schedules import step_halving
@@ -252,6 +264,39 @@ def _render_chunk_loss(model, hp: Hparams, ro, vd, gt, mask, sc, tc, scale,
     return se * scale, fine, res.final.rgb.detach()
 
 
+def _own_rows(G: int, mesh) -> range:
+    """The rows of the object axis this rank runs: all G without a mesh;
+    else its block of the axis padded to ``n·⌈G/n⌉``, where row r is
+    object ``min(r, G - 1)`` (JAX ``codes_opt.py:874-879``)."""
+    if mesh is None:
+        return range(G)
+    i, n = batch_shard(mesh)
+    per = -(-G // n)
+    return range(i * per, (i + 1) * per)
+
+
+def _row_generators(generators: Sequence, rows: range) -> list:
+    """Each row's generator: its object's, or for a padded row a copy of
+    the last object's (the object itself may run on this rank too)."""
+    G = len(generators)
+    out = []
+    for r in rows:
+        g = generators[min(r, G - 1)]
+        if r >= G and g is not None:
+            copy = torch.Generator(device=g.device)
+            copy.set_state(g.get_state())
+            g = copy
+        out.append(g)
+    return out
+
+
+def _gather_rows(x: torch.Tensor, G: int, mesh, dim: int = 0):
+    """Every rank's rows of ``x`` along ``dim``, the padding dropped."""
+    if mesh is None:
+        return x
+    return all_gather_cat(x, batch_group(mesh), dim).narrow(dim, 0, G)
+
+
 class BatchedOptimizationResult(NamedTuple):
     shape_codes: torch.Tensor    # (G, D)
     texture_codes: torch.Tensor  # (G, D)
@@ -396,18 +441,34 @@ def optimize_codes_batch(model, hp: Hparams, ray_o: torch.Tensor,
                          occ_grid=None, fine_model=None,
                          use_fused: Optional[bool] = None,
                          rays_per_step: Optional[int] = None,
-                         pix: Optional[torch.Tensor] = None
-                         ) -> BatchedOptimizationResult:
+                         pix: Optional[torch.Tensor] = None,
+                         mesh=None) -> BatchedOptimizationResult:
     """Optimize G objects' codes together (JAX ``optimize_codes_batch``,
     ``codes_opt.py:829-932``): ``ray_o``/``viewdir``/``gt_rgb`` (G, N, 3),
     the initial codes (D,) or (G, D), one generator per object. Row g
     follows :func:`optimize_codes` on object g alone with
     ``generators[g]``; ``pix`` (G, num_opts, rays a step) replaces the
-    minibatch draws. No progress renders."""
+    minibatch draws. No progress renders. ``mesh`` splits the objects
+    over its batch shards (the module docstring); every rank returns all
+    G rows."""
+    G = ray_o.shape[0]
+    rows = _own_rows(G, mesh)
+    gens = _row_generators(list(generators), rows)
+    if mesh is not None:
+        objs = [min(r, G - 1) for r in rows]
+        ray_o, viewdir, gt_rgb = ray_o[objs], viewdir[objs], gt_rgb[objs]
+        if init_shape.dim() == 2:
+            init_shape, init_texture = init_shape[objs], init_texture[objs]
+        if pix is not None:
+            pix = pix[objs]
     s, t, hist, _ = _fit(
-        model, hp, ray_o, viewdir, gt_rgb, init_shape, init_texture,
-        list(generators), num_opts, lr, lr_half_interval, chunk, 0,
-        occ_grid, fine_model, use_fused, rays_per_step, pix)
+        model, hp, ray_o, viewdir, gt_rgb, init_shape, init_texture, gens,
+        num_opts, lr, lr_half_interval, chunk, 0, occ_grid, fine_model,
+        use_fused, rays_per_step, pix)
+    if mesh is not None:
+        s, t = _gather_rows(s, G, mesh), _gather_rows(t, G, mesh)
+        hist = _gather_rows(torch.from_numpy(hist).to(s.device), G, mesh,
+                            dim=1).cpu().numpy()
     return BatchedOptimizationResult(s, t, hist)
 
 
@@ -428,8 +489,10 @@ class CodeOptimizer:
     (None: the full view, the reference protocol); eval is unaffected.
     :meth:`optimize_objects` / :meth:`evaluate_objects` run G objects
     together, each row as :meth:`optimize_object` / :meth:`evaluate_object`
-    would give it with that object's generator. ``mesh`` (the object axis
-    over devices) is not ported (ROADMAP.md Queue 1, item 12)."""
+    would give it with that object's generator; with a ``mesh`` each rank
+    runs its block of the G objects and returns all G rows (the module
+    docstring). The one-object methods ignore the mesh: every rank runs
+    the object."""
 
     def __init__(self, model, hp: Hparams, mean_shape: torch.Tensor,
                  mean_texture: torch.Tensor, chunk: int = 4096,
@@ -437,11 +500,8 @@ class CodeOptimizer:
                  eval_hp: Optional[Hparams] = None, eval_occ: bool = True,
                  fine_model=None, opt_rays: Optional[int] = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "CodeOptimizer(mesh=...): object sharding over devices is "
-                "not ported yet (ROADMAP.md Queue 1, item 12)")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).requires_grad_(False)
         self.fine_model = (None if fine_model is None else
                            fine_model.to(self.device).requires_grad_(False))
@@ -504,7 +564,7 @@ class CodeOptimizer:
             self.mean_texture, generators, num_opts=num_opts, lr=lr,
             lr_half_interval=lr_half_interval, chunk=self.chunk,
             occ_grid=self.occ_grid, fine_model=self.fine_model,
-            rays_per_step=self.opt_rays)
+            rays_per_step=self.opt_rays, mesh=self.mesh)
 
     def evaluate_objects(self, images: Optional[np.ndarray],
                          poses: np.ndarray, focals: np.ndarray,
@@ -529,12 +589,16 @@ class CodeOptimizer:
         returns. The rendered truth is quantized as the stored images are
         (``make_gt_view_renderer``), so the metrics match the pixel path's
         but where f32 and f64 round a pixel to different levels."""
+        G = len(generators)
+        rows = _own_rows(G, self.mesh)
+        own = list(zip([min(r, G - 1) for r in rows],
+                       _row_generators(list(generators), rows)))
         if gt_params is None:
-            return self._stack([self.evaluate_object(
+            return self._gather(self._stack([self.evaluate_object(
                 images[g], poses[g], float(focals[g]), exclude_views,
-                shape_codes[g], texture_codes[g], generators[g],
+                shape_codes[g], texture_codes[g], gen,
                 return_images=return_images, deterministic=deterministic)
-                for g in range(len(generators))], return_images)
+                for g, gen in own], return_images), G)
         from codenerf_tpu_torch.data.synthetic import make_gt_view_renderer
 
         geometry = gt_params["geometry"]
@@ -552,20 +616,31 @@ class CodeOptimizer:
         cams = torch.from_numpy(np.asarray(poses, np.float32)).to(self.device)
         fs = torch.from_numpy(np.asarray(focals, np.float32)).to(self.device)
         evs = []
-        for g in range(len(generators)):
+        for g, gen in own:
             obj = {k: v[g] for k, v in leaves.items()}
             evs.append(self._evaluate(
                 lambda v, g=g, obj=obj: gt_view(cams[g, v], fs[g], obj),
                 poses[g], float(focals[g]), poses.shape[1], H, W,
-                exclude_views, shape_codes[g], texture_codes[g],
-                generators[g], return_images, deterministic))
-        return self._stack(evs, return_images)
+                exclude_views, shape_codes[g], texture_codes[g], gen,
+                return_images, deterministic))
+        return self._gather(self._stack(evs, return_images), G)
 
     @staticmethod
     def _stack(evs, return_images: bool) -> Dict[str, np.ndarray]:
         out = {"views": evs[0]["views"]}
         for k in ("psnr", "ssim") + (("images",) if return_images else ()):
             out[k] = np.stack([ev[k] for ev in evs])
+        return out
+
+    def _gather(self, out: Dict[str, np.ndarray],
+                G: int) -> Dict[str, np.ndarray]:
+        """Under a mesh, every rank's rows of the metrics (and images)."""
+        if self.mesh is None:
+            return out
+        for k in ("psnr", "ssim", "images"):
+            if k in out:
+                out[k] = _gather_rows(torch.from_numpy(out[k]).to(
+                    self.device), G, self.mesh).cpu().numpy()
         return out
 
     def evaluate_object(self, images: np.ndarray, poses: np.ndarray,

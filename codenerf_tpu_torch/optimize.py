@@ -40,8 +40,22 @@ instead of the full view (no per-step progress PNGs then);
 ``--opt_group G`` fits G objects together under one AdamW and evaluates
 them together, each object with the generators the sequential loop would
 give it, so ``codes.npz`` and ``results.json`` are object-for-object the
-sequential loop's. The multi-device axes (``--data_axis``,
-``--replica_axis``) raise with the ROADMAP.md item that covers them.
+sequential loop's.
+
+On N cards, one process each:
+
+    torchrun --standalone --nproc_per_node N -m codenerf_tpu_torch.optimize \
+        --jsonfile srncar_fused.json --saved_dir <run> --opt_group G
+
+Under ``torchrun``, or with ``--data_axis``/``--replica_axis`` off their
+defaults, the processes form the JAX package's mesh
+(``parallel/mesh.py``; a layout that does not match ``WORLD_SIZE``
+raises ``ValueError``), and each group of ``--opt_group`` objects is
+split over its batch shards: each process fits and scores its block of
+the group, and every process holds the whole group's results. With
+``--opt_group 1`` every process runs every object (a warning says so,
+as in the JAX CLI). Rank 0 writes every output file, the files of a
+one-process run.
 """
 
 from __future__ import annotations
@@ -105,22 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--opt_rays", type=int, default=None,
                    help="target rays drawn per optimization step instead "
                         "of the full view (None: the reference protocol)")
-    # Flags of the JAX CLI the port does not have yet: accepted so the
-    # surface matches, refused unless left at their defaults.
     p.add_argument("--data_axis", type=int, default=-1)
-    p.add_argument("--replica_axis", type=int, default=1)
+    p.add_argument("--replica_axis", type=int, default=1,
+                   help="with several processes, --opt_group objects split "
+                        "over a (replica, data) mesh; per-object results "
+                        "are the same")
     return p
-
-
-def _refuse_unported(args) -> None:
-    unported = [
-        (args.replica_axis != 1 or args.data_axis not in (-1, 1),
-         "--data_axis/--replica_axis (multi-device)", "Queue 1, item 12"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def main(argv=None) -> dict:
@@ -132,29 +136,53 @@ def main(argv=None) -> dict:
 
         return pose_opt.main([a for a in argv if a != "--pose_opt"])
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
-    from codenerf_tpu_torch import resolve_device
+    import torch.distributed as dist
+
+    from codenerf_tpu_torch.parallel.mesh import mesh_from_flags
+
+    mesh, device = mesh_from_flags(
+        f"cuda:{args.gpu}" if args.device == "cuda" else args.device,
+        data=args.data_axis, replica=args.replica_axis)
+    try:
+        return _run(args, mesh, device)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh, device) -> dict:
+    import torch.distributed as dist
+
     from codenerf_tpu_torch.config import resolve_dtype
     from codenerf_tpu_torch.core.occupancy import rebuild_category_grid
     from codenerf_tpu_torch.data.srn import SRNDataset
     from codenerf_tpu_torch.models.codes import mean_code
     from codenerf_tpu_torch.optimization.codes_opt import CodeOptimizer
+    from codenerf_tpu_torch.parallel.mesh import is_writer, n_batch_shards
     from codenerf_tpu_torch.utils.checkpoint import load_run, \
         save_reference_codes
     from codenerf_tpu_torch.utils.images import save_png, side_by_side
 
-    device = resolve_device(
-        f"cuda:{args.gpu}" if args.device == "cuda" else args.device)
     hp = load_hparams(args.jsonfile)
     if args.opt_occ and hp.train_occupancy is None:
         raise SystemExit(f"--opt_occ needs a jsonfile with train_occupancy "
                          f"(e.g. srncar_hier_occ.json); {args.jsonfile} has "
                          "none")
+    if mesh is not None and n_batch_shards(mesh) > 1 and args.opt_group == 1:
+        print("WARNING: several processes but --opt_group=1: the mesh "
+              "splits the object-group axis; every process runs every "
+              "object. Raise --opt_group to use every card.",
+              file=sys.stderr)
+    writer = is_writer()
     run_dir = os.path.join(args.exps_root, args.saved_dir)
     model, fine_model, shape_codes, texture_codes = load_run(run_dir, hp,
                                                              device)
-    save_dir = _unique_test_dir(os.path.join(run_dir, "test"))
+    save_dir = [_unique_test_dir(os.path.join(run_dir, "test"))
+                if writer else None]
+    if mesh is not None:
+        dist.broadcast_object_list(save_dir, src=0)
+    save_dir = save_dir[0]
     print("we are going to save at", save_dir)
 
     obj = hp.data.cat.split("_")[1]
@@ -179,13 +207,14 @@ def main(argv=None) -> dict:
                               mean_code(texture_codes), chunk=args.batchsize,
                               device=device, occ_grid=occ, eval_hp=hp,
                               eval_occ=False, fine_model=fine_model,
-                              opt_rays=args.opt_rays)
+                              opt_rays=args.opt_rays, mesh=mesh)
 
-    with open(os.path.join(save_dir, "opt_hpams.json"), "w") as f:
-        json.dump({"instance_ids": args.tgt_instances, "lr": args.lr,
-                   "lr_half_interval": args.lr_half_interval,
-                   "splits": args.splits, "num_opts": args.num_opts}, f,
-                  indent=2)
+    if writer:
+        with open(os.path.join(save_dir, "opt_hpams.json"), "w") as f:
+            json.dump({"instance_ids": args.tgt_instances, "lr": args.lr,
+                       "lr_half_interval": args.lr_half_interval,
+                       "splits": args.splits, "num_opts": args.num_opts},
+                      f, indent=2)
 
     n = ds.n_objects
     latent_dim = optimizer.mean_shape.shape[-1]
@@ -231,7 +260,7 @@ def main(argv=None) -> dict:
                         "ssim": float(np.mean(pick("ssim")))})
         print(f"  psnr {summary[-1]['psnr']:.3f}  ssim "
               f"{summary[-1]['ssim']:.4f}")
-        if args.save_img:
+        if writer and args.save_img:
             obj_dir = os.path.join(save_dir, ds.ids[oi])
             os.makedirs(obj_dir, exist_ok=True)
             imgs_f = imgs.astype(np.float32) / 255.0
@@ -309,7 +338,7 @@ def main(argv=None) -> dict:
         timing["opt_steps"] += args.num_opts * len(idx)
         timing["eval_s"] += t2 - t1
         timing["eval_views"] += len(ev["views"]) * len(idx)
-        if args.save_progress:      # the sequential loop's one object
+        if writer and args.save_progress:   # the sequential loop's object
             obj_dir = os.path.join(save_dir, ds.ids[idx[0]])
             os.makedirs(obj_dir, exist_ok=True)
             v0 = args.tgt_instances[0]
@@ -320,7 +349,8 @@ def main(argv=None) -> dict:
                          side_by_side(prog[t], gt_v0))
         for oi, imgs, shape_code, texture_code, hist, j in rows:
             emit(oi, imgs, shape_code, texture_code, hist, ev, j)
-        flush(idx[-1])
+        if writer:
+            flush(idx[-1])
     print("done:", json.dumps(summary[-1] if summary else {}))
     return {"save_dir": save_dir, "summary": summary, "timing": timing,
             "psnr_history": histories}

@@ -19,9 +19,22 @@ occupancy grid included (``srncar_hier_occ.json``).
 
 Writes ``<exps_root>/<save_dir>/{hpam.json, metrics.jsonl, ckpt/}``;
 ``python -m codenerf_tpu_torch.optimize --saved_dir <save_dir>`` reads the
-latest ``ckpt/step_*.pt``. The mesh flags (``--data_axis``,
-``--model_axis``, ``--replica_axis``) other than their defaults raise:
-multi-GPU training is not ported yet.
+latest ``ckpt/step_*.pt``.
+
+Data-parallel training on N cards, one process each:
+
+    torchrun --standalone --nproc_per_node N -m codenerf_tpu_torch.train \
+        --jsonfile srncar_fused.json --save_dir <run> [--data_axis N]
+
+Under ``torchrun``, or with a mesh flag off its default, the processes
+form the JAX package's mesh (``parallel/mesh.py``): ``--data_axis``
+(-1: every process not on another axis) and ``--replica_axis`` (JAX's
+multi-slice axis) split each step's ``--batchsize`` rays over their
+product, each process on ``cuda:LOCAL_RANK`` (``--gpu`` is then unused);
+a layout that does not match ``WORLD_SIZE`` raises ``ValueError``.
+``--model_axis`` above 1 (tensor parallelism) raises
+``NotImplementedError``: ROADMAP.md Queue 1, item 26. Rank 0 writes the
+run directory.
 """
 
 from __future__ import annotations
@@ -63,33 +76,37 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns the final logged metrics."""
     args = build_parser().parse_args(argv)
-    if args.data_axis not in (-1, 1) or args.model_axis != 1 \
-            or args.replica_axis != 1:
-        raise NotImplementedError(
-            "--data_axis/--model_axis/--replica_axis (multi-device "
-            "training) are not ported yet (ROADMAP.md Queue 1, item 12)")
     if args.num_instances_per_obj != 2:
         warnings.warn(f"--num_instances_per_obj={args.num_instances_per_obj}"
                       " is ignored: rays are sampled globally across all "
                       "objects and views each step", stacklevel=2)
 
-    from codenerf_tpu_torch import resolve_device
+    import torch.distributed as dist
+
     from codenerf_tpu_torch.config import load_hparams
+    from codenerf_tpu_torch.parallel.mesh import mesh_from_flags
     from codenerf_tpu_torch.training.trainer import Trainer
 
-    device = resolve_device(
-        f"cuda:{args.gpu}" if args.device == "cuda" else args.device)
-    hp = load_hparams(args.jsonfile)
-    trainer = Trainer(args.save_dir, hp, batch_size=args.batchsize,
-                      exps_root=args.exps_root,
-                      use_tensorboard=args.tensorboard,
-                      check_iter=args.check_iter,
-                      max_objects=args.max_objects,
-                      microbatch_rays=args.microbatch, device=device)
-    if args.resume and trainer.resume():
-        print(f"resumed from step {trainer.state.step}")
-    metrics = trainer.training(args.iters_crop, args.iters_all,
-                               log_every=args.log_every)
+    mesh, device = mesh_from_flags(
+        f"cuda:{args.gpu}" if args.device == "cuda" else args.device,
+        data=args.data_axis, model=args.model_axis,
+        replica=args.replica_axis)
+    try:
+        hp = load_hparams(args.jsonfile)
+        trainer = Trainer(args.save_dir, hp, batch_size=args.batchsize,
+                          exps_root=args.exps_root,
+                          use_tensorboard=args.tensorboard,
+                          check_iter=args.check_iter,
+                          max_objects=args.max_objects,
+                          microbatch_rays=args.microbatch, device=device,
+                          mesh=mesh)
+        if args.resume and trainer.resume():
+            print(f"resumed from step {trainer.state.step}")
+        metrics = trainer.training(args.iters_crop, args.iters_all,
+                                   log_every=args.log_every)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     print("final:", metrics)
     return metrics
 

@@ -54,7 +54,23 @@ drawn for the whole batch first, so the result does not depend on the
 split. The metrics are the mean over microbatches, with PSNR recomputed
 from the mean MSE.
 
-A device mesh raises ``NotImplementedError`` naming its ROADMAP.md item.
+Data parallelism (``mesh``, ``parallel/mesh.py``): each of the mesh's n
+batch shards takes its rows of the step's batch (``B/n`` rays, and
+``microbatch_rays/n`` a microbatch, the count every ray-count rule
+checks) and runs the route as above on them; the depths and importance
+probes are drawn for the whole batch from the state's generator, which
+stays the same on every rank, and sliced. After the last microbatch one
+all-reduce averages every gradient (both networks and both code tables)
+and the step's loss, MSE and reg over the shards, and AdamW then updates
+the same weights the same way on every rank. Each shard's loss is the
+mean over its own rays, so with equal shards the mean of the shard means
+is the whole batch's mean: the JAX package's global scale and ``psum``
+(its ``train_step.py:322``, ``:379-384``) by another route. PSNR comes
+from the averaged MSE. Without a mesh no collective runs. The reduction
+is not ``DistributedDataParallel``: the single-pass kernel returns every
+dW/db at the end of one ``autograd.Function``, so overlapping the
+reduction with the backward gains nothing, and the state holds a model,
+a fine network and two code tables, not one module.
 """
 
 from __future__ import annotations
@@ -66,9 +82,11 @@ import torch
 from codenerf_tpu_torch.config import Hparams, resolve_dtype
 from codenerf_tpu_torch.core.rays import pixel_rays
 from codenerf_tpu_torch.core.render import composite, composite_weights
-from codenerf_tpu_torch.core.sampling import fine_uniforms
+from codenerf_tpu_torch.core.sampling import fine_uniforms, uniform01_u8
 from codenerf_tpu_torch.evaluation.metrics import psnr
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
+from codenerf_tpu_torch.parallel.mesh import (all_reduce_mean_, batch_group,
+                                              batch_shard)
 from codenerf_tpu_torch.renderer import coarse_zvals, render_rays
 from codenerf_tpu_torch.training.schedules import (step_halving,
                                                    window_frozen_step_halving)
@@ -124,7 +142,7 @@ def uses_single_pass_loss(hp: Hparams) -> bool:
         hp.render.n_importance == 0 or hp.render.share_fine_weights)
 
 
-def _check_supported(hp: Hparams, mesh) -> None:
+def _check_supported(hp: Hparams) -> None:
     if hp.train_occupancy is not None:
         if hp.render.shared_jitter:
             raise ValueError(
@@ -135,10 +153,6 @@ def _check_supported(hp: Hparams, mesh) -> None:
             raise ValueError(
                 "train_occupancy needs a grid extent: set "
                 "train_occupancy.radius or bound_sphere_radius")
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (multi-GPU training) is not ported yet "
-            "(ROADMAP.md Queue 1, item 12)")
 
 
 def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
@@ -150,18 +164,31 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
     the state's device (reading them synchronizes). ``z`` (R, S) and, with
     hierarchical sampling, ``u`` (R, N_importance) replace the generator's
     draws — the tests feed both packages the same numbers. ``occ_grid``
-    bounds the coarse depths (an ``OccupancyGrid``)."""
-    _check_supported(hp, mesh)
+    bounds the coarse depths (an ``OccupancyGrid``).
+
+    With a ``mesh``, ``batch`` holds this rank's rows of the step's batch
+    (``RayBatchPipeline.sample(shard=batch_shard(mesh))``), ``z`` and
+    ``u`` the whole batch's, and the gradients and metrics are the
+    averages over the batch shards."""
+    _check_supported(hp)
     net_cfg, rcfg = hp.net, hp.render
     compute_dtype = resolve_dtype(hp.compute_dtype)
     reg_coef = hp.loss_reg_coef / hp.quirks.reg_chunk_divisor
     hier = rcfg.n_importance > 0
     single_pass = uses_single_pass_loss(hp)
+    shard, n_shards, group = 0, 1, None
+    if mesh is not None:
+        shard, n_shards = batch_shard(mesh)
+        group = batch_group(mesh)
     # Every fused route checks the plane-op pair's rule for every sample
-    # count it evaluates, as the JAX step does (its build_train_step; 32 *
-    # 16 rays when the batch is not known).
+    # count it evaluates at this rank's rays, as the JAX step does (its
+    # build_train_step; 32 * 16 rays when the batch is not known).
     step_rays = (microbatch_rays or batch_size
                  or 32 * fused_train._TRAIN_TILE_RAYS)
+    if step_rays % n_shards:
+        raise ValueError(f"batch {step_rays} not divisible by the "
+                         f"{n_shards}-way batch sharding")
+    step_rays //= n_shards
     counts = [rcfg.n_samples] + ([rcfg.n_samples + rcfg.n_importance]
                                  if hier else [])
     ok = all(fused_train.fused_train_available(net_cfg, step_rays, n)
@@ -248,16 +275,29 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         ray_o, viewdir = pixel_rays(batch["uv"], batch["focal"],
                                     batch["c2w"], H, W)
         B = batch["rgb"].shape[0]
+        # This rank's rows of the whole batch's draws.
+        rows = slice(shard * B, (shard + 1) * B)
+        dev = ray_o.device
         if z is None:
-            z = coarse_zvals(rcfg, ray_o, viewdir, state.generator, occ_grid)
-        if hier and u is None:
-            u = fine_uniforms(state.generator, B, rcfg.n_importance,
-                              z.device)
-        mb = microbatch_rays or B
+            jitter = None
+            if n_shards > 1 and not rcfg.shared_jitter:
+                jitter = uniform01_u8(state.generator, B * n_shards,
+                                      rcfg.n_samples, dev)[rows]
+            z = coarse_zvals(rcfg, ray_o, viewdir, state.generator, occ_grid,
+                             jitter=jitter)
+        elif n_shards > 1:
+            z = z[rows]
+        if hier:
+            if u is None:
+                u = fine_uniforms(state.generator, B * n_shards,
+                                  rcfg.n_importance, dev)
+            if n_shards > 1:
+                u = u[rows]
+        mb = microbatch_rays // n_shards or B
         if B % mb:
             raise ValueError(f"batch {B} not divisible by microbatch {mb}")
         k = B // mb
-        sums = torch.zeros(3, device=z.device)
+        sums = torch.zeros(3, device=dev)
         for i in range(k):
             sl = slice(i * mb, (i + 1) * mb)
             loss, mse, reg = loss_fn(state, batch["obj"][sl], ray_o[sl],
@@ -266,10 +306,20 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
                                      batch["rgb"][sl])
             (loss / k).backward()
             sums += torch.stack([loss, mse, reg]).detach()
-        loss, mse, reg = sums / k
+        sums /= k
+        if group is not None:
+            all_reduce_mean_([p.grad for p in trainable_params(state)
+                              if p.grad is not None] + [sums], group)
+        loss, mse, reg = sums
         return {"loss": loss, "mse": mse, "psnr": psnr(mse), "reg": reg}
 
     return grad_fn
+
+
+def trainable_params(state: TrainState):
+    """Every parameter AdamW updates, in its groups' order."""
+    return [p for group in state.optimizer.param_groups
+            for p in group["params"]]
 
 
 def apply_update(state: TrainState, hp: Hparams) -> None:

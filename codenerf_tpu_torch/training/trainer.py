@@ -1,5 +1,5 @@
 """Category-level training loop (counterpart of
-``codenerf_tpu/training/trainer.py``, without its mesh).
+``codenerf_tpu/training/trainer.py``).
 
 The reference ``Trainer``'s capabilities (``src/trainer.py:17-180``): the
 two-stage cropped-then-full schedule, per-object latent code tables, MSE +
@@ -25,6 +25,15 @@ steps an EMA refresh from ``codes_per_update`` objects taken round-robin.
 The density is a function of the model and codes and is not
 checkpointed: a run resumed past warm-up rebuilds it. With separate fine
 weights the grid is scanned from the coarse network, as in JAX.
+
+With a ``mesh`` (``parallel/mesh.py``; one process per card) every rank
+runs this loop on its rows of each step's batch (``train_step``'s data
+parallelism). The ranks start from the same seeded weights, resume from
+the same checkpoint and update alike; the occupancy grid is broadcast
+from the first batch rank after each refresh, so no nondeterministic op
+can set the ranks apart. Global rank 0 alone writes ``hpam.json``,
+``metrics.jsonl``, TensorBoard, checkpoints and render logs; every save
+ends at a barrier.
 """
 
 from __future__ import annotations
@@ -44,6 +53,8 @@ from codenerf_tpu_torch.core import occupancy as occ_mod
 from codenerf_tpu_torch.data.pipeline import RayBatchPipeline
 from codenerf_tpu_torch.data.srn import SRNDataset
 from codenerf_tpu_torch.evaluation.metrics import reference_psnr_mse
+from codenerf_tpu_torch.parallel.mesh import (batch_group, batch_shard,
+                                              broadcast_, is_writer)
 from codenerf_tpu_torch.renderer import render_image
 from codenerf_tpu_torch.training.state import create_train_state
 from codenerf_tpu_torch.training.train_step import build_train_step
@@ -81,16 +92,21 @@ class Trainer:
                                          seed=hparams.seed)
         self.H, self.W = self.pipeline.H, self.pipeline.W
         self.n_objects = self.pipeline.n_objects
+        self._shard = None if mesh is None else batch_shard(mesh)
+        self._group = None if mesh is None else batch_group(mesh)
+        self.writer = is_writer()
 
         # Run directory: exps/<save_dir>/{hpam.json, metrics.jsonl, ckpt/}
         # (reference layout, src/trainer.py:158-166).
         self.save_dir = os.path.join(exps_root, save_dir)
-        os.makedirs(self.save_dir, exist_ok=True)
-        with open(os.path.join(self.save_dir, "hpam.json"), "w") as f:
-            json.dump(self.hp.to_json_dict(), f, indent=2)
-        self.logger = MetricsLogger(self.save_dir,
-                                    use_tensorboard=use_tensorboard)
         self.ckpt_dir = os.path.join(self.save_dir, "ckpt")
+        self.logger = None
+        if self.writer:
+            os.makedirs(self.save_dir, exist_ok=True)
+            with open(os.path.join(self.save_dir, "hpam.json"), "w") as f:
+                json.dump(self.hp.to_json_dict(), f, indent=2)
+            self.logger = MetricsLogger(self.save_dir,
+                                        use_tensorboard=use_tensorboard)
 
         self._train_step = build_train_step(
             self.hp, self.H, self.W, microbatch_rays=microbatch_rays,
@@ -145,6 +161,7 @@ class Trainer:
             self._density, self._occ_radius,
             sigma_threshold=oc.sigma_threshold, dilate=oc.dilate,
             mask_radius=self._occ_radius)
+        self._share_occupancy()
         self._log_occupancy(rebuild=False)
 
     def _rebuild_occupancy(self) -> None:
@@ -160,14 +177,22 @@ class Trainer:
             compute_dtype=resolve_dtype(self.hp.compute_dtype))
         self._occ_cursor = 0
         self._occ_seeded = True
+        self._share_occupancy()
         self._log_occupancy(rebuild=True)
+
+    def _share_occupancy(self) -> None:
+        """Under a mesh, the first batch rank's density and grid on every
+        rank (a replicated step input, as in JAX)."""
+        if self._group is not None:
+            broadcast_([self._density, self._occ.occ], self._group)
 
     def _log_occupancy(self, rebuild: bool) -> None:
         """The grid's occupied share and whether it was a full rebuild, at
         the state's step, in ``metrics.jsonl``."""
-        self.logger.scalars(self.state.step, {
-            "occ/occupied": float(self._occ.occ.float().mean()),
-            "occ/rebuild": float(rebuild)})
+        if self.writer:
+            self.logger.scalars(self.state.step, {
+                "occ/occupied": float(self._occ.occ.float().mean()),
+                "occ/rebuild": float(rebuild)})
 
     def _maybe_update_occupancy(self, next_step: int) -> None:
         oc = self.hp.train_occupancy
@@ -188,8 +213,18 @@ class Trainer:
         return self._occ
 
     # ------------------------------------------------------------------ ckpt
-    def save_checkpoint(self) -> str:
-        return ckpt.save_checkpoint(self.ckpt_dir, self.state)
+    def save_checkpoint(self) -> Optional[str]:
+        """The writer saves the state; under a mesh every rank then waits
+        at a barrier, so no rank reads a checkpoint still being written.
+        Returns the path (None on the other ranks)."""
+        path = self._save()
+        if self._group is not None:
+            torch.distributed.barrier(group=self._group)
+        return path
+
+    def _save(self) -> Optional[str]:
+        return (ckpt.save_checkpoint(self.ckpt_dir, self.state)
+                if self.writer else None)
 
     def resume(self) -> bool:
         """Restore the latest checkpoint if one exists; True if restored."""
@@ -206,7 +241,8 @@ class Trainer:
         skip = step if crop else step - min(step, iters_crop)
         return self.pipeline.prefetch(self.B, crop=crop,
                                       transform=self._stage, compact=True,
-                                      stream_id=0 if crop else 1, skip=skip)
+                                      stream_id=0 if crop else 1, skip=skip,
+                                      shard=self._shard)
 
     def training(self, iters_crop: int, iters_all: int,
                  log_every: int = 100) -> Dict[str, float]:
@@ -244,16 +280,18 @@ class Trainer:
                     dt = time.time() - t_phase
                     last_metrics["rays_per_sec"] = rays_since_log / max(dt,
                                                                         1e-9)
-                    self.logger.scalars(next_step, {
-                        "psnr/train": last_metrics["psnr"],
-                        "reg/train": last_metrics["reg"],
-                        "loss/train": last_metrics["loss"],
-                        "time/train": dt,
-                        "rays_per_sec": last_metrics["rays_per_sec"],
-                    })
+                    if self.writer:
+                        self.logger.scalars(next_step, {
+                            "psnr/train": last_metrics["psnr"],
+                            "reg/train": last_metrics["reg"],
+                            "loss/train": last_metrics["loss"],
+                            "time/train": dt,
+                            "rays_per_sec": last_metrics["rays_per_sec"],
+                        })
                     t_phase = time.time()
                     rays_since_log = 0
-                if self.check_iter and next_step % self.check_iter == 0:
+                if self.writer and self.check_iter \
+                        and next_step % self.check_iter == 0:
                     self._log_render(next_step)
                 if self.hp.check_points and \
                         next_step % self.hp.check_points == 0:
@@ -261,9 +299,10 @@ class Trainer:
         except (KeyboardInterrupt, Exception):
             # Crash-safe checkpoint at the last completed step (the
             # reference has no resume path at all); a failure while saving
-            # must not hide the original error.
+            # must not hide the original error. No barrier: the other
+            # ranks may not reach one.
             try:
-                self.save_checkpoint()
+                self._save()
             except Exception:
                 pass
             raise
@@ -286,7 +325,8 @@ class Trainer:
 
         trace_dir = trace_dir or os.path.join(self.save_dir, "profile")
         os.makedirs(trace_dir, exist_ok=True)
-        batch = self._stage(self.pipeline.sample(self.B, compact=True))
+        batch = self._stage(self.pipeline.sample(self.B, compact=True,
+                                                 shard=self._shard))
         self._train_step(self.state, batch, *self._step_extras())
         self._sync()
         t0 = time.perf_counter()

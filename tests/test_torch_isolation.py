@@ -34,7 +34,8 @@ def test_every_module_imports_with_jax_blocked():
         " 'codenerf_tpu_torch.ops.composite',"
         " 'codenerf_tpu_torch.quality_report',"
         " 'codenerf_tpu_torch.data.synthetic',"
-        " 'codenerf_tpu_torch.data.native'}\n"
+        " 'codenerf_tpu_torch.data.native',"
+        " 'codenerf_tpu_torch.parallel.mesh'}\n"
         "assert new <= set(names), new - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'codenerf_tpu' "

@@ -20,8 +20,8 @@ shape blocks, latent size 32, 8 samples and 16×16 views.
   padded pool.
 - The optimize CLI with ``--opt_group 2`` against the sequential CLI,
   object for object; the progress-PNG warning of ``--opt_rays``.
-- Refusals: a minibatch with progress renders, the object mesh, device
-  ground truth without its geometry's leaves.
+- Refusals: a minibatch with progress renders, device ground truth
+  without its geometry's leaves.
 """
 
 import dataclasses
@@ -270,15 +270,11 @@ def test_minibatch_refuses_progress(nets):
 
 
 def test_unported_batch_options_raise(nets):
-    """The object mesh (ROADMAP.md item 12) raises instead of running
-    something else; ground truth rendered on the device from parameters
-    that lack a leaf of their geometry (a sphere without ``radius``)
-    raises and names it."""
+    """Ground truth rendered on the device from parameters that lack a
+    leaf of their geometry (a sphere without ``radius``) raises and names
+    it (the object mesh runs: tests/test_torch_sharding_fit.py)."""
     _, _, hp, model, _, init_s, init_t = nets
     s0, t0 = torch.from_numpy(init_s), torch.from_numpy(init_t)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        codes_opt.CodeOptimizer(model, hp, s0, t0, device="cpu",
-                                mesh=object())
     opt = codes_opt.CodeOptimizer(model, hp, s0, t0, device="cpu")
     scene = synthetic_scene(n_objects=1, n_views=2, H=16, W=16, seed=3,
                             params_only=True)

@@ -177,15 +177,19 @@ def test_outputs_have_the_jax_cli_schema(runs, setup):
 
 @pytest.mark.parametrize("flag", [["--data_axis", "2"],
                                   ["--replica_axis", "2"]])
-def test_unported_flags_raise(flag, setup):
-    """The flags of the JAX CLI the port does not have yet (``--opt_occ``
-    and ``--opt_samples`` are ported: tests/test_torch_hier.py;
-    ``--pose_opt`` dispatches to the pose CLI:
-    tests/test_torch_pose_opt.py; ``--opt_rays`` and ``--opt_group``:
+def test_unported_flags_raise(flag, setup, monkeypatch):
+    """The mesh flags in one process (no torchrun) ask for a layout that
+    one process cannot hold and raise ``make_mesh``'s ``ValueError``
+    before any process group exists (the flags under torchrun:
+    tests/test_torch_sharding_cli.py; ``--opt_occ`` and ``--opt_samples``:
+    tests/test_torch_hier.py; ``--pose_opt``: tests/test_torch_pose_opt.py;
+    ``--opt_rays`` and ``--opt_group``:
     tests/test_torch_opt_rays_group.py)."""
     _, _, _, _, jsonfile = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="device count 1|not divisible"):
         t_optimize.main(["--device", "cpu", "--jsonfile", jsonfile] + flag)
+    assert not torch.distributed.is_initialized()
 
 
 def test_unported_configs_raise(setup, tmp_path):

@@ -444,9 +444,14 @@ def test_unported_training_configs_raise(scene, extra):
 
 
 def test_mesh_raises(scene):
-    _, hp = _hparams(scene)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_step.build_train_step(hp, 16, 16, batch_size=R, mesh=object())
+    """A model (tensor-parallel) axis above 1 raises naming ROADMAP.md
+    item 26, before any process group exists; the data-parallel mesh
+    trains (tests/test_torch_sharding.py)."""
+    from codenerf_tpu_torch.parallel.mesh import mesh_from_flags
+
+    with pytest.raises(NotImplementedError, match="item 26"):
+        mesh_from_flags("cpu", model=2)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("rays", [16, 48, 32, 64])
