@@ -3274,6 +3274,7 @@ def scene_path(device: str = "cuda", split: dict = FULL_SPLIT,
 MESH_STEPS = 3        # phase 17(b): data-parallel steps on two ranks
 MESH_OBJS = 4         # phase 17(b): objects fitted on two ranks
 MESH_TIMED = 5        # phase 17(a): steps a timing window
+TP_RAYS = 4096        # phase 17(c): rays a model-axis step
 
 
 class _Env:
@@ -3377,14 +3378,18 @@ def _same_step(what: str, got, want) -> None:
 
 
 def _weights_sum(state):
-    """A checksum of every trainable's bits (int64, position-weighted)."""
-    import torch
-
+    """A checksum of every trainable's bits (``_bits_sum``)."""
     from codenerf_tpu_torch.training.train_step import trainable_params
 
-    bits = torch.cat([p.detach().reshape(-1)
-                      for p in trainable_params(state)]).view(torch.int32)
-    bits = bits.long()
+    return _bits_sum(trainable_params(state))
+
+
+def _bits_sum(tensors):
+    """A checksum of the tensors' bits (int64, position-weighted)."""
+    import torch
+
+    bits = torch.cat([t.detach().reshape(-1).float().view(torch.int32)
+                      for t in tensors]).long()
     return (bits * torch.arange(1, bits.numel() + 1,
                                 device=bits.device)).sum()
 
@@ -3650,12 +3655,268 @@ def mesh_gloo(work: str, jsonfile: str, device: str, batch: int, H: int,
                 {"codes": n * on_card}, f"17(b) rank {rank} fitting")
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_rank(rank: int, work: str, jsonfile: str, fused: str, hier: list,
+             device: str, batch: int, H: int, steps: int) -> None:
+    """One of phase 17(c)'s two ranks at ``(data=1, model=2)``, both on
+    ``device`` over gloo: ``steps`` autodiff steps of the sharded state
+    (rank 0 keeps each step's whole weights, batch, depths, loss and
+    gathered gradients, then holds one process's step from the same
+    weights against them); the replicated leaves' bits across the ranks;
+    rank 0's checkpoint in one process; one step of each ``hier``
+    config, held the same way; the fused config's refusal. Writes
+    ``<work>/tp_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from codenerf_tpu_torch.config import load_hparams
+    from codenerf_tpu_torch.parallel import mesh as pm
+    from codenerf_tpu_torch.training import train_step as ts
+    from codenerf_tpu_torch.training.state import (create_train_state,
+                                                   named_trainables)
+    from codenerf_tpu_torch.utils import checkpoint as ckpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    dev = pm.init_from_env(device, backend="gloo",
+                           init_method=f"file://{work}/pg_tp")
+    try:
+        mesh = pm.make_mesh(data=1, model=2)
+        hp, one, pipes, tables, _ = _mesh_inputs(jsonfile, dev)
+        try:
+            ts.build_grad_fn(load_hparams(fused), H, H, batch_size=batch,
+                             mesh=mesh)
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        if refusal is None or "'model' (tensor-parallel)" not in refusal:
+            raise AssertionError(f"17(c): srncar_fused.json with model = 2 "
+                                 f"did not raise JAX's ValueError: "
+                                 f"{refusal}")
+        _reset_peak(device)
+        state = create_train_state(hp, one.shape_codes.shape[0], dev,
+                                   mesh=mesh)
+        sh = state.shards
+        mine = named_trainables(state)
+        sharded = [n for n in mine if sh.dims[n] is not None]
+        report = {"rank": rank, "refusal": refusal, "sharded": len(sharded),
+                  "leaves": len(mine), "step_s": [],
+                  "gathered_bytes": 4 * (sh.size - 1) * sum(
+                      mine[n].numel() for n in sharded),
+                  "state_bytes": 4 * sum(p.numel() for p in mine.values()),
+                  "whole_bytes": 4 * sum(
+                      p.numel() for p in named_trainables(one).values())}
+        fn = ts.build_grad_fn(hp, H, H, batch_size=batch, mesh=mesh)
+        shard = pm.batch_shard(mesh)
+        kept = []
+        with LaunchCounts() as lc:
+            for step in range(steps):
+                b = _staged_batch(pipes[0], batch, tables, dev, shard)
+                z = _whole_z(hp, batch, dev, seed=500 + step)
+                with torch.no_grad():   # copies: AdamW writes in place
+                    w = {n: t.clone() for n, t in
+                         sh.whole(named_trainables(state)).items()}
+                state.optimizer.zero_grad(set_to_none=True)
+                _sync(dev)
+                t0 = time.perf_counter()
+                m = fn(state, b, z=z)
+                _sync(dev)
+                dt = time.perf_counter() - t0
+                with torch.no_grad():
+                    g = {n: t.clone() for n, t in sh.whole(
+                        {n: p.grad for n, p in
+                         named_trainables(state).items()}).items()}
+                t0 = time.perf_counter()
+                ts.apply_update(state, hp)
+                _sync(dev)
+                report["step_s"].append(dt + time.perf_counter() - t0)
+                if rank == 0:
+                    kept.append((w, b, z, m["loss"].detach().clone(), g))
+            report["counts"] = lc.get()
+        report["peak_tp"] = _peak(device)
+        # The replicated leaves: the layers narrower than 256, their
+        # moments, every AdamW step count, the generator.
+        leaves = []
+        for n, p in named_trainables(state).items():
+            st = state.optimizer.state[p]
+            leaves.append(st["step"].reshape(1).to(dev))
+            if sh.dims[n] is None:
+                leaves += [p, st["exp_avg"], st["exp_avg_sq"]]
+        leaves.append(state.generator.get_state().float().to(dev))
+        sums = pm.all_gather_cat(_bits_sum(leaves)[None], dist.group.WORLD)
+        if not bool((sums == sums[0]).all()):
+            raise AssertionError(f"17(c): the replicated leaves differ "
+                                 f"between the ranks: {sums.tolist()}")
+        report["replicated"] = len(leaves)
+        ck_dir = os.path.join(work, "tp_ckpt")
+        ckpt.save_checkpoint(ck_dir, state, write=rank == 0)
+        dist.barrier()
+        with torch.no_grad():
+            final = sh.whole(named_trainables(state))
+        if rank == 0:
+            _tp_check_ckpt(ck_dir, hp, final, state, dev)
+            report["peak_one"] = _tp_reference(hp, H, batch, one, kept,
+                                               device)
+        report["hier"] = []
+        for path in hier:
+            report["hier"].append(_tp_hier_step(rank, path, mesh, pipes[0],
+                                                tables, dev, batch, H))
+        with open(os.path.join(work, f"tp_rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def _tp_hier_step(rank: int, jsonfile: str, mesh, pipe, tables, dev,
+                  batch: int, H: int) -> dict:
+    """One hierarchical step of ``jsonfile`` on the model axis (the
+    importance probes from the state's generator), held on rank 0
+    against one process's step from the same weights, batch, depths and
+    probes."""
+    import torch
+
+    from codenerf_tpu_torch.config import load_hparams
+    from codenerf_tpu_torch.parallel import mesh as pm
+    from codenerf_tpu_torch.training import train_step as ts
+    from codenerf_tpu_torch.training.state import (create_train_state,
+                                                   named_trainables)
+
+    hp = load_hparams(jsonfile)
+    n_obj = tables["focal"].shape[0]
+    state = create_train_state(hp, n_obj, dev, mesh=mesh)
+    sh = state.shards
+    b = _staged_batch(pipe, batch, tables, dev, pm.batch_shard(mesh))
+    z = _whole_z(hp, batch, dev, seed=600)
+    with torch.no_grad():
+        w = {n: t.clone() for n, t in
+             sh.whole(named_trainables(state)).items()}
+    loss, _ = _grad_step(ts.build_grad_fn(hp, H, H, batch_size=batch,
+                                          mesh=mesh), state, b, z)
+    with torch.no_grad():
+        g = sh.whole({n: p.grad for n, p in named_trainables(state).items()})
+    out = {"config": os.path.basename(jsonfile),
+           "fine": state.fine_model is not None,
+           "sharded": sum(d is not None for d in sh.dims.values()),
+           "leaves": len(sh.dims)}
+    if rank == 0:
+        one = create_train_state(hp, n_obj, dev)
+        with torch.no_grad():
+            for n, p in named_trainables(one).items():
+                p.copy_(w[n])
+        want = _grad_step(ts.build_grad_fn(hp, H, H, batch_size=batch),
+                          one, b, z)
+        _same_step(f"17(c) {out['config']} (fine network: {out['fine']}, "
+                   f"{out['sharded']} of {out['leaves']} trainables "
+                   f"sharded): model = 2 vs one process", (loss, list(
+                       g[n] for n in named_trainables(one))), want)
+    return out
+
+
+def _tp_check_ckpt(ck_dir: str, hp, final, state, dev) -> None:
+    """Rank 0's checkpoint restored into one process: every trainable
+    the gathered state's, and each AdamW moment's block 0 rank 0's."""
+    import torch
+
+    from codenerf_tpu_torch.training.state import (create_train_state,
+                                                   named_trainables)
+    from codenerf_tpu_torch.utils import checkpoint as ckpt
+
+    sh = state.shards
+    one = create_train_state(hp, final["shape_codes"].shape[0], dev)
+    ckpt.restore_checkpoint(ck_dir, one)
+    if one.step != state.step:
+        raise AssertionError(f"17(c): checkpoint step {one.step}")
+    mine = named_trainables(state)
+    for n, p in named_trainables(one).items():
+        if not torch.equal(p, final[n]):
+            raise AssertionError(f"17(c): checkpoint {n} off the gathered "
+                                 "state")
+        for k in ("exp_avg", "exp_avg_sq"):
+            a = one.optimizer.state[p][k]
+            if sh.dims[n] is not None:
+                a = sh.slice(a, sh.dims[n])
+            if not torch.equal(a, state.optimizer.state[mine[n]][k]):
+                raise AssertionError(f"17(c): checkpoint {n} {k} off rank "
+                                     "0's")
+    log(f"  17(c): rank 0's checkpoint ({len(final)} trainables whole, "
+        f"AdamW moments included) restored in one process equals the "
+        f"gathered state")
+
+
+def _tp_reference(hp, H: int, batch: int, one, kept, device: str) -> str:
+    """One process's step from each kept step's whole weights on its batch
+    and depths, held against the model axis's loss (rtol 1e-4) and
+    gathered gradients (``_close``); returns its peak device memory."""
+    import torch
+
+    from codenerf_tpu_torch.training import train_step as ts
+    from codenerf_tpu_torch.training.state import named_trainables
+
+    names = list(named_trainables(one))
+    plain = ts.build_grad_fn(hp, H, H, batch_size=batch)
+    _reset_peak(device)
+    for step, (w, b, z, loss, g) in enumerate(kept):
+        with torch.no_grad():
+            for n, p in named_trainables(one).items():
+                p.copy_(w[n])
+        want = _grad_step(plain, one, b, z)
+        _same_step(f"17(c) step {step}: model = 2 (gathered) vs one "
+                   f"process from the same weights", (loss, [g[n] for n in
+                                                          names]), want)
+    return _peak(device)
+
+
+def mesh_tp(work: str, jsonfile: str, fused: str, device: str, batch: int,
+            H: int, steps: int = MESH_STEPS) -> None:
+    """Phase 17(c): two spawned ranks at ``(data=1, model=2)`` sharing one
+    card over gloo, on the autodiff route (``srncar.json``; then one step
+    of ``srncar_hierarchical.json`` as it is and with a separate fine
+    network)."""
+    import torch.multiprocessing as mp
+
+    hier = [_config(work, "srncar_hierarchical.json"),
+            _config(work, "srncar_hierarchical.json", out="tp_fine.json",
+                    hierarchical_share_weights=False)]
+    mp.spawn(_tp_rank, args=(work, jsonfile, fused, hier, device, batch, H,
+                             steps), nprocs=2, join=True)
+    for rank in range(2):
+        with open(os.path.join(work, f"tp_rank{rank}.json")) as f:
+            r = json.load(f)
+        ran = {k: v for k, v in r["counts"].items() if v}
+        log(f"  17(c) rank {rank}: {r['sharded']} of {r['leaves']} "
+            f"trainables sharded over model; state {r['state_bytes']} B "
+            f"against {r['whole_bytes']} B whole; {r['gathered_bytes']} B "
+            f"received in each step's gather of the sharded leaves (one "
+            f"all_gather a step, no all-reduce at data = 1); peak device "
+            f"memory in the steps {r['peak_tp']}"
+            + (f", one process's step {r['peak_one']}" if rank == 0
+               else "")
+            + f"; launches {ran} (the autodiff route runs no port kernel);"
+            f" step s (host clock, a correctness run: two ranks share the "
+            f"card) {[round(x, 4) for x in r['step_s']]}; "
+            f"{r['replicated']} replicated leaves the same bits on both "
+            f"ranks")
+        _expect(ran, {}, f"17(c) rank {rank}")
+    log(f"  17(c): srncar_fused.json with model = 2 raises: {r['refusal']}")
+
+
 def mesh_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
               H: int = 128, num_opts: int = 4) -> None:
     """Phase 17: data-parallel training and object-sharded fitting over a
     torch process mesh at ``srncar_fused.json`` widths, on phase 3's
     seeded training set and a 4-object test set; (a) world size 1 and the
-    torchrun CLI, (b) two ranks sharing the card over gloo."""
+    torchrun CLI, (b) two ranks sharing the card over gloo; (c) the model
+    axis, ``(data=1, model=2)`` on two ranks sharing the card, on the
+    autodiff route at ``srncar.json`` widths."""
     data = os.path.join(work, "data")
     write_dataset(data, "cars_train", 4, 4, H, seed=1)
     write_dataset(data, "cars_test", MESH_OBJS, 4, H)
@@ -3667,6 +3928,10 @@ def mesh_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     t0 = time.perf_counter()
     mesh_gloo(work, jsonfile, device, batch, H, num_opts)
     log(f"phase 17(b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_tp(work, _config(work, "srncar.json", check_points=2), jsonfile,
+            device, min(batch, TP_RAYS), H)
+    log(f"phase 17(c): {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -3916,7 +4181,10 @@ def main() -> int:
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     log("phase 17: multi-GPU, the process mesh at srncar_fused.json "
         "widths: (a) nccl at world size 1 and torchrun --nproc_per_node 1 "
-        "train --data_axis 1, (b) two gloo ranks sharing the card")
+        "train --data_axis 1, (b) two gloo ranks sharing the card; (c) "
+        f"tensor parallelism, (data=1, model=2) on two gloo ranks sharing "
+        f"the card at srncar.json widths, {MESH_STEPS} steps of {TP_RAYS} "
+        f"rays")
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=scratch)
     try:
         mesh_path(work)

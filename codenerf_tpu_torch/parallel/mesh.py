@@ -11,10 +11,41 @@ names and rules:
   batch axes. Training splits each step's ray batch over them and
   averages the gradients with one all-reduce a step
   (``training/train_step.py``); code fitting and eval split the object
-  axis over them (``optimization/codes_opt.py``).
-- ``model`` is tensor parallelism, which is not ported: a ``model`` axis
-  above 1 raises (ROADMAP.md Queue 1, item 26). With ``model = 1`` every
-  weight is replicated, so the batch axes span every process.
+  axis over them (``optimization/codes_opt.py``), and the ranks of one
+  ``model`` group fit the same objects.
+- ``model`` splits the training state (tensor parallelism, the autodiff
+  route only, as in JAX). JAX's rule looks only at shapes
+  (:func:`shard_dim`): a leaf whose last axis is a multiple of
+  128·|model| is sharded on it — an ``nn.Linear`` 's weight (out, in)
+  and bias on dimension 0, a code table (n, D) on dimension 1 — and its
+  AdamW moments follow it; the rest is replicated. At W = 256 and
+  ``model = 2`` that is every layer of output width 256 and, at latent
+  256, both code tables; at ``model = 4`` nothing.
+
+How the port runs a ``model`` axis: each rank keeps only its slices of
+the sharded leaves (weights, moments, code-table columns), and each
+forward all-gathers the whole f32 weights and tables over ``model``
+(:class:`ModelShards`, one collective). The gather's backward is the
+slice, not a reduce-scatter: the batch is replicated over ``model``
+(JAX's batch sharding is ``P("data")``), so every rank of a ``model``
+group computes the same whole gradient and keeps its own columns — a
+reduce-scatter would multiply it by |model|. The replicated leaves'
+gradients (and the step's metrics) are then taken from the group's first
+rank, one broadcast, so that a kernel that does not repeat its bits —
+multithreaded CPU kernels, atomics on the card — cannot set the ranks'
+copies apart. The batch axes then average each rank's slices as without
+the axis, and each rank's AdamW updates its own slices. At ``(data=1,
+model=2)`` every rank runs one process's arithmetic, bit for bit.
+
+Of the two layouts this one moves the fewest bytes for this MLP: at the
+flagship widths and ``model = 2`` a rank receives about 1.4 MB a network
+a gather, plus the tables' 2.5 MB at 2,458 objects (latent 256), where
+column-parallel products with gathered activations would move about
+0.7 GB of forward gathers and 1.2 GB of backward all-reduces a step at
+4,096 × 96 points. So the batch axes split the work and ``model`` splits
+the state; a ~715K-parameter MLP needs no tensor parallelism for its
+memory (the JAX docstring says as much) — the axis is there for wide-W
+variants and for layout parity.
 
 On the ``gloo`` backend the collectives here take CUDA tensors through
 the host (two ranks sharing one card, a correctness run); on ``nccl``
@@ -23,17 +54,14 @@ they run on the card.
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from codenerf_tpu_torch import resolve_device
-
-ITEM_26 = ("tensor parallelism (a model axis > 1) is not ported "
-           "(ROADMAP.md Queue 1, item 26)")
-
 
 def mesh_shape(world: int, data: int = -1, model: int = 1,
                replica: int = 1) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
@@ -54,19 +82,12 @@ def mesh_shape(world: int, data: int = -1, model: int = 1,
     return (data, model), ("data", "model")
 
 
-def check_model_axis(model: int) -> None:
-    if model > 1:
-        raise NotImplementedError(ITEM_26)
-
-
 def make_mesh(data: int = -1, model: int = 1, replica: int = 1):
     """A ``DeviceMesh`` of :func:`mesh_shape`'s layout over the default
-    process group, with JAX's axis names. A ``model`` axis above 1 raises
-    ``NotImplementedError`` (item 26) once the shape has been checked."""
+    process group, with JAX's axis names."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, names = mesh_shape(dist.get_world_size(), data, model, replica)
-    check_model_axis(model)
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
@@ -104,6 +125,18 @@ def batch_group(mesh):
     return mesh[axes]._flatten().get_group()
 
 
+def model_size(mesh) -> int:
+    """|model|: 1 without a mesh."""
+    return 1 if mesh is None else mesh.size(
+        mesh.mesh_dim_names.index("model"))
+
+
+def model_group(mesh):
+    """The process group over the ``model`` axis (every process of its
+    batch coordinates)."""
+    return mesh.get_group("model")
+
+
 def init_from_env(device="cuda", backend=None,
                   init_method: str = "env://") -> torch.device:
     """Join the default process group as ``torchrun`` describes it
@@ -131,13 +164,12 @@ def mesh_from_flags(device, data: int = -1, model: int = 1,
     """``(mesh or None, device)`` for the CLIs' ``--data_axis``,
     ``--model_axis`` and ``--replica_axis``: a mesh when ``torchrun``
     started several processes or a flag is off its default, else none and
-    ``device``. The flags are checked before any process group exists:
-    ``--model_axis > 1`` raises item 26, a layout that does not match
-    ``WORLD_SIZE`` :func:`mesh_shape`'s ``ValueError``."""
+    ``device``. The flags are checked before any process group exists: a
+    layout that does not match ``WORLD_SIZE`` raises :func:`mesh_shape`'s
+    ``ValueError``."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1 and (data, model, replica) == (-1, 1, 1):
         return None, resolve_device(device)
-    check_model_axis(model)
     mesh_shape(world, data, model, replica)
     dev = init_from_env(device)
     return make_mesh(data, model, replica), dev
@@ -189,3 +221,110 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
     return torch.cat(parts, dim).to(x.device)
+
+
+# ------------------------------------------------------------ the model axis
+def shard_dim(name: str, shape, model: int) -> Optional[int]:
+    """JAX's ``_leaf_spec`` (``codenerf_tpu/parallel/mesh.py``) in torch
+    layout: the dimension of a leaf that holds JAX's last axis — 0 for an
+    ``nn.Linear`` 's ``.weight`` (out, in; JAX stores (in, out)) and
+    ``.bias``, the last otherwise (the code tables, (n, D) in both) —
+    when its size is a multiple of ``128 * model``; else None
+    (replicated). Depends only on the name and the shape."""
+    if model <= 1 or len(shape) == 0:
+        return None
+    d = 0 if name.endswith((".weight", ".bias")) else len(shape) - 1
+    return d if shape[d] % (128 * model) == 0 else None
+
+
+@dataclasses.dataclass
+class ModelShards:
+    """A state's split over the ``model`` axis: ``dims`` maps each
+    trainable's name to its sharded dimension (:func:`shard_dim` on the
+    whole shape) or None; this rank holds block ``rank`` of ``size`` on
+    that dimension."""
+    group: Any
+    size: int
+    rank: int
+    dims: Dict[str, Optional[int]]
+
+    @classmethod
+    def of(cls, mesh, shapes: Dict[str, Sequence[int]]) -> "ModelShards":
+        """The split of leaves of the whole ``shapes`` over ``mesh`` 's
+        ``model`` axis."""
+        size = model_size(mesh)
+        group = model_group(mesh)
+        return cls(group, size, dist.get_rank(group),
+                   {n: shard_dim(n, s, size) for n, s in shapes.items()})
+
+    def slice(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's block of the whole ``x`` on ``dim`` (``x`` itself
+        when None), in storage of its own."""
+        if dim is None:
+            return x
+        k = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * k, k).clone(
+            memory_format=torch.contiguous_format)
+
+    def gather(self, shards: Sequence[torch.Tensor],
+               dims: Sequence[int]) -> List[torch.Tensor]:
+        """The whole tensors of ``shards`` (each rank's block on its dim),
+        from one all-gather over the group; differentiable: the backward
+        of each is its slice of the whole gradient (the module
+        docstring)."""
+        return list(_GatherShards.apply(self, tuple(dims), *shards))
+
+    def whole(self, named: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """``named`` (name -> this rank's leaf) with every sharded leaf
+        gathered whole (:meth:`gather`), the replicated ones as they
+        are."""
+        names = [n for n in named if self.dims.get(n) is not None]
+        out = dict(named)
+        out.update(zip(names, self.gather([named[n] for n in names],
+                                          [self.dims[n] for n in names])))
+        return out
+
+
+    def share_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Overwrite ``tensors`` in place with the group's rank 0's: one
+        broadcast of one buffer."""
+        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+        broadcast_([flat], self.group)
+        parts = flat.split([t.numel() for t in tensors])
+        torch._foreach_copy_(list(tensors),
+                             [p.view_as(t) for p, t in zip(parts, tensors)])
+
+
+def _gather_whole(shards: Sequence[torch.Tensor], dims: Sequence[int],
+                  group) -> List[torch.Tensor]:
+    """One all-gather of every rank's ``shards`` (flattened into one
+    buffer), each reassembled whole along its dim in rank order."""
+    m = dist.get_world_size(group)
+    flat = torch.cat([s.detach().reshape(-1) for s in shards])
+    parts = all_gather_cat(flat, group).view(m, -1)
+    out, at = [], 0
+    for s, d in zip(shards, dims):
+        block = parts[:, at:at + s.numel()].reshape(m, *s.shape)
+        shape = list(s.shape)
+        shape[d] *= m
+        out.append(block.movedim(0, d).reshape(shape))
+        at += s.numel()
+    return out
+
+
+class _GatherShards(torch.autograd.Function):
+    """:meth:`ModelShards.gather`: forward the all-gather, backward this
+    rank's slice of each whole gradient."""
+
+    @staticmethod
+    def forward(ctx, shards: ModelShards, dims, *xs):
+        ctx.shards, ctx.dims = shards, dims
+        return tuple(_gather_whole(xs, dims, shards.group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sh = ctx.shards
+        return (None, None) + tuple(
+            None if g is None else sh.slice(g, d)
+            for g, d in zip(grads, ctx.dims))

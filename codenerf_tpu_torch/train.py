@@ -27,14 +27,27 @@ Data-parallel training on N cards, one process each:
         --jsonfile srncar_fused.json --save_dir <run> [--data_axis N]
 
 Under ``torchrun``, or with a mesh flag off its default, the processes
-form the JAX package's mesh (``parallel/mesh.py``): ``--data_axis``
-(-1: every process not on another axis) and ``--replica_axis`` (JAX's
-multi-slice axis) split each step's ``--batchsize`` rays over their
-product, each process on ``cuda:LOCAL_RANK`` (``--gpu`` is then unused);
-a layout that does not match ``WORLD_SIZE`` raises ``ValueError``.
-``--model_axis`` above 1 (tensor parallelism) raises
-``NotImplementedError``: ROADMAP.md Queue 1, item 26. Rank 0 writes the
-run directory.
+form the JAX package's mesh (``parallel/mesh.py``): ``(data, model)``, or
+``(replica, data, model)`` with ``--replica_axis`` above 1.
+``--data_axis`` (-1: every process not on another axis) and
+``--replica_axis`` (JAX's multi-slice axis) split each step's
+``--batchsize`` rays over their product, each process on
+``cuda:LOCAL_RANK`` (``--gpu`` is then unused). ``--model_axis M``
+(tensor parallelism) splits the training state over M processes — each
+keeps its slices of the layers and code tables JAX's shape rule shards
+and gathers them whole for each forward — on the autodiff route only
+(``srncar.json``, ``srncar_hierarchical.json``; a ``use_fused_train``
+config raises JAX's ``ValueError``):
+
+    torchrun --standalone --nproc_per_node 2 -m codenerf_tpu_torch.train \
+        --jsonfile srncar.json --save_dir <run> --model_axis 2
+
+A layout that does not match ``WORLD_SIZE`` raises ``ValueError``. Rank 0
+writes the run directory; its checkpoints hold the whole state, so a run
+resumes under any layout. NCCL needs a card for each rank; ranks that
+share a card join over ``gloo`` from Python
+(``parallel.mesh.init_from_env(backend="gloo")``, as ``chip_smoke.py``
+phase 17 does).
 """
 
 from __future__ import annotations

@@ -71,6 +71,15 @@ is not ``DistributedDataParallel``: the single-pass kernel returns every
 dW/db at the end of one ``autograd.Function``, so overlapping the
 reduction with the backward gains nothing, and the state holds a model,
 a fine network and two code tables, not one module.
+
+A ``model`` axis above 1 (tensor parallelism, ``parallel/mesh.py``) is
+the autodiff route's alone, as in JAX: the fused routes refuse it with
+JAX's ``ValueError``. Each (micro)batch's forward gathers the whole
+networks and tables from the ranks' slices (``state.whole_trainables``),
+the backward leaves each rank its slices' gradients; after the last
+microbatch the replicated layers' gradients and the metrics are the
+``model`` group's first rank's, and the batch axes' all-reduce and AdamW
+then act on the slices.
 """
 
 from __future__ import annotations
@@ -86,11 +95,12 @@ from codenerf_tpu_torch.core.sampling import fine_uniforms, uniform01_u8
 from codenerf_tpu_torch.evaluation.metrics import psnr
 from codenerf_tpu_torch.ops import fused_mlp, fused_train
 from codenerf_tpu_torch.parallel.mesh import (all_reduce_mean_, batch_group,
-                                              batch_shard)
+                                              batch_shard, model_size)
 from codenerf_tpu_torch.renderer import coarse_zvals, render_rays
 from codenerf_tpu_torch.training.schedules import (step_halving,
                                                    window_frozen_step_halving)
-from codenerf_tpu_torch.training.state import TrainState
+from codenerf_tpu_torch.training.state import (TrainState, named_trainables,
+                                               whole_trainables)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -169,8 +179,15 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
     With a ``mesh``, ``batch`` holds this rank's rows of the step's batch
     (``RayBatchPipeline.sample(shard=batch_shard(mesh))``), ``z`` and
     ``u`` the whole batch's, and the gradients and metrics are the
-    averages over the batch shards."""
+    averages over the batch shards. A ``model`` axis above 1 takes the
+    autodiff route only: a fused config raises JAX's ``ValueError``."""
     _check_supported(hp)
+    if hp.use_fused_train and model_size(mesh) > 1:
+        raise ValueError(
+            "use_fused_train requires replicated weights: the fused "
+            "kernels hold full weight matrices in VMEM, so a 'model' "
+            "(tensor-parallel) axis > 1 is unsupported. Use data/replica "
+            "parallelism or disable the flag.")
     net_cfg, rcfg = hp.net, hp.render
     compute_dtype = resolve_dtype(hp.compute_dtype)
     reg_coef = hp.loss_reg_coef / hp.quirks.reg_chunk_divisor
@@ -241,18 +258,18 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
     def loss_fn(state: TrainState, obj, ray_o, viewdir, z, u, rgb):
         """(loss, mse, reg) of one (micro)batch, differentiable; ``mse``
         is the fine pass's under hierarchical sampling."""
-        model = state.model
+        model, fine, shape_codes, texture_codes = whole_trainables(state)
         # index_select's backward is index_add_; indexing's sort-based
         # backward serialises over the repeated rows (every ray of an
         # object hits the same row) and took ~5 ms per 16,384-ray step.
-        sc = state.shape_codes.index_select(0, obj)
-        tc = state.texture_codes.index_select(0, obj)
+        sc = shape_codes.index_select(0, obj)
+        tc = texture_codes.index_select(0, obj)
         if single_pass:
             loss, mse = fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc)
         elif hier or apply_fn is not None:
             res = render_rays(model, rcfg, ray_o, viewdir, sc, tc, None,
                               compute_dtype=compute_dtype, z=z, u=u,
-                              fine_model=state.fine_model,
+                              fine_model=fine,
                               apply_fn=apply_fn)
             mse = torch.mean((res.final.rgb - rgb) ** 2)
             loss = mse
@@ -307,6 +324,12 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
             (loss / k).backward()
             sums += torch.stack([loss, mse, reg]).detach()
         sums /= k
+        if state.shards is not None:
+            # One copy of what the model axis replicates (mesh.py).
+            state.shards.share_([
+                p.grad for n, p in named_trainables(state).items()
+                if state.shards.dims[n] is None and p.grad is not None]
+                + [sums])
         if group is not None:
             all_reduce_mean_([p.grad for p in trainable_params(state)
                               if p.grad is not None] + [sums], group)

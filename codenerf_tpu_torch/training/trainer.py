@@ -30,10 +30,15 @@ With a ``mesh`` (``parallel/mesh.py``; one process per card) every rank
 runs this loop on its rows of each step's batch (``train_step``'s data
 parallelism). The ranks start from the same seeded weights, resume from
 the same checkpoint and update alike; the occupancy grid is broadcast
-from the first batch rank after each refresh, so no nondeterministic op
-can set the ranks apart. Global rank 0 alone writes ``hpam.json``,
-``metrics.jsonl``, TensorBoard, checkpoints and render logs; every save
-ends at a barrier.
+from global rank 0 to every rank after each refresh, so no
+nondeterministic op can set the ranks apart. Global rank 0 alone writes
+``hpam.json``, ``metrics.jsonl``, TensorBoard, checkpoints and render
+logs; every save ends at a barrier over every rank. With a ``model``
+axis above 1 (the autodiff route) the state is split over it
+(``training/state.py``), and whatever evaluates the model — the
+occupancy refreshes, the render logs, the checkpoints — gathers it
+whole first, on every rank alike; the crash-safe save is skipped there,
+since its gather would wait for ranks that may never come.
 """
 
 from __future__ import annotations
@@ -53,10 +58,10 @@ from codenerf_tpu_torch.core import occupancy as occ_mod
 from codenerf_tpu_torch.data.pipeline import RayBatchPipeline
 from codenerf_tpu_torch.data.srn import SRNDataset
 from codenerf_tpu_torch.evaluation.metrics import reference_psnr_mse
-from codenerf_tpu_torch.parallel.mesh import (batch_group, batch_shard,
-                                              broadcast_, is_writer)
+from codenerf_tpu_torch.parallel.mesh import batch_shard, broadcast_, is_writer
 from codenerf_tpu_torch.renderer import render_image
-from codenerf_tpu_torch.training.state import create_train_state
+from codenerf_tpu_torch.training.state import (create_train_state,
+                                               whole_trainables)
 from codenerf_tpu_torch.training.train_step import build_train_step
 from codenerf_tpu_torch.utils import checkpoint as ckpt
 from codenerf_tpu_torch.utils.images import side_by_side
@@ -93,7 +98,7 @@ class Trainer:
         self.H, self.W = self.pipeline.H, self.pipeline.W
         self.n_objects = self.pipeline.n_objects
         self._shard = None if mesh is None else batch_shard(mesh)
-        self._group = None if mesh is None else batch_group(mesh)
+        self._meshed = mesh is not None
         self.writer = is_writer()
 
         # Run directory: exps/<save_dir>/{hpam.json, metrics.jsonl, ckpt/}
@@ -111,7 +116,8 @@ class Trainer:
         self._train_step = build_train_step(
             self.hp, self.H, self.W, microbatch_rays=microbatch_rays,
             batch_size=self.B, mesh=mesh)
-        self.state = create_train_state(self.hp, self.n_objects, self.device)
+        self.state = create_train_state(self.hp, self.n_objects, self.device,
+                                        mesh=mesh)
         self._tables = {k: torch.from_numpy(v).to(self.device)
                         for k, v in self.pipeline.tables().items()}
         self._init_occupancy()
@@ -148,14 +154,14 @@ class Trainer:
 
     def _update_occupancy(self) -> None:
         """EMA refresh from the next ``codes_per_update`` objects."""
-        oc, st = self.hp.train_occupancy, self.state
+        oc = self.hp.train_occupancy
         idx = (torch.arange(self._occ_k) + self._occ_cursor) % self.n_objects
         self._occ_cursor = int((self._occ_cursor + self._occ_k)
                                % self.n_objects)
         idx = idx.to(self.device)
+        model, _, sc, tc = self._whole()
         self._density = occ_mod.update_density_grid(
-            self._density, st.model, st.shape_codes.detach()[idx],
-            st.texture_codes.detach()[idx], self._occ_radius,
+            self._density, model, sc[idx], tc[idx], self._occ_radius,
             decay=oc.decay, compute_dtype=resolve_dtype(self.hp.compute_dtype))
         self._occ = occ_mod.grid_from_density(
             self._density, self._occ_radius,
@@ -169,10 +175,10 @@ class Trainer:
         warm-up boundary and on a resume past it, where one round-robin
         refresh would see only ``codes_per_update`` objects and empty the
         others' cells."""
-        oc, st = self.hp.train_occupancy, self.state
+        oc = self.hp.train_occupancy
+        model, _, sc, tc = self._whole()
         self._density, self._occ = occ_mod.category_density_scan(
-            st.model, st.shape_codes.detach(), st.texture_codes.detach(),
-            oc.grid_size, self._occ_radius, self._occ_k,
+            model, sc, tc, oc.grid_size, self._occ_radius, self._occ_k,
             sigma_threshold=oc.sigma_threshold, dilate=oc.dilate,
             compute_dtype=resolve_dtype(self.hp.compute_dtype))
         self._occ_cursor = 0
@@ -181,10 +187,11 @@ class Trainer:
         self._log_occupancy(rebuild=True)
 
     def _share_occupancy(self) -> None:
-        """Under a mesh, the first batch rank's density and grid on every
-        rank (a replicated step input, as in JAX)."""
-        if self._group is not None:
-            broadcast_([self._density, self._occ.occ], self._group)
+        """Under a mesh, global rank 0's density and grid on every rank (a
+        replicated step input, as in JAX)."""
+        if self._meshed:
+            broadcast_([self._density, self._occ.occ],
+                       torch.distributed.group.WORLD)
 
     def _log_occupancy(self, rebuild: bool) -> None:
         """The grid's occupied share and whether it was a full rebuild, at
@@ -214,17 +221,18 @@ class Trainer:
 
     # ------------------------------------------------------------------ ckpt
     def save_checkpoint(self) -> Optional[str]:
-        """The writer saves the state; under a mesh every rank then waits
-        at a barrier, so no rank reads a checkpoint still being written.
-        Returns the path (None on the other ranks)."""
+        """The writer saves the whole state (under a model axis every rank
+        joins its gather); under a mesh every rank then waits at a barrier,
+        so no rank reads a checkpoint still being written. Returns the
+        path (None on the other ranks)."""
         path = self._save()
-        if self._group is not None:
-            torch.distributed.barrier(group=self._group)
+        if self._meshed:
+            torch.distributed.barrier()
         return path
 
     def _save(self) -> Optional[str]:
-        return (ckpt.save_checkpoint(self.ckpt_dir, self.state)
-                if self.writer else None)
+        return ckpt.save_checkpoint(self.ckpt_dir, self.state,
+                                    write=self.writer)
 
     def resume(self) -> bool:
         """Restore the latest checkpoint if one exists; True if restored."""
@@ -290,8 +298,7 @@ class Trainer:
                         })
                     t_phase = time.time()
                     rays_since_log = 0
-                if self.writer and self.check_iter \
-                        and next_step % self.check_iter == 0:
+                if self.check_iter and next_step % self.check_iter == 0:
                     self._log_render(next_step)
                 if self.hp.check_points and \
                         next_step % self.hp.check_points == 0:
@@ -299,10 +306,12 @@ class Trainer:
         except (KeyboardInterrupt, Exception):
             # Crash-safe checkpoint at the last completed step (the
             # reference has no resume path at all); a failure while saving
-            # must not hide the original error. No barrier: the other
-            # ranks may not reach one.
+            # must not hide the original error. No barrier, and no save
+            # under a model axis: the other ranks may not reach its
+            # collectives.
             try:
-                self._save()
+                if self.state.shards is None:
+                    self._save()
             except Exception:
                 pass
             raise
@@ -370,24 +379,38 @@ class Trainer:
             out[k] = t
         return out
 
+    @torch.no_grad()
+    def _whole(self) -> list:
+        """``whole_trainables`` of the state, detached: under a model axis
+        a gather every rank must join."""
+        return [x if x is None or callable(x) else x.detach()
+                for x in whole_trainables(self.state)]
+
     def render_view(self, obj_idx: int, view_idx: int) -> np.ndarray:
         """Render one dataset view with the current model and fine network
-        (linspace z); (H, W, 3) f32."""
-        st = self.state
+        (linspace z); (H, W, 3) f32. Under a model axis every rank must
+        call it."""
+        return self._render(self._whole(), obj_idx, view_idx)
+
+    def _render(self, whole, obj_idx: int, view_idx: int) -> np.ndarray:
+        model, fine, sc, tc = whole
         img = render_image(
-            st.model, self.hp.render, self.H, self.W,
+            model, self.hp.render, self.H, self.W,
             float(self.pipeline.focals[obj_idx]),
-            self.pipeline.poses[obj_idx, view_idx],
-            st.shape_codes[obj_idx].detach(),
-            st.texture_codes[obj_idx].detach(),
-            chunk=min(4096, self.H * self.W),
+            self.pipeline.poses[obj_idx, view_idx], sc[obj_idx],
+            tc[obj_idx], chunk=min(4096, self.H * self.W),
             compute_dtype=resolve_dtype(self.hp.compute_dtype),
-            fine_model=st.fine_model)
+            fine_model=fine)
         return img.cpu().numpy()
 
     def _log_render(self, step: int, obj_idx: int = 0,
                     view_idx: int = 0) -> None:
-        img = self.render_view(obj_idx, view_idx)
+        """The writer renders and logs a view; every rank joins the
+        gather under a model axis."""
+        whole = self._whole()
+        if not self.writer:
+            return
+        img = self._render(whole, obj_idx, view_idx)
         gt = self.pipeline.images[obj_idx, view_idx].astype(np.float32) / 255.0
         mse = float(reference_psnr_mse(torch.from_numpy(img),
                                        torch.from_numpy(gt)))

@@ -5,8 +5,12 @@ Training checkpoints (counterpart of ``codenerf_tpu/utils/checkpoint.py``,
 which writes Orbax directories): the whole training state in one
 ``torch.save`` file per step, ``<ckpt_dir>/step_NNNNNNNN.pt`` — model,
 both code tables, AdamW state, step and the z-jitter generator's state —
-so a resumed run continues exactly where the saved one stopped. The
-logical keys correspond to the reference's ``models.pth``:
+so a resumed run continues exactly where the saved one stopped. A state
+split over a mesh's ``model`` axis is saved whole — every rank joins one
+gather of its slices (weights, tables, AdamW moments), the writer saves —
+and a whole checkpoint is restored into such a state by slicing, so a run
+resumes across any ``model`` size. The logical keys correspond to the
+reference's ``models.pth``:
 
   model          <-> model_params
   shape_codes    <-> shape_code_params['weight']
@@ -44,13 +48,55 @@ def step_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}.pt")
 
 
-def save_checkpoint(ckpt_dir: str, state) -> str:
+def _leaves(payload: dict, names) -> list:
+    """``(container, key, name)`` for every trainable and AdamW moment of
+    a checkpoint payload, ``name`` the trainable's
+    (``training.state.named_trainables``; ``names`` lists them in the
+    optimizer's order). The optimizer's per-parameter dicts are copied
+    first, so writing through a container leaves the live optimizer
+    alone."""
+    out = []
+    for key in ("model", "fine_model"):
+        for n in payload[key] or {}:
+            out.append((payload[key], n, f"{key}.{n}"))
+    out += [(payload, n, n) for n in ("shape_codes", "texture_codes")]
+    state = payload["optimizer"]["state"]
+    for i, name in enumerate(names):
+        if i in state:
+            state[i] = dict(state[i])
+            out += [(state[i], k, name) for k in ("exp_avg", "exp_avg_sq")
+                    if k in state[i]]
+    return out
+
+
+def _reshard(payload: dict, state, gather: bool) -> dict:
+    """``payload`` with the sharded leaves of ``state`` 's model axis
+    gathered whole (``gather``; one collective) or sliced to this rank's
+    blocks."""
+    from codenerf_tpu_torch.training.state import named_trainables
+
+    sh = state.shards
+    jobs = [(c, k, sh.dims.get(n)) for c, k, n in
+            _leaves(payload, list(named_trainables(state)))
+            if sh.dims.get(n) is not None]
+    if gather:
+        new = sh.gather([c[k] for c, k, _ in jobs], [d for *_, d in jobs])
+    else:
+        new = [sh.slice(c[k], d) for c, k, d in jobs]
+    for (c, k, _), t in zip(jobs, new):
+        c[k] = t
+    return payload
+
+
+def save_checkpoint(ckpt_dir: str, state, write: bool = True
+                    ) -> Optional[str]:
     """Write ``state`` (a ``training.state.TrainState``) at its step; the
-    file appears whole or not at all."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = step_path(ckpt_dir, state.step)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({
+    file appears whole or not at all. Under a ``model`` axis every rank
+    calls this (the gather), and those with ``write`` False write nothing
+    and return None."""
+    if state.shards is None and not write:
+        return None
+    payload = {
         "model": state.model.state_dict(),
         "fine_model": (None if state.fine_model is None
                        else state.fine_model.state_dict()),
@@ -59,7 +105,16 @@ def save_checkpoint(ckpt_dir: str, state) -> str:
         "optimizer": state.optimizer.state_dict(),
         "step": int(state.step),
         "generator": state.generator.get_state(),
-    }, tmp)
+    }
+    if state.shards is not None:
+        with torch.no_grad():
+            payload = _reshard(payload, state, gather=True)
+    if not write:
+        return None
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = step_path(ckpt_dir, state.step)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
 
@@ -93,8 +148,11 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     on the CPU: ``load_state_dict`` moves the parameters and the Adam
     moments to their device but leaves AdamW's step counters where it
     finds them, and counters on the card cost a synchronization each
-    per step."""
+    per step. A state split over a ``model`` axis takes its slices of the
+    whole checkpoint."""
     ck = _load(ckpt_dir, step, "cpu")
+    if state.shards is not None:
+        ck = _reshard(ck, state, gather=False)
     state.model.load_state_dict(ck["model"])
     if (state.fine_model is None) != (ck.get("fine_model") is None):
         raise ValueError(f"{ckpt_dir}: the checkpoint's fine network and the "

@@ -100,13 +100,29 @@ def _rank_main(rank, world, out, fn, args):
         dist.destroy_process_group()
 
 
+def whole(state, grads=False) -> dict:
+    """Every trainable (or, ``grads``, its gradient) by name, whole: under
+    a model axis gathered from the ranks' slices (every rank calls it)."""
+    from codenerf_tpu_torch.training.state import named_trainables
+
+    named = named_trainables(state)
+    if grads:
+        named = {n: p.grad for n, p in named.items()}
+    if state.shards is not None:
+        with torch.no_grad():
+            named = state.shards.whole(named)
+    return {n: t.detach().numpy().copy() for n, t in named.items()}
+
+
 def flat_weights(state) -> np.ndarray:
-    nets = [state.model] + ([] if state.fine_model is None
-                            else [state.fine_model])
-    return np.concatenate(
-        [p.detach().numpy().ravel() for n in nets for p in n.parameters()]
-        + [state.shape_codes.detach().numpy().ravel(),
-           state.texture_codes.detach().numpy().ravel()])
+    return np.concatenate([v.ravel() for v in whole(state).values()])
+
+
+def _grads(state) -> dict:
+    """The model's and the code tables' gradients by name, whole."""
+    g = whole(state, grads=True)
+    return {n.removeprefix("model."): v for n, v in g.items()
+            if not n.startswith("fine_model.")}
 
 
 def train_run(cfg, trainables, mesh=None, steps=STEPS, explicit=True,
@@ -115,8 +131,10 @@ def train_run(cfg, trainables, mesh=None, steps=STEPS, explicit=True,
     numpy arrays) on the pipeline's batches (this rank's rows under a
     mesh), with explicit whole-batch depths (and importance probes) from a
     seeded numpy stream or, ``explicit=False``, the state's generator.
-    Returns the losses, the first step's gradients by name, the first
-    step's global batch and depths, and the final weights."""
+    Returns the losses, the first and the last step's gradients by name,
+    the first step's depths, and the final weights, whole; on a model
+    axis also the rank's own leaves (``local``: each trainable, its AdamW
+    moments and the generator's state)."""
     from codenerf_tpu_torch.config import hparams_from_dict
     from codenerf_tpu_torch.core.occupancy import OccupancyGrid
     from codenerf_tpu_torch.data.pipeline import RayBatchPipeline
@@ -126,7 +144,7 @@ def train_run(cfg, trainables, mesh=None, steps=STEPS, explicit=True,
 
     hp = hparams_from_dict(cfg)
     scene = _scene()
-    state = trainables_from_jax(trainables, hp, device="cpu")
+    state = trainables_from_jax(trainables, hp, device="cpu", mesh=mesh)
     pipe = RayBatchPipeline(scene["images"], scene["poses"], scene["focals"],
                             seed=7)
     shard = None if mesh is None else batch_shard(mesh)
@@ -153,17 +171,32 @@ def train_run(cfg, trainables, mesh=None, steps=STEPS, explicit=True,
                     z=None if z is None else torch.from_numpy(z),
                     u=None if u is None else torch.from_numpy(u),
                     occ_grid=grid)
+        if step in (0, steps - 1):
+            out["grads" if step == 0 else "last_grads"] = _grads(state)
         if step == 0:
-            out["grads"] = {n: p.grad.numpy().copy()
-                            for n, p in state.model.named_parameters()}
-            out["grads"]["shape_codes"] = state.shape_codes.grad.numpy().copy()
-            out["grads"]["texture_codes"] = \
-                state.texture_codes.grad.numpy().copy()
             out["z"] = z
         out["loss"].append(float(m["loss"]))
         train_step.apply_update(state, hp)
-    out["weights"] = flat_weights(state)
-    out["enc_xyz.w"] = state.model.enc_xyz.weight.detach().numpy().copy()
+    w = whole(state)
+    out["weights"] = np.concatenate([v.ravel() for v in w.values()])
+    out["enc_xyz.w"] = w["model.enc_xyz.weight"]
+    if state.shards is not None:
+        out["whole"] = w
+        out["local"] = _local_leaves(state)
+    return out
+
+
+def _local_leaves(state) -> dict:
+    """This rank's own leaves: each trainable, its AdamW moments and step
+    (``<name>/<key>``) and the generator's state; ``dims``, the split."""
+    from codenerf_tpu_torch.training.state import named_trainables
+
+    out = {"dims": dict(state.shards.dims)}
+    for n, p in named_trainables(state).items():
+        out[n] = p.detach().numpy().copy()
+        for k, v in state.optimizer.state.get(p, {}).items():
+            out[f"{n}/{k}"] = v.numpy().copy()
+    out["generator"] = state.generator.get_state().numpy().copy()
     return out
 
 

@@ -5,7 +5,10 @@ CLIs in one process, at ``test_torch_sharding.py``'s bars (the kernels'
 bf16 route: losses rtol 1e-4, the checkpoint's weights within a relative
 L2 error of 2e-2 of the training's update) and the fitting bars of
 ``test_torch_sharding_fit.py`` (codes atol 1e-5, PSNR 1e-3, SSIM 1e-4).
-Rank 0 alone writes: each file once, in one run directory."""
+Rank 0 alone writes: each file once, in one run directory. ``train
+--model_axis 2`` on two ranks (the autodiff route at latent 256, so that
+the code tables are split too) repeats one process bit for bit: every
+rank runs one process's arithmetic, one thread each."""
 
 import json
 import os
@@ -25,7 +28,7 @@ OPTIMIZE = ["--opt_group", "2", "--num_opts", "2", "--tgt_instances", "0",
             "--batchsize", "128"]
 
 
-def _run(root, module, *args, ranks=1):
+def _run(root, module, *args, ranks=1, jsonfile="tiny.json"):
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
@@ -33,7 +36,7 @@ def _run(root, module, *args, ranks=1):
                "--nproc_per_node", str(ranks)] if ranks > 1
               else [sys.executable])
     out = subprocess.run(
-        launch + ["-m", module, "--jsonfile", str(root / "tiny.json"),
+        launch + ["-m", module, "--jsonfile", str(root / jsonfile),
                   "--exps_root", str(root / "exps"), "--device", "cpu",
                   *args],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
@@ -61,7 +64,14 @@ def root(tmp_path_factory):
                                          "splits": "cars_train",
                                          "data_dir": data})
     (root / "tiny.json").write_text(json.dumps(cfg))
+    tp = dict(cfg, use_fused_train=False,
+              net_hyperparams=dict(cfg["net_hyperparams"], latent_dim=256))
+    (root / "autodiff.json").write_text(json.dumps(tp))
     _run(root, "codenerf_tpu_torch.train", "--save_dir", "one", *TRAIN)
+    _run(root, "codenerf_tpu_torch.train", "--save_dir", "tp_one", *TRAIN,
+         jsonfile="autodiff.json")
+    _run(root, "codenerf_tpu_torch.train", "--save_dir", "tp_two", *TRAIN,
+         "--model_axis", "2", ranks=2, jsonfile="autodiff.json")
     _run(root, "codenerf_tpu_torch.train", "--save_dir", "two", *TRAIN,
          "--data_axis", "2", ranks=2)
     _run(root, "codenerf_tpu_torch.optimize", "--saved_dir", "one",
@@ -104,12 +114,44 @@ def test_train_cli_two_ranks_matches_one_process(root):
     assert rel < 2e-2, rel
 
 
-def _first_weights(root):
+def test_train_cli_model_axis_matches_one_process(root):
+    """``train --model_axis 2`` on two ranks: the one-process run's
+    logged losses and every checkpoint, whole on disk, tensor for tensor
+    (weights, code tables, AdamW moments, generator), each written
+    once."""
+    from codenerf_tpu_torch.utils import checkpoint as ckpt
+
+    one, two = root / "exps" / "tp_one", root / "exps" / "tp_two"
+    assert _losses(two) == _losses(one)
+    assert [s for s, _ in _losses(one)] == [1, 2, 3, 4]
+    assert sorted(os.listdir(two)) == sorted(os.listdir(one))
+    names = sorted(os.listdir(one / "ckpt"))
+    assert sorted(os.listdir(two / "ckpt")) == names == [
+        "step_00000002.pt", "step_00000004.pt"]
+    for step in (2, 4):
+        a = ckpt.read_checkpoint(str(one / "ckpt"), step)
+        b = ckpt.read_checkpoint(str(two / "ckpt"), step)
+        assert b["shape_codes"].shape == (3, 256)
+        for key in ("model", "shape_codes", "texture_codes", "generator"):
+            x, y = a[key], b[key]
+            for k in (x if isinstance(x, dict) else [None]):
+                u, v = (x, y) if k is None else (x[k], y[k])
+                assert torch.equal(u, v), (step, key, k)
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        assert sa.keys() == sb.keys() and len(sa) > 0
+        for i in sa:
+            for k in sa[i]:
+                assert torch.equal(sa[i][k], sb[i][k]), (step, i, k)
+    start = _first_weights(root, "autodiff.json")
+    assert np.abs(_weights(two) - start).max() > 1e-4
+
+
+def _first_weights(root, jsonfile="tiny.json"):
     """The state both runs start from: the seed's, before any step."""
     from codenerf_tpu_torch.config import load_hparams
     from codenerf_tpu_torch.training.state import create_train_state
 
-    st = create_train_state(load_hparams(str(root / "tiny.json")), 3, "cpu")
+    st = create_train_state(load_hparams(str(root / jsonfile)), 3, "cpu")
     return torch.cat([p.detach().reshape(-1) for p in st.model.parameters()]
                      + [st.shape_codes.detach().reshape(-1),
                         st.texture_codes.detach().reshape(-1)]).numpy()

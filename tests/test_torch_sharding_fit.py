@@ -2,8 +2,9 @@
 4-rank ``(replica=2, data=2)`` mesh, on the CPU (``gloo`` ranks spawned by
 the tests, the kernels' plain versions). The port's counterparts of
 ``tests/test_sharding.py``'s ``test_three_axis_replica_mesh_matches_
-single_device`` (without its model axis: tensor parallelism is ROADMAP.md
-item 26), ``test_batched_codes_opt_mesh_matches_single_device``,
+single_device`` (without its model axis, which is
+``test_torch_tensor_parallel.py``'s), a fit over a ``(data=2, model=2)``
+mesh, ``test_batched_codes_opt_mesh_matches_single_device``,
 ``test_multi_object_eval_mesh_matches_single_device``,
 ``test_codes_opt_mesh_with_occupancy_and_stochastic`` and
 ``test_multi_object_eval_mesh_with_device_gt``.
@@ -152,10 +153,12 @@ def _mesh4_worker(rank, mesh, out, model_sd, init, trainables):
     facts = {"shard": pm.batch_shard(mesh),
              "group_rank": dist.get_rank(pm.batch_group(mesh)),
              "axes": pm.batch_axes(mesh), "names": mesh.mesh_dim_names}
-    try:
-        pm.make_mesh(model=2)
-    except NotImplementedError as e:
-        facts["model2"] = str(e)
+    m2 = pm.make_mesh(model=2)
+    facts["model2"] = {"names": m2.mesh_dim_names,
+                       "shape": tuple(m2.mesh.shape),
+                       "model": pm.model_size(m2),
+                       "shard": pm.batch_shard(m2),
+                       "model_rank": dist.get_rank(pm.model_group(m2))}
     try:
         pm.make_mesh(data=3)
     except ValueError as e:
@@ -170,6 +173,12 @@ def _mesh4_worker(rank, mesh, out, model_sd, init, trainables):
     _save(out, "fit3", rank, {"s": res.shape_codes.numpy(),
                               "t": res.texture_codes.numpy(),
                               "hist": res.psnr_history})
+    res = _optimizer(model_sd, init, m2).optimize_objects(
+        scene["images"], scene["poses"], scene["focals"], [0],
+        _gens(100, 3), **FIT)
+    _save(out, "fit3_model2", rank, {"s": res.shape_codes.numpy(),
+                                     "t": res.texture_codes.numpy(),
+                                     "hist": res.psnr_history})
 
 
 # ------------------------------------------------------------------ fixtures
@@ -349,10 +358,22 @@ def test_replica_data_mesh_matches_one_process(mesh4, nets):
 
 
 def test_make_mesh_refusals(mesh4):
-    """On 4 ranks ``make_mesh(model=2)`` is a valid layout and raises
-    naming item 26; ``make_mesh(data=3)`` raises JAX's ``ValueError``."""
+    """On 4 ranks ``make_mesh(model=2)`` builds JAX's ``(data=2,
+    model=2)`` layout (rank-major: batch shard ``r // 2``, ``model`` rank
+    ``r % 2``); ``make_mesh(data=3)`` raises JAX's ``ValueError``."""
     for r in range(4):
         f = load(mesh4, "facts", r)
-        assert "item 26" in f["model2"]
+        assert f["model2"] == {"names": ("data", "model"), "shape": (2, 2),
+                               "model": 2, "shard": (r // 2, 2),
+                               "model_rank": r % 2}
         assert f["data3"] == "replica*data*model=3 != device count 4"
+
+
+def test_fit_on_model_axis_matches_unsharded(mesh4, unsharded):
+    """``CodeOptimizer`` on the ``(data=2, model=2)`` mesh, as JAX's
+    ``shard_map`` runs it: the frozen weights whole on every rank, the
+    objects split over ``data`` alone, the two ranks of a ``model`` group
+    fitting the same rows; every rank ends on the unsharded fit."""
+    for rank in range(4):
+        _same_fit(load(mesh4, "fit3_model2", rank), unsharded["fit3"])
 

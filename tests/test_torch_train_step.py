@@ -444,12 +444,14 @@ def test_unported_training_configs_raise(scene, extra):
 
 
 def test_mesh_raises(scene):
-    """A model (tensor-parallel) axis above 1 raises naming ROADMAP.md
-    item 26, before any process group exists; the data-parallel mesh
-    trains (tests/test_torch_sharding.py)."""
+    """A model (tensor-parallel) axis of 2 does not fit one process:
+    ``mesh_from_flags`` raises JAX's layout ``ValueError`` before any
+    process group exists (the model axis on 2 ranks:
+    tests/test_torch_tensor_parallel.py)."""
     from codenerf_tpu_torch.parallel.mesh import mesh_from_flags
 
-    with pytest.raises(NotImplementedError, match="item 26"):
+    with pytest.raises(ValueError,
+                       match=r"^1 devices not divisible by model\*replica=2$"):
         mesh_from_flags("cpu", model=2)
     assert not torch.distributed.is_initialized()
 

@@ -208,15 +208,12 @@ def test_trainer_and_cli_refuse_cuda_without_a_card(scene, tmp_path):
 @pytest.mark.parametrize("flag", ["--data_axis", "--model_axis",
                                   "--replica_axis"])
 def test_train_cli_mesh_flags_raise(flag, tmp_path, monkeypatch):
-    """In one process (no torchrun): ``--model_axis 2`` raises naming
-    ROADMAP.md item 26; ``--data_axis 2`` and ``--replica_axis 2`` do not
-    fit one process and raise ``make_mesh``'s ``ValueError``. Neither
-    starts a process group (the mesh CLIs under torchrun:
-    tests/test_torch_sharding_cli.py)."""
+    """In one process (no torchrun) none of ``--data_axis 2``,
+    ``--model_axis 2`` and ``--replica_axis 2`` fits: each raises
+    ``make_mesh``'s ``ValueError`` and starts no process group (the mesh
+    CLIs under torchrun: tests/test_torch_sharding_cli.py)."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    want = ((NotImplementedError, "item 26") if flag == "--model_axis"
-            else (ValueError, "device count 1|not divisible"))
-    with pytest.raises(want[0], match=want[1]):
+    with pytest.raises(ValueError, match="device count 1|not divisible"):
         t_train.main(["--device", "cpu", "--exps_root", str(tmp_path),
                       flag, "2"])
     assert not torch.distributed.is_initialized()
