@@ -65,7 +65,13 @@ Phases, each printed on its own line with its seconds:
    small kernels' device ms against their byte bounds
    (``sigma_head_kernel`` in ``sigma_fwd``, ``ray_sum_fold_kernel`` in a
    training call on packed operands, one launch a call, where
-   ``pack_kernel`` must not run; ``pack_kernel`` alone). After the
+   ``pack_kernel`` must not run; ``pack_kernel`` alone); the code tables'
+   gradient alone (``code_rows.code_row_sums``: ``code_row_tiles_kernel``
+   + ``code_row_fold_kernel``) on seeded cotangents of 16,384 rays × 512
+   columns at 4, 16 and 2,458 objects and on a ragged batch whose even
+   objects have no rays (``CODE_ROW_CASES``), bit-equal to
+   ``code_row_sums_plain`` and over two launches, beside its byte bound,
+   ``index_add_`` and ``index_put_(accumulate=True)``. After the
    packing's check, the packed-operand cache across a fused AdamW step
    through ``apply_update``: training and pose calls on the rebuilt
    operands bit-equal to the same calls on a freshly packed buffer, and
@@ -85,7 +91,9 @@ Phases, each printed on its own line with its seconds:
    checkpoint at mid-run (step 5) and at the end; then a second run
    resumes (``--resume``) from a copy of the mid-run checkpoint and runs
    the last 5 steps again. Each run's launch count of the weight-gradient
-   kernel and of the weight packing must equal its steps, every logged loss must be finite, and the
+   kernel and of the weight packing must equal its steps, and of the code
+   tables' gradient (``code_rows``) twice its steps, one a table; every
+   logged loss must be finite, and the
    resumed run must end at the uninterrupted run's loss. Then the step
    profile (wall ms untraced and under the profiler, device-busy ms split
    into the port's kernels and PyTorch's, idle share, the largest kernels
@@ -99,8 +107,9 @@ Phases, each printed on its own line with its seconds:
    (32 coarse + 32 fine samples, sphere bounds, the training occupancy
    grid with its warm-up cut to 4 steps and its refresh to every 2):
    8 steps, then a run resumed from the step-4 checkpoint, which must
-   rebuild the grid. Each step launches the sigma-only forward once and
-   the dual training kernel once; then the step profile;
+   rebuild the grid. Each step launches the sigma-only forward once, the
+   dual training kernel once and ``code_rows`` twice; then the step
+   profile;
 6. hierarchical test-time optimization with ``--opt_occ true`` on that
    run: the sigma-only and the dual frozen kernel each once per chunk,
    step and object; then the step profile;
@@ -114,7 +123,7 @@ Phases, each printed on its own line with its seconds:
    ``hierarchical_share_weights: false``, phase 5's cuts): 8 training
    steps and 4 resumed from step 4, which must rebuild the grid and
    repeat the uninterrupted run's losses; each step one ``planes`` and
-   one ``plane_train`` launch per network;
+   one ``plane_train`` launch per network, and two ``code_rows``;
 10. ``optimize --opt_occ true`` on that run: one ``planes`` and one
     ``plane_codes`` launch per network, chunk, step and object;
 11. the pose CLI on that run: one ``planes`` and one ``plane_pose``
@@ -126,19 +135,21 @@ Phases, each printed on its own line with its seconds:
     from the same draws with the plain versions on the unpadded rays.
     Phases 3-12 each start with every launch count at 0, fail if a plain
     version ran on a CUDA tensor, and print the peak device memory and
-    their step profiles; the weights are packed once per network and
+    their step profiles (which fail on any ``index_add_``, by op or
+    kernel name); the weights are packed once per network and
     training step, and once per network in a fitting or pose run (none
     in a frozen step's profiled window);
 13. every CUDA kernel's launches on the main paths by name, the order of
     the next work (each mode's ms above its bound, summed over the main
     paths' launches, each launch priced at its own R·S points against the
     phase-2 shape's; the conversion's launches at their rays against the
-    phase-2 span's), the ``kernels`` JSON line (21 rows: the 16 modes,
+    phase-2 span's), the ``kernels`` JSON line (22 rows: the 16 modes,
     then ``input_chain_kernel``, ``plane_head_kernel``,
     ``sigma_head_kernel`` and ``ray_sum_fold_kernel``, whose launches are
-    those of the modes that run them, and ``pack_kernel``, counted by
-    its own wrapper), the card line, and the last
-    line ``{"ok": true, "device": {...}}`` (after phases 14 and 16);
+    those of the modes that run them, ``pack_kernel``, counted by its own
+    wrapper, and ``code_rows``, the code tables' gradient), the card
+    line, and the last line ``{"ok": true, "device": {...}}`` (after
+    phases 14 and 16-18);
 14. quality, cut, printed after the ``kernels`` line: the port's quality
     report (``codenerf_tpu_torch.quality_report``, the twin of
     ``tools/quality_report.py``) on seed 0 of the standard protocol at
@@ -194,6 +205,30 @@ Phases, each printed on its own line with its seconds:
     No port kernel launches in it: the renderers are plain PyTorch, as
     the JAX package's are XLA.
 
+17. the process mesh (``mesh_path``): (a) a ``srncar_fused.json`` step
+    at world size 1 over NCCL with ``make_mesh(data=1)``, the same bits
+    as one process's (loss and every gradient), timed and profiled in
+    turns with and without the mesh, and ``torchrun ... train
+    --data_axis 1``; (b) two gloo ranks sharing the card, each step
+    against one process at ``_close``'s bars (the shards' sums differ
+    in order by nature) and a sharded fit the same bits; (c) the
+    ``model`` axis, ``(data=1, model=2)`` on two gloo ranks at
+    ``srncar.json`` widths: each step the same bits as one process's
+    from the same weights, batch and depths, and one hierarchical step
+    shared and with a separate fine network the same;
+18. training repeats (``repeat_path``): for each route — (a)
+    ``srncar_fused.json``, (b) ``srncar_hier_occ.json`` with phase 5's
+    cuts, (c) the separate fine network of phase 9, (d) ``srncar.json``
+    (autodiff), (e) (a) under ``make_mesh(data=1)`` over NCCL — two fresh
+    trainers of one seed run 12 steps of 16,384 rays across the
+    crop→full switch on phase 3's seeded set; every parameter, both code
+    tables, every AdamW moment and step count, the generator and every
+    logged loss must be the same bits, and each run launch each kernel
+    as its steps say. ``repeat_path(diagnose=True)`` then runs (a)-(d) 2
+    steps each under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` and prints what it warns about (not in the
+    default run).
+
 Any failure exits non-zero without the last line. Imports nothing of JAX
 or of the JAX package.
 """
@@ -227,6 +262,10 @@ REPLACES_INPUT = "codenerf_tpu/ops/fused_train.py:615"
 REPLACES_HEADS = "codenerf_tpu/ops/fused_mlp.py:363"
 REPLACES_SIGMA_HEAD = "codenerf_tpu/ops/fused_mlp.py:362"
 REPLACES_FOLD = "codenerf_tpu/ops/fused_train.py:321"
+SOURCE_CODE_ROWS = "codenerf_tpu_torch/ops/csrc/code_rows.cu"
+# XLA's scatter-add, the transpose of the training step's code gather.
+REPLACES_CODE_ROWS = "codenerf_tpu/training/train_step.py:329"
+D_CODES = 512       # both code tables' columns (latent 256 each)
 # The points (R * S) of each mode's phase-2 check: its ms and bound_ms
 # are taken there.
 PHASE2_POINTS = {
@@ -241,7 +280,8 @@ PHASE2_POINTS = {
     "input_chain": R_POSE * S_FULL, "plane_head": R_TRAIN * S_UNION,
     "sigma_head": R_TRAIN * S_COARSE,
     "ray_sum_fold": R_TRAIN,   # the conversion's work goes by rays
-    "pack": 1}                # the packing's by launches
+    "pack": 1,                # the packing's by launches
+    "code_rows": R_TRAIN * D_CODES}   # the table gradient's by R·D
 PLANE_MODES = {   # launch counter: (weight_grads, input_grads)
     "plane_train": (True, False), "plane_codes": (False, False),
     "plane_pose": (False, True), "plane_train_input": (True, True)}
@@ -1355,6 +1395,98 @@ def fold_check(dev, R: int, S: int):
                   "sums, to bf16)", REPLACES_FOLD, err, ms, plain_ms, bnd)
 
 
+# (objects, rays, how the rays pick their objects) of the code tables'
+# gradient's phase-2 cases: chip_smoke's 4 training objects, 16, and
+# cars_train's 2,458, uniformly; then a ragged batch (not a multiple of
+# code_rows.TILE) whose even objects have no rays and one of whose objects
+# holds half of them.
+CODE_ROW_CASES = ((4, R_TRAIN, "uniform"), (16, R_TRAIN, "uniform"),
+                  (2458, R_TRAIN, "uniform"), (37, R_TRAIN - 45, "ragged"))
+
+
+def code_rows_bytes(R: int, n_rows: int, D: int) -> int:
+    """The bytes code_row_sums must move: each cotangent read once (4 B a
+    value), the table gradient written once, the order read once (int32
+    perm and sorted_obj 4 B a ray each, offsets 4 B a row)."""
+    return 4 * R * D + 4 * n_rows * D + 8 * R + 4 * (n_rows + 1)
+
+
+def code_rows_check(dev) -> dict:
+    """Phase 2: the code tables' gradient alone (``code_rows.
+    code_row_sums``: ``code_row_tiles_kernel`` + ``code_row_fold_kernel``)
+    on seeded normal cotangents of R × 512 columns (both tables' width)
+    for each of ``CODE_ROW_CASES``: bit-equal to ``code_row_sums_plain``
+    (the same additions in the same order) and over two launches, one
+    counted launch a call; its device ms against its byte bound
+    (``code_rows_bytes``), the plain version's ms, and as yardsticks
+    ``index_add_`` (what ``index_select``'s backward runs, with atomics)
+    and ``index_put_(accumulate=True)`` (the deterministic library route)
+    of the same rows into a zeroed table. The row's numbers are the
+    4-object case's, the phase-3 training shape."""
+    import torch
+
+    from codenerf_tpu_torch.ops import code_rows
+
+    row = None
+    for n_rows, R, how in CODE_ROW_CASES:
+        gen = torch.Generator(device=dev).manual_seed(11 + n_rows)
+        if how == "uniform":
+            obj = torch.randint(0, n_rows, (R,), generator=gen, device=dev)
+        else:
+            odd = torch.arange(1, n_rows, 2, device=dev)
+            obj = odd[torch.randint(0, odd.numel(), (R,), generator=gen,
+                                    device=dev)]
+            obj[torch.rand(R, generator=gen, device=dev) < 0.5] = 5
+        g = torch.randn(R, D_CODES, generator=gen, device=dev)
+        order = code_rows.RowOrder.of(obj, n_rows)
+        before = code_rows.launches["code_rows"]
+        got = code_rows.code_row_sums(g, order, n_rows)
+        again = code_rows.code_row_sums(g, order, n_rows)
+        torch.cuda.synchronize()
+        want = code_rows.code_row_sums_plain(g, order, n_rows)
+        empty = int((order.offsets[1:] == order.offsets[:-1]).sum())
+        checks = [
+            ("vs code_row_sums_plain", 0.0, torch.equal(got, want)),
+            ("two launches", 0.0, torch.equal(got, again)),
+            ("one launch a call", 0.0,
+             code_rows.launches["code_rows"] - before == 2)]
+        what = (f"{n_rows} objects ({empty} without rays), R={R}, "
+                f"D={D_CODES}")
+        for name, _, ok in checks:
+            log(f"  code_row_sums at {what}: {name} "
+                f"{'bit-equal' if ok else 'DIFFERS'}"
+                f"{'' if ok else '  <-- FAILS'}")
+        _fail_on(checks, f"code_row_sums at {what}")
+        err = float((got - want).abs().max())
+        lib = torch.zeros(n_rows, D_CODES, device=dev).index_add_(0, obj, g)
+        lib_err = float((got - lib).abs().max())
+        nbytes = code_rows_bytes(R, n_rows, D_CODES)
+        bnd = _bound(0, nbytes)
+        ms = kernel_ms(lambda: code_rows.code_row_sums(g, order, n_rows),
+                       "code_row_", "code_row_sums")
+        plain_ms = time_cuda(
+            lambda: code_rows.code_row_sums_plain(g, order, n_rows), reps=3)
+        zero = torch.zeros(n_rows, D_CODES, device=dev)
+        add_ms = time_cuda(lambda: zero.zero_().index_add_(0, obj, g), 20)
+        put_ms = time_cuda(lambda: zero.zero_().index_put_(
+            (obj,), g, accumulate=True), 20)
+        order_ms = time_cuda(lambda: code_rows.RowOrder.of(obj, n_rows), 20)
+        log(f"  code_row_sums at {what} ({nbytes} B to move): {ms:.4f} ms "
+            f"per call (device), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}); plain {plain_ms:.4f} ms; "
+            f"largest difference from index_add_ {lib_err:.3e}; yardsticks "
+            f"(CUDA events, a zeroing included): index_add_ {add_ms:.4f} "
+            f"ms, index_put_(accumulate=True) {put_ms:.4f} ms; the order "
+            f"(RowOrder.of, shared by both tables) {order_ms:.4f} ms")
+        if row is None:
+            row = _entry("code_row_tiles_kernel + code_row_fold_kernel (the "
+                         "code tables' gradient: fixed-order row sums)",
+                         REPLACES_CODE_ROWS, err, ms, plain_ms, bnd)
+            row.update(source=SOURCE_CODE_ROWS, library_ms=add_ms)
+        del got, again, want, g
+    return row
+
+
 def small_kernel_rates(dev) -> dict:
     """Phase 2: the device ms of the port's small kernels at the main
     paths' shapes, beside their byte bounds: sigma_head_kernel in
@@ -1811,7 +1943,11 @@ PORT_KERNELS = ("trunk_fwd_kernel", "trunk_dx_kernel", "pack_kernel",
                 "wgrad_kernel", "head_kernel", "fixed_sum_kernel",
                 "ray_sum_fold_kernel", "sigma_head_kernel",
                 "input_chain_kernel", "plane_head_kernel",
-                "composite_kernel")
+                "composite_kernel", "code_row_tiles_kernel",
+                "code_row_fold_kernel")
+# PyTorch's index_add_ (index_select's backward, f32 atomics) by its op
+# and kernel names: no step may run it.
+ATOMIC_ROW_SUMS = ("indexFuncSmallIndex", "indexFuncLargeIndex", "index_add")
 
 
 def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
@@ -1828,6 +1964,10 @@ def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
     from torch.autograd import DeviceType
 
     ours, other, by_name, count = 0.0, 0.0, {}, {}
+    atomic = sorted({ev.name[:80] for ev in prof.events()
+                     if any(k in ev.name for k in ATOMIC_ROW_SUMS)})
+    if atomic:
+        raise AssertionError(f"{what}: the step runs {atomic}")
     for ev in prof.events():
         # User annotations (e.g. ``Optimizer.step#AdamW.step``) are ranges
         # on the device timeline that overlap the kernels they enclose.
@@ -1852,7 +1992,8 @@ def log_step_profile(what: str, untraced_ms: float, wall_ms: float, prof,
         f"largest kernels (ms/step): "
         + ", ".join(f"{k} {v:.3f}" for k, v in top)
         + "; the port's launches per step: "
-        + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(count.items())))
+        + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(count.items()))
+        + "; no index_add_")
     packs = count.get("pack_kernel", 0)
     if packs != packs_per_step * steps:
         raise AssertionError(f"{what}: {packs} pack_kernel launches in "
@@ -1925,20 +2066,21 @@ class LaunchCounts:
     def __enter__(self):
         import torch
 
-        from codenerf_tpu_torch.ops import fused_mlp, fused_train
-
-        from codenerf_tpu_torch.ops import composite
+        from codenerf_tpu_torch.ops import (code_rows, composite, fused_mlp,
+                                            fused_train)
 
         self._counters = (fused_train.train_fused.launches,
                           fused_mlp.sigma_fwd.launches,
                           fused_mlp.planes_fwd.launches,
                           fused_train.plane_bwd.launches,
                           composite.launches,
-                          fused_train.pack_trunk_weights.launches)
+                          fused_train.pack_trunk_weights.launches,
+                          code_rows.launches)
         self._points = (fused_train.train_fused.points,
                         fused_mlp.sigma_fwd.points,
                         fused_mlp.planes_fwd.points,
-                        fused_train.plane_bwd.points, composite.points)
+                        fused_train.plane_bwd.points, composite.points,
+                        code_rows.points)
         for c in self._counters + self._points:
             for k in c:
                 c[k] = 0
@@ -1961,7 +2103,8 @@ class LaunchCounts:
             (fused_mlp, "sigma_head_plain"),
             (fused_train, "fold_ray_sums_plain"),
             (composite, "composite_fwd_plain"),
-            (composite, "composite_bwd_plain"))]
+            (composite, "composite_bwd_plain"),
+            (code_rows, "code_row_sums_plain"))]
 
         def watch(fn):
             def wrapped(*args, **kw):
@@ -2101,15 +2244,15 @@ def train_path(work: str, jsonfile: str, device: str, batch: int, H: int,
         raise AssertionError("resumed losses not finite")
     last, last_r = losses[-1], losses_r[-1]
     if exact_resume:
-        # The same batches, depths and rebuilt grid: the same trajectory,
-        # to the last bits of index_add_'s atomic backward on the card.
+        # The same batches, depths and rebuilt grid, and every sum in a
+        # fixed order: the same trajectory, bit for bit.
         mine = dict(losses)
         for step_, v in losses_r:
-            if not abs(v - mine[step_]) <= 1e-3 * abs(mine[step_]):
+            if v != mine[step_]:
                 raise AssertionError(f"resumed run at step {step_}: loss "
                                      f"{v}, uninterrupted {mine[step_]}")
-        log(f"  resume: losses of steps {[s_ for s_, _ in losses_r]} within "
-            f"1e-3 of the uninterrupted run's")
+        log(f"  resume: losses of steps {[s_ for s_, _ in losses_r]} the "
+            f"uninterrupted run's, bit for bit")
     if hier:
         # A resume past the warm-up rebuilds the grid from the restored
         # model (JAX trainer.py:300-311), so the runs need not agree.
@@ -2121,10 +2264,8 @@ def train_path(work: str, jsonfile: str, device: str, batch: int, H: int,
             raise AssertionError("the resumed run did not rebuild its "
                                  "occupancy grid")
     # The uninterrupted and the resumed run see the same batches and
-    # depths; on the card index_add_'s atomic backward (the code tables'
-    # gradient) may change last bits.
-    elif last_r[0] != last[0] or not abs(last_r[1] - last[1]) <= \
-            1e-3 * abs(last[1]):
+    # depths, and every sum runs in a fixed order: the same bits.
+    elif last_r != last:
         raise AssertionError(f"resumed run ends at {last_r}, the "
                              f"uninterrupted one at {last}")
     if on_card:
@@ -2398,7 +2539,8 @@ def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     t0 = time.perf_counter()
     _reset_peak(device)
     train = train_path(work, jsonfile, device, batch, H, iters_crop=5,
-                       iters_all=10, mid=5, per_step={"train": 1, "pack": 1},
+                       iters_all=10, mid=5,
+                       per_step={"train": 1, "pack": 1, "code_rows": 2},
                        run="smoke", hier=False)
     log(f"phase 3: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
@@ -2409,7 +2551,8 @@ def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     log(f"phase 4: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     return {"train": train["train"], "codes": codes["codes"],
-            "pack": train["pack"] + codes["pack"]}
+            "pack": train["pack"] + codes["pack"],
+            "code_rows": train["code_rows"]}
 
 
 def _hier_occ_config(work: str, grid_size=None, out=None, **extra) -> str:
@@ -2438,7 +2581,8 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     _reset_peak(device)
     train = train_path(work, jsonfile, device, batch, H, iters_crop=4,
                        iters_all=8, mid=4,
-                       per_step={"sigma": 1, "dual_train": 1, "pack": 1},
+                       per_step={"sigma": 1, "dual_train": 1, "pack": 1,
+                                 "code_rows": 2},
                        run="hier", hier=True)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
@@ -2453,7 +2597,8 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     return {"sigma": train["sigma"] + codes["sigma"],
             "dual_train": train["dual_train"],
             "dual_codes": codes["dual_codes"],
-            "pack": train["pack"] + codes["pack"]}
+            "pack": train["pack"] + codes["pack"],
+            "code_rows": train["code_rows"]}
 
 
 def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
@@ -2496,7 +2641,8 @@ def fine_paths(work: str, device: str = "cuda", batch: int = R_TRAIN,
     _reset_peak(device)
     train = train_path(work, jsonfile, device, batch, H, iters_crop=4,
                        iters_all=8, mid=4,
-                       per_step={"planes": 2, "plane_train": 2, "pack": 2},
+                       per_step={"planes": 2, "plane_train": 2, "pack": 2,
+                                 "code_rows": 2},
                        run="fine", hier=True, exact_resume=True)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
@@ -2859,7 +3005,8 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
     is printed. A fault of the batched loop (another object's rows, draws
     or loss scale) moves a held-out PSNR by tenths. Each run counts its launches
     in its own window: one ``train`` and one ``pack`` a training step, one
-    ``codes`` a fitting step and object, one ``pack`` a fitting run."""
+    ``codes`` a fitting step and object, one ``pack`` a fitting run, two
+    ``code_rows`` a training step (one a code table)."""
     import numpy as np
 
     from codenerf_tpu_torch import quality_report
@@ -2874,6 +3021,7 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
     runs = {}
     for what, extra, want in (
             ("sequential", [], {"train": steps, "pack": steps + 1,
+                                "code_rows": 2 * steps,
                                 "codes": n_test * num_opts}),
             ("sequential rerun", ["--resume_train"],
              {"pack": 1, "codes": n_test * num_opts}),
@@ -3353,13 +3501,23 @@ def _grad_step(fn, state, batch, z):
                                         for p in trainable_params(state)]
 
 
-def _same_step(what: str, got, want) -> None:
+def _same_step(what: str, got, want, bits: bool = False) -> None:
     """A meshed step's loss and every gradient against one process's at
     ``_close``'s bars (a miss is logged and fails); logs the loss's
     relative difference and the largest relative L2 error of a
-    gradient."""
+    gradient. ``bits``: the loss and every gradient must also be the same
+    bits (every sum of the step runs in a fixed order, the code tables'
+    gradients included: ``ops/code_rows.py``)."""
     import torch
 
+    if bits:
+        same = torch.equal(got[0], want[0]) and all(
+            torch.equal(g, w) for g, w in zip(got[1], want[1]))
+        log(f"  {what}: loss and {len(got[1])} gradients "
+            f"{'the same bits' if same else 'NOT the same bits'} as one "
+            f"process's{'' if same else '  <-- FAILS'}")
+        if not same:
+            raise AssertionError(f"{what}: not the one-process step's bits")
     worst = 0.0
     for i, (g, w) in enumerate(zip(got[1], want[1])):
         if not _close(f"{what} gradient {i}", g.reshape(-1), w.reshape(-1),
@@ -3466,9 +3624,9 @@ def mesh_nccl(work: str, jsonfile: str, device: str, batch: int, H: int,
                                               mesh=mesh), state, b, z)
             counts = lc.get()
         _same_step(f"17(a) {dist.get_backend()} world 1 vs no mesh", got,
-                   want)
-        _expect(counts, {"train": 1} if dev.type == "cuda" else {},
-                "17(a) meshed step")
+                   want, bits=True)
+        _expect(counts, {"train": 1, "code_rows": 2}
+                if dev.type == "cuda" else {}, "17(a) meshed step")
         floats = sum(g.numel() for g in want[1]) + 3
         log(f"  17(a): {floats * 4} B all-reduced a step ({floats - 3} "
             f"gradient and 3 metric f32)")
@@ -3648,8 +3806,9 @@ def mesh_gloo(work: str, jsonfile: str, device: str, batch: int, H: int,
             f"fitting launches {fit}; step s (host clock, a "
             f"correctness run: two ranks share one card) "
             f"{[round(x, 4) for x in r['step_s']]}")
-        _expect({"train": r["counts"].get("train", 0)},
-                {"train": steps * on_card}, f"17(b) rank {rank} training")
+        _expect({k: r["counts"].get(k, 0) for k in ("train", "code_rows")},
+                {"train": steps * on_card, "code_rows": 2 * steps * on_card},
+                f"17(b) rank {rank} training")
         n = MESH_OBJS // 2 * num_opts * chunks
         _expect({"codes": r["fit_counts"].get("codes", 0)},
                 {"codes": n * on_card}, f"17(b) rank {rank} fitting")
@@ -3817,7 +3976,8 @@ def _tp_hier_step(rank: int, jsonfile: str, mesh, pipe, tables, dev,
         _same_step(f"17(c) {out['config']} (fine network: {out['fine']}, "
                    f"{out['sharded']} of {out['leaves']} trainables "
                    f"sharded): model = 2 vs one process", (loss, list(
-                       g[n] for n in named_trainables(one))), want)
+                       g[n] for n in named_trainables(one))), want,
+                   bits=True)
     return out
 
 
@@ -3871,7 +4031,8 @@ def _tp_reference(hp, H: int, batch: int, one, kept, device: str) -> str:
         want = _grad_step(plain, one, b, z)
         _same_step(f"17(c) step {step}: model = 2 (gathered) vs one "
                    f"process from the same weights", (loss, [g[n] for n in
-                                                          names]), want)
+                                                          names]), want,
+                   bits=True)
     return _peak(device)
 
 
@@ -3900,12 +4061,14 @@ def mesh_tp(work: str, jsonfile: str, fused: str, device: str, batch: int,
             f"memory in the steps {r['peak_tp']}"
             + (f", one process's step {r['peak_one']}" if rank == 0
                else "")
-            + f"; launches {ran} (the autodiff route runs no port kernel);"
+            + f"; launches {ran} (the autodiff route runs the code "
+            f"tables' gradient kernel alone, one a table and step);"
             f" step s (host clock, a correctness run: two ranks share the "
             f"card) {[round(x, 4) for x in r['step_s']]}; "
             f"{r['replicated']} replicated leaves the same bits on both "
             f"ranks")
-        _expect(ran, {}, f"17(c) rank {rank}")
+        _expect(ran, {"code_rows": 2 * steps} if device != "cpu" else {},
+                f"17(c) rank {rank}")
     log(f"  17(c): srncar_fused.json with model = 2 raises: {r['refusal']}")
 
 
@@ -3932,6 +4095,162 @@ def mesh_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     mesh_tp(work, _config(work, "srncar.json", check_points=2), jsonfile,
             device, min(batch, TP_RAYS), H)
     log(f"phase 17(c): {time.perf_counter() - t0:.1f} s")
+
+
+REPEAT_STEPS, REPEAT_CROP = 12, 6   # phase 18: steps, the crop phase's
+
+
+def _repeat_routes(work: str, grid_size=None) -> list:
+    """Phase 18's routes: (name, jsonfile, on a mesh, launches a step)."""
+    fused = _config(work, "srncar_fused.json", out="repeat_fused.json")
+    single = {"train": 1, "pack": 1, "code_rows": 2}
+    return [
+        ("(a) srncar_fused.json", fused, False, single),
+        ("(b) srncar_hier_occ.json, phase 5's cuts",
+         _hier_occ_config(work, grid_size, out="repeat_hier.json"), False,
+         {"sigma": 1, "dual_train": 1, "pack": 1, "code_rows": 2}),
+        ("(c) the separate fine network of phase 9",
+         _hier_occ_config(work, grid_size, out="repeat_fine.json",
+                          hierarchical_share_weights=False), False,
+         {"planes": 2, "plane_train": 2, "pack": 2, "code_rows": 2}),
+        ("(d) srncar.json (autodiff)",
+         _config(work, "srncar.json", out="repeat_autodiff.json"), False,
+         {"code_rows": 2}),
+        ("(e) (a) on make_mesh(data=1)", fused, True, single)]
+
+
+def _repeat_run(jsonfile: str, ds, device: str, batch: int, exps: str,
+                name: str, mesh=None, steps: int = REPEAT_STEPS,
+                crop: int = REPEAT_CROP):
+    """A fresh ``Trainer`` of ``jsonfile`` 's seed trained ``steps`` steps
+    across the crop→full switch at ``crop``: (every trainable, its AdamW
+    moments and step count, in the optimizer's order, then the
+    generator's state; the logged (step, loss, psnr, reg); the launch
+    counts)."""
+    from codenerf_tpu_torch.config import load_hparams
+    from codenerf_tpu_torch.training.train_step import trainable_params
+    from codenerf_tpu_torch.training.trainer import Trainer
+
+    with LaunchCounts() as lc:
+        tr = Trainer(name, load_hparams(jsonfile), batch_size=batch,
+                     dataset=ds, exps_root=exps, check_iter=0, device=device,
+                     mesh=mesh)
+        tr.training(iters_crop=crop, iters_all=steps, log_every=1)
+        counts = lc.get()
+        if lc.plain_on_cuda:
+            raise AssertionError(f"{lc.plain_on_cuda} plain-version calls "
+                                 f"on CUDA tensors ({name})")
+    opt = tr.state.optimizer
+    leaves = []
+    for p in trainable_params(tr.state):
+        leaves.append(p.detach().clone())
+        leaves += [opt.state[p][k].clone()
+                   for k in ("exp_avg", "exp_avg_sq", "step")]
+    leaves.append(tr.state.generator.get_state())
+    logs = [(r["step"], r["loss/train"], r["psnr/train"], r["reg/train"])
+            for r in _metrics(os.path.join(exps, name))
+            if "loss/train" in r]
+    return leaves, logs, counts
+
+
+def repeat_path(work: str = None, device: str = "cuda", batch: int = R_TRAIN,
+                H: int = 128, grid_size=None, diagnose: bool = False) -> None:
+    """Phase 18: training repeats bit for bit. For each route of
+    ``_repeat_routes`` two fresh trainers of one seed run ``REPEAT_STEPS``
+    steps across the crop→full switch on phase 3's seeded ``cars_train``
+    set (4 objects x 4 views); every parameter, both code tables, every
+    AdamW moment and step count, the generator's state and every logged
+    loss, PSNR and reg must be the same bits in both runs, and each run
+    must launch each kernel its route runs as often as its steps say (on
+    the card: ``code_rows`` two a step). Route (e) runs under
+    ``make_mesh(data=1)`` at world size 1 (nccl on the card, gloo on the
+    CPU). With ``diagnose``, each of (a)-(d) then runs 2 more steps under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` and the
+    distinct warnings are printed; the mode is off again afterwards."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from codenerf_tpu_torch.data.srn import SRNDataset
+    from codenerf_tpu_torch.parallel import mesh as pm
+
+    own = work is None
+    if own:
+        scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build")
+        os.makedirs(scratch, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke_repeat_", dir=scratch)
+    try:
+        data = os.path.join(work, "data")
+        write_dataset(data, "cars_train", 4, 4, H, seed=1)
+        ds = SRNDataset(cat="srn_cars", splits="cars_train", data_dir=data)
+        exps = os.path.join(work, "exps_repeat")
+        on_card = device != "cpu"
+        routes = _repeat_routes(work, grid_size)
+        for i, (what, jsonfile, meshed, per_step) in enumerate(routes):
+            t0 = time.perf_counter()
+            mesh = None
+            if meshed:
+                with _Env(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0"):
+                    pm.init_from_env(device,
+                                     init_method=f"file://{work}/pg_repeat")
+                mesh = pm.make_mesh(data=1)
+            try:
+                runs = [_repeat_run(jsonfile, ds, device, batch, exps,
+                                    f"repeat{i}_{k}", mesh)
+                        for k in range(2)]
+            finally:
+                if meshed:
+                    dist.destroy_process_group()
+            (la, ga, ca), (lb, gb, cb) = runs
+            for counts in (ca, cb):
+                _expect(counts, {k: v * REPEAT_STEPS * on_card
+                                 for k, v in per_step.items()},
+                        f"phase 18 {what}")
+            same = [torch.equal(a, b) for a, b in zip(la, lb)]
+            nbytes = sum(a.numel() * a.element_size() for a in la)
+            ok = all(same) and len(la) == len(lb) and ga == gb \
+                and len(ga) == REPEAT_STEPS
+            log(f"phase 18 {what}: two trainings of {REPEAT_STEPS} steps "
+                f"(crop until step {REPEAT_CROP}) from one seed: "
+                f"{sum(same)} of {len(la)} leaves ({nbytes} B: parameters, "
+                f"code tables, AdamW moments and steps, the generator) and "
+                f"{len(ga)} logged losses "
+                f"{'the same bits' if ok else 'NOT the same bits'}; loss by "
+                f"step {[round(x[1], 6) for x in ga]}; launches a run "
+                f"{ {k: v for k, v in ca.items() if v} }; "
+                f"{time.perf_counter() - t0:.1f} s"
+                f"{'' if ok else '  <-- FAILS'}")
+            if not ok:
+                raise AssertionError(f"phase 18 {what}: the trainings differ "
+                                     f"({len(same) - sum(same)} leaves, "
+                                     f"losses {ga != gb})")
+        if diagnose:
+            found = {}
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for i, (what, jsonfile, meshed, _) in enumerate(routes):
+                    if meshed:
+                        continue
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        _repeat_run(jsonfile, ds, device, batch, exps,
+                                    f"diagnose{i}", steps=2, crop=1)
+                    for w in caught:
+                        if issubclass(w.category, ResourceWarning):
+                            continue
+                        key = str(w.message)[:240]
+                        found.setdefault(key, []).append(what[:3])
+            finally:
+                torch.use_deterministic_algorithms(False)
+            log(f"phase 18: under torch.use_deterministic_algorithms(True, "
+                f"warn_only=True), {len(found)} distinct warnings:")
+            for msg, where in found.items():
+                log(f"  {sorted(set(where))}: {msg}")
+    finally:
+        if own:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -4058,6 +4377,11 @@ def main() -> int:
         row = fold_check(dev, R, S)
         entries.setdefault("ray_sum_fold", row)
     torch.cuda.empty_cache()
+    log(f"phase 2: the code tables' gradient alone (code_row_sums) at "
+        f"{D_CODES} columns, (objects, rays) "
+        f"{[(n, R) for n, R, _ in CODE_ROW_CASES]}")
+    entries["code_rows"] = code_rows_check(dev)
+    torch.cuda.empty_cache()
     log("phase 2: the small kernels against their bounds")
     entries["pack"] = small_kernel_rates(dev)
     torch.cuda.empty_cache()
@@ -4138,7 +4462,9 @@ def main() -> int:
         "plane_head_kernel": launches["plane_head"],
         "input_chain_kernel": launches["input_chain"],
         "composite_kernel": launches.get("composite", 0)
-        + launches.get("composite_bwd", 0)}
+        + launches.get("composite_bwd", 0),
+        "code_row_tiles_kernel": launches.get("code_rows", 0),
+        "code_row_fold_kernel": launches.get("code_rows", 0)}
     log("CUDA kernel launches on the main paths (phases 3-12): " + ", ".join(
         f"{k} {v}" for k, v in by_kernel.items()))
     rows, excess = [], []
@@ -4147,7 +4473,7 @@ def main() -> int:
                  "plane_codes", "plane_pose", "plane_train_input",
                  "composite", "composite_bwd", "train_input",
                  "train_weights", "input_chain", "plane_head", "sigma_head",
-                 "ray_sum_fold", "pack"):
+                 "ray_sum_fold", "pack", "code_rows"):
         # plane_train_input, train_input and train_weights have no caller
         # on a main path
         e = entries[mode]
@@ -4190,6 +4516,12 @@ def main() -> int:
         mesh_path(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 18: training repeats: two trainings of one seed a route, "
+        f"{REPEAT_STEPS} steps of {R_TRAIN} rays across the crop->full "
+        f"switch, (a)-(e) at full width")
+    t0 = time.perf_counter()
+    repeat_path()
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,7 @@ they run on the card.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -82,14 +83,27 @@ def mesh_shape(world: int, data: int = -1, model: int = 1,
     return (data, model), ("data", "model")
 
 
-def make_mesh(data: int = -1, model: int = 1, replica: int = 1):
+def make_mesh(data: int = -1, model: int = 1, replica: int = 1,
+              timeout: Optional[datetime.timedelta] = None):
     """A ``DeviceMesh`` of :func:`mesh_shape`'s layout over the default
-    process group, with JAX's axis names."""
+    process group, with JAX's axis names. ``timeout`` bounds every
+    collective on it — the default group, each axis's group and the
+    batch axes' (:func:`batch_group`) — so that a rank waiting on a dead
+    peer raises and reaches the trainer's crash-safe save instead of
+    waiting forever (on ``nccl`` a timed-out collective raises only with
+    ``TORCH_NCCL_BLOCKING_WAIT=1``; otherwise NCCL's watchdog ends the
+    process)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     shape, names = mesh_shape(dist.get_world_size(), data, model, replica)
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=names)
+    if timeout is not None:
+        groups = [dist.group.WORLD, batch_group(mesh)] + [
+            mesh.get_group(n) for n in names]
+        for g in groups:
+            dist.distributed_c10d._set_pg_timeout(timeout, g)
+    return mesh
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:

@@ -6,7 +6,12 @@ generator, the loss and its gradients, one AdamW update.
 
 Loss (reference ``src/trainer.py:75-83``): the MSE of the composited RGB
 plus ``(loss_reg_coef / reg_chunk_divisor) · mean(‖z_s‖ + ‖z_t‖)`` on the
-batch's gathered codes. Two routes compute its gradients:
+batch's gathered codes. Every route gathers the codes with
+``ops/code_rows.gather_code_rows``, whose backward sums the rays' rows
+into the tables' gradients in one fixed order (on the card
+``code_rows.cu``, where ``index_select``'s ``index_add_`` adds with
+atomics), so a training repeats bit for bit. Three routes compute the
+gradients:
 
 - **fused** (``use_fused_train``, the flagship): the per-ray prologue
   (code gather, latent projections, ``flatten_params``, the reg term) in
@@ -93,7 +98,7 @@ from codenerf_tpu_torch.core.rays import pixel_rays
 from codenerf_tpu_torch.core.render import composite, composite_weights
 from codenerf_tpu_torch.core.sampling import fine_uniforms, uniform01_u8
 from codenerf_tpu_torch.evaluation.metrics import psnr
-from codenerf_tpu_torch.ops import fused_mlp, fused_train
+from codenerf_tpu_torch.ops import code_rows, fused_mlp, fused_train
 from codenerf_tpu_torch.parallel.mesh import (all_reduce_mean_, batch_group,
                                               batch_shard, model_size)
 from codenerf_tpu_torch.renderer import coarse_zvals, render_rays
@@ -259,11 +264,11 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         """(loss, mse, reg) of one (micro)batch, differentiable; ``mse``
         is the fine pass's under hierarchical sampling."""
         model, fine, shape_codes, texture_codes = whole_trainables(state)
-        # index_select's backward is index_add_; indexing's sort-based
-        # backward serialises over the repeated rows (every ray of an
-        # object hits the same row) and took ~5 ms per 16,384-ray step.
-        sc = shape_codes.index_select(0, obj)
-        tc = texture_codes.index_select(0, obj)
+        # The tables' gradients sum the rays' rows in one fixed order
+        # (ops/code_rows.py), so a training repeats bit for bit.
+        order = code_rows.RowOrder.of(obj, shape_codes.shape[0])
+        sc = code_rows.gather_code_rows(shape_codes, obj, order)
+        tc = code_rows.gather_code_rows(texture_codes, obj, order)
         if single_pass:
             loss, mse = fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc)
         elif hier or apply_fn is not None:

@@ -37,13 +37,19 @@ logs; every save ends at a barrier over every rank. With a ``model``
 axis above 1 (the autodiff route) the state is split over it
 (``training/state.py``), and whatever evaluates the model — the
 occupancy refreshes, the render logs, the checkpoints — gathers it
-whole first, on every rank alike; the crash-safe save is skipped there,
-since its gather would wait for ranks that may never come.
+whole first, on every rank alike. Its crash-safe save cannot gather (a
+peer may be dead): each rank writes its own slices with no collective
+(``utils/checkpoint.save_slices``), and a resume stitches the newest
+complete set, or passes over an incomplete one to the newest complete
+checkpoint and logs which it took. A ``mesh`` made with a ``timeout``
+(``parallel/mesh.make_mesh``) lets a rank that waits on a dead peer
+reach that save.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import time
 import warnings
@@ -235,7 +241,13 @@ class Trainer:
                                     write=self.writer)
 
     def resume(self) -> bool:
-        """Restore the latest checkpoint if one exists; True if restored."""
+        """Restore the latest checkpoint if one exists (whole, or a
+        crashed run's complete set of slices; ``ckpt.checkpoint_note``
+        is logged when newer incomplete sets were passed over); True if
+        restored."""
+        note = ckpt.checkpoint_note(self.ckpt_dir)
+        if note is not None:
+            logging.getLogger(__name__).warning(note)
         if ckpt.latest_step(self.ckpt_dir) is None:
             return False
         ckpt.restore_checkpoint(self.ckpt_dir, self.state)
@@ -306,12 +318,14 @@ class Trainer:
         except (KeyboardInterrupt, Exception):
             # Crash-safe checkpoint at the last completed step (the
             # reference has no resume path at all); a failure while saving
-            # must not hide the original error. No barrier, and no save
-            # under a model axis: the other ranks may not reach its
-            # collectives.
+            # must not hide the original error. No collective: the other
+            # ranks may not reach it. Under a model axis every rank writes
+            # its own slices.
             try:
                 if self.state.shards is None:
                     self._save()
+                else:
+                    ckpt.save_slices(self.ckpt_dir, self.state)
             except Exception:
                 pass
             raise

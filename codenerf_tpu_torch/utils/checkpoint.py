@@ -9,8 +9,23 @@ so a resumed run continues exactly where the saved one stopped. A state
 split over a mesh's ``model`` axis is saved whole — every rank joins one
 gather of its slices (weights, tables, AdamW moments), the writer saves —
 and a whole checkpoint is restored into such a state by slicing, so a run
-resumes across any ``model`` size. The logical keys correspond to the
-reference's ``models.pth``:
+resumes across any ``model`` size.
+
+A run that fails under a ``model`` axis cannot gather (a peer may be
+dead), so each rank writes its own slices instead, with no collective
+(:func:`save_slices`): ``step_NNNNNNNN.rank<r>of<w>.model<m>.pt`` holds
+its blocks of the sharded leaves and their AdamW moments, the replicated
+leaves, the step, the generator and the layout. A step counts as saved
+once every rank's slice file of that step and layout is there; readers
+(:func:`latest_step`, :func:`read_checkpoint`,
+:func:`restore_checkpoint`, :func:`load_run`) take the newest step saved
+either way and stitch a complete set of slices into a whole checkpoint,
+so a crashed run resumes in its layout or in one process. Ranks that
+stopped on different steps leave incomplete sets; the readers pass over
+them to the newest complete checkpoint and say which they took
+(:func:`checkpoint_note`, logged by the trainer's resume).
+
+The logical keys correspond to the reference's ``models.pth``:
 
   model          <-> model_params
   shape_codes    <-> shape_code_params['weight']
@@ -42,6 +57,7 @@ from codenerf_tpu_torch.models.codenerf import (load_reference_state_dict,
                                                 to_reference_state_dict)
 
 _STEP_RE = re.compile(r"^step_(\d{8})\.pt$")
+_SLICE_RE = re.compile(r"^step_(\d{8})\.rank(\d+)of(\d+)\.model(\d+)\.pt$")
 
 
 def step_path(ckpt_dir: str, step: int) -> str:
@@ -88,15 +104,8 @@ def _reshard(payload: dict, state, gather: bool) -> dict:
     return payload
 
 
-def save_checkpoint(ckpt_dir: str, state, write: bool = True
-                    ) -> Optional[str]:
-    """Write ``state`` (a ``training.state.TrainState``) at its step; the
-    file appears whole or not at all. Under a ``model`` axis every rank
-    calls this (the gather), and those with ``write`` False write nothing
-    and return None."""
-    if state.shards is None and not write:
-        return None
-    payload = {
+def _payload(state) -> dict:
+    return {
         "model": state.model.state_dict(),
         "fine_model": (None if state.fine_model is None
                        else state.fine_model.state_dict()),
@@ -106,24 +115,133 @@ def save_checkpoint(ckpt_dir: str, state, write: bool = True
         "step": int(state.step),
         "generator": state.generator.get_state(),
     }
-    if state.shards is not None:
-        with torch.no_grad():
-            payload = _reshard(payload, state, gather=True)
-    if not write:
-        return None
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = step_path(ckpt_dir, state.step)
+
+
+def _write(path: str, payload: dict) -> str:
+    """``payload`` at ``path``, whole or not at all (a temporary name,
+    then a rename)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
 
 
-def latest_step(ckpt_dir: str) -> Optional[int]:
+def save_slices(ckpt_dir: str, state) -> str:
+    """This rank's slices of a state split over a ``model`` axis, at its
+    step, with no collective (a crashed run's save): its blocks of the
+    sharded leaves and their moments, the replicated leaves, the step,
+    the generator, and the layout — global rank and world size, the
+    ``model`` size, this rank's place in its ``model`` group and the
+    group's global ranks. Returns the path."""
+    import torch.distributed as dist
+
+    from codenerf_tpu_torch.training.state import named_trainables
+
+    sh = state.shards
+    rank, world = dist.get_rank(), dist.get_world_size()
+    payload = _payload(state)
+    payload["slices"] = {
+        "rank": rank, "world": world, "model": sh.size,
+        "model_rank": sh.rank,
+        "model_group": dist.get_process_group_ranks(sh.group),
+        "names": list(named_trainables(state)), "dims": dict(sh.dims)}
+    name = f"step_{state.step:08d}.rank{rank}of{world}.model{sh.size}.pt"
+    return _write(os.path.join(ckpt_dir, name), payload)
+
+
+def _slice_sets(ckpt_dir: str) -> Dict[int, Dict[tuple, Dict[int, str]]]:
+    """step -> (world, model) -> global rank -> the slice files there."""
+    out: Dict[int, Dict[tuple, Dict[int, str]]] = {}
+    if os.path.isdir(ckpt_dir):
+        for name in os.listdir(ckpt_dir):
+            m = _SLICE_RE.match(name)
+            if m:
+                step, rank, world, model = map(int, m.groups())
+                out.setdefault(step, {}).setdefault((world, model), {})[
+                    rank] = os.path.join(ckpt_dir, name)
+    return out
+
+
+def _complete_slices(ckpt_dir: str) -> Dict[int, Dict[int, str]]:
+    """step -> the slice files of a layout in which every rank saved
+    it (rank -> path)."""
+    out = {}
+    for step, layouts in _slice_sets(ckpt_dir).items():
+        for (world, _), files in sorted(layouts.items()):
+            if set(files) == set(range(world)):
+                out[step] = files
+    return out
+
+
+def _whole_steps(ckpt_dir: str) -> list:
     if not os.path.isdir(ckpt_dir):
+        return []
+    return [int(m.group(1)) for name in os.listdir(ckpt_dir)
+            if (m := _STEP_RE.match(name))]
+
+
+def checkpoint_note(ckpt_dir: str) -> Optional[str]:
+    """Which checkpoint the readers take when slice sets newer than it
+    are incomplete (ranks that stopped on different steps): the step,
+    its kind and the passed-over sets; None when nothing newer was passed
+    over."""
+    step = latest_step(ckpt_dir)
+    skipped = {s: {f"{w} ranks, model {m}": sorted(files)
+                   for (w, m), files in layouts.items()}
+               for s, layouts in _slice_sets(ckpt_dir).items()
+               if step is None or s > step}
+    if not skipped:
         return None
-    steps = [int(m.group(1)) for name in os.listdir(ckpt_dir)
-             if (m := _STEP_RE.match(name))]
+    kind = ("none" if step is None else "whole"
+            if step in _whole_steps(ckpt_dir) else "stitched from slices")
+    passed = "; ".join(f"step {s}: slices of ranks {v}" for s, v in
+                       sorted(skipped.items(), reverse=True))
+    return (f"{ckpt_dir}: the newest complete checkpoint is step {step} "
+            f"({kind}); passed over incomplete slice sets ({passed})")
+
+
+def _stitch(files: Dict[int, str], map_location) -> dict:
+    """A whole checkpoint payload from a complete set of slice files: the
+    ``model`` group of global rank 0, its blocks concatenated on each
+    leaf's sharded dimension in the group's order."""
+    first = torch.load(files[0], map_location=map_location,
+                       weights_only=True)
+    info = first["slices"]
+    group = [first if r == 0 else torch.load(
+        files[r], map_location=map_location, weights_only=True)
+        for r in info["model_group"]]
+    group.sort(key=lambda p: p["slices"]["model_rank"])
+    names, dims = info["names"], info["dims"]
+    leaves = [_leaves(p, names) for p in group]
+    for i, (c, k, name) in enumerate(leaves[0]):
+        if dims.get(name) is not None:
+            c[k] = torch.cat([lv[i][0][lv[i][1]] for lv in leaves],
+                             dims[name])
+    del first["slices"]
+    return first
+
+
+def save_checkpoint(ckpt_dir: str, state, write: bool = True
+                    ) -> Optional[str]:
+    """Write ``state`` (a ``training.state.TrainState``) at its step; the
+    file appears whole or not at all. Under a ``model`` axis every rank
+    calls this (the gather), and those with ``write`` False write nothing
+    and return None."""
+    if state.shards is None and not write:
+        return None
+    payload = _payload(state)
+    if state.shards is not None:
+        with torch.no_grad():
+            payload = _reshard(payload, state, gather=True)
+    if not write:
+        return None
+    return _write(step_path(ckpt_dir, state.step), payload)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The newest step saved whole or as a complete set of slices."""
+    steps = _whole_steps(ckpt_dir) + list(_complete_slices(ckpt_dir))
     return max(steps) if steps else None
 
 
@@ -132,13 +250,18 @@ def _load(ckpt_dir: str, step: Optional[int], map_location) -> dict:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
-    return torch.load(step_path(ckpt_dir, step), map_location=map_location,
-                      weights_only=True)
+    path = step_path(ckpt_dir, step)
+    if not os.path.exists(path):
+        files = _complete_slices(ckpt_dir).get(step)
+        if files is not None:
+            return _stitch(files, map_location)
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def read_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> dict:
     """The payload of a training checkpoint (the latest when ``step`` is
-    None) as :func:`save_checkpoint` wrote it, read on the CPU."""
+    None) as :func:`save_checkpoint` wrote it, read on the CPU (a
+    complete set of slices stitched whole)."""
     return _load(ckpt_dir, step, "cpu")
 
 
@@ -183,7 +306,8 @@ def load_training_checkpoint(ckpt_dir: str, step: Optional[int] = None
 
 def load_run(run_dir: str, hp, device):
     """The trained networks and code tables of a run directory, for the
-    optimize and pose CLIs: the latest ``<run_dir>/ckpt/step_*.pt``, else
+    optimize and pose CLIs: the latest checkpoint of ``<run_dir>/ckpt/``
+    (:func:`latest_step`: whole, or a crashed run's slices), else
     ``<run_dir>/models.pth`` (reference layout). Returns ``(model,
     fine_model, shape_codes, texture_codes)``: the networks frozen on
     ``device``, ``fine_model`` None unless ``hp`` has separate fine

@@ -9,12 +9,12 @@ between the quality report's sparse logs?
 1. The single-pass kernel launched ``--repeat`` times on the same seeded
    full-width inputs (``chip_smoke.kernel_inputs``): the weight-gradient
    mode at the quality run's 8192 × 96 and the frozen mode at its
-   4096 × 96 fitting chunk. dW/db are fixed-order sums and must be the
-   same bits on every launch; the SE and the code cotangents go through
-   f32 atomic ray sums, so each launch's largest difference from the
-   first is printed, and a launch is an outlier where an element differs
-   by more than 1e-2 of the first launch's largest magnitude (the bar
-   ``chip_smoke.py`` holds two modes' cotangents to).
+   4096 × 96 fitting chunk. Every sum of the kernels runs in a fixed
+   order — dW/db, the SE and the code cotangents' ray sums, as
+   ``chip_smoke.py::repeat_checks`` demands — so every output must be
+   the same bits on every launch: a launch whose SE, code cotangents or
+   dW/db differ in any bit from the first launch's is an outlier, and
+   each output's largest difference is printed.
 2. ``--runs`` trainings of ``--seed`` of the standard protocol
    (``codenerf_tpu_torch.quality_report``: ``--use_fused --samples
    96``), each logged every 50 steps instead of every 1,000, then the
@@ -24,7 +24,11 @@ between the quality report's sparse logs?
    fit), each held-out object's fitting start -> end and held-out PSNR,
    and from ``--inspect``'s look at the checkpoint the training objects
    whose target view renders fully opaque (white from the last sample's
-   color instead of the background) and the mean code's opacity.
+   color instead of the background) and the mean code's opacity. Each
+   run's JSON line says whether its final checkpoint (every parameter,
+   both code tables, every AdamW moment) is the same bits as the first
+   run's: training repeats bit for bit on the card (the code tables'
+   gradient is fixed-order, ``ops/code_rows.py``).
 
 With ``--keep_collapsed DIR`` the checkpoint of every training whose
 fits start below 5 dB (a collapsed mean code; healthy runs start at 7-17
@@ -35,7 +39,9 @@ dB) is copied to ``DIR/seed<s>_run<r>/``.
 looks at such a checkpoint instead (on the CPU too): the code tables'
 norms and spread, and each held-out object's target view rendered at the
 mean code and each training object's at its own code (linspace depths):
-PSNR against the ground truth, mean opacity and mean color.
+PSNR against the ground truth, mean opacity and mean color; the count of
+training objects that render fully opaque (mean opacity above 0.99) and
+the checkpoint's ``state_digest``.
 
 Prints the card line first and one JSON line per run of part 2 last;
 exits non-zero without a card. Imports nothing of JAX.
@@ -52,6 +58,37 @@ import tempfile
 import time
 
 import chip_smoke
+
+
+def _same_bits(a, b) -> bool:
+    """The same bits (-0 is not 0, and a NaN equals its own bits)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+
+
+def state_digest(ckpt_dir: str) -> str:
+    """SHA-256 of the latest checkpoint's parameters, code tables and
+    AdamW moments and steps, in a fixed order of keys."""
+    import hashlib
+
+    import torch
+
+    from codenerf_tpu_torch.utils import checkpoint as ckpt
+
+    ck = ckpt.read_checkpoint(ckpt_dir)
+    tensors = [ck["model"][k] for k in sorted(ck["model"])]
+    tensors += [ck["shape_codes"], ck["texture_codes"]]
+    opt = ck["optimizer"]["state"]
+    for i in sorted(opt):
+        tensors += [torch.as_tensor(opt[i][k]) for k in sorted(opt[i])]
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def repeat_check(dev, R: int, S: int, weight_grads: bool, n: int) -> dict:
@@ -73,7 +110,7 @@ def repeat_check(dev, R: int, S: int, weight_grads: bool, n: int) -> dict:
         for j in range(n_out):
             d = float((got[j].float() - first[j].float()).abs().max())
             worst[j] = max(worst[j], d)
-            if d > 1e-2 * tops[j]:
+            if not _same_bits(got[j], first[j]):
                 outliers.append((i, j, d))
         if weight_grads and not all(torch.equal(a, b) for a, b in
                                     zip(got[n_out:], first[n_out:])):
@@ -142,6 +179,8 @@ def training_probe(seed: int, run: int, work: str, every: int,
                    (p for s, p in logs if s > 2000), default=None),
                "drops_over_5db": drops, "codes": tables,
                "train_s": res["train_s"]}
+    summary["state_sha256"] = state_digest(os.path.join(res["run_dir"],
+                                                        "ckpt"))
     seen = inspect_run(os.path.join(res["run_dir"], "ckpt"), seed, device)
     summary["opaque_train_objects"] = sum(
         o["opacity"] > 0.99 for o in seen["train_at_own_code"])
@@ -204,7 +243,9 @@ def inspect_run(ckpt_dir: str, seed: int, device: str) -> dict:
                 for i in range(args.n_test_objects)]
     train = [look(i, tables["shape_codes"][i], tables["texture_codes"][i])
              for i in range(args.n_train_objects)]
-    out = {"step": step, "codes": codes, "held_out_at_mean_code": held_out,
+    out = {"step": step, "state_sha256": state_digest(ckpt_dir),
+           "opaque_train_objects": sum(o["opacity"] > 0.99 for o in train),
+           "codes": codes, "held_out_at_mean_code": held_out,
            "train_at_own_code": train}
     print(json.dumps(out))
     return out
@@ -248,6 +289,8 @@ def main() -> int:
     for r in range(args.runs):
         runs.append(training_probe(args.seed, r, work, args.log_every,
                                    args.keep_collapsed))
+        runs[-1]["same_bits_as_run0"] = (runs[-1]["state_sha256"]
+                                         == runs[0]["state_sha256"])
         chip_smoke.log(f"run {r}: {json.dumps(runs[-1])}")
     for r in runs:
         print(json.dumps(r))
