@@ -16,15 +16,25 @@ package, bit for bit.
 a background thread, so sampling (and, through ``transform``, the copy to
 the card) overlaps the step; a failure in the worker is raised on the
 consumer's thread.
+
+``counters`` counts, always: ``batches`` handed to the consumer and the
+seconds it waited for them (``wait_s``), and on the worker the seconds
+spent drawing (``draw_s``) and staging them through ``transform``
+(``stage_s``). The same stretches are the spans ``data.wait``,
+``data.draw`` and ``data.stage`` (``utils/tracing.py``) while a profiler
+records.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from codenerf_tpu_torch.utils.tracing import span
 
 
 class _WorkerFailure:
@@ -74,6 +84,8 @@ class RayBatchPipeline:
         self._seed = seed
         self._step = 0
         self._stream_count = 0
+        self.counters = {"batches": 0, "wait_s": 0.0, "draw_s": 0.0,
+                         "stage_s": 0.0}
 
     def _pixel_bounds(self, crop: bool):
         if crop:
@@ -208,27 +220,39 @@ class RayBatchPipeline:
             # Any failure is forwarded through the queue and raised on the
             # consumer's thread: a silently dead worker would leave
             # training blocked on q.get() forever.
+            c = self.counters
             try:
                 i = skip
                 while not stop.is_set():
-                    batch = self.sample(batch_size, crop=crop, rng=rng,
-                                        compact=compact,
-                                        native_step=(stream_id << 32) | i,
-                                        shard=shard)
+                    t0 = time.perf_counter()
+                    with span("data.draw"):
+                        batch = self.sample(batch_size, crop=crop, rng=rng,
+                                            compact=compact,
+                                            native_step=(stream_id << 32) | i,
+                                            shard=shard)
                     i += 1
+                    t1 = time.perf_counter()
+                    c["draw_s"] += t1 - t0
                     if transform is not None:
-                        batch = transform(batch)
+                        with span("data.stage"):
+                            batch = transform(batch)
+                        c["stage_s"] += time.perf_counter() - t1
                     put(batch)
             except BaseException as e:  # noqa: BLE001 — forwarded
                 put(_WorkerFailure(e))
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
+        c = self.counters
         try:
             while True:
-                item = q.get()
+                t0 = time.perf_counter()
+                with span("data.wait"):
+                    item = q.get()
+                c["wait_s"] += time.perf_counter() - t0
                 if isinstance(item, _WorkerFailure):
                     raise RuntimeError("prefetch worker failed") from item.exc
+                c["batches"] += 1
                 yield item
         finally:
             stop.set()

@@ -33,6 +33,7 @@ from codenerf_tpu_torch.core.sampling import (fixed_zvals, lerp_linspace,
                                               merge_sorted_samples,
                                               sample_pdf, stratified_zvals,
                                               union_sorted_zvals)
+from codenerf_tpu_torch.utils.tracing import span
 
 
 class RenderResult(NamedTuple):
@@ -209,17 +210,21 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                  occ_grid=None, fine_model=None) -> torch.Tensor:
     """Render a full H×W image in fixed-size ray chunks through the plain
     module(s) (``fine_model``: the separate fine network); (H, W, 3)
-    f32."""
+    f32. While a profiler records, the camera rays are the span
+    ``render.rays`` and each chunk a ``render.chunk``."""
     dev = shape_code.device
     n_rays = H * W
     chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
-    ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
-    ro = pad_rays(ray_o, n_padded)
-    vd = pad_rays(viewdir, n_padded)
-    rgb = torch.cat([
-        render_rays(model, rcfg, ro[i * chunk:(i + 1) * chunk],
-                    vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
-                    generator, compute_dtype=compute_dtype,
-                    occ_grid=occ_grid, fine_model=fine_model).final.rgb
-        for i in range(n_chunks)])
-    return rgb[:n_rays].reshape(H, W, 3)
+    with span("render.rays"):
+        ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
+        ro = pad_rays(ray_o, n_padded)
+        vd = pad_rays(viewdir, n_padded)
+    parts = []
+    for i in range(n_chunks):
+        with span("render.chunk"):
+            parts.append(render_rays(
+                model, rcfg, ro[i * chunk:(i + 1) * chunk],
+                vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
+                generator, compute_dtype=compute_dtype, occ_grid=occ_grid,
+                fine_model=fine_model).final.rgb)
+    return torch.cat(parts)[:n_rays].reshape(H, W, 3)

@@ -9,6 +9,11 @@ module(s)) and returns it as a PNG. Stdlib HTTP only:
   GET  /stats    -> request count, latency quantiles (p50, p95, max over
                     the last 1,000 requests), the (H, W, deterministic)
                     keys rendered so far
+  GET  /timings  -> the requests rendered and refused (400), and p50, p95
+                    and max ms over the last 1,000 requests of each part
+                    of a request: the wait for the render lock, the render
+                    under it, the handler's work outside it (parse, PNG
+                    encode, reply) and the whole
   POST /render   -> image/png (400 on a bad request, 404 on another path)
      JSON body:
        camera: either {"c2w": 4x4 nested list}
@@ -24,24 +29,44 @@ with ``seed`` (the JAX package draws from its own PRNG, so only
 deterministic renders agree across the packages). There is nothing to
 compile: ``compiled_sizes`` lists the sizes rendered, which keeps the JAX
 server's ``/stats`` fields.
+
+While a profiler records, each request is the span ``serve.request``
+(its sequence number in the span's args) over ``serve.parse``,
+``serve.queue``, ``serve.render`` (with ``render.rays``, the
+``render.chunk`` s and ``render.readback``), ``serve.encode`` and
+``serve.reply`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import io
+import itertools
 import json
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from codenerf_tpu_torch.utils.tracing import span
+
 # Raw-code occupancy grids cached at most (object grids are bounded by the
 # table size already).
 _DIGEST_GRIDS = 32
+# Requests whose times /stats and /timings read.
+_KEPT = 1000
+
+
+def _quantiles_ms(seconds) -> Dict[str, float]:
+    """p50, p95 and max of ``seconds`` in ms (zeros when empty)."""
+    a = np.asarray(seconds) if len(seconds) else np.zeros(1)
+    return {"p50": float(np.quantile(a, 0.5) * 1e3),
+            "p95": float(np.quantile(a, 0.95) * 1e3),
+            "max": float(a.max() * 1e3)}
 
 
 class RenderServer:
@@ -82,8 +107,17 @@ class RenderServer:
         self._occ_grids: Dict[Any, Any] = {}
         self._sizes: Dict[tuple, None] = {}
         self._lock = threading.Lock()
-        self._latencies = []
+        # Seconds of the last requests: the render under the lock, the
+        # wait for it, the handler's work outside it, the whole request;
+        # guarded by _times_lock, as is the count of refused requests.
+        self._latencies = deque(maxlen=_KEPT)
+        self._queued = deque(maxlen=_KEPT)
+        self._handled = deque(maxlen=_KEPT)
+        self._whole = deque(maxlen=_KEPT)
+        self._times_lock = threading.Lock()
         self._count = 0
+        self._failed = 0
+        self._seq = itertools.count()
         self._device = str(self.device)
         self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
         self.host, self.port = self._httpd.server_address[:2]
@@ -168,36 +202,65 @@ class RenderServer:
                              float(req.get("radius", 1.3)))
         obj, shape_code, texture_code = self._codes(req)
         seed = int(req.get("seed", 0))
+        queue = span("serve.queue")
+        queue.__enter__()
+        t_queue = time.perf_counter()
         with self._lock:
             t0 = time.perf_counter()
-            gen = None
-            if not deterministic:
-                gen = torch.Generator(device=self.device).manual_seed(seed)
-            occ = (self._get_occ_grid(obj, shape_code, texture_code)
-                   if self.use_occupancy else None)
-            img = render_image(
-                self.model, self.hp.render, H, W, focal,
-                torch.from_numpy(c2w).to(self.device), shape_code,
-                texture_code, gen, chunk=4096,
-                compute_dtype=resolve_dtype(self.hp.compute_dtype),
-                occ_grid=occ, fine_model=self.fine_model).cpu().numpy()
+            queue.__exit__(None, None, None)
+            with span("serve.render"):
+                gen = None
+                if not deterministic:
+                    gen = torch.Generator(
+                        device=self.device).manual_seed(seed)
+                occ = (self._get_occ_grid(obj, shape_code, texture_code)
+                       if self.use_occupancy else None)
+                img = render_image(
+                    self.model, self.hp.render, H, W, focal,
+                    torch.from_numpy(c2w).to(self.device), shape_code,
+                    texture_code, gen, chunk=4096,
+                    compute_dtype=resolve_dtype(self.hp.compute_dtype),
+                    occ_grid=occ, fine_model=self.fine_model)
+                with span("render.readback"):
+                    img = img.cpu().numpy()
             self._sizes[(H, W, deterministic)] = None
-            self._latencies.append(time.perf_counter() - t0)
+            with self._times_lock:
+                self._latencies.append(time.perf_counter() - t0)
+                self._queued.append(t0 - t_queue)
             self._count += 1
         return np.clip(img * 255.0, 0, 255).astype(np.uint8)
 
+    def _request_done(self, handler_s: float, whole_s: float) -> None:
+        with self._times_lock:
+            self._handled.append(handler_s)
+            self._whole.append(whole_s)
+
+    def _request_refused(self) -> None:
+        with self._times_lock:
+            self._failed += 1
+
     def stats(self) -> Dict[str, Any]:
-        lat = (np.asarray(self._latencies[-1000:]) if self._latencies
-               else np.zeros(1))
+        with self._times_lock:
+            lat = list(self._latencies)
         return {
             "requests": self._count,
-            "latency_ms": {
-                "p50": float(np.quantile(lat, 0.5) * 1e3),
-                "p95": float(np.quantile(lat, 0.95) * 1e3),
-                "max": float(lat.max() * 1e3),
-            },
+            "latency_ms": _quantiles_ms(lat),
             "compiled_sizes": [list(k) for k in self._sizes],
         }
+
+    def timings(self) -> Dict[str, Any]:
+        """The requests rendered and refused (400), and p50 / p95 / max
+        ms over the last 1,000 requests of the wait for the render lock
+        (``queue_ms``), the render under it (``render_ms``, ``/stats``'
+        latency), the handler's parse, PNG encode and reply outside it
+        (``handler_ms``) and the whole request (``request_ms``)."""
+        with self._times_lock:
+            times = {k: list(d) for k, d in (
+                ("queue_ms", self._queued), ("render_ms", self._latencies),
+                ("handler_ms", self._handled), ("request_ms", self._whole))}
+            failed = self._failed
+        return {"requests": self._count, "failed": failed,
+                **{k: _quantiles_ms(v) for k, v in times.items()}}
 
     # ------------------------------------------------------------------ http
     def _handler_class(self):
@@ -221,6 +284,8 @@ class RenderServer:
                                      "n_objects": server.n_objects})
                 elif self.path == "/stats":
                     self._json(200, server.stats())
+                elif self.path == "/timings":
+                    self._json(200, server.timings())
                 else:
                     self._json(404, {"error": "unknown path"})
 
@@ -228,22 +293,35 @@ class RenderServer:
                 if self.path != "/render":
                     self._json(404, {"error": "unknown path"})
                     return
-                try:
+                with span("serve.request", str(next(server._seq))):
+                    try:
+                        self._render_png()
+                    except (ValueError, KeyError, json.JSONDecodeError) as e:
+                        server._request_refused()
+                        self._json(400, {"error": str(e)})
+
+            def _render_png(self):
+                from PIL import Image
+
+                t0 = time.perf_counter()
+                with span("serve.parse"):
                     n = int(self.headers.get("Content-Length", "0"))
                     req = json.loads(self.rfile.read(n) or b"{}")
-                    img = server.render(req)
-                    from PIL import Image
-
+                t1 = time.perf_counter()
+                img = server.render(req)
+                t2 = time.perf_counter()
+                with span("serve.encode"):
                     buf = io.BytesIO()
                     Image.fromarray(img).save(buf, format="PNG")
                     data = buf.getvalue()
+                with span("serve.reply"):
                     self.send_response(200)
                     self.send_header("Content-Type", "image/png")
                     self.send_header("Content-Length", str(len(data)))
                     self.end_headers()
                     self.wfile.write(data)
-                except (ValueError, KeyError, json.JSONDecodeError) as e:
-                    self._json(400, {"error": str(e)})
+                t3 = time.perf_counter()
+                server._request_done((t1 - t0) + (t3 - t2), t3 - t0)
 
         return Handler
 

@@ -89,6 +89,7 @@ then act on the slices.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -106,6 +107,7 @@ from codenerf_tpu_torch.training.schedules import (step_halving,
                                                    window_frozen_step_halving)
 from codenerf_tpu_torch.training.state import (TrainState, named_trainables,
                                                whole_trainables)
+from codenerf_tpu_torch.utils.tracing import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -264,36 +266,38 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
         """(loss, mse, reg) of one (micro)batch, differentiable; ``mse``
         is the fine pass's under hierarchical sampling."""
         model, fine, shape_codes, texture_codes = whole_trainables(state)
-        # The tables' gradients sum the rays' rows in one fixed order
-        # (ops/code_rows.py), so a training repeats bit for bit.
-        order = code_rows.RowOrder.of(obj, shape_codes.shape[0])
-        sc = code_rows.gather_code_rows(shape_codes, obj, order)
-        tc = code_rows.gather_code_rows(texture_codes, obj, order)
-        if single_pass:
-            loss, mse = fused_loss(model, ray_o, viewdir, z, u, rgb, sc, tc)
-        elif hier or apply_fn is not None:
-            res = render_rays(model, rcfg, ray_o, viewdir, sc, tc, None,
-                              compute_dtype=compute_dtype, z=z, u=u,
-                              fine_model=fine,
-                              apply_fn=apply_fn)
-            mse = torch.mean((res.final.rgb - rgb) ** 2)
-            loss = mse
-            if res.fine is not None:
-                loss = loss + torch.mean((res.coarse.rgb - rgb) ** 2)
-        else:
-            xyz = ray_o[:, None, :] + viewdir[:, None, :] * z[..., None]
-            sig, rgbs = model(xyz, viewdir, sc, tc,
-                              compute_dtype=compute_dtype)
-            res = composite(sig, rgbs, z, white_bg=rcfg.white_bg)
-            loss = mse = torch.mean((res.rgb - rgb) ** 2)
-        reg = torch.mean(torch.linalg.norm(sc, dim=-1)
-                         + torch.linalg.norm(tc, dim=-1))
-        return loss + reg_coef * reg, mse.detach(), reg
+        with span("step.codes"):
+            # The tables' gradients sum the rays' rows in one fixed order
+            # (ops/code_rows.py), so a training repeats bit for bit.
+            order = code_rows.RowOrder.of(obj, shape_codes.shape[0])
+            sc = code_rows.gather_code_rows(shape_codes, obj, order)
+            tc = code_rows.gather_code_rows(texture_codes, obj, order)
+        with span("step.forward"):
+            if single_pass:
+                loss, mse = fused_loss(model, ray_o, viewdir, z, u, rgb, sc,
+                                       tc)
+            elif hier or apply_fn is not None:
+                res = render_rays(model, rcfg, ray_o, viewdir, sc, tc, None,
+                                  compute_dtype=compute_dtype, z=z, u=u,
+                                  fine_model=fine,
+                                  apply_fn=apply_fn)
+                mse = torch.mean((res.final.rgb - rgb) ** 2)
+                loss = mse
+                if res.fine is not None:
+                    loss = loss + torch.mean((res.coarse.rgb - rgb) ** 2)
+            else:
+                xyz = ray_o[:, None, :] + viewdir[:, None, :] * z[..., None]
+                sig, rgbs = model(xyz, viewdir, sc, tc,
+                                  compute_dtype=compute_dtype)
+                res = composite(sig, rgbs, z, white_bg=rcfg.white_bg)
+                loss = mse = torch.mean((res.rgb - rgb) ** 2)
+            reg = torch.mean(torch.linalg.norm(sc, dim=-1)
+                             + torch.linalg.norm(tc, dim=-1))
+            return loss + reg_coef * reg, mse.detach(), reg
 
-    def grad_fn(state: TrainState, batch: Batch,
-                z: Optional[torch.Tensor] = None,
-                u: Optional[torch.Tensor] = None,
-                occ_grid=None) -> Dict[str, torch.Tensor]:
+    def rays(state: TrainState, batch: Batch, z, u, occ_grid):
+        """The rays of this rank's rows, and the whole batch's coarse
+        depths (and importance probes) drawn and cut to those rows."""
         ray_o, viewdir = pixel_rays(batch["uv"], batch["focal"],
                                     batch["c2w"], H, W)
         B = batch["rgb"].shape[0]
@@ -315,6 +319,16 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
                                   rcfg.n_importance, dev)
             if n_shards > 1:
                 u = u[rows]
+        return ray_o, viewdir, z, u
+
+    def grad_fn(state: TrainState, batch: Batch,
+                z: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
+                occ_grid=None) -> Dict[str, torch.Tensor]:
+        with span("step.rays"):
+            ray_o, viewdir, z, u = rays(state, batch, z, u, occ_grid)
+        B = batch["rgb"].shape[0]
+        dev = ray_o.device
         mb = microbatch_rays // n_shards or B
         if B % mb:
             raise ValueError(f"batch {B} not divisible by microbatch {mb}")
@@ -326,18 +340,21 @@ def build_grad_fn(hp: Hparams, H: int, W: int, microbatch_rays: int = 0,
                                      viewdir[sl], z[sl],
                                      u[sl] if hier else None,
                                      batch["rgb"][sl])
-            (loss / k).backward()
+            with span("step.backward"):
+                (loss / k).backward()
             sums += torch.stack([loss, mse, reg]).detach()
         sums /= k
-        if state.shards is not None:
-            # One copy of what the model axis replicates (mesh.py).
-            state.shards.share_([
-                p.grad for n, p in named_trainables(state).items()
-                if state.shards.dims[n] is None and p.grad is not None]
-                + [sums])
-        if group is not None:
-            all_reduce_mean_([p.grad for p in trainable_params(state)
-                              if p.grad is not None] + [sums], group)
+        if state.shards is not None or group is not None:
+            with span("step.reduce"):
+                if state.shards is not None:
+                    # One copy of what the model axis replicates (mesh.py).
+                    state.shards.share_([
+                        p.grad for n, p in named_trainables(state).items()
+                        if state.shards.dims[n] is None
+                        and p.grad is not None] + [sums])
+                if group is not None:
+                    all_reduce_mean_([p.grad for p in trainable_params(state)
+                                      if p.grad is not None] + [sums], group)
         loss, mse, reg = sums
         return {"loss": loss, "mse": mse, "psnr": psnr(mse), "reg": reg}
 
@@ -380,15 +397,29 @@ def build_train_step(hp: Hparams, H: int, W: int,
     expanded with the pipeline's device-resident ``tables`` (coarse depths
     bounded by ``occ_grid`` when given), and one :func:`apply_update`,
     updating ``state`` in place (model, codes, moments, generator,
-    step)."""
+    step).
+
+    ``train_step.counters`` counts, always, the ``steps`` and the host
+    seconds spent inside the calls (``host_s``: issuing each step's work,
+    and any wait inside it). While a profiler records, each call is the
+    span ``train.step`` over its phases ``step.rays``, ``step.codes``,
+    ``step.forward``, ``step.backward``, ``step.reduce`` (with a mesh)
+    and ``step.update``."""
     grad_fn = build_grad_fn(hp, H, W, microbatch_rays, batch_size, mesh)
 
     def train_step(state: TrainState, batch: Batch, tables: Batch,
                    occ_grid=None) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        metrics = grad_fn(state, expand_compact_batch(batch, tables),
-                          occ_grid=occ_grid)
-        apply_update(state, hp)
+        t0 = time.perf_counter()
+        with span("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            metrics = grad_fn(state, expand_compact_batch(batch, tables),
+                              occ_grid=occ_grid)
+            with span("step.update"):
+                apply_update(state, hp)
+        c = train_step.counters
+        c["steps"] += 1
+        c["host_s"] += time.perf_counter() - t0
         return metrics
 
+    train_step.counters = {"steps": 0, "host_s": 0.0}
     return train_step

@@ -72,6 +72,7 @@ from codenerf_tpu_torch.training.train_step import build_train_step
 from codenerf_tpu_torch.utils import checkpoint as ckpt
 from codenerf_tpu_torch.utils.images import side_by_side
 from codenerf_tpu_torch.utils.logging import MetricsLogger
+from codenerf_tpu_torch.utils.tracing import span
 
 
 class Trainer:
@@ -122,6 +123,7 @@ class Trainer:
         self._train_step = build_train_step(
             self.hp, self.H, self.W, microbatch_rays=microbatch_rays,
             batch_size=self.B, mesh=mesh)
+        self._step_counters = self._train_step.counters
         self.state = create_train_state(self.hp, self.n_objects, self.device,
                                         mesh=mesh)
         self._tables = {k: torch.from_numpy(v).to(self.device)
@@ -212,10 +214,11 @@ class Trainer:
         if oc is None:
             return
         if next_step >= oc.warmup and next_step % oc.update_every == 0:
-            if self._occ_seeded:
-                self._update_occupancy()
-            else:
-                self._rebuild_occupancy()
+            with span("train.occupancy"):
+                if self._occ_seeded:
+                    self._update_occupancy()
+                else:
+                    self._rebuild_occupancy()
 
     @property
     def occupancy_grid(self):
@@ -269,12 +272,18 @@ class Trainer:
         """Run the two-stage schedule until ``iters_all`` total steps:
         rays from the center crop while the step is below ``iters_crop``,
         then from whole images (reference ``src/trainer.py:35-47``, minus
-        the per-epoch optimizer rebuilds)."""
+        the per-epoch optimizer rebuilds). Each log line adds to the
+        reference's scalars the host seconds of its interval spent waiting
+        for batches (``time/data_wait``) and inside the steps
+        (``time/step_host``). While a profiler records, the loop's work
+        is the spans ``data.wait``, ``train.step``, ``train.occupancy``,
+        ``train.log``, ``train.checkpoint`` and ``train.render_log``."""
         if iters_crop > iters_all:
             raise ValueError(f"iters_crop={iters_crop} > iters_all={iters_all}")
         last_metrics: Dict[str, float] = {}
         t_phase = time.time()
         rays_since_log = 0
+        waited = self._host_seconds()
         start = self.state.step
         crop_phase = start < iters_crop
         oc = self.hp.train_occupancy
@@ -296,25 +305,33 @@ class Trainer:
                 next_step = step + 1
                 self._maybe_update_occupancy(next_step)
                 if next_step % log_every == 0 or next_step == iters_all:
-                    last_metrics = {k: float(v) for k, v in metrics.items()}
-                    dt = time.time() - t_phase
-                    last_metrics["rays_per_sec"] = rays_since_log / max(dt,
-                                                                        1e-9)
-                    if self.writer:
-                        self.logger.scalars(next_step, {
-                            "psnr/train": last_metrics["psnr"],
-                            "reg/train": last_metrics["reg"],
-                            "loss/train": last_metrics["loss"],
-                            "time/train": dt,
-                            "rays_per_sec": last_metrics["rays_per_sec"],
-                        })
+                    with span("train.log"):
+                        last_metrics = {k: float(v)
+                                        for k, v in metrics.items()}
+                        dt = time.time() - t_phase
+                        last_metrics["rays_per_sec"] = rays_since_log / max(
+                            dt, 1e-9)
+                        now = self._host_seconds()
+                        if self.writer:
+                            self.logger.scalars(next_step, {
+                                "psnr/train": last_metrics["psnr"],
+                                "reg/train": last_metrics["reg"],
+                                "loss/train": last_metrics["loss"],
+                                "time/train": dt,
+                                "time/data_wait": now[0] - waited[0],
+                                "time/step_host": now[1] - waited[1],
+                                "rays_per_sec": last_metrics["rays_per_sec"],
+                            })
                     t_phase = time.time()
                     rays_since_log = 0
+                    waited = now
                 if self.check_iter and next_step % self.check_iter == 0:
-                    self._log_render(next_step)
+                    with span("train.render_log"):
+                        self._log_render(next_step)
                 if self.hp.check_points and \
                         next_step % self.hp.check_points == 0:
-                    self.save_checkpoint()
+                    with span("train.checkpoint"):
+                        self.save_checkpoint()
         except (KeyboardInterrupt, Exception):
             # Crash-safe checkpoint at the last completed step (the
             # reference has no resume path at all); a failure while saving
@@ -372,6 +389,12 @@ class Trainer:
                 "untraced_ms": untraced_ms, "profile": prof}
 
     # ------------------------------------------------------------- utilities
+    def _host_seconds(self) -> tuple:
+        """The host seconds so far spent waiting on the prefetch queue and
+        inside the train step (their counters)."""
+        return (self.pipeline.counters["wait_s"],
+                self._step_counters["host_s"])
+
     def _step_extras(self) -> tuple:
         """The train step's arguments after (state, batch): the pose and
         focal tables, then the occupancy grid when there is one."""
