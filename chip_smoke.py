@@ -25,11 +25,11 @@ Phases, each printed on its own line with its seconds:
    32+32 union, ``pose_weights`` at S=32 (their SE and code cotangents
    equal to the frozen mode's on the same inputs, their ``d_ro8``,
    ``d_vd8`` and ``d_z`` the same bits over two launches); the
-   four-plane forward at 16,384 × 64 (its sigma plane the sigma-only
-   kernel's bits); the plane-op backward in its four modes
-   (``plane_train`` 16,384 × 64, ``plane_codes`` 4096 × 64,
-   ``plane_pose`` 2048 × 64, ``plane_train_input`` 4096 × 32) on the
-   cotangents of a composite's MSE; the standalone composite and its
+   four-plane forward at 16,384 × 64 and at a 128×128 view's 16,384 × 96
+   (its sigma plane the sigma-only kernel's bits); the plane-op backward
+   in its four modes (``plane_train`` 16,384 × 64, ``plane_codes``
+   4096 × 64, ``plane_pose`` 2048 × 64, ``plane_train_input`` 4096 × 32)
+   on the cotangents of a composite's MSE; the standalone composite and its
    backward at 4096 × 96, white and black background, every lane of the
    cotangent nonzero; and the chain identity: planes, composite, MSE,
    composite backward and plane-op backward against the single-pass
@@ -101,8 +101,11 @@ Phases, each printed on its own line with its seconds:
 4. coarse test-time optimization: ``codenerf_tpu_torch.optimize.main``
    reads the training run's ``ckpt/`` and fits codes for a seeded
    ``cars_test`` set (2 objects x 4 views); the frozen-model kernel's
-   launch count must equal steps x chunks x objects and ``results.json``
-   must be finite; then that step's profile;
+   launch count must equal steps x chunks x objects, the eval's views one
+   ``planes`` and one ``composite`` launch a group of whole chunks up to
+   ``renderer.KERNEL_RAYS`` rays (the forward kernels' route of
+   ``renderer.render_image``; a 128×128 view in one), and
+   ``results.json`` must be finite; then that step's profile;
 5. hierarchical training at ``jsonfiles/srncar_hier_occ.json`` widths
    (32 coarse + 32 fine samples, sphere bounds, the training occupancy
    grid with its warm-up cut to 4 steps and its refresh to every 2):
@@ -115,8 +118,10 @@ Phases, each printed on its own line with its seconds:
    step and object; then the step profile;
 7. coarse pose optimization: ``codenerf_tpu_torch.pose_opt.main`` on the
    coarse run (2 objects of ``cars_test``, 20 steps of 2048 rays, the
-   protocol runs 400): one ``pose`` launch per step; finite
-   ``results.json``; then the pose step's profile;
+   protocol runs 400): one ``pose`` launch per step, and one ``planes``
+   and ``composite`` per launch group of each object's two strip renders
+   (the forward kernels' route); finite ``results.json``; then the pose
+   step's profile;
 8. hierarchical pose optimization on the hierarchical run: one
    ``pose_weights`` and one ``pose`` launch per step;
 9. the separate fine network (``srncar_hier_occ.json`` with
@@ -131,8 +136,10 @@ Phases, each printed on its own line with its seconds:
 12. padded chunks: ``optimize`` on the coarse run of phase 3 against a
     seeded ``cars_test`` set at 127×127 (16,129 rays, 4 chunks of 4096):
     one ``planes``, ``composite``, ``composite_bwd`` and ``plane_codes``
-    launch per chunk, step and object; the first step's PSNR recomputed
-    from the same draws with the plain versions on the unpadded rays.
+    launch per chunk, step and object, and one ``planes`` and
+    ``composite`` per launch group of each eval view; the first step's
+    PSNR recomputed from the same draws with the plain versions on the
+    unpadded rays.
     Phases 3-12 each start with every launch count at 0, fail if a plain
     version ran on a CUDA tensor, and print the peak device memory and
     their step profiles (which fail on any ``index_add_``, by op or
@@ -171,8 +178,9 @@ Phases, each printed on its own line with its seconds:
     device-scene arm's (other codes, or held-out PSNR by 0.02 dB or SSIM
     by 1e-3; ``device_gt_check``). Each run counts its launches in
     its own window (one ``train`` and one ``pack`` a training step, one
-    ``codes`` a fitting step and object, one ``pack`` a fitting run);
-    they are not in the ``kernels`` line, which phases 3-12 count;
+    ``codes`` a fitting step and object, one ``pack`` a fitting run, one
+    ``planes`` and one ``composite`` an eval view); they are not in the
+    ``kernels`` line, which phases 3-12 count;
 15. the user-facing tools, run after phase 12 (before the ``kernels``
     line) on phase 3's coarse run and phase 5's occupancy run, all at
     flagship widths (``service_path``): the render service
@@ -185,9 +193,14 @@ Phases, each printed on its own line with its seconds:
     The export of the coarse run read back bit-equal and the separate-fine
     run refused; ``edit --objects 0 1 --grid 3`` (the swap matrix's
     diagonal equal to direct renders), ``render_orbit`` with 4 frames and
-    ``estimate_bound_radius``. No port kernel launches in it: these tools
-    render through the plain module, as the JAX package renders through
-    XLA.
+    ``estimate_bound_radius``. The coarse run's renders take the forward
+    kernels (``renderer.kernel_route``: one ``planes`` and one
+    ``composite`` a view, one ``pack`` for each tool's model), and one
+    served view is held against the plain module at float32 on the same
+    rays, no further from it than the bf16 plain module is; the
+    hierarchical run's and the radius estimate's go through the plain
+    module, as the JAX package renders through XLA. No other port kernel
+    launches in it.
 16. after phase 14, before the card line: the device scene renderers
     at full scale and the native ray sampler (``scene_path``). The test
     split of the full-scale chair protocol (704 objects × 250 views at
@@ -2297,23 +2310,51 @@ def profile_training(jsonfile: str, run_dir: str, device: str,
                      out["profile"], steps, packs_per_step=packs)
 
 
+def _kernel_launches(n_rays: int, chunk: int) -> int:
+    """The four-plane forward's (and the composite's) launches in one
+    ``render_image`` of ``n_rays`` rays on the forward kernels' route: one
+    a group of whole chunks up to ``renderer.KERNEL_RAYS`` rays."""
+    from codenerf_tpu_torch.renderer import KERNEL_RAYS, chunk_plan
+
+    chunk, n_chunks, _ = chunk_plan(n_rays, chunk)
+    return -(-n_chunks // max(1, KERNEL_RAYS // chunk))
+
+
+def _route_chunks(before: dict, n: int, kernels: bool, what: str) -> int:
+    """Check that the renders since ``before`` (a copy of
+    ``renderer.render_image.chunks``) rendered ``n`` chunks, all on the
+    forward kernels' route where ``kernels``, else all on the plain
+    module's; returns the chunks on the kernels' route."""
+    from codenerf_tpu_torch.renderer import render_image
+
+    got = {k: v - before[k] for k, v in render_image.chunks.items()}
+    want = {"kernels": n if kernels else 0, "plain": 0 if kernels else n}
+    if got != want:
+        raise AssertionError(f"{what}: chunks by route {got}, expected "
+                             f"{want}")
+    return got["kernels"]
+
+
 def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
                   num_opts: int, per_chunk: dict, extra=(),
                   n_objs: int = 2, n_views: int = 4, data: str = "data",
                   what: str = "optimize", chunk: int = 4096,
-                  nets: int = 1) -> dict:
+                  nets: int = 1, eval_kernels: bool = False) -> dict:
     """The port's optimize CLI on the training run's ``ckpt/``, on the
     seeded ``<work>/<data>/srn_cars/cars_test`` set of H×H views (written
     if missing). ``per_chunk``: the launches of each kernel mode one chunk
     of one step makes; the frozen weights of each of the ``nets``
-    networks are packed once in the whole run. Returns the CLI's output
-    with the launch counts under ``"counts"``."""
+    networks are packed once in the whole run. ``eval_kernels``: the eval
+    renders take the forward kernels' route (``renderer.kernel_route``),
+    one four-plane forward and one composite a launch group of each eval
+    view (``_kernel_launches``), on the weights the fitting packed.
+    Returns the CLI's output with the launch counts under ``"counts"``."""
     import numpy as np
     import torch
 
     from codenerf_tpu_torch import optimize
     from codenerf_tpu_torch.config import load_hparams
-    from codenerf_tpu_torch.renderer import chunk_plan
+    from codenerf_tpu_torch.renderer import chunk_plan, render_image
 
     hp = load_hparams(jsonfile)
     data_dir = os.path.join(work, data)
@@ -2322,6 +2363,7 @@ def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
     exps = os.path.join(work, "exps")
     if os.path.exists(os.path.join(exps, run, "models.pth")):
         raise AssertionError("the run must be read from its ckpt/")
+    kernel_chunks = render_image.chunks["kernels"]
     with LaunchCounts() as lc:
         out = optimize.main([
             "--jsonfile", jsonfile, "--exps_root", exps, "--saved_dir", run,
@@ -2331,13 +2373,25 @@ def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
         if lc.plain_on_cuda:
             raise AssertionError(f"{lc.plain_on_cuda} plain-version calls "
                                  f"on CUDA tensors on the optimize path")
+    kernel_chunks = render_image.chunks["kernels"] - kernel_chunks
     _, chunks, _ = chunk_plan(H * H, chunk)
     n = num_opts * chunks * n_objs
+    views = out["timing"]["eval_views"] if eval_kernels and device != "cpu" \
+        else 0
+    if kernel_chunks != views * chunks:
+        raise AssertionError(f"optimize path: {kernel_chunks} eval chunks "
+                             f"through the forward kernels, expected "
+                             f"{views * chunks}")
+    n_eval = views * _kernel_launches(H * H, chunk)
+    want = {k: v * n for k, v in per_chunk.items()}
+    for k in ("planes", "composite"):
+        want[k] = want.get(k, 0) + n_eval
     log(f"  optimize: launches {counts} (expected {num_opts} steps x "
-        f"{chunks} chunks x {n_objs} objects x per chunk {per_chunk}, and "
-        f"pack {nets})")
+        f"{chunks} chunks x {n_objs} objects x per chunk {per_chunk}, "
+        f"{n_eval} eval launches through the forward kernels, and pack "
+        f"{nets})")
     _expect(counts, {k: v * (device != "cpu") for k, v in dict(
-        {k: v * n for k, v in per_chunk.items()}, pack=nets).items()},
+        {k: v for k, v in want.items() if v}, pack=nets).items()},
             "optimize path")
     with open(os.path.join(out["save_dir"], "results.json")) as f:
         res = json.load(f)
@@ -2416,18 +2470,25 @@ def profile_optimize(hp, run_dir: str, data_dir: str, device: str,
 
 def pose_path(work: str, jsonfile: str, run: str, device: str,
               num_opts: int, rays: int, per_step: dict, what: str,
-              n_objs: int = 2, nets: int = 1) -> dict:
+              n_objs: int = 2, nets: int = 1, H: int = 128,
+              strip_kernels: bool = False) -> dict:
     """The port's pose CLI on the training run's ``ckpt/`` and the seeded
-    ``cars_test`` set that ``optimize_path`` wrote. ``per_step``: the
-    launches of each kernel mode one pose step makes; the frozen weights
-    of each of the ``nets`` networks are packed once in the whole
-    run."""
+    ``cars_test`` set of H×H views that ``optimize_path`` wrote.
+    ``per_step``: the launches of each kernel mode one pose step makes;
+    the frozen weights of each of the ``nets`` networks are packed once in
+    the whole run. Each object's strip renders the initial and the refined
+    pose: 2 x ``n_objs`` renders of ``chunk_plan`` chunks, all on the
+    forward kernels' route (``renderer.kernel_route``; one ``planes`` and
+    one ``composite`` a launch, ``_kernel_launches`` a render) where
+    ``strip_kernels`` and on the card, else all on the plain module's."""
     import numpy as np
 
     from codenerf_tpu_torch import pose_opt
     from codenerf_tpu_torch.config import load_hparams
+    from codenerf_tpu_torch.renderer import chunk_plan, render_image
 
     exps = os.path.join(work, "exps")
+    chunks0 = dict(render_image.chunks)
     with LaunchCounts() as lc:
         out = pose_opt.main([
             "--jsonfile", jsonfile, "--exps_root", exps, "--saved_dir", run,
@@ -2437,12 +2498,22 @@ def pose_path(work: str, jsonfile: str, run: str, device: str,
         if lc.plain_on_cuda:
             raise AssertionError(f"{lc.plain_on_cuda} plain-version calls "
                                  f"on CUDA tensors on the pose path")
+    strip_chunk = min(4096, H * H)
+    n_strip = 2 * n_objs * chunk_plan(H * H, strip_chunk)[1]
+    launches = 0
+    if _route_chunks(chunks0, n_strip, strip_kernels and device != "cpu",
+                     "pose path strips"):
+        launches = 2 * n_objs * _kernel_launches(H * H, strip_chunk)
     n = num_opts * n_objs
+    want = {k: v * n for k, v in per_step.items()}
+    if launches:
+        want.update(planes=want.get("planes", 0) + launches,
+                    composite=launches)
     log(f"  pose_opt: launches {counts} (expected {num_opts} steps x "
-        f"{n_objs} objects x per step {per_step}, and pack {nets})")
+        f"{n_objs} objects x per step {per_step}, {launches} strip "
+        f"launches through the forward kernels, and pack {nets})")
     _expect(counts, {k: v * (device != "cpu") for k, v in dict(
-        {k: v * n for k, v in per_step.items()}, pack=nets).items()},
-            "pose path")
+        want, pack=nets).items()}, "pose path")
     with open(os.path.join(out["save_dir"], "results.json")) as f:
         res = json.load(f)
     rows = res["per_object"]
@@ -2547,12 +2618,15 @@ def main_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     t0 = time.perf_counter()
     _reset_peak(device)
     codes = optimize_path(work, jsonfile, "smoke", device, H, num_opts,
-                          per_chunk={"codes": 1})["counts"]
+                          per_chunk={"codes": 1},
+                          eval_kernels=True)["counts"]
     log(f"phase 4: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     return {"train": train["train"], "codes": codes["codes"],
             "pack": train["pack"] + codes["pack"],
-            "code_rows": train["code_rows"]}
+            "code_rows": train["code_rows"],
+            "planes": codes.get("planes", 0),
+            "composite": codes.get("composite", 0)}
 
 
 def _hier_occ_config(work: str, grid_size=None, out=None, **extra) -> str:
@@ -2602,10 +2676,10 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
 
 
 def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
-               rays: int = R_POSE) -> dict:
+               rays: int = R_POSE, H: int = 128) -> dict:
     """Phases 7 and 8: the pose CLI on the coarse run of phase 3 and the
     hierarchical run of phase 5, with the configs and the ``cars_test``
-    set that phases 3-6 wrote to ``work``."""
+    set of H×H views that phases 3-6 wrote to ``work``."""
     out = {}
     for phase, name, run, per_step, what in (
             (7, "srncar_fused.json", "smoke", {"pose": 1}, "pose"),
@@ -2614,8 +2688,9 @@ def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
         t0 = time.perf_counter()
         _reset_peak(device)
         counts = pose_path(work, os.path.join(work, name), run, device,
-                           num_opts, rays, per_step, what)
-        for k in (*per_step, "pack"):
+                           num_opts, rays, per_step, what, H=H,
+                           strip_kernels=phase == 7)
+        for k in (*per_step, "pack", "planes", "composite"):
             out[k] = out.get(k, 0) + counts[k]
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s; peak device "
             f"memory {_peak(device)}")
@@ -2701,7 +2776,8 @@ def padded_path(work: str, device: str = "cuda", H: int = 127,
     out = optimize_path(work, jsonfile, "smoke", device, H, num_opts,
                         per_chunk={"planes": 1, "composite": 1,
                                    "composite_bwd": 1, "plane_codes": 1},
-                        data="data_pad", what="padded optimize", chunk=chunk)
+                        data="data_pad", what="padded optimize", chunk=chunk,
+                        eval_kernels=True)
     # The CLI's first object, first step: the same generator and draws.
     model, _, sc, tc = load_run(os.path.join(work, "exps", "smoke"), hp,
                                 device)
@@ -2788,9 +2864,17 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
     refused. ``edit`` on objects 0 and 1 with ``--grid 3``: the swap
     matrix's diagonal equal to direct renders of those codes from the
     edit's camera. ``render_orbit`` with 4 frames and
-    ``estimate_bound_radius`` (a finite positive radius). Everything
-    renders through the plain module: no port kernel may launch. Returns
-    the served latencies."""
+    ``estimate_bound_radius`` (a finite positive radius). The coarse
+    run's renders take the forward kernels' route
+    (``renderer.kernel_route``): one four-plane forward and one composite
+    a launch (``_kernel_launches`` a view), on weights packed once for
+    each model (the server's,
+    ``edit``'s and ``render_orbit``'s); one served H×H view is held
+    against the plain module at float32 over the same rays, no further
+    from it than the bf16 plain module (mean within 1.1 times, worst
+    within a level). The hierarchical run renders through the plain
+    module. No other port kernel may launch. Returns the served
+    latencies."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2801,8 +2885,10 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
     from codenerf_tpu_torch.config import load_hparams, resolve_dtype
     from codenerf_tpu_torch.core.occupancy import build_occupancy_grid
     from codenerf_tpu_torch.data.srn import SRNDataset
+    from codenerf_tpu_torch.core.rays import camera_rays
     from codenerf_tpu_torch.render_orbit import orbit_pose
-    from codenerf_tpu_torch.renderer import render_image
+    from codenerf_tpu_torch.renderer import (chunk_plan, kernel_route,
+                                             render_image, render_rays)
     from codenerf_tpu_torch.serving import RenderServer
     from codenerf_tpu_torch.utils.checkpoint import (load_reference_checkpoint,
                                                      read_checkpoint)
@@ -2835,6 +2921,36 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
             f"{'' if ok else '  <-- FAILS'}")
         checks.append((f"served {what}", ok))
 
+    def exactness(net, c2w, sc, tc, h, focal):
+        """A served view's render on the forward kernels' route against
+        ``render_rays`` on the plain module at float32 over the same rays
+        and chunks, beside the bf16 plain module's gap: the kernel route's
+        mean gap within 1.1 times the bf16 module's and its worst within
+        a level (1/255) of the bf16 module's worst."""
+        model, _, hp_ = net
+        bf16, f32 = torch.bfloat16, torch.float32
+        chunk = chunk_plan(h * h, 4096)[0]
+        route = kernel_route(model, hp_.render, chunk,
+                             resolve_dtype(hp_.compute_dtype), dev)
+        img = direct(net, c2w, sc, tc, h, h, focal).reshape(-1, 3)
+        ro, vd = camera_rays(h, h, focal, torch.from_numpy(
+            np.asarray(c2w, np.float32)).to(dev), device=dev)
+        plain = {dt: torch.cat([render_rays(
+            model, hp_.render, ro[i:i + chunk], vd[i:i + chunk], sc.to(dev),
+            tc.to(dev), None, compute_dtype=dt).final.rgb
+            for i in range(0, h * h, chunk)]) for dt in (bf16, f32)}
+        k = (img - plain[f32]).abs()
+        p = (plain[bf16] - plain[f32]).abs()
+        ok = (route and float(k.mean()) <= 1.1 * float(p.mean())
+              and float(k.max()) <= float(p.max()) + 1.0 / 255.0)
+        log(f"  served {h}x{h} view against the plain module at float32: "
+            f"kernel route {'taken' if route else 'NOT TAKEN'}, worst "
+            f"{float(k.max()):.5f} mean {float(k.mean()):.6f}; the bf16 "
+            f"plain module worst {float(p.max()):.5f} mean "
+            f"{float(p.mean()):.6f}{'' if ok else '  <-- FAILS'}")
+        checks.append(("the kernel route against float32", ok))
+
+    kernel_chunks = render_image.chunks["kernels"]
     with LaunchCounts() as lc:
         hp = load_hparams(coarse_json)
         srv = RenderServer.from_checkpoint(os.path.join(exps, "smoke"), hp,
@@ -2848,6 +2964,8 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
                    _u8(direct(net, orbit_pose(0.9, 0.3, 1.3),
                               srv.shape_codes[1], srv.texture_codes[1], H,
                               H, focal)), "by object")
+            exactness(net, orbit_pose(0.9, 0.3, 1.3), srv.shape_codes[1],
+                      srv.texture_codes[1], H, focal)
             sc = 0.5 * (srv.shape_codes[0] + srv.shape_codes[2])
             tc = 0.5 * (srv.texture_codes[0] + srv.texture_codes[2])
             served(srv, {"shape_code": sc.cpu().tolist(),
@@ -2965,9 +3083,18 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
         checks.append(("estimated radius", bool(np.isfinite(r) and r > 0)))
         counts = lc.get()
         launched = {k: v for k, v in counts.items() if v}
-        checks.append(("no port kernel launched", not launched
-                       and not lc.plain_on_cuda))
-        log(f"  launches in phase 15: {launched or 'none'}")
+        kernel_chunks = render_image.chunks["kernels"] - kernel_chunks
+        # Every render of the coarse run here is H x H in chunks of 4096.
+        per_view = chunk_plan(H * H, 4096)[1]
+        views = kernel_chunks // per_view
+        launches = views * _kernel_launches(H * H, 4096)
+        want = {"planes": launches, "composite": launches, "pack": 3}
+        checks.append(("the forward kernels' launches alone",
+                       views > 0 and views * per_view == kernel_chunks
+                       and launched == want and not lc.plain_on_cuda))
+        log(f"  launches in phase 15: {launched or 'none'} ({kernel_chunks} "
+            f"chunks, {views} views through the forward kernels; expected "
+            f"{want})")
     failed = [name for name, ok in checks if not ok]
     if failed:
         raise AssertionError(f"phase 15 failed: {failed}")
@@ -3006,10 +3133,15 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
     or loss scale) moves a held-out PSNR by tenths. Each run counts its launches
     in its own window: one ``train`` and one ``pack`` a training step, one
     ``codes`` a fitting step and object, one ``pack`` a fitting run, two
-    ``code_rows`` a training step (one a code table)."""
+    ``code_rows`` a training step (one a code table); the eval renders
+    ``n_views`` - 1 views of each held-out object, on the card every
+    chunk on the forward kernels' route (``renderer.kernel_route``: one
+    ``planes`` and one ``composite`` a launch, ``_kernel_launches`` a
+    view), else on the plain module's."""
     import numpy as np
 
     from codenerf_tpu_torch import quality_report
+    from codenerf_tpu_torch.renderer import chunk_plan, render_image
 
     out = os.path.join(work, "quality")
     base = ["--use_fused", "--samples", "96", "--steps", str(steps),
@@ -3018,6 +3150,9 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
             "--size", str(size), "--seeds", "0", "--save_images", "0",
             "--out", out, "--device", device]
     on_card = device != "cpu"
+    # The eval renders every view of each held-out object but the fitted
+    # one (--tgt_views, default "1"): one render_image of size x size.
+    n_eval = n_test * (n_views - 1)
     runs = {}
     for what, extra, want in (
             ("sequential", [], {"train": steps, "pack": steps + 1,
@@ -3041,6 +3176,7 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
              {"pack": 1, "codes": n_test * num_opts})):
         args = quality_report.build_parser().parse_args(base + extra)
         t0 = time.perf_counter()
+        chunks0 = dict(render_image.chunks)
         with LaunchCounts() as lc:
             res = quality_report.run_once(args, 0, out, net=net,
                                           batch_size=batch, device=device)
@@ -3048,6 +3184,10 @@ def quality_path(work: str, device: str = "cuda", steps: int = QUALITY_STEPS,
             if lc.plain_on_cuda:
                 raise AssertionError(f"{lc.plain_on_cuda} plain-version "
                                      f"calls on CUDA tensors ({what})")
+        if _route_chunks(chunks0, n_eval * chunk_plan(size * size, 4096)[1],
+                         on_card, f"quality {what} eval"):
+            launches = n_eval * _kernel_launches(size * size, 4096)
+            want = dict(want, planes=launches, composite=launches)
         log(f"  quality {what}: launches "
             f"{ {k: v for k, v in counts.items() if v} } (expected "
             f"{ {k: v * on_card for k, v in want.items()} }); "
@@ -4331,6 +4471,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 2: four-plane forward at R={R_TRAIN}, S={S_UNION}")
     entries["planes"] = planes_check(dev, R_TRAIN, S_UNION)
+    torch.cuda.empty_cache()
+    log(f"phase 2: four-plane forward at R={R_TRAIN}, S={S_FULL} (a "
+        f"128x128 served or eval view's launch)")
+    row = planes_check(dev, R_TRAIN, S_FULL)
+    entries["planes"]["max_abs_err"] = max(entries["planes"]["max_abs_err"],
+                                           row["max_abs_err"])
     torch.cuda.empty_cache()
     log(f"phase 2: the four-plane head alone on the t and r of a planes "
         f"call at R={R_TRAIN}, S={S_UNION}")

@@ -37,8 +37,10 @@ counterpart in ``ops/csrc/train_fused.cu``.
 The user-facing tools: ``python -m
 codenerf_tpu_torch.export_reference_checkpoint`` (a run's checkpoint as a
 reference ``models.pth``) and, reading a trained run through
-``utils/checkpoint.load_run`` and rendering through the plain module (as
-the JAX package renders through XLA), ``.edit`` (code interpolation and
+``utils/checkpoint.load_run`` and rendering through
+``renderer.render_image`` (on the card the forward kernels where they
+take the render, else the plain module, as the JAX package renders
+through XLA), ``.edit`` (code interpolation and
 the shape × texture swap matrix, ``optimization/editing.py``),
 ``.render_orbit``, ``.serve`` (the HTTP render service,
 ``serving.RenderServer``) and ``.estimate_bound_radius``.

@@ -7,7 +7,9 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   code projections ``relu(code @ W_z + b)`` (R, blocks, W) bf16, and the
   per-ray viewdir contribution of the enc_viewdir weight split — rows
   ``[:W]`` act on the trunk inside the kernel, rows ``[W:]`` plus the bias
-  act on PE(viewdir) here (``vcontrib`` (R, W) bf16).
+  act on PE(viewdir) here (``vcontrib`` (R, W) bf16). Its two halves,
+  :func:`ray_operands` and :func:`code_operands`, serve a caller whose
+  rays share one code (``renderer.render_rays_kernels``).
 - :func:`pe_consts` — the 64-lane positional-encoding constants
   (``t = xyz8 @ A``; ``pe = m_id·t + m_sin·sin t + m_cos·cos t``).
 - :func:`composite_fwd_in_kernel` / :func:`composite_bwd_in_kernel` — the
@@ -294,33 +296,46 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
 
 
-def prep_ray_operands(model, cfg: NetConfig, ray_o, viewdir, z_vals,
-                      shape_code, texture_code):
-    """Returns ``(ro8, vd8, z, sproj, tproj, vcontrib)``; differentiable
-    with respect to the codes (and the weights)."""
+def code_operands(model, cfg: NetConfig, shape_code, texture_code):
+    """The code projections ``(sproj, tproj)`` of code rows (n, latent):
+    ``relu(code @ W_z + b)`` per block, (n, blocks, W) bf16."""
     bf16 = torch.bfloat16
-    R = z_vals.shape[0]
-    if shape_code.dim() == 1:
-        shape_code = shape_code.expand(R, -1)
-    if texture_code.dim() == 1:
-        texture_code = texture_code.expand(R, -1)
-    ro8 = pad_lanes(ray_o.float(), 8)
-    vd8 = pad_lanes(viewdir.float(), 8)
-    vd_pe = positional_encoding(viewdir, cfg.num_dir_freq)     # (R, 27)
 
-    def ray_proj(prefix, code, blocks):
+    def proj(prefix, code, blocks):
         outs = []
         for j in range(blocks):
             lin = getattr(model, f"{prefix}_{j}")
             outs.append(torch.relu(_dot_f32(code, lin.weight.T)
                                    + lin.bias.float()).to(bf16))
-        return torch.stack(outs, dim=1)                        # (R, nb, W)
+        return torch.stack(outs, dim=1)                        # (n, nb, W)
 
-    sproj = ray_proj("shape_latent", shape_code, cfg.shape_blocks)
-    tproj = ray_proj("texture_latent", texture_code, cfg.texture_blocks)
+    return (proj("shape_latent", shape_code, cfg.shape_blocks),
+            proj("texture_latent", texture_code, cfg.texture_blocks))
+
+
+def ray_operands(model, cfg: NetConfig, ray_o, viewdir):
+    """``(ro8, vd8, vcontrib)`` of rays (R, 3): lane-padded origins and
+    directions, and the viewdir contribution (R, W) bf16."""
+    ro8 = pad_lanes(ray_o.float(), 8)
+    vd8 = pad_lanes(viewdir.float(), 8)
+    vd_pe = positional_encoding(viewdir, cfg.num_dir_freq)     # (R, 27)
     encv = model.enc_viewdir
     vcontrib = (_dot_f32(vd_pe, encv.weight[:, cfg.W:].T)
-                + encv.bias.float()).to(bf16)                  # (R, W)
+                + encv.bias.float()).to(torch.bfloat16)        # (R, W)
+    return ro8, vd8, vcontrib
+
+
+def prep_ray_operands(model, cfg: NetConfig, ray_o, viewdir, z_vals,
+                      shape_code, texture_code):
+    """Returns ``(ro8, vd8, z, sproj, tproj, vcontrib)``; differentiable
+    with respect to the codes (and the weights)."""
+    R = z_vals.shape[0]
+    if shape_code.dim() == 1:
+        shape_code = shape_code.expand(R, -1)
+    if texture_code.dim() == 1:
+        texture_code = texture_code.expand(R, -1)
+    ro8, vd8, vcontrib = ray_operands(model, cfg, ray_o, viewdir)
+    sproj, tproj = code_operands(model, cfg, shape_code, texture_code)
     return ro8, vd8, z_vals.float(), sproj, tproj, vcontrib
 
 

@@ -3,8 +3,9 @@
 
 CodeNeRF disentangles shape and texture codes, so edits are renders under
 interpolated or swapped codes. Every image goes through the one eval
-render path (``renderer.render_image``: the plain module(s),
-deterministic depths, no occupancy grid), one image per code pair from a
+render path (``renderer.render_image``: on the card the forward kernels
+where they take the render, else the plain module(s); deterministic
+depths, no occupancy grid), one image per code pair from a
 fixed camera; the JAX package maps a jitted renderer over the pairs, and
 here a loop over them does the same work with nothing to compile.
 """

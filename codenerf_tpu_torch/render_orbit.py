@@ -9,8 +9,9 @@ Reads the run through ``utils/checkpoint.load_run`` (the latest
 ``<run>/ckpt/step_*.pt``, else ``<run>/models.pth``; the fine network
 with separate fine weights). Codes come from the training tables
 (``--obj`` row) or from an optimize run's ``codes.npz`` (``--codes path
---obj i``). Each frame renders deterministically through the plain
-module(s) (``renderer.render_image``), is clipped ×255 to uint8 and
+--obj i``). Each frame renders deterministically through
+``renderer.render_image`` (on the card the forward kernels where they
+take the render, else the plain module(s)), is clipped ×255 to uint8 and
 written as ``frame_%03d.png``; then ``orbit.gif`` (PIL).
 """
 

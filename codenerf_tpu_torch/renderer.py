@@ -15,9 +15,17 @@ are not shared.
 ``apply_fn`` swaps the plain ``CodeNeRF`` for another evaluation of
 sigma and rgb planes (the plane-op kernels, ``ops/fused_train.
 fused_apply_train``) under the PyTorch composite; ``composite_fn`` for
-one that composites too (``fused_render_train``), coarse only. Eval
-renders through the plain modules, as the JAX package renders eval
-through plain XLA.
+one that composites too (``fused_render_train``), coarse only.
+
+Eval (:func:`render_image`) takes one of two routes, chosen by
+:func:`kernel_route` from the call's own inputs. On the card, in bf16,
+for coarse renders at the sizes the kernels take, every chunk goes
+through the port's forward kernels (:func:`render_rays_kernels`: the
+four-plane forward ``fused_mlp.planes_fwd`` and the composite kernel,
+one launch of each a group of whole chunks up to :data:`KERNEL_RAYS`
+rays). Every other call, the CPU's included, renders through the plain
+module(s), as the JAX package renders eval through plain XLA.
+``render_image.chunks`` counts the chunks of each route.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ from codenerf_tpu_torch.core.sampling import (fixed_zvals, lerp_linspace,
                                               merge_sorted_samples,
                                               sample_pdf, stratified_zvals,
                                               union_sorted_zvals)
+from codenerf_tpu_torch.models.codenerf import CodeNeRF
+from codenerf_tpu_torch.ops import fused_mlp, fused_train
+from codenerf_tpu_torch.ops.composite import composite_fwd
 from codenerf_tpu_torch.utils.tracing import span
 
 
@@ -200,6 +211,80 @@ def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
     return RenderResult(coarse=coarse, fine=fine)
 
 
+def kernel_route(model, rcfg: RenderConfig, chunk: int,
+                 compute_dtype: torch.dtype, device,
+                 fine_model=None) -> bool:
+    """Whether :func:`render_image` evaluates its chunks of ``chunk`` rays
+    through the forward kernels (:func:`render_rays_kernels`): on CUDA,
+    in bf16 (the precision the kernels compute in), coarse only with no
+    separate fine network in play, for a ``CodeNeRF`` whose width and
+    sample count the kernels take (``fused_mlp.fused_available`` and
+    ``fused_train.single_pass_available``). Otherwise the plain module."""
+    if not (torch.device(device).type == "cuda"
+            and compute_dtype == torch.bfloat16
+            and rcfg.n_importance == 0
+            and (fine_model is None or rcfg.share_fine_weights)
+            and isinstance(model, CodeNeRF)):
+        return False
+    cfg, S = model.cfg, rcfg.n_samples
+    return (cfg.W == fused_train.TRUNK_W and S <= fused_train._MAX_SAMPLES
+            and fused_mlp.fused_available(cfg, chunk, S)
+            and fused_train.single_pass_available(cfg, chunk))
+
+
+# Rays one launch of render_rays_kernels covers (whole chunks, at least
+# one): a 128 x 128 view in one launch, so a render pays the wrappers'
+# host work once, and device memory bounded by it, not by the image (the
+# four-plane forward's workspace, 1.5 x rays x samples x W bf16: 1.2 GB
+# at 96 samples).
+KERNEL_RAYS = 16384
+
+
+@torch.no_grad()
+def render_rays_kernels(model, rcfg: RenderConfig, ray_o: torch.Tensor,
+                        viewdir: torch.Tensor, shape_code: torch.Tensor,
+                        texture_code: torch.Tensor,
+                        generator: Optional[torch.Generator],
+                        occ_grid, chunk: int) -> torch.Tensor:
+    """The coarse rgb (R, 3) f32 of rays (R, 3) under one shape and one
+    texture code, through the forward kernels, forward only; R a multiple
+    of ``chunk``. Span ``render.operands``, once a call:
+    ``fused_train.trunk_operands`` (packs ``model``'s weights once per
+    weight version) and the code projections
+    (``fused_mlp.code_operands`` of the one code, copied to a launch's
+    rows); and once a group of whole chunks up to :data:`KERNEL_RAYS`
+    rays: the depths of :func:`coarse_zvals`, drawn chunk by chunk in the
+    order the plain route draws them, and the rays' operands
+    (``fused_mlp.ray_operands``). Span ``render.chunk``: the group's one
+    four-plane forward (``fused_mlp.planes_fwd``) and one composite kernel
+    (``ops/composite.composite_fwd``). On CPU tensors both kernels run
+    their plain versions."""
+    cfg, R = model.cfg, ray_o.shape[0]
+    group = chunk * max(1, KERNEL_RAYS // chunk)
+    with span("render.operands"):
+        trunk = fused_train.trunk_operands(model, cfg)
+        sproj, tproj = (p.expand(min(group, R), -1, -1).contiguous()
+                        for p in fused_mlp.code_operands(
+                            model, cfg, shape_code.reshape(1, -1),
+                            texture_code.reshape(1, -1)))
+    parts = []
+    for start in range(0, R, group):
+        with span("render.operands"):
+            ro = ray_o[start:start + group]
+            vd = viewdir[start:start + group]
+            n = ro.shape[0]
+            z = torch.cat([coarse_zvals(rcfg, ro[i:i + chunk],
+                                        vd[i:i + chunk], generator, occ_grid)
+                           for i in range(0, n, chunk)])
+            ro8, vd8, vcontrib = fused_mlp.ray_operands(model, cfg, ro, vd)
+        with span("render.chunk"):
+            sig, r, g, b = fused_mlp.planes_fwd(
+                cfg, z.shape[1], n, ro8, vd8, z, sproj[:n], tproj[:n],
+                vcontrib, trunk)
+            parts.append(composite_fwd(sig, r, g, b, z, rcfg.white_bg)[:, :3])
+    return torch.cat(parts)
+
+
 @torch.no_grad()
 def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                  shape_code: torch.Tensor,
@@ -208,23 +293,38 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                  chunk: int = 4096,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  occ_grid=None, fine_model=None) -> torch.Tensor:
-    """Render a full H×W image in fixed-size ray chunks through the plain
-    module(s) (``fine_model``: the separate fine network); (H, W, 3)
-    f32. While a profiler records, the camera rays are the span
-    ``render.rays`` and each chunk a ``render.chunk``."""
+    """Render a full H×W image in fixed-size ray chunks; (H, W, 3) f32.
+    The chunks go through the forward kernels
+    (:func:`render_rays_kernels`) where :func:`kernel_route` allows, else
+    each through :func:`render_rays` on the plain module(s)
+    (``fine_model``: the separate fine network); ``render_image.chunks``
+    counts the chunks of each route. While a profiler records, the camera
+    rays are the span ``render.rays`` and each chunk (on the kernel route
+    each launch's group of chunks) a ``render.chunk``."""
     dev = shape_code.device
     n_rays = H * W
     chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
+    kernels = kernel_route(model, rcfg, chunk, compute_dtype, dev,
+                           fine_model)
     with span("render.rays"):
         ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
         ro = pad_rays(ray_o, n_padded)
         vd = pad_rays(viewdir, n_padded)
-    parts = []
-    for i in range(n_chunks):
-        with span("render.chunk"):
-            parts.append(render_rays(
-                model, rcfg, ro[i * chunk:(i + 1) * chunk],
-                vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
-                generator, compute_dtype=compute_dtype, occ_grid=occ_grid,
-                fine_model=fine_model).final.rgb)
-    return torch.cat(parts)[:n_rays].reshape(H, W, 3)
+    if kernels:
+        rgb = render_rays_kernels(model, rcfg, ro, vd, shape_code,
+                                  texture_code, generator, occ_grid, chunk)
+    else:
+        parts = []
+        for i in range(n_chunks):
+            with span("render.chunk"):
+                parts.append(render_rays(
+                    model, rcfg, ro[i * chunk:(i + 1) * chunk],
+                    vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
+                    generator, compute_dtype=compute_dtype,
+                    occ_grid=occ_grid, fine_model=fine_model).final.rgb)
+        rgb = torch.cat(parts)
+    render_image.chunks["kernels" if kernels else "plain"] += n_chunks
+    return rgb[:n_rays].reshape(H, W, 3)
+
+
+render_image.chunks = {"kernels": 0, "plain": 0}

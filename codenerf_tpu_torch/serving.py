@@ -2,8 +2,9 @@
 ``codenerf_tpu/serving.py``).
 
 The networks and code tables stay on the device; each request renders one
-image through the eval path (``renderer.render_image``, the plain
-module(s)) and returns it as a PNG. Stdlib HTTP only:
+image through the eval path (``renderer.render_image``: on the card the
+forward kernels where they take the render, else the plain module(s))
+and returns it as a PNG. Stdlib HTTP only:
 
   GET  /healthz  -> {"status": "ok", "device": "...", "n_objects": N}
   GET  /stats    -> request count, latency quantiles (p50, p95, max over
@@ -13,7 +14,8 @@ module(s)) and returns it as a PNG. Stdlib HTTP only:
                     and max ms over the last 1,000 requests of each part
                     of a request: the wait for the render lock, the render
                     under it, the handler's work outside it (parse, PNG
-                    encode, reply) and the whole
+                    encode, reply) and the whole; the chunks rendered
+                    through the forward kernels and the plain module
   POST /render   -> image/png (400 on a bad request, 404 on another path)
      JSON body:
        camera: either {"c2w": 4x4 nested list}
@@ -32,8 +34,9 @@ server's ``/stats`` fields.
 
 While a profiler records, each request is the span ``serve.request``
 (its sequence number in the span's args) over ``serve.parse``,
-``serve.queue``, ``serve.render`` (with ``render.rays``, the
-``render.chunk`` s and ``render.readback``), ``serve.encode`` and
+``serve.queue``, ``serve.render`` (with ``render.rays``, on the
+kernel route ``render.operands``, the ``render.chunk`` s and
+``render.readback``), ``serve.encode`` and
 ``serve.reply`` (``utils/tracing.py``).
 """
 
@@ -253,14 +256,19 @@ class RenderServer:
         ms over the last 1,000 requests of the wait for the render lock
         (``queue_ms``), the render under it (``render_ms``, ``/stats``'
         latency), the handler's parse, PNG encode and reply outside it
-        (``handler_ms``) and the whole request (``request_ms``)."""
+        (``handler_ms``) and the whole request (``request_ms``); and
+        ``chunks``, the chunks the process rendered through each route
+        (``renderer.render_image.chunks``: ``kernels`` and ``plain``)."""
+        from codenerf_tpu_torch.renderer import render_image
+
         with self._times_lock:
             times = {k: list(d) for k, d in (
                 ("queue_ms", self._queued), ("render_ms", self._latencies),
                 ("handler_ms", self._handled), ("request_ms", self._whole))}
             failed = self._failed
         return {"requests": self._count, "failed": failed,
-                **{k: _quantiles_ms(v) for k, v in times.items()}}
+                **{k: _quantiles_ms(v) for k, v in times.items()},
+                "chunks": dict(render_image.chunks)}
 
     # ------------------------------------------------------------------ http
     def _handler_class(self):

@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import urllib.error
 import urllib.request
 
@@ -181,8 +182,21 @@ def _post(srv, body):
         return e.code
 
 
+def _post_handled(srv, body):
+    """:func:`_post`, then wait for the server's handler thread to end:
+    the client can hold the whole reply before that thread has left
+    ``serve.reply`` and ``serve.request``."""
+    known = set(threading.enumerate())
+    status = _post(srv, body)
+    for t in set(threading.enumerate()) - known:
+        if "process_request_thread" in t.name:
+            t.join(timeout=60)
+    return status
+
+
 def test_request_spans(server):
-    events = _profiled(lambda: _post(server, {"obj": 1, "H": 8, "W": 8}))
+    events = _profiled(lambda: _post_handled(server, {"obj": 1, "H": 8,
+                                                      "W": 8}))
     (req,) = _named(events, "serve.request")
     for name in ("serve.parse", "serve.queue", "serve.render",
                  "serve.encode", "serve.reply", "render.rays",
