@@ -4,6 +4,7 @@ NVIDIA GPU: the quickest proof that the port builds and runs on the card.
 
     python3 chip_smoke.py            # all phases; needs one CUDA card
     python3 chip_smoke.py --check    # build + kernel-vs-plain checks only
+    python3 chip_smoke.py --main_paths   # phases 1-13 and 15
 
 Phases, each printed on its own line with its seconds:
 
@@ -16,17 +17,19 @@ Phases, each printed on its own line with its seconds:
    optimization chunk (R=4096) and the weight-gradient mode at the
    training batch (R=16,384), S=96, whose per-ray cotangents must also
    equal the frozen mode's on the same inputs; the sigma-only forward at
-   R=16,384 and R=4096, S=32; the dual-composite mode at a real union of
-   32 coarse and 32 fine depths (``hier_fine_zvals_meta`` on seeded coarse
-   depths), training at R=16,384 (its per-ray cotangents equal to the
-   dual frozen mode's on the same inputs, its fine SE to the non-dual
-   frozen kernel's on the same union) and frozen at R=4096; the pose
+   R=16,384 and R=4096, S=32, and at NeRF's 16,384 × 64; the dual-composite
+   mode at a real union of 32 coarse and 32 fine depths
+   (``hier_fine_zvals_meta`` on seeded coarse depths), training at R=16,384
+   (its per-ray cotangents equal to the dual frozen mode's on the same
+   inputs, its fine SE to the non-dual frozen kernel's on the same union)
+   and frozen at R=4096; the pose
    modes at pose optimization's 2048 rays: ``pose`` at S=96 and on a real
    32+32 union, ``pose_weights`` at S=32 (their SE and code cotangents
    equal to the frozen mode's on the same inputs, their ``d_ro8``,
    ``d_vd8`` and ``d_z`` the same bits over two launches); the
-   four-plane forward at 16,384 × 64 and at a 128×128 view's 16,384 × 96
-   (its sigma plane the sigma-only kernel's bits); the plane-op backward
+   four-plane forward at 16,384 × 64, at a 128×128 view's 16,384 × 96
+   and at the fine pass of NeRF's 64 + 128 view, 16,384 × 192 (its sigma
+   plane the sigma-only kernel's bits); the plane-op backward
    in its four modes (``plane_train`` 16,384 × 64, ``plane_codes``
    4096 × 64, ``plane_pose`` 2048 × 64, ``plane_train_input`` 4096 × 32)
    on the cotangents of a composite's MSE; the standalone composite and its
@@ -115,7 +118,9 @@ Phases, each printed on its own line with its seconds:
    profile;
 6. hierarchical test-time optimization with ``--opt_occ true`` on that
    run: the sigma-only and the dual frozen kernel each once per chunk,
-   step and object; then the step profile;
+   step and object, and the eval's views through the forward kernels'
+   hierarchical route (one ``sigma``, ``planes`` and ``composite`` a
+   launch group); then the step profile;
 7. coarse pose optimization: ``codenerf_tpu_torch.pose_opt.main`` on the
    coarse run (2 objects of ``cars_test``, 20 steps of 2048 rays, the
    protocol runs 400): one ``pose`` launch per step, and one ``planes``
@@ -123,16 +128,19 @@ Phases, each printed on its own line with its seconds:
    (the forward kernels' route); finite ``results.json``; then the pose
    step's profile;
 8. hierarchical pose optimization on the hierarchical run: one
-   ``pose_weights`` and one ``pose`` launch per step;
+   ``pose_weights`` and one ``pose`` launch per step, and one ``sigma``,
+   ``planes`` and ``composite`` per launch group of each strip render;
 9. the separate fine network (``srncar_hier_occ.json`` with
    ``hierarchical_share_weights: false``, phase 5's cuts): 8 training
    steps and 4 resumed from step 4, which must rebuild the grid and
    repeat the uninterrupted run's losses; each step one ``planes`` and
    one ``plane_train`` launch per network, and two ``code_rows``;
 10. ``optimize --opt_occ true`` on that run: one ``planes`` and one
-    ``plane_codes`` launch per network, chunk, step and object;
+    ``plane_codes`` launch per network, chunk, step and object, and one
+    ``sigma`` (coarse network), ``planes`` (fine) and ``composite`` per
+    launch group of each eval view;
 11. the pose CLI on that run: one ``planes`` and one ``plane_pose``
-    launch per network and step;
+    launch per network and step, and the strips as phase 10's eval;
 12. padded chunks: ``optimize`` on the coarse run of phase 3 against a
     seeded ``cars_test`` set at 127×127 (16,129 rays, 4 chunks of 4096):
     one ``planes``, ``composite``, ``composite_bwd`` and ``plane_codes``
@@ -193,14 +201,17 @@ Phases, each printed on its own line with its seconds:
     The export of the coarse run read back bit-equal and the separate-fine
     run refused; ``edit --objects 0 1 --grid 3`` (the swap matrix's
     diagonal equal to direct renders), ``render_orbit`` with 4 frames and
-    ``estimate_bound_radius``. The coarse run's renders take the forward
-    kernels (``renderer.kernel_route``: one ``planes`` and one
-    ``composite`` a view, one ``pack`` for each tool's model), and one
-    served view is held against the plain module at float32 on the same
-    rays, no further from it than the bf16 plain module is; the
-    hierarchical run's and the radius estimate's go through the plain
-    module, as the JAX package renders through XLA. No other port kernel
-    launches in it.
+    ``estimate_bound_radius``. Every render takes the forward kernels
+    (``renderer.kernel_route``: one ``planes`` and one ``composite`` a
+    view, and on the hierarchical run one ``sigma`` before them; one
+    ``pack`` for each tool's model). A served view of the coarse run,
+    and 64 + 128 views of networks drawn as the served cells draw them
+    (the density sharpened), separate and shared, are held against the
+    plain module(s) at float32 on the same rays, no further from it than
+    the bf16 plain module is (the hierarchical run's view and phase 9's
+    separate fine network at 64 + 128 are printed); the radius estimate
+    goes through the plain module, as the JAX package renders through
+    XLA. No other port kernel launches in it.
 16. after phase 14, before the card line: the device scene renderers
     at full scale and the native ray sampler (``scene_path``). The test
     split of the full-scale chair protocol (704 objects × 250 views at
@@ -249,6 +260,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import math
@@ -263,6 +275,9 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 R_CODES, R_TRAIN, S_FULL = 4096, 16384, 96
 S_COARSE, S_UNION = 32, 64   # srncar_hier_occ.json: 32 coarse + 32 fine
+# NeRF's published counts (portbench's car_nerf_hier cell): 64 coarse, and
+# the fine network at the union with 128 fine
+S_NERF_COARSE, S_NERF_UNION = 64, 192
 R_POSE = 2048                # tools/pose_opt.py --rays_per_step
 INPUT_CHAIN = ("d_ro8", "d_vd8", "d_z")   # the pose modes' input chain
 SOURCE = "codenerf_tpu_torch/ops/csrc/train_fused.cu"
@@ -549,14 +564,14 @@ def kernel_check(dev, weight_grads: bool):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def sigma_check(dev, R: int):
-    """Phase 2: sigma_fwd (CUDA) vs sigma_fwd_plain at R rays x 32
-    coarse samples."""
+def sigma_check(dev, R: int, S: int = S_COARSE):
+    """Phase 2: sigma_fwd (CUDA) vs sigma_fwd_plain at R rays x S coarse
+    samples."""
     import torch
 
     from codenerf_tpu_torch.ops import fused_mlp
 
-    cfg, args = kernel_inputs(dev, R, S_COARSE)
+    cfg, args = kernel_inputs(dev, R, S)
     _, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
     sargs = (cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, trunk)
     got = fused_mlp.sigma_fwd(*sargs)
@@ -2320,6 +2335,14 @@ def _kernel_launches(n_rays: int, chunk: int) -> int:
     return -(-n_chunks // max(1, KERNEL_RAYS // chunk))
 
 
+def _eval_kernels(hp) -> tuple:
+    """The forward kernels' wrappers a render of ``hp`` launches on the
+    kernels' route, each once a launch group: the sigma-only forward
+    first where the render is hierarchical."""
+    return (("sigma",) if hp.render.n_importance > 0 else ()) + (
+        "planes", "composite")
+
+
 def _route_chunks(before: dict, n: int, kernels: bool, what: str) -> int:
     """Check that the renders since ``before`` (a copy of
     ``renderer.render_image.chunks``) rendered ``n`` chunks, all on the
@@ -2347,8 +2370,10 @@ def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
     networks are packed once in the whole run. ``eval_kernels``: the eval
     renders take the forward kernels' route (``renderer.kernel_route``),
     one four-plane forward and one composite a launch group of each eval
-    view (``_kernel_launches``), on the weights the fitting packed.
-    Returns the CLI's output with the launch counts under ``"counts"``."""
+    view (``_kernel_launches``), on the weights the fitting packed, and
+    for a hierarchical config (``N_importance`` > 0) one sigma-only
+    forward besides. Returns the CLI's output with the launch counts
+    under ``"counts"``."""
     import numpy as np
     import torch
 
@@ -2384,7 +2409,7 @@ def optimize_path(work: str, jsonfile: str, run: str, device: str, H: int,
                              f"{views * chunks}")
     n_eval = views * _kernel_launches(H * H, chunk)
     want = {k: v * n for k, v in per_chunk.items()}
-    for k in ("planes", "composite"):
+    for k in _eval_kernels(hp):
         want[k] = want.get(k, 0) + n_eval
     log(f"  optimize: launches {counts} (expected {num_opts} steps x "
         f"{chunks} chunks x {n_objs} objects x per chunk {per_chunk}, "
@@ -2479,8 +2504,9 @@ def pose_path(work: str, jsonfile: str, run: str, device: str,
     the whole run. Each object's strip renders the initial and the refined
     pose: 2 x ``n_objs`` renders of ``chunk_plan`` chunks, all on the
     forward kernels' route (``renderer.kernel_route``; one ``planes`` and
-    one ``composite`` a launch, ``_kernel_launches`` a render) where
-    ``strip_kernels`` and on the card, else all on the plain module's."""
+    one ``composite`` a launch, and one ``sigma`` where hierarchical,
+    ``_kernel_launches`` a render) where ``strip_kernels`` and on the
+    card, else all on the plain module's."""
     import numpy as np
 
     from codenerf_tpu_torch import pose_opt
@@ -2507,8 +2533,8 @@ def pose_path(work: str, jsonfile: str, run: str, device: str,
     n = num_opts * n_objs
     want = {k: v * n for k, v in per_step.items()}
     if launches:
-        want.update(planes=want.get("planes", 0) + launches,
-                    composite=launches)
+        for k in _eval_kernels(load_hparams(jsonfile)):
+            want[k] = want.get(k, 0) + launches
     log(f"  pose_opt: launches {counts} (expected {num_opts} steps x "
         f"{n_objs} objects x per step {per_step}, {launches} strip "
         f"launches through the forward kernels, and pack {nets})")
@@ -2665,12 +2691,13 @@ def hier_path(work: str, device: str = "cuda", batch: int = R_TRAIN,
     codes = optimize_path(work, jsonfile, "hier", device, H, num_opts,
                           per_chunk={"sigma": 1, "dual_codes": 1},
                           extra=("--opt_occ", "true"),
-                          what="hier optimize")["counts"]
+                          what="hier optimize", eval_kernels=True)["counts"]
     log(f"phase 6: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     return {"sigma": train["sigma"] + codes["sigma"],
             "dual_train": train["dual_train"],
             "dual_codes": codes["dual_codes"],
+            "planes": codes["planes"], "composite": codes["composite"],
             "pack": train["pack"] + codes["pack"],
             "code_rows": train["code_rows"]}
 
@@ -2689,8 +2716,8 @@ def pose_paths(work: str, device: str = "cuda", num_opts: int = 20,
         _reset_peak(device)
         counts = pose_path(work, os.path.join(work, name), run, device,
                            num_opts, rays, per_step, what, H=H,
-                           strip_kernels=phase == 7)
-        for k in (*per_step, "pack", "planes", "composite"):
+                           strip_kernels=True)
+        for k in (*per_step, "pack", "sigma", "planes", "composite"):
             out[k] = out.get(k, 0) + counts[k]
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s; peak device "
             f"memory {_peak(device)}")
@@ -2726,13 +2753,15 @@ def fine_paths(work: str, device: str = "cuda", batch: int = R_TRAIN,
     codes = optimize_path(work, jsonfile, "fine", device, H, num_opts,
                           per_chunk={"planes": 2, "plane_codes": 2},
                           extra=("--opt_occ", "true"),
-                          what="fine optimize", nets=2)["counts"]
+                          what="fine optimize", nets=2,
+                          eval_kernels=True)["counts"]
     log(f"phase 10: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     t0 = time.perf_counter()
     _reset_peak(device)
     pose = pose_path(work, jsonfile, "fine", device, pose_steps, rays,
-                     {"planes": 2, "plane_pose": 2}, "fine pose", nets=2)
+                     {"planes": 2, "plane_pose": 2}, "fine pose", nets=2,
+                     H=H, strip_kernels=True)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{_peak(device)}")
     for counts in (train, codes, pose):
@@ -2846,6 +2875,41 @@ def _http(url: str, body=None):
         return e.code, e.headers["Content-Type"], e.read()
 
 
+def _served_nets(dev, shared: bool, seed: int = 21):
+    """A coarse network (and, unless ``shared``, a fine one) and one
+    object's codes drawn as portbench's served cells draw them: every
+    layer's uniform range widened by sqrt(6), ``rgb_out`` centred on 0.5
+    with a spread of 0.25, and the density layer times 16 (a sharp
+    model; ``car_nerf_hier.serve`` scales it by 64); codes
+    N(0, 2/latent_dim). Weights of order
+    one, as a trained model's, where a lightly trained run's are near the
+    initialisation."""
+    import torch
+
+    from codenerf_tpu_torch.config import NetConfig
+    from codenerf_tpu_torch.models.codenerf import CodeNeRF
+
+    cfg = NetConfig()
+    g = torch.Generator().manual_seed(seed)
+    nets = []
+    for _ in range(1 if shared else 2):
+        model = CodeNeRF(cfg, generator=g).requires_grad_(False)
+        for name, lin in model.named_children():
+            scale = 16.0 if name == "sigma" else 1.0
+            if name == "rgb_out":
+                lin.weight.mul_(0.25 * math.sqrt(3.0))
+                lin.bias.mul_(0.025 * math.sqrt(lin.weight.shape[1]))
+                lin.bias.add_(0.5)
+            else:
+                lin.weight.mul_(math.sqrt(6.0) * scale)
+                lin.bias.mul_(math.sqrt(6.0) * scale)
+        nets.append(model.to(dev))
+    codes = torch.randn(2, cfg.latent_dim, generator=g) \
+        / math.sqrt(cfg.latent_dim / 2.0)
+    return (nets[0], None if shared else nets[1], codes[0].to(dev),
+            codes[1].to(dev))
+
+
 def service_path(work: str, device: str = "cuda", H: int = 128,
                  requests: int = SERVE_REQUESTS, grid_size: int = 64) -> dict:
     """Phase 15: the user-facing tools on phase 3's coarse run and phase
@@ -2872,9 +2936,19 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
     ``edit``'s and ``render_orbit``'s); one served H×H view is held
     against the plain module at float32 over the same rays, no further
     from it than the bf16 plain module (mean within 1.1 times, worst
-    within a level). The hierarchical run renders through the plain
-    module. No other port kernel may launch. Returns the served
-    latencies."""
+    within a level). The hierarchical run's renders take the kernels'
+    hierarchical route (one sigma-only forward before them; its model
+    packed once), and so does phase 9's separate fine network rendered
+    at NeRF's 64 + 128 samples (both networks packed once); their gaps
+    to float32 are printed. A 64 + 128 view of networks drawn as the
+    served cells draw them, the density sharpened (``_served_nets``),
+    with separate and with shared fine weights, is held to float32
+    likewise. (On the
+    runs' near-initial weights the kernel route's mean gap reads about
+    1.4 times the bf16 module's, both under a sixtieth of a level; the
+    coarse route's reads so too on the CPU at such weights.) No other
+    port kernel may launch.
+    Returns the served latencies."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2891,6 +2965,7 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
                                              render_image, render_rays)
     from codenerf_tpu_torch.serving import RenderServer
     from codenerf_tpu_torch.utils.checkpoint import (load_reference_checkpoint,
+                                                     load_run,
                                                      read_checkpoint)
 
     exps = os.path.join(work, "exps")
@@ -2921,34 +2996,39 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
             f"{'' if ok else '  <-- FAILS'}")
         checks.append((f"served {what}", ok))
 
-    def exactness(net, c2w, sc, tc, h, focal):
-        """A served view's render on the forward kernels' route against
-        ``render_rays`` on the plain module at float32 over the same rays
-        and chunks, beside the bf16 plain module's gap: the kernel route's
-        mean gap within 1.1 times the bf16 module's and its worst within
-        a level (1/255) of the bf16 module's worst."""
-        model, _, hp_ = net
+    def exactness(net, c2w, sc, tc, h, focal, what="served", held=True):
+        """A view's render on the forward kernels' route against
+        ``render_rays`` on the plain module(s) at float32 over the same
+        rays and chunks, beside the bf16 plain module's gap: the kernel
+        route's mean gap within 1.1 times the bf16 module's and its worst
+        within a level (1/255) of the bf16 module's worst. A
+        hierarchical view's fine depths follow each route's own coarse
+        weights. ``held`` False prints the gaps and holds only that the
+        route was taken."""
+        model, fine, hp_ = net
         bf16, f32 = torch.bfloat16, torch.float32
         chunk = chunk_plan(h * h, 4096)[0]
         route = kernel_route(model, hp_.render, chunk,
-                             resolve_dtype(hp_.compute_dtype), dev)
+                             resolve_dtype(hp_.compute_dtype), dev, fine)
         img = direct(net, c2w, sc, tc, h, h, focal).reshape(-1, 3)
         ro, vd = camera_rays(h, h, focal, torch.from_numpy(
             np.asarray(c2w, np.float32)).to(dev), device=dev)
         plain = {dt: torch.cat([render_rays(
             model, hp_.render, ro[i:i + chunk], vd[i:i + chunk], sc.to(dev),
-            tc.to(dev), None, compute_dtype=dt).final.rgb
+            tc.to(dev), None, compute_dtype=dt, fine_model=fine).final.rgb
             for i in range(0, h * h, chunk)]) for dt in (bf16, f32)}
         k = (img - plain[f32]).abs()
         p = (plain[bf16] - plain[f32]).abs()
-        ok = (route and float(k.mean()) <= 1.1 * float(p.mean())
-              and float(k.max()) <= float(p.max()) + 1.0 / 255.0)
-        log(f"  served {h}x{h} view against the plain module at float32: "
+        ok = route and (not held or (
+            float(k.mean()) <= 1.1 * float(p.mean())
+            and float(k.max()) <= float(p.max()) + 1.0 / 255.0))
+        log(f"  {what} {h}x{h} view against the plain module at float32: "
             f"kernel route {'taken' if route else 'NOT TAKEN'}, worst "
             f"{float(k.max()):.5f} mean {float(k.mean()):.6f}; the bf16 "
             f"plain module worst {float(p.max()):.5f} mean "
-            f"{float(p.mean()):.6f}{'' if ok else '  <-- FAILS'}")
-        checks.append(("the kernel route against float32", ok))
+            f"{float(p.mean()):.6f}{'' if held else ' (not held)'}"
+            f"{'' if ok else '  <-- FAILS'}")
+        checks.append((f"the kernel route against float32 ({what})", ok))
 
     kernel_chunks = render_image.chunks["kernels"]
     with LaunchCounts() as lc:
@@ -2998,6 +3078,7 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
             f"render time, PNG encoding not included; {requests + 2} "
             f"renders) on {card_line() if device != 'cpu' else 'the CPU'}")
 
+        hier_chunks = render_image.chunks["kernels"]
         hhp = load_hparams(hier_json)
         hsrv = RenderServer.from_checkpoint(os.path.join(exps, "hier"), hhp,
                                             device=device, use_occupancy=True,
@@ -3025,8 +3106,33 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
                 f"{float(grid.occ.float().mean()):.4f} occupied, the same "
                 f"cells as a fresh build: {ok}{'' if ok else '  <-- FAILS'}")
             checks.append(("one grid, the fresh build's cells", ok))
+            # The trained runs' hierarchical gaps are recorded; the held
+            # comparison is on served weights below (see _served_nets).
+            exactness(hnet, orbit_pose(1.3, 0.3, 1.3), hsrv.shape_codes[0],
+                      hsrv.texture_codes[0], H, 1.1 * H,
+                      "hierarchical run (32 + 32, shared)", held=False)
         finally:
             hsrv.shutdown()
+        # Phase 9's separate fine network at NeRF's 64 + 128 samples.
+        fhp = load_hparams(os.path.join(work, "srncar_hier_occ_fine.json"))
+        fhp = dataclasses.replace(fhp, render=dataclasses.replace(
+            fhp.render, n_samples=64, n_importance=128))
+        fmodel, ffine, fsc, ftc = load_run(os.path.join(exps, "fine"), fhp,
+                                           dev)
+        exactness((fmodel, ffine, fhp), orbit_pose(0.4, 0.2, 1.3), fsc[1],
+                  ftc[1], H, 1.1 * H, "fine run at 64 + 128", held=False)
+        del fmodel, ffine
+        # Held: a 64 + 128 view of networks drawn as the served cells
+        # draw them, with separate and with shared fine weights.
+        for shared in (False, True):
+            shp = dataclasses.replace(fhp, render=dataclasses.replace(
+                fhp.render, share_fine_weights=shared))
+            smodel, sfine, ssc, stc = _served_nets(dev, shared)
+            exactness((smodel, sfine, shp), orbit_pose(2.6, 0.35, 1.3), ssc,
+                      stc, H, 1.1 * H, "served 64 + 128, "
+                      f"{'shared' if shared else 'separate'} fine weights")
+        del smodel, sfine
+        hier_chunks = render_image.chunks["kernels"] - hier_chunks
 
         out = os.path.join(work, "export", "models.pth")
         ckpt_dir = os.path.join(exps, "smoke", "ckpt")
@@ -3084,17 +3190,24 @@ def service_path(work: str, device: str = "cuda", H: int = 128,
         counts = lc.get()
         launched = {k: v for k, v in counts.items() if v}
         kernel_chunks = render_image.chunks["kernels"] - kernel_chunks
-        # Every render of the coarse run here is H x H in chunks of 4096.
+        # Every render through the kernels here is H x H in chunks of
+        # 4096; the hierarchical ones (phase 5's run and phase 9's at
+        # 64 + 128) launch the sigma-only forward besides.
         per_view = chunk_plan(H * H, 4096)[1]
         views = kernel_chunks // per_view
         launches = views * _kernel_launches(H * H, 4096)
-        want = {"planes": launches, "composite": launches, "pack": 3}
+        hier = hier_chunks // per_view * _kernel_launches(H * H, 4096)
+        # one pack for each tool's coarse model, the hierarchical server's
+        # model, phase 9's two networks and the served draws' three
+        want = {"sigma": hier, "planes": launches, "composite": launches,
+                "pack": 9}
         checks.append(("the forward kernels' launches alone",
                        views > 0 and views * per_view == kernel_chunks
-                       and launched == want and not lc.plain_on_cuda))
+                       and hier > 0 and launched == want
+                       and not lc.plain_on_cuda))
         log(f"  launches in phase 15: {launched or 'none'} ({kernel_chunks} "
-            f"chunks, {views} views through the forward kernels; expected "
-            f"{want})")
+            f"chunks, {views} views through the forward kernels, "
+            f"{hier_chunks} chunks hierarchical; expected {want})")
     failed = [name for name, ok in checks if not ok]
     if failed:
         raise AssertionError(f"phase 15 failed: {failed}")
@@ -4397,6 +4510,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--check", action="store_true",
                     help="stop after the kernel-vs-plain checks")
+    ap.add_argument("--main_paths", action="store_true",
+                    help="stop after the kernels line (phases 1-13 and 15)")
     args = ap.parse_args()
 
     import torch
@@ -4441,8 +4556,12 @@ def main() -> int:
         f"S={S_COARSE}")
     entries["sigma"] = sigma_check(dev, R_TRAIN)
     small = sigma_check(dev, R_CODES)
+    log(f"phase 2: sigma-only forward at R={R_TRAIN}, S={S_NERF_COARSE} "
+        f"(NeRF's coarse pass of a 128x128 view)")
+    nerf = sigma_check(dev, R_TRAIN, S_NERF_COARSE)
     entries["sigma"]["max_abs_err"] = max(entries["sigma"]["max_abs_err"],
-                                          small["max_abs_err"])
+                                          small["max_abs_err"],
+                                          nerf["max_abs_err"])
     log(f"phase 2: dual mode, weight gradients at R={R_TRAIN}, S={S_UNION} "
         f"({S_COARSE} coarse + {S_UNION - S_COARSE} fine)")
     entries["dual_train"] = dual_check(dev, weight_grads=True)
@@ -4475,6 +4594,13 @@ def main() -> int:
     log(f"phase 2: four-plane forward at R={R_TRAIN}, S={S_FULL} (a "
         f"128x128 served or eval view's launch)")
     row = planes_check(dev, R_TRAIN, S_FULL)
+    entries["planes"]["max_abs_err"] = max(entries["planes"]["max_abs_err"],
+                                           row["max_abs_err"])
+    torch.cuda.empty_cache()
+    log(f"phase 2: four-plane forward at R={R_TRAIN}, S={S_NERF_UNION} (the "
+        f"fine network of NeRF's {S_NERF_COARSE} + "
+        f"{S_NERF_UNION - S_NERF_COARSE} render of a 128x128 view)")
+    row = planes_check(dev, R_TRAIN, S_NERF_UNION)
     entries["planes"]["max_abs_err"] = max(entries["planes"]["max_abs_err"],
                                            row["max_abs_err"])
     torch.cuda.empty_cache()
@@ -4633,6 +4759,9 @@ def main() -> int:
         "points (each launch priced at the shape it ran): " + ", ".join(
             f"{mode} {v:.1f}" for v, mode in sorted(excess, reverse=True)))
     print(json.dumps({"kernels": rows}))
+    if args.main_paths:
+        log("phases 1-13 and 15: done (--main_paths)")
+        return 0
     log(f"phase 14: quality, cut: python -m codenerf_tpu_torch.quality_report"
         f" --use_fused --samples 96 --seeds 0 at {QUALITY_STEPS} steps, then "
         "--resume_train sequentially, with --opt_group 4 and with "

@@ -19,13 +19,19 @@ one that composites too (``fused_render_train``), coarse only.
 
 Eval (:func:`render_image`) takes one of two routes, chosen by
 :func:`kernel_route` from the call's own inputs. On the card, in bf16,
-for coarse renders at the sizes the kernels take, every chunk goes
-through the port's forward kernels (:func:`render_rays_kernels`: the
-four-plane forward ``fused_mlp.planes_fwd`` and the composite kernel,
-one launch of each a group of whole chunks up to :data:`KERNEL_RAYS`
-rays). Every other call, the CPU's included, renders through the plain
-module(s), as the JAX package renders eval through plain XLA.
-``render_image.chunks`` counts the chunks of each route.
+at the sizes the kernels take, every chunk goes through the port's
+forward kernels (:func:`render_rays_kernels`, one launch of each a group
+of whole chunks up to :data:`KERNEL_RAYS` rays): for a coarse render the
+four-plane forward ``fused_mlp.planes_fwd`` and the composite kernel;
+for a hierarchical one (NeRF's coarse-to-fine sampling, shared or
+separate fine weights) first the sigma-only forward
+``fused_mlp.sigma_fwd`` at the coarse depths, the compositing weights
+and the inverse-CDF resample in PyTorch, then the fine network's
+four-plane forward and the composite at the sorted union. Every other
+call, the CPU's included, renders through the plain module(s), as the
+JAX package renders eval through plain XLA. ``render_image.chunks``
+counts the chunks of each route, ``render_image.samples`` the points the
+kernels evaluated.
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ import torch
 
 from codenerf_tpu_torch.config import RenderConfig
 from codenerf_tpu_torch.core.rays import camera_rays, ray_sphere_bounds
-from codenerf_tpu_torch.core.render import RenderOutput, composite
-from codenerf_tpu_torch.core.sampling import (fixed_zvals, lerp_linspace,
+from codenerf_tpu_torch.core.render import (RenderOutput, composite,
+                                            composite_weights)
+from codenerf_tpu_torch.core.sampling import (fine_uniforms, fixed_zvals,
+                                              lerp_linspace,
                                               merge_sorted_samples,
                                               sample_pdf, stratified_zvals,
                                               union_sorted_zvals)
@@ -123,6 +131,19 @@ def coarse_zvals(rcfg: RenderConfig, ray_o: torch.Tensor,
     return z.expand(R, rcfg.n_samples)
 
 
+def fine_zvals(rcfg: RenderConfig, z: torch.Tensor, weights: torch.Tensor,
+               generator: Optional[torch.Generator],
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fine pass's ``n_importance`` depths (R, n_importance): inverse-CDF
+    samples of the piecewise-constant pdf of the interior coarse
+    ``weights`` over the midpoints of the coarse depths ``z`` (R, S).
+    Probes evenly spaced when ``generator`` and ``u`` are None, else ``u``
+    or the generator's uniforms (``core/sampling.sample_pdf``)."""
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    return sample_pdf(z_mid, weights[:, 1:-1], rcfg.n_importance, generator,
+                      deterministic=generator is None and u is None, u=u)
+
+
 def _eval_raw(model, ray_o, viewdir, z, shape_code, texture_code,
               compute_dtype) -> Tuple[torch.Tensor, tuple]:
     """Per-sample sigmas (R, S) and the three rgb planes at ``z``."""
@@ -191,12 +212,7 @@ def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
         coarse = eval_and_composite(model, z)
     if rcfg.n_importance <= 0:
         return RenderResult(coarse=coarse, fine=None)
-    # Interior coarse weights drive a piecewise-constant pdf over the
-    # z midpoints.
-    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
-    z_fine = sample_pdf(z_mid, coarse.weights[:, 1:-1], rcfg.n_importance,
-                        generator,
-                        deterministic=generator is None and u is None, u=u)
+    z_fine = fine_zvals(rcfg, z, coarse.weights, generator, u)
     if reuse_coarse:
         sig_f, rgb_f = _eval_raw(model, ray_o, viewdir, z_fine, shape_code,
                                  texture_code, compute_dtype)
@@ -205,10 +221,16 @@ def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
         fine = composite(merged[0], merged[1:], z_all,
                          white_bg=rcfg.white_bg)
         return RenderResult(coarse=coarse, fine=fine)
-    m_fine = (model if rcfg.share_fine_weights or fine_model is None
-              else fine_model)
-    fine = eval_and_composite(m_fine, union_sorted_zvals(z, z_fine))
+    fine = eval_and_composite(fine_network(model, rcfg, fine_model),
+                              union_sorted_zvals(z, z_fine))
     return RenderResult(coarse=coarse, fine=fine)
+
+
+def fine_network(model, rcfg: RenderConfig, fine_model=None):
+    """The network of the fine pass: ``fine_model`` when the weights are
+    not shared and one is given, else ``model``."""
+    return (model if rcfg.share_fine_weights or fine_model is None
+            else fine_model)
 
 
 def kernel_route(model, rcfg: RenderConfig, chunk: int,
@@ -216,28 +238,63 @@ def kernel_route(model, rcfg: RenderConfig, chunk: int,
                  fine_model=None) -> bool:
     """Whether :func:`render_image` evaluates its chunks of ``chunk`` rays
     through the forward kernels (:func:`render_rays_kernels`): on CUDA,
-    in bf16 (the precision the kernels compute in), coarse only with no
-    separate fine network in play, for a ``CodeNeRF`` whose width and
-    sample count the kernels take (``fused_mlp.fused_available`` and
-    ``fused_train.single_pass_available``). Otherwise the plain module."""
+    in bf16 (the precision the kernels compute in), for a ``CodeNeRF``
+    whose width and sample counts the kernels take
+    (``fused_mlp.fused_available`` and ``fused_train.
+    single_pass_available``): the coarse count and, with ``n_importance >
+    0``, the union of coarse and fine depths each at most
+    ``fused_train._MAX_SAMPLES``, and a fine network that is ``model``
+    (shared weights or none given) or a ``CodeNeRF`` of the same widths.
+    Otherwise the plain module."""
     if not (torch.device(device).type == "cuda"
             and compute_dtype == torch.bfloat16
-            and rcfg.n_importance == 0
-            and (fine_model is None or rcfg.share_fine_weights)
             and isinstance(model, CodeNeRF)):
         return False
-    cfg, S = model.cfg, rcfg.n_samples
-    return (cfg.W == fused_train.TRUNK_W and S <= fused_train._MAX_SAMPLES
-            and fused_mlp.fused_available(cfg, chunk, S)
-            and fused_train.single_pass_available(cfg, chunk))
+    cfg = model.cfg
+    counts = [rcfg.n_samples]
+    if rcfg.n_importance > 0:
+        fine = fine_network(model, rcfg, fine_model)
+        if fine is not model and not (isinstance(fine, CodeNeRF)
+                                      and fine.cfg == cfg):
+            return False
+        counts.append(rcfg.n_samples + rcfg.n_importance)
+    return (cfg.W == fused_train.TRUNK_W
+            and fused_train.single_pass_available(cfg, chunk)
+            and all(S <= fused_train._MAX_SAMPLES
+                    and fused_mlp.fused_available(cfg, chunk, S)
+                    for S in counts))
 
+
+# The chunks render_image rendered on each route, and the points the
+# forward kernels evaluated (render_image.chunks and .samples, which
+# RenderServer.timings() reports): counted here, so that a wrapper put in
+# render_image's place leaves the counts working.
+ROUTE_CHUNKS = {"kernels": 0, "plain": 0}
+KERNEL_SAMPLES = {"coarse_sigma": 0, "planes": 0}
 
 # Rays one launch of render_rays_kernels covers (whole chunks, at least
 # one): a 128 x 128 view in one launch, so a render pays the wrappers'
 # host work once, and device memory bounded by it, not by the image (the
 # four-plane forward's workspace, 1.5 x rays x samples x W bf16: 1.2 GB
-# at 96 samples).
+# at 96 samples, 2.4 GB at a 64 + 128 union).
 KERNEL_RAYS = 16384
+
+
+def _draws(rcfg: RenderConfig, ray_o: torch.Tensor, viewdir: torch.Tensor,
+           generator: Optional[torch.Generator], occ_grid, chunk: int):
+    """The coarse depths (R, n_samples) and, for a random hierarchical
+    render, the fine pass's probes (R, n_importance) of rays (R, 3), drawn
+    chunk by chunk in the order :func:`render_rays` draws them on the
+    plain route (a chunk's depths, then its probes); probes None when
+    deterministic or coarse."""
+    zs, us = [], []
+    for i in range(0, ray_o.shape[0], chunk):
+        ro, vd = ray_o[i:i + chunk], viewdir[i:i + chunk]
+        zs.append(coarse_zvals(rcfg, ro, vd, generator, occ_grid))
+        if rcfg.n_importance > 0 and generator is not None:
+            us.append(fine_uniforms(generator, ro.shape[0],
+                                    rcfg.n_importance, ro.device))
+    return torch.cat(zs), (torch.cat(us) if us else None)
 
 
 @torch.no_grad()
@@ -245,43 +302,73 @@ def render_rays_kernels(model, rcfg: RenderConfig, ray_o: torch.Tensor,
                         viewdir: torch.Tensor, shape_code: torch.Tensor,
                         texture_code: torch.Tensor,
                         generator: Optional[torch.Generator],
-                        occ_grid, chunk: int) -> torch.Tensor:
-    """The coarse rgb (R, 3) f32 of rays (R, 3) under one shape and one
+                        occ_grid, chunk: int,
+                        fine_model=None) -> torch.Tensor:
+    """The final rgb (R, 3) f32 of rays (R, 3) under one shape and one
     texture code, through the forward kernels, forward only; R a multiple
-    of ``chunk``. Span ``render.operands``, once a call:
-    ``fused_train.trunk_operands`` (packs ``model``'s weights once per
-    weight version) and the code projections
-    (``fused_mlp.code_operands`` of the one code, copied to a launch's
-    rows); and once a group of whole chunks up to :data:`KERNEL_RAYS`
-    rays: the depths of :func:`coarse_zvals`, drawn chunk by chunk in the
-    order the plain route draws them, and the rays' operands
-    (``fused_mlp.ray_operands``). Span ``render.chunk``: the group's one
-    four-plane forward (``fused_mlp.planes_fwd``) and one composite kernel
-    (``ops/composite.composite_fwd``). On CPU tensors both kernels run
-    their plain versions."""
+    of ``chunk``. The four-plane forward runs on the fine network
+    (:func:`fine_network`) at the union of coarse and fine depths when
+    ``n_importance > 0``, else on ``model`` at the coarse depths, whatever
+    ``fine_model`` is given.
+
+    Span ``render.operands``, once a call: ``fused_train.trunk_operands``
+    of each network (packed once per weight version) and the code
+    projections (``fused_mlp.code_operands`` of the one code, copied to a
+    launch's rows); and once a group of whole chunks up to
+    :data:`KERNEL_RAYS` rays: the depths of :func:`coarse_zvals` (and a
+    random render's fine probes), drawn chunk by chunk in the order the
+    plain route draws them (:func:`_draws`), and the rays' operands
+    (``fused_mlp.ray_operands``). Hierarchical only, span
+    ``render.coarse``: the group's one sigma-only forward
+    (``fused_mlp.sigma_fwd``) on ``model`` and the compositing weights;
+    span ``render.resample``: :func:`fine_zvals` and the sorted union.
+    Span ``render.chunk``: the group's one four-plane forward
+    (``fused_mlp.planes_fwd``) and one composite kernel
+    (``ops/composite.composite_fwd``). No coarse rgb is computed.
+    ``render_image.samples`` counts the points each forward evaluated
+    (``coarse_sigma``, ``planes``). On CPU tensors the kernels run their
+    plain versions."""
     cfg, R = model.cfg, ray_o.shape[0]
+    hier = rcfg.n_importance > 0
+    fine = fine_network(model, rcfg, fine_model) if hier else model
     group = chunk * max(1, KERNEL_RAYS // chunk)
+    codes = shape_code.reshape(1, -1), texture_code.reshape(1, -1)
+
+    def rows(p):
+        return p.expand(min(group, R), -1, -1).contiguous()
+
     with span("render.operands"):
-        trunk = fused_train.trunk_operands(model, cfg)
-        sproj, tproj = (p.expand(min(group, R), -1, -1).contiguous()
-                        for p in fused_mlp.code_operands(
-                            model, cfg, shape_code.reshape(1, -1),
-                            texture_code.reshape(1, -1)))
+        trunk = fused_train.trunk_operands(fine, cfg)
+        sproj, tproj = map(rows, fused_mlp.code_operands(fine, cfg, *codes))
+        if hier:
+            trunk_c, sproj_c = trunk, sproj
+            if fine is not model:
+                trunk_c = fused_train.trunk_operands(model, cfg)
+                sproj_c = rows(fused_mlp.code_operands(model, cfg,
+                                                       *codes)[0])
     parts = []
     for start in range(0, R, group):
         with span("render.operands"):
             ro = ray_o[start:start + group]
             vd = viewdir[start:start + group]
             n = ro.shape[0]
-            z = torch.cat([coarse_zvals(rcfg, ro[i:i + chunk],
-                                        vd[i:i + chunk], generator, occ_grid)
-                           for i in range(0, n, chunk)])
-            ro8, vd8, vcontrib = fused_mlp.ray_operands(model, cfg, ro, vd)
+            z, u = _draws(rcfg, ro, vd, generator, occ_grid, chunk)
+            ro8, vd8, vcontrib = fused_mlp.ray_operands(fine, cfg, ro, vd)
+        if hier:
+            with span("render.coarse"):
+                sig = fused_mlp.sigma_fwd(cfg, z.shape[1], n, ro8, vd8, z,
+                                          sproj_c[:n], None, None, trunk_c)
+                weights = composite_weights(sig, z)
+            with span("render.resample"):
+                z = union_sorted_zvals(z, fine_zvals(rcfg, z, weights,
+                                                     generator, u))
+            KERNEL_SAMPLES["coarse_sigma"] += n * rcfg.n_samples
         with span("render.chunk"):
             sig, r, g, b = fused_mlp.planes_fwd(
                 cfg, z.shape[1], n, ro8, vd8, z, sproj[:n], tproj[:n],
                 vcontrib, trunk)
             parts.append(composite_fwd(sig, r, g, b, z, rcfg.white_bg)[:, :3])
+        KERNEL_SAMPLES["planes"] += n * z.shape[1]
     return torch.cat(parts)
 
 
@@ -298,7 +385,8 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
     (:func:`render_rays_kernels`) where :func:`kernel_route` allows, else
     each through :func:`render_rays` on the plain module(s)
     (``fine_model``: the separate fine network); ``render_image.chunks``
-    counts the chunks of each route. While a profiler records, the camera
+    counts the chunks of each route and ``render_image.samples`` the
+    points the kernels evaluated. While a profiler records, the camera
     rays are the span ``render.rays`` and each chunk (on the kernel route
     each launch's group of chunks) a ``render.chunk``."""
     dev = shape_code.device
@@ -312,7 +400,8 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
         vd = pad_rays(viewdir, n_padded)
     if kernels:
         rgb = render_rays_kernels(model, rcfg, ro, vd, shape_code,
-                                  texture_code, generator, occ_grid, chunk)
+                                  texture_code, generator, occ_grid, chunk,
+                                  fine_model)
     else:
         parts = []
         for i in range(n_chunks):
@@ -323,8 +412,9 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                     generator, compute_dtype=compute_dtype,
                     occ_grid=occ_grid, fine_model=fine_model).final.rgb)
         rgb = torch.cat(parts)
-    render_image.chunks["kernels" if kernels else "plain"] += n_chunks
+    ROUTE_CHUNKS["kernels" if kernels else "plain"] += n_chunks
     return rgb[:n_rays].reshape(H, W, 3)
 
 
-render_image.chunks = {"kernels": 0, "plain": 0}
+render_image.chunks = ROUTE_CHUNKS
+render_image.samples = KERNEL_SAMPLES

@@ -15,7 +15,8 @@ and returns it as a PNG. Stdlib HTTP only:
                     of a request: the wait for the render lock, the render
                     under it, the handler's work outside it (parse, PNG
                     encode, reply) and the whole; the chunks rendered
-                    through the forward kernels and the plain module
+                    through the forward kernels and the plain module, and
+                    the points the kernels evaluated
   POST /render   -> image/png (400 on a bad request, 404 on another path)
      JSON body:
        camera: either {"c2w": 4x4 nested list}
@@ -35,7 +36,8 @@ server's ``/stats`` fields.
 While a profiler records, each request is the span ``serve.request``
 (its sequence number in the span's args) over ``serve.parse``,
 ``serve.queue``, ``serve.render`` (with ``render.rays``, on the
-kernel route ``render.operands``, the ``render.chunk`` s and
+kernel route ``render.operands``, for a hierarchical render
+``render.coarse`` and ``render.resample``, the ``render.chunk`` s and
 ``render.readback``), ``serve.encode`` and
 ``serve.reply`` (``utils/tracing.py``).
 """
@@ -258,8 +260,11 @@ class RenderServer:
         latency), the handler's parse, PNG encode and reply outside it
         (``handler_ms``) and the whole request (``request_ms``); and
         ``chunks``, the chunks the process rendered through each route
-        (``renderer.render_image.chunks``: ``kernels`` and ``plain``)."""
-        from codenerf_tpu_torch.renderer import render_image
+        (``renderer.render_image.chunks``: ``kernels`` and ``plain``), and
+        ``samples``, the points the forward kernels evaluated
+        (``renderer.render_image.samples``: ``coarse_sigma``, the
+        hierarchical coarse pass's, and ``planes``)."""
+        from codenerf_tpu_torch.renderer import KERNEL_SAMPLES, ROUTE_CHUNKS
 
         with self._times_lock:
             times = {k: list(d) for k, d in (
@@ -268,7 +273,8 @@ class RenderServer:
             failed = self._failed
         return {"requests": self._count, "failed": failed,
                 **{k: _quantiles_ms(v) for k, v in times.items()},
-                "chunks": dict(render_image.chunks)}
+                "chunks": dict(ROUTE_CHUNKS),
+                "samples": dict(KERNEL_SAMPLES)}
 
     # ------------------------------------------------------------------ http
     def _handler_class(self):

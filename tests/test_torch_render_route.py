@@ -2,10 +2,13 @@
 (``renderer.render_rays_kernels``: ``fused_mlp.planes_fwd`` and the
 composite kernel) and the plain module (``renderer.render_rays``).
 
-- ``kernel_route`` case by case: the kernels on CUDA, in bf16, coarse
-  only, at widths and chunk sizes the kernels take; the plain module for
-  the CPU, float32, ``n_importance > 0``, a separate fine network, a
-  model that is not a ``CodeNeRF`` and sizes the kernels do not take;
+- ``kernel_route`` case by case: the kernels on CUDA, in bf16, at widths,
+  sample counts and chunk sizes the kernels take, coarse or hierarchical
+  with a fine network that is the model or one of its widths; the plain
+  module for the CPU, float32, a fine network of other widths, a union
+  of coarse and fine depths over ``_MAX_SAMPLES``, a model that is not a
+  ``CodeNeRF`` and sizes the kernels do not take (the hierarchical route
+  itself: ``tests/test_torch_render_hier_route.py``);
 - the kernel route's ray function on CPU tensors, in chunks, where both
   kernels run their plain versions, against the plain module's render
   of the same chunks at the cars
@@ -92,9 +95,23 @@ ROUTES = {
     "cpu": ({"device": "cpu"}, False),
     "float32": ({"dtype": F32}, False),
     "hierarchical": ({"rcfg": RenderConfig(n_samples=96, n_importance=32)},
-                     False),
+                     True),
     "separate_fine": ({"fine": True, "rcfg": RenderConfig(
-        n_samples=96, share_fine_weights=False)}, False),
+        n_samples=96, share_fine_weights=False)}, True),
+    "separate_fine_hierarchical": ({"fine": True, "rcfg": RenderConfig(
+        n_samples=64, n_importance=128, share_fine_weights=False)}, True),
+    "union_too_many_samples": ({"rcfg": RenderConfig(
+        n_samples=96, n_importance=168)}, False),
+    "fine_width_512": ({"fine": CodeNeRF(NetConfig(W=512, latent_dim=256)),
+                        "rcfg": RenderConfig(n_samples=64, n_importance=128,
+                                             share_fine_weights=False)},
+                       False),
+    "fine_other_blocks": ({"fine": CodeNeRF(NetConfig(shape_blocks=2,
+                                                      latent_dim=256)),
+                           "rcfg": RenderConfig(n_samples=64,
+                                                n_importance=128,
+                                                share_fine_weights=False)},
+                          False),
     "chunk_not_tiled": ({"chunk": 4080}, False),   # 16 | 4080, 32 does not
     "chunk_not_16": ({"chunk": 4008}, False),
     "too_many_samples": ({"rcfg": RenderConfig(n_samples=264)}, False),
@@ -113,10 +130,11 @@ def test_kernel_route(case, car_model):
     if over.get("wrap"):
         model = torch.nn.Sequential(model)
         model.cfg = CAR
+    fine = over.get("fine")
     got = renderer.kernel_route(
         model, over.get("rcfg", RC), over.get("chunk", 4096),
         over.get("dtype", BF16), torch.device(over.get("device", "cuda")),
-        car_model if over.get("fine") else None)
+        car_model if fine is True else fine)
     assert got is want
 
 
