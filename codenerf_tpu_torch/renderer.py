@@ -31,13 +31,20 @@ four-plane forward and the composite at the sorted union. Every other
 call, the CPU's included, renders through the plain module(s), as the
 JAX package renders eval through plain XLA. ``render_image.chunks``
 counts the chunks of each route, ``render_image.samples`` the points the
-kernels evaluated.
+kernels evaluated. :func:`render_image` is :func:`finish_image` of
+:func:`prepare_image`: on the kernel route the first stage enqueues
+everything before the first forward launch (on the card, for a
+deterministic render, as one CUDA graph), so that a server can prepare
+one request while the device runs another's kernels.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from codenerf_tpu_torch.config import RenderConfig
@@ -297,6 +304,120 @@ def _draws(rcfg: RenderConfig, ray_o: torch.Tensor, viewdir: torch.Tensor,
     return torch.cat(zs), (torch.cat(us) if us else None)
 
 
+class _Nets(NamedTuple):
+    """The networks' operands of a render on the kernel route: the
+    four-plane network's trunk operands and code projections copied to a
+    launch's rows, and on a hierarchical render the coarse network's
+    (the same objects when one network does both passes)."""
+    trunk: fused_mlp.TrunkOperands
+    sproj: torch.Tensor
+    tproj: torch.Tensor
+    trunk_c: fused_mlp.TrunkOperands
+    sproj_c: torch.Tensor
+
+
+class _Group(NamedTuple):
+    """One launch group's operands: its rays' count, the coarse depths,
+    a random hierarchical render's fine probes (else None) and the rays'
+    operands (``fused_mlp.ray_operands``)."""
+    n: int
+    z: torch.Tensor
+    u: Optional[torch.Tensor]
+    ro8: torch.Tensor
+    vd8: torch.Tensor
+    vcontrib: torch.Tensor
+
+
+class _KernelRender(NamedTuple):
+    """A render on the kernel route as :func:`_kernels_prepare` leaves
+    it: the call's inputs, the rays of a launch group, the networks'
+    operands and the first group's."""
+    model: CodeNeRF
+    rcfg: RenderConfig
+    fine: CodeNeRF
+    ray_o: torch.Tensor
+    viewdir: torch.Tensor
+    generator: Optional[torch.Generator]
+    occ_grid: object
+    chunk: int
+    group: int
+    nets: _Nets
+    first: Optional[_Group]
+
+
+def _kernels_prepare(model, rcfg: RenderConfig, ray_o, viewdir, shape_code,
+                     texture_code, generator, occ_grid, chunk: int,
+                     fine_model=None) -> _KernelRender:
+    """Everything of :func:`render_rays_kernels` before its first
+    forward launch: the networks' operands and the first launch group's
+    (:func:`_group_operands`)."""
+    cfg, R = model.cfg, ray_o.shape[0]
+    hier = rcfg.n_importance > 0
+    fine = fine_network(model, rcfg, fine_model) if hier else model
+    group = chunk * max(1, KERNEL_RAYS // chunk)
+    codes = shape_code.reshape(1, -1), texture_code.reshape(1, -1)
+
+    def rows(p):
+        return p.expand(min(group, R), -1, -1).contiguous()
+
+    with span("render.operands"):
+        trunk = fused_train.trunk_operands(fine, cfg)
+        sproj, tproj = map(rows, fused_mlp.code_operands(fine, cfg, *codes))
+        trunk_c, sproj_c = trunk, sproj
+        if hier and fine is not model:
+            trunk_c = fused_train.trunk_operands(model, cfg)
+            sproj_c = rows(fused_mlp.code_operands(model, cfg, *codes)[0])
+    k = _KernelRender(model, rcfg, fine, ray_o, viewdir, generator,
+                      occ_grid, chunk, group,
+                      _Nets(trunk, sproj, tproj, trunk_c, sproj_c), None)
+    return k._replace(first=_group_operands(k, 0))
+
+
+def _group_operands(k: _KernelRender, start: int) -> _Group:
+    """The operands of the launch group of rays from ``start``: the
+    depths and probes (:func:`_draws`) and the rays' operands."""
+    with span("render.operands"):
+        ro = k.ray_o[start:start + k.group]
+        vd = k.viewdir[start:start + k.group]
+        z, u = _draws(k.rcfg, ro, vd, k.generator, k.occ_grid, k.chunk)
+        ro8, vd8, vcontrib = fused_mlp.ray_operands(k.fine, k.model.cfg,
+                                                    ro, vd)
+    return _Group(ro.shape[0], z, u, ro8, vd8, vcontrib)
+
+
+def _render_group(k: _KernelRender, g: _Group) -> torch.Tensor:
+    """The final rgb (n, 3) of one launch group: on a hierarchical render
+    the sigma-only forward, the weights and the resample, then the
+    four-plane forward and the composite."""
+    cfg, rcfg, nets, z = k.model.cfg, k.rcfg, k.nets, g.z
+    if rcfg.n_importance > 0:
+        with span("render.coarse"):
+            sig = fused_mlp.sigma_fwd(cfg, z.shape[1], g.n, g.ro8, g.vd8, z,
+                                      nets.sproj_c[:g.n], None, None,
+                                      nets.trunk_c)
+            weights = composite_weights(sig, z)
+        with span("render.resample"):
+            z = union_sorted_zvals(z, fine_zvals(rcfg, z, weights,
+                                                 k.generator, g.u))
+        KERNEL_SAMPLES["coarse_sigma"] += g.n * rcfg.n_samples
+    with span("render.chunk"):
+        sig, r, gr, b = fused_mlp.planes_fwd(
+            cfg, z.shape[1], g.n, g.ro8, g.vd8, z, nets.sproj[:g.n],
+            nets.tproj[:g.n], g.vcontrib, nets.trunk)
+        rgb = composite_fwd(sig, r, gr, b, z, rcfg.white_bg)[:, :3]
+    KERNEL_SAMPLES["planes"] += g.n * z.shape[1]
+    return rgb
+
+
+def _kernels_finish(k: _KernelRender) -> torch.Tensor:
+    """The rest of :func:`render_rays_kernels`: the first group's
+    launches, then each later group's operands and launches."""
+    parts = [_render_group(k, k.first)]
+    for start in range(k.group, k.ray_o.shape[0], k.group):
+        parts.append(_render_group(k, _group_operands(k, start)))
+    return torch.cat(parts)
+
+
 @torch.no_grad()
 def render_rays_kernels(model, rcfg: RenderConfig, ray_o: torch.Tensor,
                         viewdir: torch.Tensor, shape_code: torch.Tensor,
@@ -328,80 +449,235 @@ def render_rays_kernels(model, rcfg: RenderConfig, ray_o: torch.Tensor,
     ``render_image.samples`` counts the points each forward evaluated
     (``coarse_sigma``, ``planes``). On CPU tensors the kernels run their
     plain versions."""
-    cfg, R = model.cfg, ray_o.shape[0]
-    hier = rcfg.n_importance > 0
-    fine = fine_network(model, rcfg, fine_model) if hier else model
-    group = chunk * max(1, KERNEL_RAYS // chunk)
-    codes = shape_code.reshape(1, -1), texture_code.reshape(1, -1)
+    return _kernels_finish(_kernels_prepare(
+        model, rcfg, ray_o, viewdir, shape_code, texture_code, generator,
+        occ_grid, chunk, fine_model))
 
-    def rows(p):
-        return p.expand(min(group, R), -1, -1).contiguous()
 
-    with span("render.operands"):
-        trunk = fused_train.trunk_operands(fine, cfg)
-        sproj, tproj = map(rows, fused_mlp.code_operands(fine, cfg, *codes))
-        if hier:
-            trunk_c, sproj_c = trunk, sproj
-            if fine is not model:
-                trunk_c = fused_train.trunk_operands(model, cfg)
-                sproj_c = rows(fused_mlp.code_operands(model, cfg,
-                                                       *codes)[0])
-    parts = []
-    for start in range(0, R, group):
-        with span("render.operands"):
-            ro = ray_o[start:start + group]
-            vd = viewdir[start:start + group]
-            n = ro.shape[0]
-            z, u = _draws(rcfg, ro, vd, generator, occ_grid, chunk)
-            ro8, vd8, vcontrib = fused_mlp.ray_operands(fine, cfg, ro, vd)
-        if hier:
-            with span("render.coarse"):
-                sig = fused_mlp.sigma_fwd(cfg, z.shape[1], n, ro8, vd8, z,
-                                          sproj_c[:n], None, None, trunk_c)
-                weights = composite_weights(sig, z)
-            with span("render.resample"):
-                z = union_sorted_zvals(z, fine_zvals(rcfg, z, weights,
-                                                     generator, u))
-            KERNEL_SAMPLES["coarse_sigma"] += n * rcfg.n_samples
-        with span("render.chunk"):
-            sig, r, g, b = fused_mlp.planes_fwd(
-                cfg, z.shape[1], n, ro8, vd8, z, sproj[:n], tproj[:n],
-                vcontrib, trunk)
-            parts.append(composite_fwd(sig, r, g, b, z, rcfg.white_bg)[:, :3])
-        KERNEL_SAMPLES["planes"] += n * z.shape[1]
-    return torch.cat(parts)
+def _on_host(x) -> bool:
+    return not (torch.is_tensor(x) and x.device.type != "cpu")
+
+
+def _pose_host(c2w, focal) -> np.ndarray:
+    """``c2w``'s values then ``focal``, float32, on the host."""
+    return np.concatenate([np.asarray(c2w, dtype=np.float32).reshape(-1),
+                           np.asarray(focal, dtype=np.float32).reshape(1)])
+
+
+def _pose_on(c2w, focal, dev):
+    """``c2w`` and ``focal`` for :func:`camera_rays` on ``dev``. On a
+    CUDA device host values go up as float32 in one pinned buffer,
+    without a stream synchronisation (a copy from pageable memory, or a
+    tensor made there from a Python number, synchronises the stream);
+    the focal stays a float32 device value, so that the rays' division
+    rounds as before. Elsewhere, or already on the device, both are
+    returned as given."""
+    if torch.device(dev).type != "cuda" or not (_on_host(c2w)
+                                                and _on_host(focal)):
+        return c2w, focal
+    up = torch.from_numpy(_pose_host(c2w, focal)).pin_memory().to(
+        dev, non_blocking=True)
+    return up[:-1].view(np.shape(c2w)), up[-1]
+
+
+def _image_rays(H: int, W: int, focal, c2w, dev, n_padded: int):
+    """The image's camera rays on ``dev``, padded to ``n_padded``; span
+    ``render.rays``."""
+    with span("render.rays"):
+        c2w, focal = _pose_on(c2w, focal, dev)
+        ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
+        return pad_rays(ray_o, n_padded), pad_rays(viewdir, n_padded)
+
+
+# The deterministic prepare on the card as CUDA graphs: one launch in
+# place of its ~85 small ones. Each of those gives up the interpreter
+# lock and waits to take it back, which on a busy server (handler
+# threads, the render's own host) made the prepare, not the device, set
+# the rate. model -> {key: _PrepareGraph or None (capture failed)}, at
+# most _GRAPHS_KEPT keys a model, the oldest dropped first.
+_PREPARE_GRAPHS = weakref.WeakKeyDictionary()
+_GRAPHS_KEPT = 4
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _params_at(model):
+    """Each parameter of ``model`` and its address: what a graph that
+    reads them depends on (their values it reads at each replay)."""
+    return [(weakref.ref(p), p.data_ptr()) for p in model.parameters()]
+
+
+def _params_hold(key, model) -> bool:
+    params = list(model.parameters())
+    return len(key) == len(params) and all(
+        ref() is p and ptr == p.data_ptr()
+        for (ref, ptr), p in zip(key, params))
+
+
+class _PrepareGraph:
+    """:func:`_kernels_prepare` of one image's rays, without a generator,
+    captured for one image size, render configuration and pair of
+    networks: static inputs (the pose and focal, the two codes), the
+    captured outputs (the networks left out: no reference keeps them
+    alive), and the parameters it reads (:func:`_params_at`: a replaced
+    parameter makes it stale). The trunk operands are no graph output:
+    :meth:`run` takes them from ``fused_train.trunk_operands`` each
+    time, packed anew when the weights changed."""
+
+    def __init__(self, model, rcfg, H, W, chunk, fine_model, pose_shape,
+                 shape_code, texture_code):
+        dev = shape_code.device
+        self.fine = None if fine_model is None else weakref.ref(fine_model)
+        self.keys = [_params_at(m) for m in (model, fine_model)
+                     if m is not None]
+        self.lock = threading.Lock()
+        self.pose = torch.zeros(int(np.prod(pose_shape)) + 1,
+                                dtype=torch.float32, device=dev)
+        self.codes = (torch.zeros_like(shape_code),
+                      torch.zeros_like(texture_code))
+        n_padded = chunk_plan(H * W, chunk)[2]
+
+        def body():
+            c2w, focal = self.pose[:-1].view(pose_shape), self.pose[-1]
+            ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
+            return _kernels_prepare(
+                model, rcfg, pad_rays(ray_o, n_padded),
+                pad_rays(viewdir, n_padded), *self.codes, None, None, chunk,
+                fine_model)
+
+        body()          # warm-up; packs the trunk operands if need be
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = body()._replace(model=None, fine=None)
+
+    def holds(self, model, fine_model) -> bool:
+        fine = None if self.fine is None else self.fine()
+        return fine is fine_model and all(
+            _params_hold(k, m) for k, m in zip(self.keys,
+                                               (model, fine_model)))
+
+    def run(self, model, fine_model, c2w, focal, shape_code,
+            texture_code) -> _KernelRender:
+        """The captured prepare at these inputs: its outputs copied out
+        (the next replay writes over them), in stream order."""
+        host = torch.from_numpy(_pose_host(c2w, focal)).pin_memory()
+        with self.lock:
+            self.pose.copy_(host, non_blocking=True)
+            self.codes[0].copy_(shape_code)
+            self.codes[1].copy_(texture_code)
+            self.graph.replay()
+            k, nets, g = self.out, self.out.nets, self.out.first
+            fine = (fine_network(model, k.rcfg, fine_model)
+                    if k.rcfg.n_importance > 0 else model)
+            trunk = fused_train.trunk_operands(fine, model.cfg)
+            sproj = nets.sproj.clone()
+            return k._replace(
+                model=model, fine=fine, ray_o=k.ray_o.clone(),
+                viewdir=k.viewdir.clone(),
+                nets=_Nets(trunk, sproj, nets.tproj.clone(),
+                           fused_train.trunk_operands(model, model.cfg),
+                           sproj if nets.sproj_c is nets.sproj
+                           else nets.sproj_c.clone()),
+                first=g._replace(z=g.z.clone(), ro8=g.ro8.clone(),
+                                 vd8=g.vd8.clone(),
+                                 vcontrib=g.vcontrib.clone()))
+
+
+def _prepare_graph(model, rcfg, H, W, chunk, fine_model, c2w, shape_code,
+                   texture_code) -> Optional[_PrepareGraph]:
+    """The :class:`_PrepareGraph` of this call, captured on first use;
+    None where capture failed."""
+    key = (rcfg, H, W, chunk, id(fine_model), np.shape(c2w),
+           *((c.shape, c.dtype, c.device) for c in (shape_code,
+                                                    texture_code)))
+    with _GRAPHS_LOCK:
+        graphs = _PREPARE_GRAPHS.setdefault(model, {})
+        g = graphs.get(key, False)
+        if g is None or (g and g.holds(model, fine_model)):
+            return g
+        graphs.pop(key, None)
+        if len(graphs) >= _GRAPHS_KEPT:
+            del graphs[next(iter(graphs))]
+        try:
+            g = _PrepareGraph(model, rcfg, H, W, chunk, fine_model,
+                              np.shape(c2w), shape_code, texture_code)
+        except RuntimeError:
+            g = None
+        graphs[key] = g
+        return g
+
+
+class PreparedImage(NamedTuple):
+    """A render :func:`prepare_image` began: ``args``, the call's
+    arguments in :func:`render_image`'s order (``chunk`` as
+    :func:`chunk_plan` gives it); the chunks and whether they take the
+    forward kernels; and ``ahead``, what was enqueued before the first
+    forward launch (kernel route, no occupancy grid), else None."""
+    args: tuple
+    n_chunks: int
+    kernels: bool
+    ahead: Optional[_KernelRender]
 
 
 @torch.no_grad()
-def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
-                 shape_code: torch.Tensor,
-                 texture_code: torch.Tensor,
-                 generator: Optional[torch.Generator] = None,
-                 chunk: int = 4096,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 occ_grid=None, fine_model=None) -> torch.Tensor:
-    """Render a full H×W image in fixed-size ray chunks; (H, W, 3) f32.
-    The chunks go through the forward kernels
-    (:func:`render_rays_kernels`) where :func:`kernel_route` allows, else
-    each through :func:`render_rays` on the plain module(s)
-    (``fine_model``: the separate fine network); ``render_image.chunks``
-    counts the chunks of each route and ``render_image.samples`` the
-    points the kernels evaluated. While a profiler records, the camera
-    rays are the span ``render.rays`` and each chunk (on the kernel route
-    each launch's group of chunks) a ``render.chunk``."""
+def prepare_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
+                  shape_code: torch.Tensor, texture_code: torch.Tensor,
+                  generator: Optional[torch.Generator] = None,
+                  chunk: int = 4096,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  occ_grid=None, fine_model=None) -> PreparedImage:
+    """The first stage of :func:`render_image` (same arguments): on the
+    kernel route without an occupancy grid, everything before the first
+    forward launch — the pose's upload (no stream synchronisation), the
+    camera rays and their padding, the networks' operands and the first
+    launch group's depths and ray operands (a 128 x 128 view is one
+    group); :func:`finish_image` does the rest. On the card, without a
+    generator and from a pose and focal on the host, those launches are
+    one CUDA graph's replay (captured on first use for the image size,
+    render configuration and networks, span ``render.operands``). On the
+    plain route, or with an occupancy grid, nothing: :func:`finish_image`
+    does the whole render. A server prepares the next request while the
+    device runs this one's kernels."""
     dev = shape_code.device
-    n_rays = H * W
-    chunk, n_chunks, n_padded = chunk_plan(n_rays, chunk)
+    chunk, n_chunks, n_padded = chunk_plan(H * W, chunk)
     kernels = kernel_route(model, rcfg, chunk, compute_dtype, dev,
                            fine_model)
-    with span("render.rays"):
-        ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
-        ro = pad_rays(ray_o, n_padded)
-        vd = pad_rays(viewdir, n_padded)
-    if kernels:
-        rgb = render_rays_kernels(model, rcfg, ro, vd, shape_code,
-                                  texture_code, generator, occ_grid, chunk,
-                                  fine_model)
+    ahead = graph = None
+    if kernels and occ_grid is None:
+        if (dev.type == "cuda" and generator is None and _on_host(c2w)
+                and _on_host(focal)):
+            graph = _prepare_graph(model, rcfg, H, W, chunk, fine_model,
+                                   c2w, shape_code, texture_code)
+        if graph is not None:
+            with span("render.operands"):
+                ahead = graph.run(model, fine_model, c2w, focal,
+                                  shape_code, texture_code)
+        else:
+            ro, vd = _image_rays(H, W, focal, c2w, dev, n_padded)
+            ahead = _kernels_prepare(model, rcfg, ro, vd, shape_code,
+                                     texture_code, generator, None, chunk,
+                                     fine_model)
+    return PreparedImage((model, rcfg, H, W, focal, c2w, shape_code,
+                          texture_code, generator, chunk, compute_dtype,
+                          occ_grid, fine_model), n_chunks, kernels, ahead)
+
+
+@torch.no_grad()
+def finish_image(prepared: PreparedImage) -> torch.Tensor:
+    """The second stage of :func:`render_image`: every forward launch of
+    a render :func:`prepare_image` began, in the order
+    :func:`render_image` makes them; (H, W, 3) f32."""
+    (model, rcfg, H, W, focal, c2w, shape_code, texture_code, generator,
+     chunk, compute_dtype, occ_grid, fine_model) = prepared.args
+    n_chunks, k = prepared.n_chunks, prepared.ahead
+    if k is None:
+        ro, vd = _image_rays(H, W, focal, c2w, shape_code.device,
+                             n_chunks * chunk)
+        if prepared.kernels:
+            k = _kernels_prepare(model, rcfg, ro, vd, shape_code,
+                                 texture_code, generator, occ_grid, chunk,
+                                 fine_model)
+    if k is not None:
+        rgb = _kernels_finish(k)
     else:
         parts = []
         for i in range(n_chunks):
@@ -412,8 +688,36 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                     generator, compute_dtype=compute_dtype,
                     occ_grid=occ_grid, fine_model=fine_model).final.rgb)
         rgb = torch.cat(parts)
-    ROUTE_CHUNKS["kernels" if kernels else "plain"] += n_chunks
-    return rgb[:n_rays].reshape(H, W, 3)
+    ROUTE_CHUNKS["kernels" if prepared.kernels else "plain"] += n_chunks
+    return rgb[:H * W].reshape(H, W, 3)
+
+
+@torch.no_grad()
+def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
+                 shape_code: torch.Tensor,
+                 texture_code: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 chunk: int = 4096,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 occ_grid=None, fine_model=None,
+                 prepared: Optional[PreparedImage] = None) -> torch.Tensor:
+    """Render a full H×W image in fixed-size ray chunks; (H, W, 3) f32:
+    ``finish_image(prepare_image(...))`` of the same arguments, or
+    ``finish_image(prepared)`` when ``prepared`` is what
+    :func:`prepare_image` returned for them. The chunks go through the
+    forward kernels (:func:`render_rays_kernels`) where
+    :func:`kernel_route` allows, else each through :func:`render_rays` on
+    the plain module(s) (``fine_model``: the separate fine network);
+    ``render_image.chunks`` counts the chunks of each route and
+    ``render_image.samples`` the points the kernels evaluated. While a
+    profiler records, the camera rays are the span ``render.rays`` and
+    each chunk (on the kernel route each launch's group of chunks) a
+    ``render.chunk``."""
+    if prepared is None:
+        prepared = prepare_image(model, rcfg, H, W, focal, c2w, shape_code,
+                                 texture_code, generator, chunk,
+                                 compute_dtype, occ_grid, fine_model)
+    return finish_image(prepared)
 
 
 render_image.chunks = ROUTE_CHUNKS

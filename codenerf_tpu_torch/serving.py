@@ -10,13 +10,15 @@ and returns it as a PNG. Stdlib HTTP only:
   GET  /stats    -> request count, latency quantiles (p50, p95, max over
                     the last 1,000 requests), the (H, W, deterministic)
                     keys rendered so far
-  GET  /timings  -> the requests rendered and refused (400), and p50, p95
-                    and max ms over the last 1,000 requests of each part
-                    of a request: the wait for the render lock, the render
-                    under it, the handler's work outside it (parse, PNG
-                    encode, reply) and the whole; the chunks rendered
-                    through the forward kernels and the plain module, and
-                    the points the kernels evaluated
+  GET  /timings  -> the requests rendered and refused (400), the renders
+                    prepared while another held the render lock, and p50,
+                    p95 and max ms over the last 1,000 requests of each
+                    part of a request: the waits for the prepare and the
+                    render lock, the prepare, the render under the lock,
+                    the handler's work outside it (parse, PNG encode,
+                    reply) and the whole; the chunks rendered through the
+                    forward kernels and the plain module, and the points
+                    the kernels evaluated
   POST /render   -> image/png (400 on a bad request, 404 on another path)
      JSON body:
        camera: either {"c2w": 4x4 nested list}
@@ -26,20 +28,30 @@ and returns it as a PNG. Stdlib HTTP only:
        optional: "H", "W" (default 128), "focal" (default 1.1*W),
                  "deterministic" (default true), "seed" (default 0)
 
-Requests are serialized onto the one device through a lock. ``deterministic:
-false`` draws the depths from a ``torch.Generator`` on the device seeded
-with ``seed`` (the JAX package draws from its own PRNG, so only
-deterministic renders agree across the packages). There is nothing to
-compile: ``compiled_sizes`` lists the sizes rendered, which keeps the JAX
-server's ``/stats`` fields.
+Renders run in two stages (``renderer.prepare_image``, then
+``render_image`` finishing it). A request prepares under the prepare
+lock, takes the render lock, makes its launches, and only then lets go
+of the prepare lock, so one render can wait prepared while another
+holds the render lock: on the kernel route the next request's host work
+(the pose's upload, the rays, the operands) runs while the device runs
+this render's kernels, and not while this render's host enqueues them
+(both need the interpreter lock). The render lock covers every forward
+launch of a render and its read-back; on the plain route, and with an
+occupancy grid (built under the lock), the whole render.
+``deterministic: false`` draws the depths from a ``torch.Generator`` on
+the device seeded with ``seed`` (the JAX package draws from its own
+PRNG, so only deterministic renders agree across the packages). There
+is nothing to compile: ``compiled_sizes`` lists the sizes rendered,
+which keeps the JAX server's ``/stats`` fields.
 
 While a profiler records, each request is the span ``serve.request``
 (its sequence number in the span's args) over ``serve.parse``,
-``serve.queue``, ``serve.render`` (with ``render.rays``, on the
-kernel route ``render.operands``, for a hierarchical render
-``render.coarse`` and ``render.resample``, the ``render.chunk`` s and
-``render.readback``), ``serve.encode`` and
-``serve.reply`` (``utils/tracing.py``).
+``serve.queue`` (the wait for the prepare lock, and again for the
+render lock), ``serve.prepare`` (on the kernel route ``render.rays``
+and ``render.operands``), ``serve.render`` (for a hierarchical render
+``render.coarse`` and ``render.resample``, the ``render.chunk`` s,
+``render.readback``; on the plain route ``render.rays`` too),
+``serve.encode`` and ``serve.reply`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +76,29 @@ from codenerf_tpu_torch.utils.tracing import span
 _DIGEST_GRIDS = 32
 # Requests whose times /stats and /timings read.
 _KEPT = 1000
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """The threading HTTP server with a listen backlog for many clients:
+    its accepting thread competes for the interpreter lock with the
+    render and the handlers, and connections beyond a full backlog (the
+    standard library's 5) can be refused."""
+    request_queue_size = 128
+
+
+def _read_back(img: torch.Tensor) -> np.ndarray:
+    """``img`` on the host. From the card through a pinned buffer, then a
+    wait on an event recorded after the copy: a copy into pageable
+    memory holds up the other threads' CUDA calls until it ends, the
+    next request's prepare among them."""
+    if img.device.type != "cuda":
+        return img.cpu().numpy()
+    host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    host.copy_(img, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(img.device))
+    done.synchronize()
+    return host.numpy()
 
 
 def _quantiles_ms(seconds) -> Dict[str, float]:
@@ -111,12 +146,21 @@ class RenderServer:
                 "cannot carry per-ray occupancy bounds")
         self._occ_grids: Dict[Any, Any] = {}
         self._sizes: Dict[tuple, None] = {}
+        # The render lock, and the prepare lock a request holds until its
+        # launches are enqueued under the render lock (hand over hand).
+        # _rendering: a render holds the render lock (set under it);
+        # _overlapped counts the renders prepared while one did.
         self._lock = threading.Lock()
+        self._prepare_lock = threading.Lock()
+        self._rendering = False
+        self._overlapped = 0
         # Seconds of the last requests: the render under the lock, the
-        # wait for it, the handler's work outside it, the whole request;
-        # guarded by _times_lock, as is the count of refused requests.
+        # waits for the two locks, the prepare, the handler's work
+        # outside the lock, the whole request; guarded by _times_lock, as
+        # is the count of refused requests.
         self._latencies = deque(maxlen=_KEPT)
         self._queued = deque(maxlen=_KEPT)
+        self._prepared = deque(maxlen=_KEPT)
         self._handled = deque(maxlen=_KEPT)
         self._whole = deque(maxlen=_KEPT)
         self._times_lock = threading.Lock()
@@ -124,7 +168,7 @@ class RenderServer:
         self._failed = 0
         self._seq = itertools.count()
         self._device = str(self.device)
-        self._httpd = ThreadingHTTPServer((host, port), self._handler_class())
+        self._httpd = _HTTPServer((host, port), self._handler_class())
         self.host, self.port = self._httpd.server_address[:2]
 
     @classmethod
@@ -188,10 +232,14 @@ class RenderServer:
         raise ValueError("provide 'obj' or 'shape_code'+'texture_code'")
 
     def render(self, req: Dict[str, Any]) -> np.ndarray:
-        """One request's image, (H, W, 3) uint8: the render clipped ×255."""
+        """One request's image, (H, W, 3) uint8: the render clipped ×255.
+        Prepared (``renderer.prepare_image``) under the prepare lock,
+        finished (``renderer.render_image``) and read back under the
+        render lock; the prepare lock is let go once the render's
+        launches are enqueued."""
         from codenerf_tpu_torch.config import resolve_dtype
         from codenerf_tpu_torch.render_orbit import orbit_pose
-        from codenerf_tpu_torch.renderer import render_image
+        from codenerf_tpu_torch.renderer import prepare_image, render_image
 
         H = int(req.get("H", 128))
         W = int(req.get("W", 128))
@@ -207,32 +255,59 @@ class RenderServer:
                              float(req.get("radius", 1.3)))
         obj, shape_code, texture_code = self._codes(req)
         seed = int(req.get("seed", 0))
-        queue = span("serve.queue")
-        queue.__enter__()
+        args = (self.model, self.hp.render, H, W, focal, c2w, shape_code,
+                texture_code)
+        kw = dict(chunk=4096,
+                  compute_dtype=resolve_dtype(self.hp.compute_dtype),
+                  fine_model=self.fine_model)
         t_queue = time.perf_counter()
-        with self._lock:
-            t0 = time.perf_counter()
-            queue.__exit__(None, None, None)
-            with span("serve.render"):
+        with span("serve.queue"):
+            self._prepare_lock.acquire()
+        handed = False
+        try:
+            t_prep = time.perf_counter()
+            with span("serve.prepare"):
                 gen = None
                 if not deterministic:
                     gen = torch.Generator(
                         device=self.device).manual_seed(seed)
-                occ = (self._get_occ_grid(obj, shape_code, texture_code)
-                       if self.use_occupancy else None)
-                img = render_image(
-                    self.model, self.hp.render, H, W, focal,
-                    torch.from_numpy(c2w).to(self.device), shape_code,
-                    texture_code, gen, chunk=4096,
-                    compute_dtype=resolve_dtype(self.hp.compute_dtype),
-                    occ_grid=occ, fine_model=self.fine_model)
-                with span("render.readback"):
-                    img = img.cpu().numpy()
-            self._sizes[(H, W, deterministic)] = None
+                # the occupancy grid is built under the render lock
+                prep = (None if self.use_occupancy
+                        else prepare_image(*args, gen, **kw))
+            t_ready = time.perf_counter()
+            behind = self._rendering
             with self._times_lock:
-                self._latencies.append(time.perf_counter() - t0)
-                self._queued.append(t0 - t_queue)
-            self._count += 1
+                self._prepared.append(t_ready - t_prep)
+            queue = span("serve.queue")
+            queue.__enter__()
+            with self._lock:
+                self._rendering = True
+                t0 = time.perf_counter()
+                queue.__exit__(None, None, None)
+                try:
+                    with span("serve.render"):
+                        occ = (self._get_occ_grid(obj, shape_code,
+                                                  texture_code)
+                               if self.use_occupancy else None)
+                        img = render_image(*args, gen, occ_grid=occ,
+                                           prepared=prep, **kw)
+                        # every launch is enqueued: the next request
+                        # prepares while the device runs them
+                        self._prepare_lock.release()
+                        handed = True
+                        with span("render.readback"):
+                            img = _read_back(img)
+                finally:
+                    self._rendering = False
+                self._sizes[(H, W, deterministic)] = None
+                with self._times_lock:
+                    self._latencies.append(time.perf_counter() - t0)
+                    self._queued.append((t_prep - t_queue) + (t0 - t_ready))
+                self._count += 1
+                self._overlapped += behind
+        finally:
+            if not handed:
+                self._prepare_lock.release()
         return np.clip(img * 255.0, 0, 255).astype(np.uint8)
 
     def _request_done(self, handler_s: float, whole_s: float) -> None:
@@ -254,11 +329,14 @@ class RenderServer:
         }
 
     def timings(self) -> Dict[str, Any]:
-        """The requests rendered and refused (400), and p50 / p95 / max
-        ms over the last 1,000 requests of the wait for the render lock
-        (``queue_ms``), the render under it (``render_ms``, ``/stats``'
-        latency), the handler's parse, PNG encode and reply outside it
-        (``handler_ms``) and the whole request (``request_ms``); and
+        """The requests rendered and refused (400); ``overlapped``, the
+        renders whose prepare ended while another render held the render
+        lock; p50 / p95 / max ms over the last 1,000 requests of the waits
+        for the prepare and the render lock (``queue_ms``), the prepare
+        (``prepare_ms``), the render under the lock (``render_ms``,
+        ``/stats``' latency), the handler's parse, PNG encode and reply
+        outside it (``handler_ms``) and the whole request
+        (``request_ms``); and
         ``chunks``, the chunks the process rendered through each route
         (``renderer.render_image.chunks``: ``kernels`` and ``plain``), and
         ``samples``, the points the forward kernels evaluated
@@ -268,10 +346,12 @@ class RenderServer:
 
         with self._times_lock:
             times = {k: list(d) for k, d in (
-                ("queue_ms", self._queued), ("render_ms", self._latencies),
+                ("queue_ms", self._queued), ("prepare_ms", self._prepared),
+                ("render_ms", self._latencies),
                 ("handler_ms", self._handled), ("request_ms", self._whole))}
             failed = self._failed
         return {"requests": self._count, "failed": failed,
+                "overlapped": self._overlapped,
                 **{k: _quantiles_ms(v) for k, v in times.items()},
                 "chunks": dict(ROUTE_CHUNKS),
                 "samples": dict(KERNEL_SAMPLES)}

@@ -4,8 +4,8 @@
 - under a CPU ``torch.profiler`` a short ``Trainer.training`` exports
   ``data.wait``, ``train.step`` and the step's phases, each phase inside
   its step, and the prefetch worker's ``data.draw`` on another thread;
-- a served request exports ``serve.request`` over its queue, render and
-  encode spans;
+- a served request exports ``serve.request`` over its queue, prepare,
+  render and encode spans;
 - the counters count: batches and steps, the server's refusals, and its
   ``/timings`` quantiles in order;
 - a training under the profiler leaves the same parameters, bit for bit,
@@ -198,8 +198,8 @@ def test_request_spans(server):
     events = _profiled(lambda: _post_handled(server, {"obj": 1, "H": 8,
                                                       "W": 8}))
     (req,) = _named(events, "serve.request")
-    for name in ("serve.parse", "serve.queue", "serve.render",
-                 "serve.encode", "serve.reply", "render.rays",
+    for name in ("serve.parse", "serve.queue", "serve.prepare",
+                 "serve.render", "serve.encode", "serve.reply", "render.rays",
                  "render.chunk", "render.readback"):
         found = _named(events, name)
         assert found and all(_inside(e, req) for e in found), name
@@ -217,7 +217,9 @@ def test_server_counters_and_timings(server):
         t = json.loads(r.read())
     assert t["requests"] == before["requests"] + 2
     assert t["failed"] == before["failed"] + 1
-    for k in ("queue_ms", "render_ms", "handler_ms", "request_ms"):
+    assert 0 <= t["overlapped"] <= t["requests"]
+    for k in ("queue_ms", "prepare_ms", "render_ms", "handler_ms",
+              "request_ms"):
         q = t[k]
         assert set(q) == {"p50", "p95", "max"}
         assert 0 <= q["p50"] <= q["p95"] <= q["max"], k
