@@ -298,21 +298,27 @@ def fresh_trunk_operands(cfg: NetConfig, wflat) -> TrunkOperands:
     return TrunkOperands(wops, packed)
 
 
-# model -> (cfg, key, TrunkOperands); the key holds, for every parameter,
-# a weak reference, its data_ptr() and its _version (an address alone
-# could be a freed tensor's, reused by the caching allocator).
+# model -> (cfg, key, TrunkOperands).
 _TRUNK_CACHE = weakref.WeakKeyDictionary()
 
 
 def _weights_key(model):
+    """What state derived from ``model``'s parameters depends on: for
+    each, a weak reference, its data_ptr() and its _version (an address
+    alone could be a freed tensor's, reused by the caching allocator).
+    State that reads the values anew at each use (the renderer's CUDA
+    graphs) keeps the key with None for each version."""
     return [(weakref.ref(p), p.data_ptr(), p._version)
             for p in model.parameters()]
 
 
 def _key_holds(key, model) -> bool:
+    """Whether ``model``'s parameters are still those of ``key``: the
+    same tensors at the same addresses, at the same versions where the
+    key has one."""
     params = list(model.parameters())
     return len(key) == len(params) and all(
-        ref() is p and ptr == p.data_ptr() and ver == p._version
+        ref() is p and ptr == p.data_ptr() and ver in (None, p._version)
         for (ref, ptr, ver), p in zip(key, params))
 
 

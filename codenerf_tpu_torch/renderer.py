@@ -32,10 +32,10 @@ call, the CPU's included, renders through the plain module(s), as the
 JAX package renders eval through plain XLA. ``render_image.chunks``
 counts the chunks of each route, ``render_image.samples`` the points the
 kernels evaluated. :func:`render_image` is :func:`finish_image` of
-:func:`prepare_image`: on the kernel route the first stage enqueues
-everything before the first forward launch (on the card, for a
-deterministic render, as one CUDA graph), so that a server can prepare
-one request while the device runs another's kernels.
+:func:`prepare_image`: the first stage enqueues everything before the
+first forward launch (on the card, for a deterministic render on the
+kernel route, as one CUDA graph) and the second only launches, so that
+a server can prepare one request while the device runs another's.
 """
 
 from __future__ import annotations
@@ -234,10 +234,12 @@ def render_rays(model, rcfg: RenderConfig, ray_o: torch.Tensor,
 
 
 def fine_network(model, rcfg: RenderConfig, fine_model=None):
-    """The network of the fine pass: ``fine_model`` when the weights are
-    not shared and one is given, else ``model``."""
-    return (model if rcfg.share_fine_weights or fine_model is None
-            else fine_model)
+    """The network of the render's last pass: ``fine_model`` on a
+    hierarchical render whose weights are not shared, when one is given;
+    else ``model``."""
+    if rcfg.n_importance > 0 and not rcfg.share_fine_weights:
+        return model if fine_model is None else fine_model
+    return model
 
 
 def kernel_route(model, rcfg: RenderConfig, chunk: int,
@@ -304,18 +306,6 @@ def _draws(rcfg: RenderConfig, ray_o: torch.Tensor, viewdir: torch.Tensor,
     return torch.cat(zs), (torch.cat(us) if us else None)
 
 
-class _Nets(NamedTuple):
-    """The networks' operands of a render on the kernel route: the
-    four-plane network's trunk operands and code projections copied to a
-    launch's rows, and on a hierarchical render the coarse network's
-    (the same objects when one network does both passes)."""
-    trunk: fused_mlp.TrunkOperands
-    sproj: torch.Tensor
-    tproj: torch.Tensor
-    trunk_c: fused_mlp.TrunkOperands
-    sproj_c: torch.Tensor
-
-
 class _Group(NamedTuple):
     """One launch group's operands: its rays' count, the coarse depths,
     a random hierarchical render's fine probes (else None) and the rays'
@@ -328,93 +318,115 @@ class _Group(NamedTuple):
     vcontrib: torch.Tensor
 
 
-class _KernelRender(NamedTuple):
-    """A render on the kernel route as :func:`_kernels_prepare` leaves
-    it: the call's inputs, the rays of a launch group, the networks'
-    operands and the first group's."""
-    model: CodeNeRF
+class PreparedImage(NamedTuple):
+    """A render :func:`prepare_image` began: the call's inputs (``chunk``
+    as :func:`chunk_plan` gives it), its camera rays padded to whole
+    chunks, whether the forward kernels take it, and on the kernel route
+    the networks' operands and the first launch group's. The operands are
+    the four-plane network's trunk operands and code projections (copied
+    to a launch's rows), and a separate coarse network's (None when one
+    network does both passes)."""
+    model: torch.nn.Module
     rcfg: RenderConfig
-    fine: CodeNeRF
-    ray_o: torch.Tensor
-    viewdir: torch.Tensor
+    H: int
+    W: int
+    shape_code: torch.Tensor
+    texture_code: torch.Tensor
     generator: Optional[torch.Generator]
-    occ_grid: object
     chunk: int
-    group: int
-    nets: _Nets
-    first: Optional[_Group]
+    compute_dtype: torch.dtype
+    occ_grid: object
+    fine_model: Optional[torch.nn.Module]
+    kernels: bool
+    ray_o: Optional[torch.Tensor] = None
+    viewdir: Optional[torch.Tensor] = None
+    trunk: Optional[fused_mlp.TrunkOperands] = None
+    sproj: Optional[torch.Tensor] = None
+    tproj: Optional[torch.Tensor] = None
+    trunk_c: Optional[fused_mlp.TrunkOperands] = None
+    sproj_c: Optional[torch.Tensor] = None
+    first: Optional[_Group] = None
 
 
-def _kernels_prepare(model, rcfg: RenderConfig, ray_o, viewdir, shape_code,
-                     texture_code, generator, occ_grid, chunk: int,
-                     fine_model=None) -> _KernelRender:
-    """Everything of :func:`render_rays_kernels` before its first
+def _group_rays(chunk: int) -> int:
+    return chunk * max(1, KERNEL_RAYS // chunk)
+
+
+def _with_trunks(p: PreparedImage) -> PreparedImage:
+    """``p`` with its networks' trunk operands (``fused_train.
+    trunk_operands``, packed once per weight version): the coarse
+    network's only where it has code projections of its own."""
+    cfg, net = p.model.cfg, fine_network(p.model, p.rcfg, p.fine_model)
+    return p._replace(trunk=fused_train.trunk_operands(net, cfg),
+                      trunk_c=(None if p.sproj_c is None else
+                               fused_train.trunk_operands(p.model, cfg)))
+
+
+def _kernels_prepare(p: PreparedImage) -> PreparedImage:
+    """Everything of a render on the kernel route before its first
     forward launch: the networks' operands and the first launch group's
     (:func:`_group_operands`)."""
-    cfg, R = model.cfg, ray_o.shape[0]
-    hier = rcfg.n_importance > 0
-    fine = fine_network(model, rcfg, fine_model) if hier else model
-    group = chunk * max(1, KERNEL_RAYS // chunk)
-    codes = shape_code.reshape(1, -1), texture_code.reshape(1, -1)
+    cfg, net = p.model.cfg, fine_network(p.model, p.rcfg, p.fine_model)
+    codes = p.shape_code.reshape(1, -1), p.texture_code.reshape(1, -1)
+    rows = min(_group_rays(p.chunk), p.ray_o.shape[0])
 
-    def rows(p):
-        return p.expand(min(group, R), -1, -1).contiguous()
+    def per_row(x):
+        return x.expand(rows, -1, -1).contiguous()
 
     with span("render.operands"):
-        trunk = fused_train.trunk_operands(fine, cfg)
-        sproj, tproj = map(rows, fused_mlp.code_operands(fine, cfg, *codes))
-        trunk_c, sproj_c = trunk, sproj
-        if hier and fine is not model:
-            trunk_c = fused_train.trunk_operands(model, cfg)
-            sproj_c = rows(fused_mlp.code_operands(model, cfg, *codes)[0])
-    k = _KernelRender(model, rcfg, fine, ray_o, viewdir, generator,
-                      occ_grid, chunk, group,
-                      _Nets(trunk, sproj, tproj, trunk_c, sproj_c), None)
-    return k._replace(first=_group_operands(k, 0))
+        sproj, tproj = map(per_row, fused_mlp.code_operands(net, cfg, *codes))
+        sproj_c = (None if net is p.model else per_row(
+            fused_mlp.code_operands(p.model, cfg, *codes)[0]))
+        p = _with_trunks(p._replace(sproj=sproj, tproj=tproj,
+                                    sproj_c=sproj_c))
+    return p._replace(first=_group_operands(p, 0))
 
 
-def _group_operands(k: _KernelRender, start: int) -> _Group:
+def _group_operands(p: PreparedImage, start: int) -> _Group:
     """The operands of the launch group of rays from ``start``: the
     depths and probes (:func:`_draws`) and the rays' operands."""
+    end = start + _group_rays(p.chunk)
     with span("render.operands"):
-        ro = k.ray_o[start:start + k.group]
-        vd = k.viewdir[start:start + k.group]
-        z, u = _draws(k.rcfg, ro, vd, k.generator, k.occ_grid, k.chunk)
-        ro8, vd8, vcontrib = fused_mlp.ray_operands(k.fine, k.model.cfg,
-                                                    ro, vd)
+        ro, vd = p.ray_o[start:end], p.viewdir[start:end]
+        z, u = _draws(p.rcfg, ro, vd, p.generator, p.occ_grid, p.chunk)
+        ro8, vd8, vcontrib = fused_mlp.ray_operands(
+            fine_network(p.model, p.rcfg, p.fine_model), p.model.cfg, ro, vd)
     return _Group(ro.shape[0], z, u, ro8, vd8, vcontrib)
 
 
-def _render_group(k: _KernelRender, g: _Group) -> torch.Tensor:
+def _render_group(p: PreparedImage, g: _Group) -> torch.Tensor:
     """The final rgb (n, 3) of one launch group: on a hierarchical render
     the sigma-only forward, the weights and the resample, then the
     four-plane forward and the composite."""
-    cfg, rcfg, nets, z = k.model.cfg, k.rcfg, k.nets, g.z
+    cfg, rcfg, z = p.model.cfg, p.rcfg, g.z
     if rcfg.n_importance > 0:
+        own = p.sproj_c is not None             # a separate coarse network
         with span("render.coarse"):
-            sig = fused_mlp.sigma_fwd(cfg, z.shape[1], g.n, g.ro8, g.vd8, z,
-                                      nets.sproj_c[:g.n], None, None,
-                                      nets.trunk_c)
+            sig = fused_mlp.sigma_fwd(
+                cfg, z.shape[1], g.n, g.ro8, g.vd8, z,
+                (p.sproj_c if own else p.sproj)[:g.n], None, None,
+                p.trunk_c if own else p.trunk)
             weights = composite_weights(sig, z)
         with span("render.resample"):
             z = union_sorted_zvals(z, fine_zvals(rcfg, z, weights,
-                                                 k.generator, g.u))
+                                                 p.generator, g.u))
         KERNEL_SAMPLES["coarse_sigma"] += g.n * rcfg.n_samples
     with span("render.chunk"):
         sig, r, gr, b = fused_mlp.planes_fwd(
-            cfg, z.shape[1], g.n, g.ro8, g.vd8, z, nets.sproj[:g.n],
-            nets.tproj[:g.n], g.vcontrib, nets.trunk)
+            cfg, z.shape[1], g.n, g.ro8, g.vd8, z, p.sproj[:g.n],
+            p.tproj[:g.n], g.vcontrib, p.trunk)
         rgb = composite_fwd(sig, r, gr, b, z, rcfg.white_bg)[:, :3]
     KERNEL_SAMPLES["planes"] += g.n * z.shape[1]
     return rgb
 
 
-def _kernels_finish(k: _KernelRender) -> torch.Tensor:
-    """The rest of :func:`render_rays_kernels`: the first group's
-    launches, then each later group's operands and launches."""
-    parts = [_render_group(k, k.first)]
-    for start in range(k.group, k.ray_o.shape[0], k.group):
-        parts.append(_render_group(k, _group_operands(k, start)))
+def _kernels_finish(p: PreparedImage) -> torch.Tensor:
+    """The launches of a render :func:`_kernels_prepare` prepared: the
+    first group's, then each later group's operands and launches."""
+    group = _group_rays(p.chunk)
+    parts = [_render_group(p, p.first)]
+    for start in range(group, p.ray_o.shape[0], group):
+        parts.append(_render_group(p, _group_operands(p, start)))
     return torch.cat(parts)
 
 
@@ -449,9 +461,12 @@ def render_rays_kernels(model, rcfg: RenderConfig, ray_o: torch.Tensor,
     ``render_image.samples`` counts the points each forward evaluated
     (``coarse_sigma``, ``planes``). On CPU tensors the kernels run their
     plain versions."""
-    return _kernels_finish(_kernels_prepare(
-        model, rcfg, ray_o, viewdir, shape_code, texture_code, generator,
-        occ_grid, chunk, fine_model))
+    # the rays as an R x 1 image
+    return _kernels_finish(_kernels_prepare(PreparedImage(
+        model=model, rcfg=rcfg, H=ray_o.shape[0], W=1, shape_code=shape_code,
+        texture_code=texture_code, generator=generator, chunk=chunk,
+        compute_dtype=torch.bfloat16, occ_grid=occ_grid,
+        fine_model=fine_model, kernels=True, ray_o=ray_o, viewdir=viewdir)))
 
 
 def _on_host(x) -> bool:
@@ -464,29 +479,34 @@ def _pose_host(c2w, focal) -> np.ndarray:
                            np.asarray(focal, dtype=np.float32).reshape(1)])
 
 
-def _pose_on(c2w, focal, dev):
-    """``c2w`` and ``focal`` for :func:`camera_rays` on ``dev``. On a
-    CUDA device host values go up as float32 in one pinned buffer,
-    without a stream synchronisation (a copy from pageable memory, or a
-    tensor made there from a Python number, synchronises the stream);
-    the focal stays a float32 device value, so that the rays' division
-    rounds as before. Elsewhere, or already on the device, both are
-    returned as given."""
-    if torch.device(dev).type != "cuda" or not (_on_host(c2w)
-                                                and _on_host(focal)):
-        return c2w, focal
+def _pose_up(c2w, focal, dev):
+    """``c2w`` and ``focal`` from the host for :func:`camera_rays` on the
+    CUDA device ``dev``: as float32 in one pinned buffer, without a
+    stream synchronisation (a copy from pageable memory, or a tensor made
+    there from a Python number, synchronises the stream); the focal stays
+    a float32 device value, so that the rays' division rounds as
+    before."""
     up = torch.from_numpy(_pose_host(c2w, focal)).pin_memory().to(
         dev, non_blocking=True)
     return up[:-1].view(np.shape(c2w)), up[-1]
 
 
-def _image_rays(H: int, W: int, focal, c2w, dev, n_padded: int):
-    """The image's camera rays on ``dev``, padded to ``n_padded``; span
-    ``render.rays``."""
-    with span("render.rays"):
-        c2w, focal = _pose_on(c2w, focal, dev)
-        ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
-        return pad_rays(ray_o, n_padded), pad_rays(viewdir, n_padded)
+def _with_rays(p: PreparedImage, c2w, focal) -> PreparedImage:
+    """``p`` with the image's camera rays, padded to whole chunks."""
+    n = -(-p.H * p.W // p.chunk) * p.chunk
+    ray_o, viewdir = camera_rays(p.H, p.W, focal, c2w,
+                                 device=p.shape_code.device)
+    return p._replace(ray_o=pad_rays(ray_o, n), viewdir=pad_rays(viewdir, n))
+
+
+def _cloned(x):
+    """``x`` with every tensor in it, through tuples and lists, a copy."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        items = [_cloned(v) for v in x]
+        return x._make(items) if hasattr(x, "_make") else type(x)(items)
+    return x
 
 
 # The deterministic prepare on the card as CUDA graphs: one launch in
@@ -500,122 +520,76 @@ _GRAPHS_KEPT = 4
 _GRAPHS_LOCK = threading.Lock()
 
 
-def _params_at(model):
-    """Each parameter of ``model`` and its address: what a graph that
-    reads them depends on (their values it reads at each replay)."""
-    return [(weakref.ref(p), p.data_ptr()) for p in model.parameters()]
-
-
-def _params_hold(key, model) -> bool:
-    params = list(model.parameters())
-    return len(key) == len(params) and all(
-        ref() is p and ptr == p.data_ptr()
-        for (ref, ptr), p in zip(key, params))
-
-
 class _PrepareGraph:
     """:func:`_kernels_prepare` of one image's rays, without a generator,
     captured for one image size, render configuration and pair of
-    networks: static inputs (the pose and focal, the two codes), the
-    captured outputs (the networks left out: no reference keeps them
-    alive), and the parameters it reads (:func:`_params_at`: a replaced
-    parameter makes it stale). The trunk operands are no graph output:
-    :meth:`run` takes them from ``fused_train.trunk_operands`` each
-    time, packed anew when the weights changed."""
+    networks: static inputs (the pose and focal, and the two codes), the
+    captured record (without the networks, which no reference keeps
+    alive, and their trunk operands, packed anew when the weights
+    changed), and the parameters it reads (``fused_train._weights_key``
+    without versions: it reads their values at each replay, and a
+    replaced parameter makes it stale)."""
 
-    def __init__(self, model, rcfg, H, W, chunk, fine_model, pose_shape,
-                 shape_code, texture_code):
-        dev = shape_code.device
-        self.fine = None if fine_model is None else weakref.ref(fine_model)
-        self.keys = [_params_at(m) for m in (model, fine_model)
-                     if m is not None]
+    def __init__(self, p: PreparedImage, pose_shape):
+        self.keys = [[(ref, ptr, None) for ref, ptr, _ in
+                      fused_train._weights_key(m)]
+                     for m in (p.model, p.fine_model) if m is not None]
         self.lock = threading.Lock()
         self.pose = torch.zeros(int(np.prod(pose_shape)) + 1,
-                                dtype=torch.float32, device=dev)
-        self.codes = (torch.zeros_like(shape_code),
-                      torch.zeros_like(texture_code))
-        n_padded = chunk_plan(H * W, chunk)[2]
+                                dtype=torch.float32,
+                                device=p.shape_code.device)
+        self.codes = (torch.zeros_like(p.shape_code),
+                      torch.zeros_like(p.texture_code))
 
         def body():
-            c2w, focal = self.pose[:-1].view(pose_shape), self.pose[-1]
-            ray_o, viewdir = camera_rays(H, W, focal, c2w, device=dev)
-            return _kernels_prepare(
-                model, rcfg, pad_rays(ray_o, n_padded),
-                pad_rays(viewdir, n_padded), *self.codes, None, None, chunk,
-                fine_model)
+            return _kernels_prepare(_with_rays(
+                p._replace(shape_code=self.codes[0],
+                           texture_code=self.codes[1]),
+                self.pose[:-1].view(pose_shape), self.pose[-1]))
 
         body()          # warm-up; packs the trunk operands if need be
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = body()._replace(model=None, fine=None)
+            out = body()
+        self.out = out._replace(model=None, fine_model=None, trunk=None,
+                                trunk_c=None)
 
-    def holds(self, model, fine_model) -> bool:
-        fine = None if self.fine is None else self.fine()
-        return fine is fine_model and all(
-            _params_hold(k, m) for k, m in zip(self.keys,
-                                               (model, fine_model)))
-
-    def run(self, model, fine_model, c2w, focal, shape_code,
-            texture_code) -> _KernelRender:
-        """The captured prepare at these inputs: its outputs copied out
-        (the next replay writes over them), in stream order."""
+    def run(self, p: PreparedImage, c2w, focal) -> PreparedImage:
+        """The captured prepare at ``p``'s codes, ``c2w`` and ``focal``:
+        ``p`` completed by a copy of every tensor the replay wrote (the
+        next replay writes over them), in stream order."""
         host = torch.from_numpy(_pose_host(c2w, focal)).pin_memory()
         with self.lock:
             self.pose.copy_(host, non_blocking=True)
-            self.codes[0].copy_(shape_code)
-            self.codes[1].copy_(texture_code)
+            self.codes[0].copy_(p.shape_code)
+            self.codes[1].copy_(p.texture_code)
             self.graph.replay()
-            k, nets, g = self.out, self.out.nets, self.out.first
-            fine = (fine_network(model, k.rcfg, fine_model)
-                    if k.rcfg.n_importance > 0 else model)
-            trunk = fused_train.trunk_operands(fine, model.cfg)
-            sproj = nets.sproj.clone()
-            return k._replace(
-                model=model, fine=fine, ray_o=k.ray_o.clone(),
-                viewdir=k.viewdir.clone(),
-                nets=_Nets(trunk, sproj, nets.tproj.clone(),
-                           fused_train.trunk_operands(model, model.cfg),
-                           sproj if nets.sproj_c is nets.sproj
-                           else nets.sproj_c.clone()),
-                first=g._replace(z=g.z.clone(), ro8=g.ro8.clone(),
-                                 vd8=g.vd8.clone(),
-                                 vcontrib=g.vcontrib.clone()))
+            return _with_trunks(PreparedImage(*(
+                _cloned(b) if a is None else a
+                for a, b in zip(p, self.out))))
 
 
-def _prepare_graph(model, rcfg, H, W, chunk, fine_model, c2w, shape_code,
-                   texture_code) -> Optional[_PrepareGraph]:
-    """The :class:`_PrepareGraph` of this call, captured on first use;
+def _prepare_graph(p: PreparedImage, c2w) -> Optional[_PrepareGraph]:
+    """The :class:`_PrepareGraph` of this render, captured on first use;
     None where capture failed."""
-    key = (rcfg, H, W, chunk, id(fine_model), np.shape(c2w),
-           *((c.shape, c.dtype, c.device) for c in (shape_code,
-                                                    texture_code)))
+    key = (p.rcfg, p.H, p.W, p.chunk, id(p.fine_model), np.shape(c2w),
+           *((c.shape, c.dtype, c.device) for c in (p.shape_code,
+                                                    p.texture_code)))
     with _GRAPHS_LOCK:
-        graphs = _PREPARE_GRAPHS.setdefault(model, {})
+        graphs = _PREPARE_GRAPHS.setdefault(p.model, {})
         g = graphs.get(key, False)
-        if g is None or (g and g.holds(model, fine_model)):
+        if g is None or (g and all(fused_train._key_holds(k, m) for k, m in
+                                   zip(g.keys, (p.model, p.fine_model)))):
             return g
         graphs.pop(key, None)
         if len(graphs) >= _GRAPHS_KEPT:
             del graphs[next(iter(graphs))]
         try:
-            g = _PrepareGraph(model, rcfg, H, W, chunk, fine_model,
-                              np.shape(c2w), shape_code, texture_code)
+            g = _PrepareGraph(p, np.shape(c2w))
         except RuntimeError:
             g = None
         graphs[key] = g
         return g
-
-
-class PreparedImage(NamedTuple):
-    """A render :func:`prepare_image` began: ``args``, the call's
-    arguments in :func:`render_image`'s order (``chunk`` as
-    :func:`chunk_plan` gives it); the chunks and whether they take the
-    forward kernels; and ``ahead``, what was enqueued before the first
-    forward launch (kernel route, no occupancy grid), else None."""
-    args: tuple
-    n_chunks: int
-    kernels: bool
-    ahead: Optional[_KernelRender]
 
 
 @torch.no_grad()
@@ -625,71 +599,55 @@ def prepare_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                   chunk: int = 4096,
                   compute_dtype: torch.dtype = torch.bfloat16,
                   occ_grid=None, fine_model=None) -> PreparedImage:
-    """The first stage of :func:`render_image` (same arguments): on the
-    kernel route without an occupancy grid, everything before the first
-    forward launch — the pose's upload (no stream synchronisation), the
-    camera rays and their padding, the networks' operands and the first
-    launch group's depths and ray operands (a 128 x 128 view is one
-    group); :func:`finish_image` does the rest. On the card, without a
-    generator and from a pose and focal on the host, those launches are
-    one CUDA graph's replay (captured on first use for the image size,
-    render configuration and networks, span ``render.operands``). On the
-    plain route, or with an occupancy grid, nothing: :func:`finish_image`
-    does the whole render. A server prepares the next request while the
-    device runs this one's kernels."""
+    """The first stage of :func:`render_image` (same arguments):
+    everything before the first forward launch. The pose's upload (no
+    stream synchronisation) and the padded camera rays (span
+    ``render.rays``); on the kernel route also the networks' operands and
+    the first launch group's (a 128 x 128 view is one group). On the
+    card, on the kernel route without a generator or an occupancy grid
+    and from a pose and focal on the host, all of it is one CUDA graph's
+    replay (captured on first use for the image size, render
+    configuration and networks; span ``render.operands``)."""
     dev = shape_code.device
-    chunk, n_chunks, n_padded = chunk_plan(H * W, chunk)
-    kernels = kernel_route(model, rcfg, chunk, compute_dtype, dev,
-                           fine_model)
-    ahead = graph = None
-    if kernels and occ_grid is None:
-        if (dev.type == "cuda" and generator is None and _on_host(c2w)
-                and _on_host(focal)):
-            graph = _prepare_graph(model, rcfg, H, W, chunk, fine_model,
-                                   c2w, shape_code, texture_code)
+    chunk = chunk_plan(H * W, chunk)[0]
+    p = PreparedImage(
+        model=model, rcfg=rcfg, H=H, W=W, shape_code=shape_code,
+        texture_code=texture_code, generator=generator, chunk=chunk,
+        compute_dtype=compute_dtype, occ_grid=occ_grid, fine_model=fine_model,
+        kernels=kernel_route(model, rcfg, chunk, compute_dtype, dev,
+                             fine_model))
+    up = dev.type == "cuda" and _on_host(c2w) and _on_host(focal)
+    if p.kernels and up and generator is None and occ_grid is None:
+        graph = _prepare_graph(p, c2w)
         if graph is not None:
             with span("render.operands"):
-                ahead = graph.run(model, fine_model, c2w, focal,
-                                  shape_code, texture_code)
-        else:
-            ro, vd = _image_rays(H, W, focal, c2w, dev, n_padded)
-            ahead = _kernels_prepare(model, rcfg, ro, vd, shape_code,
-                                     texture_code, generator, None, chunk,
-                                     fine_model)
-    return PreparedImage((model, rcfg, H, W, focal, c2w, shape_code,
-                          texture_code, generator, chunk, compute_dtype,
-                          occ_grid, fine_model), n_chunks, kernels, ahead)
+                return graph.run(p, c2w, focal)
+    with span("render.rays"):
+        p = _with_rays(p, *(_pose_up(c2w, focal, dev) if up
+                            else (c2w, focal)))
+    return _kernels_prepare(p) if p.kernels else p
 
 
 @torch.no_grad()
-def finish_image(prepared: PreparedImage) -> torch.Tensor:
+def finish_image(p: PreparedImage) -> torch.Tensor:
     """The second stage of :func:`render_image`: every forward launch of
-    a render :func:`prepare_image` began, in the order
+    a render :func:`prepare_image` prepared, in the order
     :func:`render_image` makes them; (H, W, 3) f32."""
-    (model, rcfg, H, W, focal, c2w, shape_code, texture_code, generator,
-     chunk, compute_dtype, occ_grid, fine_model) = prepared.args
-    n_chunks, k = prepared.n_chunks, prepared.ahead
-    if k is None:
-        ro, vd = _image_rays(H, W, focal, c2w, shape_code.device,
-                             n_chunks * chunk)
-        if prepared.kernels:
-            k = _kernels_prepare(model, rcfg, ro, vd, shape_code,
-                                 texture_code, generator, occ_grid, chunk,
-                                 fine_model)
-    if k is not None:
-        rgb = _kernels_finish(k)
+    if p.kernels:
+        rgb = _kernels_finish(p)
     else:
         parts = []
-        for i in range(n_chunks):
+        for i in range(0, p.ray_o.shape[0], p.chunk):
             with span("render.chunk"):
                 parts.append(render_rays(
-                    model, rcfg, ro[i * chunk:(i + 1) * chunk],
-                    vd[i * chunk:(i + 1) * chunk], shape_code, texture_code,
-                    generator, compute_dtype=compute_dtype,
-                    occ_grid=occ_grid, fine_model=fine_model).final.rgb)
+                    p.model, p.rcfg, p.ray_o[i:i + p.chunk],
+                    p.viewdir[i:i + p.chunk], p.shape_code, p.texture_code,
+                    p.generator, compute_dtype=p.compute_dtype,
+                    occ_grid=p.occ_grid, fine_model=p.fine_model).final.rgb)
         rgb = torch.cat(parts)
-    ROUTE_CHUNKS["kernels" if prepared.kernels else "plain"] += n_chunks
-    return rgb[:H * W].reshape(H, W, 3)
+    ROUTE_CHUNKS["kernels" if p.kernels else "plain"] += (
+        p.ray_o.shape[0] // p.chunk)
+    return rgb[:p.H * p.W].reshape(p.H, p.W, 3)
 
 
 @torch.no_grad()
@@ -702,17 +660,12 @@ def render_image(model, rcfg: RenderConfig, H: int, W: int, focal, c2w,
                  occ_grid=None, fine_model=None,
                  prepared: Optional[PreparedImage] = None) -> torch.Tensor:
     """Render a full H×W image in fixed-size ray chunks; (H, W, 3) f32:
-    ``finish_image(prepare_image(...))`` of the same arguments, or
-    ``finish_image(prepared)`` when ``prepared`` is what
-    :func:`prepare_image` returned for them. The chunks go through the
-    forward kernels (:func:`render_rays_kernels`) where
-    :func:`kernel_route` allows, else each through :func:`render_rays` on
-    the plain module(s) (``fine_model``: the separate fine network);
-    ``render_image.chunks`` counts the chunks of each route and
-    ``render_image.samples`` the points the kernels evaluated. While a
-    profiler records, the camera rays are the span ``render.rays`` and
-    each chunk (on the kernel route each launch's group of chunks) a
-    ``render.chunk``."""
+    ``finish_image`` of ``prepared``, by default ``prepare_image`` of the
+    same arguments (a server passes its own, prepared ahead), on the
+    route :func:`kernel_route` chooses (``fine_model``: the separate fine
+    network). While a profiler records, the camera rays are the span
+    ``render.rays`` and each chunk (on the kernel route each launch's
+    group of chunks) a ``render.chunk``."""
     if prepared is None:
         prepared = prepare_image(model, rcfg, H, W, focal, c2w, shape_code,
                                  texture_code, generator, chunk,

@@ -10,15 +10,14 @@ and returns it as a PNG. Stdlib HTTP only:
   GET  /stats    -> request count, latency quantiles (p50, p95, max over
                     the last 1,000 requests), the (H, W, deterministic)
                     keys rendered so far
-  GET  /timings  -> the requests rendered and refused (400), the renders
-                    prepared while another held the render lock, and p50,
-                    p95 and max ms over the last 1,000 requests of each
-                    part of a request: the waits for the prepare and the
-                    render lock, the prepare, the render under the lock,
-                    the handler's work outside it (parse, PNG encode,
-                    reply) and the whole; the chunks rendered through the
-                    forward kernels and the plain module, and the points
-                    the kernels evaluated
+  GET  /timings  -> "requests", "failed" (400), "overlapped" (renders
+                    prepared while another held the render lock); p50,
+                    p95 and max ms over the last 1,000 requests of
+                    "queue_ms" (the waits for both locks), "prepare_ms",
+                    "render_ms" (under the render lock, /stats' latency),
+                    "handler_ms" (parse, PNG encode, reply) and
+                    "request_ms"; "chunks" and "samples" (the counters
+                    renderer.render_image.chunks and .samples)
   POST /render   -> image/png (400 on a bad request, 404 on another path)
      JSON body:
        camera: either {"c2w": 4x4 nested list}
@@ -29,15 +28,15 @@ and returns it as a PNG. Stdlib HTTP only:
                  "deterministic" (default true), "seed" (default 0)
 
 Renders run in two stages (``renderer.prepare_image``, then
-``render_image`` finishing it). A request prepares under the prepare
-lock, takes the render lock, makes its launches, and only then lets go
-of the prepare lock, so one render can wait prepared while another
-holds the render lock: on the kernel route the next request's host work
-(the pose's upload, the rays, the operands) runs while the device runs
-this render's kernels, and not while this render's host enqueues them
-(both need the interpreter lock). The render lock covers every forward
-launch of a render and its read-back; on the plain route, and with an
-occupancy grid (built under the lock), the whole render.
+``render_image`` finishing it). A request prepares under the prepare lock (with
+``use_occupancy`` fetching or building its grid first), takes the render
+lock, makes its launches, and only then lets go of the prepare lock, so
+one render can wait prepared while another holds the render lock: on
+the kernel route the next request's host work (the pose's upload, the
+rays, the operands) runs while the device runs this render's kernels,
+and not while this render's host enqueues them (both need the
+interpreter lock). The render lock covers every forward launch of a
+render and its read-back.
 ``deterministic: false`` draws the depths from a ``torch.Generator`` on
 the device seeded with ``seed`` (the JAX package draws from its own
 PRNG, so only deterministic renders agree across the packages). There
@@ -47,15 +46,16 @@ which keeps the JAX server's ``/stats`` fields.
 While a profiler records, each request is the span ``serve.request``
 (its sequence number in the span's args) over ``serve.parse``,
 ``serve.queue`` (the wait for the prepare lock, and again for the
-render lock), ``serve.prepare`` (on the kernel route ``render.rays``
-and ``render.operands``), ``serve.render`` (for a hierarchical render
+render lock), ``serve.prepare`` (``render.rays``; on the kernel route
+``render.operands``), ``serve.render`` (for a hierarchical render
 ``render.coarse`` and ``render.resample``, the ``render.chunk`` s,
-``render.readback``; on the plain route ``render.rays`` too),
-``serve.encode`` and ``serve.reply`` (``utils/tracing.py``).
+``render.readback``), ``serve.encode`` and ``serve.reply``
+(``utils/tracing.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import itertools
@@ -154,15 +154,12 @@ class RenderServer:
         self._prepare_lock = threading.Lock()
         self._rendering = False
         self._overlapped = 0
-        # Seconds of the last requests: the render under the lock, the
-        # waits for the two locks, the prepare, the handler's work
-        # outside the lock, the whole request; guarded by _times_lock, as
-        # is the count of refused requests.
-        self._latencies = deque(maxlen=_KEPT)
-        self._queued = deque(maxlen=_KEPT)
-        self._prepared = deque(maxlen=_KEPT)
-        self._handled = deque(maxlen=_KEPT)
-        self._whole = deque(maxlen=_KEPT)
+        # Seconds of the last requests under the names timings() reports
+        # them by; guarded by _times_lock, as is the count of refused
+        # requests.
+        self._times = {k: deque(maxlen=_KEPT) for k in (
+            "queue_ms", "prepare_ms", "render_ms", "handler_ms",
+            "request_ms")}
         self._times_lock = threading.Lock()
         self._count = 0
         self._failed = 0
@@ -190,15 +187,12 @@ class RenderServer:
         """Per-object grid, built from the trained density on first use.
         Custom-code requests (obj == -1) are cached by a digest of the
         code bytes, so repeated renders of the same edit don't rebuild."""
-        if obj >= 0 and obj in self._occ_grids:
-            return self._occ_grids[obj]
-        if obj < 0:
-            digest = hashlib.sha1(
-                shape_code.cpu().numpy().astype(np.float32).tobytes()
-                + texture_code.cpu().numpy().astype(np.float32).tobytes()
-            ).hexdigest()
-            if digest in self._occ_grids:
-                return self._occ_grids[digest]
+        key = obj if obj >= 0 else hashlib.sha1(
+            shape_code.cpu().numpy().astype(np.float32).tobytes()
+            + texture_code.cpu().numpy().astype(np.float32).tobytes()
+        ).hexdigest()
+        if key in self._occ_grids:
+            return self._occ_grids[key]
         from codenerf_tpu_torch.config import resolve_dtype
         from codenerf_tpu_torch.core.occupancy import build_occupancy_grid
 
@@ -210,7 +204,7 @@ class RenderServer:
             digests = [k for k in self._occ_grids if isinstance(k, str)]
             if len(digests) >= _DIGEST_GRIDS:
                 del self._occ_grids[digests[0]]
-        self._occ_grids[obj if obj >= 0 else digest] = grid
+        self._occ_grids[key] = grid
         return grid
 
     def _codes(self, req: Dict[str, Any]):
@@ -234,8 +228,8 @@ class RenderServer:
     def render(self, req: Dict[str, Any]) -> np.ndarray:
         """One request's image, (H, W, 3) uint8: the render clipped ×255.
         Prepared (``renderer.prepare_image``) under the prepare lock,
-        finished (``renderer.render_image``) and read back under the
-        render lock; the prepare lock is let go once the render's
+        finished (``renderer.render_image`` of the prepared record) and
+        read back under the render lock; the prepare lock is let go once the render's
         launches are enqueued."""
         from codenerf_tpu_torch.config import resolve_dtype
         from codenerf_tpu_torch.render_orbit import orbit_pose
@@ -255,11 +249,6 @@ class RenderServer:
                              float(req.get("radius", 1.3)))
         obj, shape_code, texture_code = self._codes(req)
         seed = int(req.get("seed", 0))
-        args = (self.model, self.hp.render, H, W, focal, c2w, shape_code,
-                texture_code)
-        kw = dict(chunk=4096,
-                  compute_dtype=resolve_dtype(self.hp.compute_dtype),
-                  fine_model=self.fine_model)
         t_queue = time.perf_counter()
         with span("serve.queue"):
             self._prepare_lock.acquire()
@@ -267,88 +256,63 @@ class RenderServer:
         try:
             t_prep = time.perf_counter()
             with span("serve.prepare"):
-                gen = None
-                if not deterministic:
-                    gen = torch.Generator(
-                        device=self.device).manual_seed(seed)
-                # the occupancy grid is built under the render lock
-                prep = (None if self.use_occupancy
-                        else prepare_image(*args, gen, **kw))
+                gen = (None if deterministic else torch.Generator(
+                    device=self.device).manual_seed(seed))
+                occ = (self._get_occ_grid(obj, shape_code, texture_code)
+                       if self.use_occupancy else None)
+                args = (self.model, self.hp.render, H, W, focal, c2w,
+                        shape_code, texture_code, gen)
+                kw = dict(chunk=4096, occ_grid=occ,
+                          compute_dtype=resolve_dtype(self.hp.compute_dtype),
+                          fine_model=self.fine_model)
+                prep = prepare_image(*args, **kw)
             t_ready = time.perf_counter()
             behind = self._rendering
-            with self._times_lock:
-                self._prepared.append(t_ready - t_prep)
-            queue = span("serve.queue")
-            queue.__enter__()
-            with self._lock:
-                self._rendering = True
-                t0 = time.perf_counter()
-                queue.__exit__(None, None, None)
-                try:
-                    with span("serve.render"):
-                        occ = (self._get_occ_grid(obj, shape_code,
-                                                  texture_code)
-                               if self.use_occupancy else None)
-                        img = render_image(*args, gen, occ_grid=occ,
-                                           prepared=prep, **kw)
-                        # every launch is enqueued: the next request
-                        # prepares while the device runs them
-                        self._prepare_lock.release()
-                        handed = True
-                        with span("render.readback"):
-                            img = _read_back(img)
-                finally:
-                    self._rendering = False
-                self._sizes[(H, W, deterministic)] = None
-                with self._times_lock:
-                    self._latencies.append(time.perf_counter() - t0)
-                    self._queued.append((t_prep - t_queue) + (t0 - t_ready))
-                self._count += 1
-                self._overlapped += behind
+            self._record(prepare_ms=t_ready - t_prep)
+            with contextlib.ExitStack() as queue:
+                queue.enter_context(span("serve.queue"))
+                with self._lock:
+                    queue.close()
+                    self._rendering = True
+                    t0 = time.perf_counter()
+                    try:
+                        with span("serve.render"):
+                            img = render_image(*args, prepared=prep, **kw)
+                            # every launch is enqueued: the next request
+                            # prepares while the device runs them
+                            self._prepare_lock.release()
+                            handed = True
+                            with span("render.readback"):
+                                img = _read_back(img)
+                    finally:
+                        self._rendering = False
+                    self._sizes[(H, W, deterministic)] = None
+                    self._record(render_ms=time.perf_counter() - t0,
+                                 queue_ms=(t_prep - t_queue) + (t0 - t_ready))
+                    self._count += 1
+                    self._overlapped += behind
         finally:
             if not handed:
                 self._prepare_lock.release()
         return np.clip(img * 255.0, 0, 255).astype(np.uint8)
 
-    def _request_done(self, handler_s: float, whole_s: float) -> None:
+    def _record(self, **seconds: float) -> None:
+        """Append each of ``seconds`` to its table of times."""
         with self._times_lock:
-            self._handled.append(handler_s)
-            self._whole.append(whole_s)
-
-    def _request_refused(self) -> None:
-        with self._times_lock:
-            self._failed += 1
+            for k, v in seconds.items():
+                self._times[k].append(v)
 
     def stats(self) -> Dict[str, Any]:
-        with self._times_lock:
-            lat = list(self._latencies)
-        return {
-            "requests": self._count,
-            "latency_ms": _quantiles_ms(lat),
-            "compiled_sizes": [list(k) for k in self._sizes],
-        }
+        return {"requests": self._count,
+                "latency_ms": self.timings()["render_ms"],
+                "compiled_sizes": [list(k) for k in self._sizes]}
 
     def timings(self) -> Dict[str, Any]:
-        """The requests rendered and refused (400); ``overlapped``, the
-        renders whose prepare ended while another render held the render
-        lock; p50 / p95 / max ms over the last 1,000 requests of the waits
-        for the prepare and the render lock (``queue_ms``), the prepare
-        (``prepare_ms``), the render under the lock (``render_ms``,
-        ``/stats``' latency), the handler's parse, PNG encode and reply
-        outside it (``handler_ms``) and the whole request
-        (``request_ms``); and
-        ``chunks``, the chunks the process rendered through each route
-        (``renderer.render_image.chunks``: ``kernels`` and ``plain``), and
-        ``samples``, the points the forward kernels evaluated
-        (``renderer.render_image.samples``: ``coarse_sigma``, the
-        hierarchical coarse pass's, and ``planes``)."""
+        """What ``GET /timings`` returns (the module's docstring)."""
         from codenerf_tpu_torch.renderer import KERNEL_SAMPLES, ROUTE_CHUNKS
 
         with self._times_lock:
-            times = {k: list(d) for k, d in (
-                ("queue_ms", self._queued), ("prepare_ms", self._prepared),
-                ("render_ms", self._latencies),
-                ("handler_ms", self._handled), ("request_ms", self._whole))}
+            times = {k: list(d) for k, d in self._times.items()}
             failed = self._failed
         return {"requests": self._count, "failed": failed,
                 "overlapped": self._overlapped,
@@ -391,7 +355,8 @@ class RenderServer:
                     try:
                         self._render_png()
                     except (ValueError, KeyError, json.JSONDecodeError) as e:
-                        server._request_refused()
+                        with server._times_lock:
+                            server._failed += 1
                         self._json(400, {"error": str(e)})
 
             def _render_png(self):
@@ -415,7 +380,8 @@ class RenderServer:
                     self.end_headers()
                     self.wfile.write(data)
                 t3 = time.perf_counter()
-                server._request_done((t1 - t0) + (t3 - t2), t3 - t0)
+                server._record(handler_ms=(t1 - t0) + (t3 - t2),
+                               request_ms=t3 - t0)
 
         return Handler
 

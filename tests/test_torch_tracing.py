@@ -236,8 +236,8 @@ def test_server_keeps_the_last_thousand(server):
     try:
         times = np.random.default_rng(0).uniform(0.01, 0.05, 1500)
         for x in times:
-            srv._latencies.append(float(x))
-        assert len(srv._latencies) == 1000
+            srv._times["render_ms"].append(float(x))
+        assert len(srv._times["render_ms"]) == 1000
         last = times[-1000:]
         lat = srv.stats()["latency_ms"]
         assert lat == {"p50": float(np.quantile(last, 0.5) * 1e3),
