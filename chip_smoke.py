@@ -2089,7 +2089,9 @@ def _occ_events(run_dir: str):
 class LaunchCounts:
     """The launch counters of every kernel wrapper, zeroed on entry; and
     the plain versions wrapped so that a call on a CUDA tensor is counted
-    (the main path must make none)."""
+    (the main path must make none). The forward wrappers' counts of the
+    planes stored by TMA (``bulk_planes``) are zeroed too and summed into
+    ``MAIN_BULK`` on exit."""
 
     def __enter__(self):
         import torch
@@ -2109,7 +2111,11 @@ class LaunchCounts:
                         fused_mlp.planes_fwd.points,
                         fused_train.plane_bwd.points, composite.points,
                         code_rows.points)
-        for c in self._counters + self._points:
+        self._bulk = (fused_train.train_fused.bulk_planes,
+                      fused_mlp.sigma_fwd.bulk_planes,
+                      fused_mlp.planes_fwd.bulk_planes,
+                      fused_train.plane_bwd.bulk_planes)
+        for c in self._counters + self._points + self._bulk:
             for k in c:
                 c[k] = 0
         # The kernels' standalone wrappers, for the phase-2 checks alone:
@@ -2169,6 +2175,9 @@ class LaunchCounts:
         for c in self._points:
             for k, v in c.items():
                 MAIN_POINTS[k] = MAIN_POINTS.get(k, 0) + v
+        for c in self._bulk:
+            for k, v in c.items():
+                MAIN_BULK[k] = MAIN_BULK.get(k, 0) + v
         MAIN_POINTS["ray_sum_fold"] = MAIN_POINTS.get("ray_sum_fold",
                                                      0) + self.rays
         return False
@@ -2178,6 +2187,9 @@ class LaunchCounts:
 # over phases 3-12 (each LaunchCounts window adds its own); for
 # "ray_sum_fold" the rays of every fused_step launch.
 MAIN_POINTS = {}
+# The planes the forward of every launch the main paths made stored from
+# trunk_fwd_kernel's tile by TMA, per mode, summed the same way.
+MAIN_BULK = {}
 
 
 def _config(work: str, name: str, out=None, data: str = "data",
@@ -4739,6 +4751,14 @@ def main() -> int:
         "code_row_fold_kernel": launches.get("code_rows", 0)}
     log("CUDA kernel launches on the main paths (phases 3-12): " + ", ".join(
         f"{k} {v}" for k, v in by_kernel.items()))
+    # Every trunk forward stores t at least, by TMA from the tile.
+    ran = {m: launches[m] for m in MAIN_BULK if launches.get(m, 0)}
+    log("planes stored by TMA from trunk_fwd_kernel's tile on the main "
+        "paths (bulk_planes; launches): " + ", ".join(
+            f"{m} {MAIN_BULK[m]} ({n})" for m, n in ran.items()))
+    silent = [m for m in ran if not MAIN_BULK[m]]
+    if silent:
+        raise AssertionError(f"no plane stored by TMA in modes {silent}")
     rows, excess = [], []
     for mode in ("codes", "train", "sigma", "dual_train", "dual_codes",
                  "pose", "pose_weights", "planes", "plane_train",

@@ -37,14 +37,28 @@
 //         tiles. Four consumer warpgroups each own a (64-point row half,
 //         128-column half) of every layer's output; a producer warp streams
 //         the weight slices (32 KB) into a 4-stage ring with cp.async.bulk
-//         and mbarriers. The block builds the PE of its points into shared
-//         memory, then runs the layers on the resident (64, 256) bf16 tile
-//         of each row half: wgmma m64n128k16 (n64 for rgb_hidden) from
-//         shared memory into f32 registers, and an epilogue in registers
-//         (bias, per-ray vector, ReLU, bf16 y into the tile, the ReLU mask
-//         as bits) and then 16 bytes a thread (the stores, the latent
-//         injection as a bf16 add) that leaves the next layer's input in
-//         place. Device memory sees only what later kernels read: ReLU-mask bit
+//         and mbarriers. The block stages the per-ray rows of its tile's
+//         rays (every latent and per-ray vector the layers add, a few KB a
+//         ray) in shared memory by cp.async and builds the PE of its
+//         points into shared memory meanwhile, then runs the layers on the
+//         resident (64, 256) bf16 tile of each row half: wgmma m64n128k16
+//         (n64 for rgb_hidden) from shared memory into f32 registers, then
+//         one epilogue in registers (bias, per-ray vector, ReLU, the ReLU
+//         mask of y as bits, the latent injection as a bf16 add) that
+//         writes the next layer's input into the tile once. A 128-point
+//         tile spans at most 3 rays at S >= 32, yet each element pair
+//         needs its ray's row: from the stage they are shared-memory
+//         reads, 16 bytes a thread per four column pairs, not device
+//         loads on the epilogue's path (below S ~ 32, where the rays do
+//         not fit, the epilogue reads them from device memory). The tile
+//         is 64-column slices of 64 rows x 128 B in the 128-byte swizzle,
+//         a TMA box, so a plane leaves it by cp.async.bulk.tensor stores,
+//         one thread of the row half issuing them after the epilogue's
+//         barrier; the next layer's products only read the tile and run
+//         beside the stores, which that thread waits for (reads done)
+//         before the next epilogue rewrites it. Rows past P are clipped by
+//         the tensor map. Each layer: products, barrier, epilogue, barrier.
+//         Device memory sees only what later kernels read: ReLU-mask bit
 //         planes (32 B a point) for the dx chain, t and r for the heads,
 //         and in weight-gradient mode each dW GEMM's bf16 input (the PE,
 //         the injected inputs, the last shape and texture blocks' outputs).
@@ -136,8 +150,11 @@ constexpr int BLOCK_BYTES = 64 * 128;       // its 64 columns of one K slice
 constexpr int MAX_LAYERS = 16;
 constexpr size_t DX_SMEM = 1024 + 2 * ACT_BYTES + RING * SLICE_BYTES
                            + 2 * RING * sizeof(uint64_t);
+// The forward's per-ray rows on chip: a row half's stage holds whole rays'
+// records of latents and per-ray vectors (trunk_fwd_kernel).
+constexpr int STAGE_BYTES = 8192;
 constexpr size_t FWD_SMEM = DX_SMEM + MAX_LAYERS * TW * sizeof(float)
-                            + TM * sizeof(int);
+                            + 2 * STAGE_BYTES;
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 
@@ -160,6 +177,7 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
 
 // Lane k of the positional encoding: [x | sin block | cos block],
 // frequency-major, padding lanes 0 (core/encoding.py channel order).
@@ -246,6 +264,43 @@ __device__ __forceinline__ void wgmma_wait() {
 // Generic-proxy writes to shared memory made visible to wgmma's reads.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A (64, 64) box of shared memory at ``src`` (1024-byte aligned, in the
+// tensor map's 128-byte swizzle) to column c0, row p0 of the map's tensor,
+// in the thread's current bulk group; rows past the tensor's end are not
+// written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int p0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+      "r"(p0)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until the thread's bulk stores have read their shared memory (it may be
+// rewritten); with ``all``, until they have completed.
+template <bool all>
+__device__ __forceinline__ void bulk_wait() {
+  if (all) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  else asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices into shared memory, one 16-byte row each at
+// the address lane 8 i + r gives for row r of matrix i; the thread's word
+// of matrix i (its row lane / 4, columns 2 (lane % 4), +1: an mma
+// fragment) in the i-th register.
+__device__ __forceinline__ void stsm_x4(void* p, uint32_t a, uint32_t b,
+                                        uint32_t c, uint32_t d) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_u32(p)), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
 }
 
 // The 256 threads of the two warpgroups that share row half ``rh``
@@ -449,14 +504,19 @@ struct FwdLayer {
   const float* bias;      // (N,) or null
   const bf16* rowvec;     // per ray [R][rowvec_ld], or null
   const bf16* inj;        // the next layer's latent, per ray [R][inj_ld]
-  bf16* out;              // (P, N) bf16(y), or null
-  bf16* out_in;           // (P, N) the next layer's input, or null
+  bf16* dst;              // (P, N): the next layer's input (y, or with a
+                          // latent the injected x), stored by TMA; or null
   uint32_t* mask_out;     // (P, 8) ReLU-mask bits of y, or null
   int K, N, relu, rowvec_ld, inj_ld;
+  int rowvec_at, inj_at;  // their rows' offsets in a ray's staged record
 };
 
 struct FwdArgs {
+  CUtensorMap map[MAX_LAYERS];    // layer l's dst (P, N), 64 x 64 boxes
+  CUtensorMap pe_map;             // pe_out (P, 64)
   int P, S, n_freq, n_layers;
+  int rec;                // bf16 elements of a ray's staged record; 0:
+                          // the epilogues read the rows from device memory
   const float* ro8;       // (R, 8)
   const float* vd8;       // (R, 8)
   const float* z;         // (R, S)
@@ -563,13 +623,12 @@ __device__ __forceinline__ void mma_layer(float (&acc)[64], int N, int nks,
 // The bf16 PE of a row half's 64 points into lanes 0..63 of its tile: the
 // 4 threads of a point (t2 = 0..255 over the pair of warpgroups) split its
 // 3F (coordinate, frequency) pairs, one sincosf each for the pair's sin and
-// cos lanes; it also records each row's ray in ``rays``.
+// cos lanes.
 __device__ __forceinline__ void build_pe(const FwdArgs& a, unsigned char* A,
-                                         int* rays, int m0, int t2) {
+                                         int m0, int t2) {
   const int row = t2 >> 2, part = t2 & 3, m = m0 + row, F = a.n_freq;
   const bool ok = m < a.P;
   float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  if (part == 0) rays[row] = ok ? m / a.S : 0;
   if (ok) {
     const int ray = m / a.S;
     const float zz = a.z[m];
@@ -610,10 +669,6 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 // Epilogue operands (latents, per-ray vectors, dsig) are read-only for
 // the kernel: loaded through the non-coherent path, so that the compiler
 // may batch them ahead of the epilogue's stores.
-__device__ __forceinline__ __nv_bfloat162 ld_bf2(const bf16* p) {
-  return as_bf2(__ldg(reinterpret_cast<const unsigned int*>(p)));
-}
-
 __device__ __forceinline__ float2 ld_f2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
@@ -622,46 +677,118 @@ __device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
+// The records of rays ray0 .. ray0 + nrays - 1 into a row half's stage
+// ``st`` (a.rec elements apart), 16 bytes a cp.async over the pair of
+// warpgroups (t2 = 0..255); the caller commits the group. A ray's record
+// holds, layer by layer, the layer's per-ray vector row and its latent row
+// (N bf16 each, where it has them).
+__device__ __forceinline__ void stage_rows(const FwdArgs& a, bf16* st,
+                                           int ray0, int nrays, int t2) {
+  for (int l = 0; l < a.n_layers; ++l) {
+    const FwdLayer& L = a.L[l];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const bf16* src = v ? L.inj : L.rowvec;
+      if (!src) continue;
+      const int ld = v ? L.inj_ld : L.rowvec_ld;
+      const int at = v ? L.inj_at : L.rowvec_at, chunks = L.N / 8;
+      for (int i = t2; i < nrays * chunks; i += 256) {
+        const int s = i / chunks, c = i - s * chunks;
+        cp_async16(st + (size_t)s * a.rec + at + 8 * c,
+                   src + (size_t)(ray0 + s) * ld + 8 * c, 16);
+      }
+    }
+  }
+}
+
 // A forward layer's epilogue, in registers, on this thread's two rows of
 // its warpgroup's column half: bias (from shared memory), per-ray vector,
-// ReLU, bf16 y into the tile; with mask_out the ReLU mask as bits (the 4
-// lanes of a quad hold the row's 128 columns of the half between them).
+// ReLU, bf16 y; with mask_out the ReLU mask of y as bits (the 4 lanes of
+// a quad hold the row's 128 columns of the half between them); with a
+// latent the injection x = bf16(y + inj) as a bf16 add. The next layer's
+// input (x, else y) goes into the tile, once. The per-ray rows come from
+// the row half's stage ``st`` (with ``rec``: records ``rec`` elements
+// apart from ray ``ray0``), else from device memory. The tile takes two
+// column octets of both rows at a time by stmatrix.
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[64],
                                              const FwdLayer& L,
                                              const float* __restrict__ bias,
                                              unsigned char* __restrict__ A,
-                                             int nh, int m0, int P, int S,
-                                             int wl, int lane) {
+                                             const bf16* __restrict__ st,
+                                             int rec, int ray0, int nh,
+                                             int m0, int P, int S, int wl,
+                                             int lane) {
   const int q = lane & 3, jn = L.N / 16, c0 = nh * 8 * jn;
   const bool relu = L.relu;
+  // Each row's per-ray vector and latent at its first column pair.
   const bf16* rv[2] = {nullptr, nullptr};
+  const bf16* pj[2] = {nullptr, nullptr};
   int rows[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rows[h] = wl * 16 + (lane >> 2) + 8 * h;
-    const int m = m0 + rows[h];
-    if (L.rowvec)
-      rv[h] = L.rowvec + (size_t)(m < P ? m / S : 0) * L.rowvec_ld;
+    const int m = m0 + rows[h], ray = m < P ? m / S : 0;
+    if (rec) {
+      const bf16* r = st + (size_t)(m < P ? ray - ray0 : 0) * rec + c0
+                      + 2 * q;
+      if (L.rowvec) rv[h] = r + L.rowvec_at;
+      if (L.inj) pj[h] = r + L.inj_at;
+    } else {
+      if (L.rowvec)
+        rv[h] = L.rowvec + (size_t)ray * L.rowvec_ld + c0 + 2 * q;
+      if (L.inj) pj[h] = L.inj + (size_t)ray * L.inj_ld + c0 + 2 * q;
+    }
   }
+  // A row's four words of column group k: columns c0 + 32 k + 8 i + 2 q.
+  auto words = [&](const bf16* p, int k) {
+    const unsigned* g = reinterpret_cast<const unsigned*>(p + 32 * k);
+    if (rec) return make_uint4(g[0], g[4], g[8], g[12]);
+    return make_uint4(__ldg(g), __ldg(g + 4), __ldg(g + 8), __ldg(g + 12));
+  };
   uint32_t bits[2][4] = {};
 #pragma unroll
-  for (int j = 0; j < TW / 16; ++j) {
-    if (j >= jn) break;
-    const int col = c0 + 8 * j + 2 * q;
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+  for (int k = 0; k < TW / 64; ++k) {
+    if (4 * k >= jn) break;
+    uint4 rw[2] = {}, pw[2] = {};
+    uint32_t xs[4][2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float v0 = acc[4 * j + 2 * h] + b.x, v1 = acc[4 * j + 2 * h + 1] + b.y;
-      if (rv[h]) {
-        const __nv_bfloat162 r = ld_bf2(rv[h] + col);
-        v0 += __low2float(r); v1 += __high2float(r);
+      if (rv[h]) rw[h] = words(rv[h], k);
+      if (pj[h]) pw[h] = words(pj[h], k);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * k + i, col = c0 + 8 * j + 2 * q;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[4 * j + 2 * h] + b.x;
+        float v1 = acc[4 * j + 2 * h + 1] + b.y;
+        if (rv[h]) {
+          const __nv_bfloat162 r = as_bf2(word_of(rw[h], i));
+          v0 += __low2float(r); v1 += __high2float(r);
+        }
+        if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
+        const uint32_t y = as_u32(__floats2bfloat162_rn(v0, v1));
+        uint32_t x = y;
+        if (pj[h]) {
+          const __nv_bfloat162 y2 = as_bf2(y), p2 = as_bf2(word_of(pw[h], i));
+          x = as_u32(__floats2bfloat162_rn(
+              __low2float(y2) + __low2float(p2),
+              __high2float(y2) + __high2float(p2)));
+        }
+        xs[i][h] = x;
+        bits[h][k] |= (((y & 0x7fffu) ? 1u : 0u)
+                       | ((y & 0x7fff0000u) ? 2u : 0u))
+                      << (8 * i + 2 * q);
       }
-      if (relu) { v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f); }
-      const uint32_t y = as_u32(__floats2bfloat162_rn(v0, v1));
-      *reinterpret_cast<uint32_t*>(A + act_off(rows[h], col)) = y;
-      bits[h][j / 4] |= (((y & 0x7fffu) ? 1u : 0u)
-                         | ((y & 0x7fff0000u) ? 2u : 0u))
-                        << (8 * (j % 4) + 2 * q);
+    }
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const int g = lane >> 3, row = wl * 16 + (lane & 7) + 8 * (g & 1);
+      const int col = c0 + 8 * (4 * k + 2 * pr + (g >> 1));
+      stsm_x4(A + act_off(row, col), xs[2 * pr][0], xs[2 * pr][1],
+              xs[2 * pr + 1][0], xs[2 * pr + 1][1]);
     }
   }
   uint32_t* mask_out = L.mask_out;
@@ -677,45 +804,6 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[64],
     if (m < P && q == 0)
       *reinterpret_cast<uint4*>(mask_out + (size_t)m * MASK_WORDS + 4 * nh) =
           make_uint4(bits[h][0], bits[h][1], bits[h][2], bits[h][3]);
-  }
-}
-
-// A row half's (64, N) tile, 16 bytes a thread at a time over the pair of
-// warpgroups (t2 = 0..255): the stores of y (out) and, with a latent, the
-// injected next input into the tile (and out_in). Rows are consecutive
-// points, so a warp stores 512 contiguous bytes; ``rays`` holds each row's
-// ray.
-__device__ __forceinline__ void fwd_vector_pass(const FwdLayer& L,
-                                                unsigned char* A,
-                                                const int* rays, bool to_smem,
-                                                int m0, int P, int t2) {
-  const int per_row = L.N / 8;
-  for (int idx = t2; idx < 64 * per_row; idx += 256) {
-    const int row = idx / per_row, c = idx % per_row, m = m0 + row;
-    const bool ok = m < P;
-    uint4* p = reinterpret_cast<uint4*>(A + act_off(row, c * 8));
-    const uint4 y = *p;
-    if (ok && L.out)
-      *reinterpret_cast<uint4*>(L.out + (size_t)m * L.N + c * 8) = y;
-    if (!L.inj) continue;
-    uint4 pj = make_uint4(0u, 0u, 0u, 0u);
-    if (ok)
-      pj = __ldg(reinterpret_cast<const uint4*>(
-          L.inj + (size_t)rays[row] * L.inj_ld + c * 8));
-    uint4 x;
-    uint32_t* xs = reinterpret_cast<uint32_t*>(&x);
-    const uint32_t* ys = reinterpret_cast<const uint32_t*>(&y);
-    const uint32_t* ps = reinterpret_cast<const uint32_t*>(&pj);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 a2 = as_bf2(ys[i]), b2 = as_bf2(ps[i]);
-      xs[i] = as_u32(__floats2bfloat162_rn(
-          __low2float(a2) + __low2float(b2),
-          __high2float(a2) + __high2float(b2)));
-    }
-    if (to_smem) *p = x;
-    if (ok && L.out_in)
-      *reinterpret_cast<uint4*>(L.out_in + (size_t)m * L.N + c * 8) = x;
   }
 }
 
@@ -752,8 +840,9 @@ __global__ void __launch_bounds__(TRUNK_THREADS, 1) trunk_fwd_kernel(
   unsigned char* act = align1024(smem_raw);
   unsigned char* ring = act + 2 * ACT_BYTES;
   float* biases = reinterpret_cast<float*>(ring + RING * SLICE_BYTES);
-  int* row_rays = reinterpret_cast<int*>(biases + MAX_LAYERS * TW);
-  uint64_t* full = reinterpret_cast<uint64_t*>(row_rays + TM);
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      biases + MAX_LAYERS * TW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + 2 * STAGE_BYTES);
   uint64_t* empty = full + RING;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ntiles = (a.P + TM - 1) / TM;
@@ -777,31 +866,54 @@ __global__ void __launch_bounds__(TRUNK_THREADS, 1) trunk_fwd_kernel(
     asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
     const int wg = warp >> 2, wl = warp & 3, rh = wg >> 1, nh = wg & 1;
     const int t2 = tid & 255;        // thread in the row half's pair
+    const bool elected = t2 == 0;    // issues the row half's TMA stores
     unsigned char* A = act + rh * ACT_BYTES;
+    bf16* st = reinterpret_cast<bf16*>(stages + rh * STAGE_BYTES);
     const uint64_t da = sw128_desc(A), dr = sw128_desc(ring);
     int stage = 0;
     uint32_t phase = 0;
     float acc[64];
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int m0 = tile * TM + rh * 64;
-      int* rays = row_rays + rh * 64;
-      build_pe(a, A, rays, m0, t2);
-      pair_sync(rh);
-      if (a.pe_out) store_tile(a.pe_out, A, 64, m0, a.P, t2);
+      const int m0 = tile * TM + rh * 64, ray0 = m0 / a.S;
+      // The tile's per-ray rows, under the PE's build (the last tile's
+      // epilogues, which read the stage, ended at a pair_sync).
+      if (a.rec) {
+        const int nrays =
+            m0 < a.P ? min(m0 + 63, a.P - 1) / a.S - ray0 + 1 : 0;
+        stage_rows(a, st, ray0, nrays, t2);
+        cp_async_commit();
+      }
+      if (tile != (int)blockIdx.x) {  // the last tile's stores read A
+        if (elected) bulk_wait<false>();
+        pair_sync(rh);
+      }
+      build_pe(a, A, m0, t2);
+      cp_async_wait<0>();
       fence_async_smem();
       pair_sync(rh);
+      if (elected && a.pe_out) {
+        tma_store(&a.pe_map, A, 0, m0);
+        bulk_commit();
+      }
       for (int l = 0; l < a.n_layers; ++l) {
         const FwdLayer& L = a.L[l];
         mma_layer(acc, L.N, L.K / 64, nh, da, dr, full, empty, stage, phase,
                   lane);
-        pair_sync(rh);  // both halves' products are done: A may be rewritten
-        fwd_epilogue(acc, L, biases + l * TW, A, nh, m0, a.P, a.S, wl, lane);
-        pair_sync(rh);
-        fwd_vector_pass(L, A, rays, l + 1 < a.n_layers, m0, a.P, t2);
+        if (elected) bulk_wait<false>();
+        pair_sync(rh);  // both halves' products are done, and the stores
+                        // have read the tile: A may be rewritten
+        fwd_epilogue(acc, L, biases + l * TW, A, st, a.rec, ray0, nh, m0,
+                     a.P, a.S, wl, lane);
         fence_async_smem();
         pair_sync(rh);
+        if (elected && L.dst) {
+          for (int b = 0; b < L.N / 64; ++b)
+            tma_store(&a.map[l], A + b * BLOCK_BYTES, 64 * b, m0);
+          bulk_commit();
+        }
       }
     }
+    if (elected) bulk_wait<true>();
   }
 }
 
@@ -2463,36 +2575,56 @@ FwdArgs fwd_args(const float* ro8, const float* vd8, const float* z,
     if (j != nb + 2) L.bias = bias(trunk_index(j, nb));
     if (j <= nb) {                              // enc_xyz and shape blocks
       L.mask_out = j == 0 ? o.m0 : bits(o.ms, j - 1);
-      if (j == nb) L.out = o.ys_last;
+      if (j == nb) L.dst = o.ys_last;
       if (j < nb) {
         L.inj = sproj + (size_t)j * W; L.inj_ld = nb * W;
-        L.out_in = at(o.xs, j);
+        L.dst = at(o.xs, j);
       }
     } else if (j == nb + 1) {
-      L.out = o.t;
+      L.dst = o.t;
     } else if (j == nb + 2) {                   // enc_viewdir's trunk rows
       L.rowvec = vcontrib; L.rowvec_ld = W;
       L.mask_out = o.mv;
       L.inj = tproj; L.inj_ld = nt * W;
-      L.out_in = at(o.xt, 0);
+      L.dst = at(o.xt, 0);
     } else if (j < nb + nt + 3) {               // texture block j - nb - 3
       const int k = j - nb - 3;
       L.mask_out = bits(o.mt, k);
       if (k + 1 < nt) {
         L.inj = tproj + (size_t)(k + 1) * W; L.inj_ld = nt * W;
-        L.out_in = at(o.xt, k + 1);
+        L.dst = at(o.xt, k + 1);
       } else {
-        L.out = o.yts_last;
+        L.dst = o.yts_last;
       }
     } else {
-      L.out = o.r;
+      L.dst = o.r;
     }
   }
   return a;
 }
 
-int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
+// The planes the calling thread's last launch_fwd stored by TMA (the PE
+// and each layer's dst), for the wrappers' counters.
+thread_local int last_bulk_planes = 0;
+
+// One trunk_fwd_kernel launch: the tensor maps of the planes it stores,
+// and each per-ray row's place in a ray's staged record. The stage takes
+// the records when a row half's 64 points, which span at most
+// (S + 62) / S + 1 rays, fit in STAGE_BYTES; else the epilogues read the
+// rows from device memory.
+int launch_fwd(FwdArgs a, cudaStream_t stream) {
+  last_bulk_planes = 0;
   if (a.P == 0) return 0;
+  int rec = 0, n = 0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    FwdLayer& L = a.L[l];
+    if (L.rowvec) { L.rowvec_at = rec; rec += L.N; }
+    if (L.inj) { L.inj_at = rec; rec += L.N; }
+    if (L.dst) { CHECK(plane_map(&a.map[l], L.dst, a.P, L.N)); ++n; }
+  }
+  if (a.pe_out) { CHECK(plane_map(&a.pe_map, a.pe_out, a.P, 64)); ++n; }
+  const int rays = (a.S + 62) / a.S + 1;
+  a.rec = (size_t)rays * rec * sizeof(bf16) <= STAGE_BYTES ? rec : 0;
   CHECK((int)cudaFuncSetAttribute(trunk_fwd_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)FWD_SMEM));
@@ -2500,7 +2632,9 @@ int launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   const int grid = tiles < sms ? tiles : sms;   // persistent: one per SM
   trunk_fwd_kernel<<<grid, TRUNK_THREADS, FWD_SMEM,
                      stream>>>(a);
-  return (int)cudaGetLastError();
+  const int rc = (int)cudaGetLastError();
+  if (rc == 0) last_bulk_planes = n;
+  return rc;
 }
 
 int launch_dx(const DxArgs& a, cudaStream_t stream) {
@@ -3151,6 +3285,12 @@ int launch_composite(const CompositeArgs& a, cudaStream_t stream) {
 }
 
 }  // namespace
+
+// The planes the calling thread's last fused_step, sigma_step or
+// planes_step stored from trunk_fwd_kernel's tile by TMA: the PE, the
+// injected inputs, the last blocks' outputs, t and r, as the mode keeps
+// them (planes_step 2: t and r).
+extern "C" int forward_bulk_planes() { return last_bulk_planes; }
 
 // Workspace (bf16 elements) of sigma_step (``planes`` 0) and planes_step
 // (``planes`` 1): t, and for planes_step r.

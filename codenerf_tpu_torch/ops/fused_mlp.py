@@ -35,7 +35,8 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   7.3e10 for a 4096 × 32 optimization chunk (0.074 ms); its inputs and
   output are ~35 MB. :func:`sigma_fwd_plain` is its plain version, and
   ``sigma_fwd.launches["sigma"]`` counts its launches
-  (``sigma_fwd.points`` their R·S).
+  (``sigma_fwd.points`` their R·S, ``sigma_fwd.bulk_planes`` the planes
+  the trunk stored from its tile by TMA: t, one a launch).
 - :func:`planes_fwd` — the four-plane forward, replacing the same TPU
   kernel with ``sigma_only=False`` (the forward of the plane op,
   ``ops/fused_train.py``): sigma (softplus) and the raw r, g, b of every
@@ -53,7 +54,8 @@ Counterpart of the host-side half of ``codenerf_tpu/ops/fused_mlp.py``:
   is the forward every plain version shares, :func:`plane_head_plain`
   the head's), and
   ``planes_fwd.launches["planes"]`` counts its launches
-  (``planes_fwd.points`` their R·S).
+  (``planes_fwd.points`` their R·S, ``planes_fwd.bulk_planes`` the planes
+  stored by TMA: t and r, two a launch).
   :func:`fused_codenerf_apply` runs it from rays, depths and codes.
 - :func:`input_chain`, :func:`plane_head` and :func:`sigma_head` — the
   input-chain kernel of the pose modes, the four-plane head and the
@@ -460,11 +462,21 @@ def sigma_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
     out = _launch_sigma_cuda(cfg, S, R, ro8, vd8, z, sproj, weights)
     sigma_fwd.launches["sigma"] += 1
     sigma_fwd.points["sigma"] += R * S
+    sigma_fwd.bulk_planes["sigma"] += _bulk_planes()
     return out
 
 
 sigma_fwd.launches = {"sigma": 0}
 sigma_fwd.points = {"sigma": 0}
+sigma_fwd.bulk_planes = {"sigma": 0}
+
+
+def _bulk_planes() -> int:
+    """The planes the last forward launch of this thread stored by TMA
+    from the trunk kernel's tile."""
+    from codenerf_tpu_torch.ops import fused_train as ft
+
+    return ft.library().forward_bulk_planes()
 
 
 def sigma_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
@@ -531,11 +543,13 @@ def planes_fwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
                               weights)
     planes_fwd.launches["planes"] += 1
     planes_fwd.points["planes"] += R * S
+    planes_fwd.bulk_planes["planes"] += _bulk_planes()
     return out
 
 
 planes_fwd.launches = {"planes": 0}
 planes_fwd.points = {"planes": 0}
+planes_fwd.bulk_planes = {"planes": 0}
 
 
 def planes_fwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,

@@ -108,7 +108,10 @@ does on CUDA) with its parts :func:`head_plain` and
 :func:`weight_grads_plain`, the launch counters ``train_fused.launches``
 (one per mode: ``codes``, ``train``, ``dual_codes``, ``dual_train``,
 ``pose``, ``pose_weights``, ``train_input``, ``train_weights`` ...;
-``train_fused.points`` sums the R·S of those launches),
+``train_fused.points`` sums the R·S of those launches,
+``train_fused.bulk_planes`` the planes their forward stored from the
+trunk kernel's tile by TMA: t and r, and in the weight-gradient modes
+the PE, the injected inputs and the last blocks' outputs),
 :func:`hier_fine_zvals_meta`, which draws the fine depths and the dual
 mode's planes, the layout of the trunk kernels' weights
 (:func:`wgmma_pack`, :func:`pack_trunk_weights_plain`), the cache of
@@ -481,6 +484,7 @@ def train_fused(cfg: NetConfig, S: int, R: int, white_bg: bool,
                  input_grads)
     train_fused.launches[mode] += 1
     train_fused.points[mode] += R * S
+    train_fused.bulk_planes[mode] += library().forward_bulk_planes()
     return outs
 
 
@@ -488,6 +492,7 @@ train_fused.launches = {m: 0 for m in (
     "codes", "train", "dual_codes", "dual_train", "pose", "pose_weights",
     "train_input", "train_weights", "codes_weights", "train_input_weights")}
 train_fused.points = dict(train_fused.launches)
+train_fused.bulk_planes = dict(train_fused.launches)
 
 
 def train_fused_plain(cfg: NetConfig, S: int, R: int, white_bg: bool,
@@ -896,12 +901,14 @@ def plane_bwd(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj, tproj,
     mode = _plane_mode(weight_grads, input_grads)
     plane_bwd.launches[mode] += 1
     plane_bwd.points[mode] += R * S
+    plane_bwd.bulk_planes[mode] += library().forward_bulk_planes()
     return outs
 
 
 plane_bwd.launches = {"plane_train": 0, "plane_codes": 0, "plane_pose": 0,
                       "plane_train_input": 0}
 plane_bwd.points = dict(plane_bwd.launches)
+plane_bwd.bulk_planes = dict(plane_bwd.launches)
 
 
 def plane_bwd_plain(cfg: NetConfig, S: int, R: int, ro8, vd8, z, sproj,
@@ -977,6 +984,8 @@ def _bind(lib: ctypes.CDLL):
     lib.sigma_head_step.restype = ci
     lib.ray_sum_fold_step.argtypes = [vp] * 5 + [ci] * 5 + [vp]
     lib.ray_sum_fold_step.restype = ci
+    lib.forward_bulk_planes.argtypes = []
+    lib.forward_bulk_planes.restype = ci
 
 
 def library() -> ctypes.CDLL:

@@ -12,7 +12,13 @@ cost: removing work can also let the rest overlap differently.
     python3 trunk_ablation.py --small    # the sigma head, the last pass
 
 The trunk: ``trunk_fwd_kernel`` and ``trunk_dx_kernel`` in the frozen
-mode at 4096 × 96 and the weight-gradient mode at 16,384 × 96, W=256.
+mode at 4096 × 96 and the weight-gradient mode at 16,384 × 96, W=256,
+and ``trunk_fwd_kernel`` in the served forwards: ``sigma_fwd`` at 16,384
+× 64 (NeRF's coarse pass of a 128² view) and ``planes_fwd`` at 16,384 ×
+192 (its fine network). The forward's parts: the PE, the register
+epilogue, the TMA stores of the planes from the tile, the staged
+injection (the per-ray rows' fill and the latent adds), the mask bits
+and the products.
 ``--dw-head``: ``wgrad_kernel`` alone (``fused_train.weight_grads``) on
 seeded random planes of the training shape (16,384 × 96: the eight
 trunk layers' inputs and gh planes), and ``head_kernel`` in the
@@ -46,16 +52,18 @@ OUT = os.path.join(HERE, "build", "trunk_ablation")
 # variant: [(text in the source, its replacement), ...]
 VARIANTS = {
     "base": [],
-    "no_pe (fwd: PE not built; the rows' rays kept)": [
-        ("      build_pe(a, A, rays, m0, t2);\n",
-         "      if ((t2 & 3) == 0)\n"
-         "        rays[t2 >> 2] = min(m0 + (t2 >> 2), a.P - 1) / a.S;\n")],
-    "no_epilogue (fwd: register epilogue)": [
-        ("        fwd_epilogue(acc, L, biases + l * TW, A, nh, m0, a.P, a.S, "
-         "wl, lane);\n", "")],
-    "no_vector_pass (fwd: stores, injection)": [
-        ("        fwd_vector_pass(L, A, rays, l + 1 < a.n_layers, m0, a.P, "
-         "t2);\n", "")],
+    "no_pe (fwd: PE not built)": [
+        ("      build_pe(a, A, m0, t2);\n", "")],
+    "no_epilogue (fwd: the whole register epilogue)": [
+        ("        fwd_epilogue(acc, L, biases + l * TW, A, st, a.rec, ray0, "
+         "nh, m0,\n                     a.P, a.S, wl, lane);\n", "")],
+    "no_tma_stores (fwd: the planes' stores from the tile)": [
+        ("      if (elected && a.pe_out) {", "      if (false) {"),
+        ("        if (elected && L.dst) {", "        if (false) {")],
+    "no_staged_injection (fwd: the stage's fill, the latent adds)": [
+        ("      if (a.rec) {\n        const int nrays",
+         "      if (false) {\n        const int nrays"),
+        ("        if (pj[h]) {", "        if (false) {")],
     "no_mask_bits (fwd)": [("  if (!mask_out) return;", "  return;")],
     "no_products (both: no wgmma)": [
         ("      if (N == 256) wgmma_n128(", "      if (false) wgmma_n128("),
@@ -237,6 +245,13 @@ def small(libs) -> None:
         print(f"{name} | {sig:.4f} | {conv:.4f}", flush=True)
 
 
+def forward_args(args) -> tuple:
+    """The served forwards' operands (``fused_mlp.sigma_fwd``,
+    ``planes_fwd``) from a training call's (``chip_smoke.kernel_inputs``)."""
+    cfg, S, R, _, _, ro8, vd8, z, sproj, tproj, vcontrib, _, trunk = args
+    return cfg, S, R, ro8, vd8, z, sproj, tproj, vcontrib, trunk
+
+
 def main() -> int:
     import torch
 
@@ -246,7 +261,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import chip_smoke
-    from codenerf_tpu_torch.ops import fused_train
+    from codenerf_tpu_torch.ops import fused_mlp, fused_train
 
     print(f"card {chip_smoke.card_line()}", flush=True)
     with open(SOURCE) as f:
@@ -264,8 +279,13 @@ def main() -> int:
               ("training 16384x96",
                chip_smoke.kernel_inputs(dev, 16384, 96)[1],
                dict(weight_grads=True))]
+    served = [("sigma_fwd 16384x64", fused_mlp.sigma_fwd,
+               forward_args(chip_smoke.kernel_inputs(dev, 16384, 64)[1])),
+              ("planes_fwd 16384x192", fused_mlp.planes_fwd,
+               forward_args(chip_smoke.kernel_inputs(dev, 16384, 192)[1]))]
     print("variant | " + " | ".join(f"{tag}: fwd ms, dx ms"
-                                    for tag, _, _ in shapes), flush=True)
+                                    for tag, _, _ in shapes) + " | "
+          + " | ".join(f"{tag}: fwd ms" for tag, _, _ in served), flush=True)
     for name, so in libs:
         use(so)
         row = []
@@ -275,6 +295,10 @@ def main() -> int:
             fwd = chip_smoke.device_ms(call, "trunk_fwd_kernel", 5)
             dx = chip_smoke.device_ms(call, "trunk_dx_kernel", 5)
             row.append(f"{fwd:.3f}, {dx:.3f}")
+        for _, fn, fargs in served:
+            fwd = chip_smoke.device_ms(lambda: fn(*fargs),
+                                       "trunk_fwd_kernel", 5)
+            row.append(f"{fwd:.3f}")
         print(f"{name} | " + " | ".join(row), flush=True)
     return 0
 
